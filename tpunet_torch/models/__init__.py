@@ -1,0 +1,49 @@
+"""Model registry of the port: ``create_model(cfg, device, generator)``.
+
+Only MobileNetV2 is ported (``ModelConfig`` refuses other names). The
+initialization follows torchvision's: kaiming-normal fan_out convs,
+N(0, 0.01) classifier, unit/zero BN, drawn from an explicit
+``torch.Generator`` on the CPU and then moved, so one seed gives the
+same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from tpunet_torch.config import ModelConfig
+from tpunet_torch.models.mobilenetv2 import Conv, Linear, MobileNetV2
+
+
+def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv):
+                o, _, kh, kw = m.weight.shape
+                std = math.sqrt(2.0 / (o * kh * kw))  # kaiming, fan_out
+                m.weight.normal_(0.0, std, generator=generator)
+            elif isinstance(m, Linear):
+                m.weight.normal_(0.0, 0.01, generator=generator)
+                m.bias.zero_()
+
+
+def create_model(cfg: ModelConfig, device: str = "cuda",
+                 generator: Optional[torch.Generator] = None) -> MobileNetV2:
+    """Build MobileNetV2 for ``cfg`` on ``device`` with weights drawn from
+    ``generator`` (a CPU generator seeded with 0 when None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = MobileNetV2(num_classes=cfg.num_classes,
+                        width_mult=cfg.width_mult,
+                        dropout_rate=cfg.dropout_rate,
+                        use_pallas=cfg.use_pallas_depthwise,
+                        dtype=getattr(torch, cfg.dtype))
+    init_weights(model, generator)
+    return model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).eval()
+
+
+def num_params(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,216 @@
+"""MobileNetV2 eval-mode forward in PyTorch, port of ``tpunet/models/mobilenetv2.py``.
+
+The module tree reproduces torchvision's ``mobilenet_v2`` state_dict keys
+(``features.0.0.weight``, ``features.N.conv...``, ``features.18.1.*``,
+``classifier.1.weight``), so a torchvision-layout ``.pth`` — or a tpunet
+checkpoint exported by ``python -m tpunet.models.convert`` — loads
+strictly. The modules only hold parameters; the forward is written out
+functionally to mirror the JAX package's arithmetic:
+
+- activations are channels_last in ``dtype`` (bf16 on the card) over
+  ``param_dtype`` (f32) parameters, logits in f32; what is derived from
+  the parameters alone (weights cast to ``dtype``, the depthwise weights
+  in the kernel's [3,3,C] layout, eval BN's ``inv``/``shift``) is
+  computed once and reused until a parameter or buffer changes;
+- eval BN is ``FusedBNAct``'s eval math: ``inv = rsqrt(var+eps)*scale``,
+  ``shift = bias - mean*inv``, ``y = x.f32*inv + shift``, ReLU6, cast;
+- the 17 depthwise 3x3 convs go to ``tpunet_torch.ops.depthwise_conv3x3``
+  when ``use_pallas_depthwise`` is set (``ConvBN``'s routing) and to
+  ``F.conv2d(groups=C)`` otherwise; the stem and the 1x1 convs are
+  ``F.conv2d``, as the JAX package leaves them to XLA.
+
+Training (train-mode BN, dropout, the fused-IR kernels) is ROADMAP
+Queue A item 2.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpunet_torch.ops import depthwise_conv3x3
+
+# (expansion, out_channels, num_blocks, first_stride)
+INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+BN_EPSILON = 1e-5
+
+
+def _make_divisible(v: float, divisor: int = 8) -> int:
+    """Round channel counts like torchvision does for width multipliers."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class Conv(nn.Module):
+    """Bias-free conv weight [O, I/groups, k, k] (torch ``Conv2d`` keys)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 groups: int = 1):
+        super().__init__()
+        self.stride, self.groups, self.pad = stride, groups, (k - 1) // 2
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+
+
+class BN(nn.Module):
+    """BatchNorm2d parameters and running statistics (torch keys)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+
+class Linear(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+
+class ConvBNAct(nn.Sequential):
+    """torchvision's ``Conv2dNormActivation``: keys ``.0`` conv, ``.1`` BN."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 groups: int = 1):
+        super().__init__(Conv(cin, cout, k, stride, groups), BN(cout))
+
+
+class InvertedResidual(nn.Module):
+    """Expansion -> depthwise -> linear projection, with residual add.
+    ``conv`` holds torchvision's sequence: [expand,] depthwise, project
+    conv, project BN."""
+
+    def __init__(self, cin: int, cout: int, stride: int, expand_ratio: int):
+        super().__init__()
+        hidden = cin * expand_ratio
+        self.use_res = stride == 1 and cin == cout
+        layers = []
+        if expand_ratio != 1:
+            layers.append(ConvBNAct(cin, hidden, 1))
+        layers += [ConvBNAct(hidden, hidden, 3, stride, groups=hidden),
+                   Conv(hidden, cout, 1), BN(cout)]
+        self.conv = nn.Sequential(*layers)
+
+
+class MobileNetV2(nn.Module):
+    """MobileNetV2 backbone + linear classifier head, eval mode.
+
+    ``forward(x)`` takes normalized float images [N,3,H,W] (any memory
+    format) and returns float32 logits [N, num_classes]."""
+
+    def __init__(self, num_classes: int = 10, width_mult: float = 1.0,
+                 dropout_rate: float = 0.2, use_pallas: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dropout_rate = dropout_rate
+        self.use_pallas = use_pallas
+        self.dtype = dtype
+        cin = _make_divisible(32 * width_mult)
+        features = [ConvBNAct(3, cin, 3, 2)]
+        for t, c, n, s in INVERTED_RESIDUAL_SETTINGS:
+            cout = _make_divisible(c * width_mult)
+            for i in range(n):
+                features.append(
+                    InvertedResidual(cin, cout, s if i == 0 else 1, t))
+                cin = cout
+        head_ch = _make_divisible(1280 * max(1.0, width_mult))
+        features.append(ConvBNAct(cin, head_ch, 1))
+        self.features = nn.Sequential(*features)
+        self.classifier = nn.Sequential(nn.Dropout(dropout_rate),
+                                        Linear(head_ch, num_classes))
+        # module -> (source state, source tensors, derived constants).
+        self._consts: Dict[nn.Module, tuple] = {}
+
+    def _derived(self, module: nn.Module, tensors: Tuple[torch.Tensor, ...],
+                 make: Callable[[], Tuple[torch.Tensor, ...]]
+                 ) -> Tuple[torch.Tensor, ...]:
+        """``make()``'s constants, derived from ``tensors`` (a module's
+        parameters and buffers), computed once and reused until one of
+        them changes: load_state_dict and in-place edits bump a tensor's
+        version, ``.to()`` moves its storage. The entry holds the source
+        tensors, so their ids stay unique while it lives. Parameters made
+        under inference_mode track no version and are never cached."""
+        if any(t.is_inference() for t in tensors):
+            return make()
+        state = (self.dtype,) + tuple((id(t), t.data_ptr(), t._version)
+                                      for t in tensors)
+        hit = self._consts.get(module)
+        if hit is None or hit[0] != state:
+            # Plain tensors without autograd history, even when the
+            # first forward runs under inference_mode.
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (state, tensors, make())
+            self._consts[module] = hit
+        return hit[2]
+
+    def _conv(self, conv: Conv, x: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas and conv.groups > 1:
+            # [C,1,3,3] -> [3,3,C]; channels_last NCHW -> NHWC is a view.
+            (w,) = self._derived(conv, (conv.weight,), lambda: (
+                conv.weight.to(self.dtype)[:, 0].permute(1, 2, 0).contiguous(),))
+            y = depthwise_conv3x3(x.permute(0, 2, 3, 1), w, conv.stride)
+            return y.permute(0, 3, 1, 2)
+        (w,) = self._derived(conv, (conv.weight,),
+                             lambda: (conv.weight.to(self.dtype),))
+        return F.conv2d(x, w, stride=conv.stride, padding=conv.pad,
+                        groups=conv.groups)
+
+    def _bn_affine(self, bn: BN) -> Tuple[torch.Tensor, torch.Tensor]:
+        inv = torch.rsqrt(bn.running_var.float() + BN_EPSILON) * bn.weight.float()
+        shift = bn.bias.float() - bn.running_mean.float() * inv
+        return inv[:, None, None], shift[:, None, None]
+
+    def _bn(self, bn: BN, x: torch.Tensor, act: bool) -> torch.Tensor:
+        inv, shift = self._derived(
+            bn, (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+            lambda: self._bn_affine(bn))
+        y = x.float() * inv + shift
+        if act:
+            y = torch.clamp(y, 0.0, 6.0)  # ReLU6
+        return y.to(self.dtype)
+
+    def _conv_bn(self, unit: ConvBNAct, x: torch.Tensor) -> torch.Tensor:
+        return self._bn(unit[1], self._conv(unit[0], x), act=True)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(
+                "tpunet_torch runs MobileNetV2 in eval mode only; training "
+                "comes with ROADMAP Queue A item 2 (the MobileNetV2 "
+                "training slice)")
+        x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        feats = list(self.features)
+        x = self._conv_bn(feats[0], x)
+        for block in feats[1:-1]:
+            units = list(block.conv)
+            y = x
+            for unit in units[:-2]:
+                y = self._conv_bn(unit, y)
+            y = self._bn(units[-1], self._conv(units[-2], y), act=False)
+            x = y + x if block.use_res else y
+        x = self._conv_bn(feats[-1], x)
+        x = x.mean(dim=(2, 3))  # global average pool -> [N, C]
+        # Dropout is the identity in eval mode.
+        head = self.classifier[1]
+        w, b = self._derived(head, (head.weight, head.bias), lambda: (
+            head.weight.to(self.dtype), head.bias.to(self.dtype)))
+        return F.linear(x, w, b).float()

@@ -1,0 +1,98 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Every ``tpunet_torch/csrc/<name>.cu`` is compiled at first use into a
+shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/tpunet_torch/lib<name>-<hash>.so <name>.cu
+
+The library's file name carries a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+The source includes no PyTorch header, which keeps a build to seconds.
+A failed build or load raises with nvcc's output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpunet_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of every kernel source under ``csrc/`` (``depthwise`` for
+    ``csrc/depthwise.cu``)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda; "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    # Rename into place: a concurrent build of the same source writes
+    # an identical file, and a reader never sees a partial one.
+    os.replace(tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        if not path.exists():
+            _build(name, path)
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise RuntimeError(f"cannot load {path}: {e}") from e
+        _loaded[name] = lib
+        return lib
+
+
+def build_all() -> List[str]:
+    """Build and load every source under ``csrc/``; returns the names."""
+    names = sources()
+    for name in names:
+        load(name)
+    return names
