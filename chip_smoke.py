@@ -4,16 +4,31 @@
 
 Phases, each of which must pass:
   1. build every kernel under tpunet_torch/csrc with nvcc;
-  2. hold each kernel against its plain PyTorch version at the main
-     path's shapes (MobileNetV2's 10 depthwise shapes at 224 px, batch 8)
-     plus odd cases, and time kernel, plain version, the library call and
-     the bound;
-  3. serve classify requests at full width (MobileNetV2 1.0, 224 px,
+  2. hold the depthwise forward kernel against its plain PyTorch version
+     at MobileNetV2's 10 depthwise shapes (batch 8, f32 and bf16) plus
+     odd cases, and time kernel, plain version, the library call and the
+     bound at batch 8 (serving) and 128 (training);
+  3. the same for the training kernels — the depthwise backward and the
+     fused-IR forward and backward — at every MobileNetV2 shape (batch 8,
+     f32 and bf16) plus odd cases, then checked again and timed at batch
+     128 in bf16, the training main path's inputs;
+  4. serve classify requests at full width (MobileNetV2 1.0, 224 px,
      bf16, hand-written depthwise kernel) through Predictor and
-     ClassifyBatcher from 4 closed-loop client threads for a 10 s
+     ClassifyBatcher from 4 closed-loop client threads for a 5 s
      window, count the kernel's launches, and check the answers against
      the plain version on the card and the float32 forward on the CPU;
-  4. print the kernel list and the card's name and power limit.
+  5. train at full width (width 1.0, 224 px, batch 128, bf16 over f32,
+     fused_ir and the hand-written depthwise kernels, seeded synthetic
+     CIFAR-10) through the port's train step: one step's loss, gradients
+     and BN running statistics against the same step with the plain
+     versions on the card; then, with every launch count set to 0, 30
+     steps on one repeated batch, whose loss must stay finite and fall,
+     counting 17 + 17 + 33 + 33 launches a step; step time, images/s
+     and the card's idle share over one step (torch.profiler);
+  6. run the Trainer for one epoch (1,024 synthetic images, batch 128)
+     with eval, reload the best .pth and evaluate it again, then
+     ``python -m tpunet_torch.train --eval-only`` on it;
+  7. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -22,14 +37,19 @@ nothing of the tpunet package.
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 SEED = 0
-BATCH = 8
+BATCH = 8            # kernel checks and the serving batch
+TRAIN_BATCH = 128    # the training batch (preset "single"): kernel timing
 # (h, c, stride) of MobileNetV2's depthwise convs at 224 px (the shape
 # list of tests/test_ops.py) and how many of the 17 layers have each.
 MAIN_SHAPES = {
@@ -39,14 +59,27 @@ MAIN_SHAPES = {
 }
 # (h, w, c, stride): odd H/W with stride 2, and C no multiple of 8.
 ODD_SHAPES = [(15, 17, 144, 2), (28, 28, 100, 1)]
-# H100 SXM data sheet: HBM rate, and the float32 rate outside the tensor
-# cores (the depthwise conv is elementwise multiply-adds).
+# (h, ci, co) of MobileNetV2's 33 fused-IR 1x1 convs at 224 px and how
+# many layers have each: 16 expands (ReLU6) and 17 projects (linear).
+EXPAND_SHAPES = {(112, 16, 96): 1, (56, 24, 144): 2, (28, 32, 192): 3,
+                 (14, 64, 384): 4, (14, 96, 576): 3, (7, 160, 960): 3}
+PROJECT_SHAPES = {(112, 32, 16): 1, (56, 96, 24): 1, (56, 144, 24): 1,
+                  (28, 144, 32): 1, (28, 192, 32): 2, (14, 192, 64): 1,
+                  (14, 384, 64): 3, (14, 384, 96): 1, (14, 576, 96): 2,
+                  (7, 576, 160): 1, (7, 960, 160): 2, (7, 960, 320): 1}
+# (m, ci, co): Ci or Co no multiple of 8, M no multiple of the 64-row tile.
+ODD_FUSED = [(1000, 13, 24), (777, 96, 10)]
+# H100 SXM data sheet: HBM rate, the float32 rate outside the tensor
+# cores (the depthwise conv is elementwise multiply-adds), and the dense
+# bf16 tensor-core rate (the fused-IR products).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+TRAIN_STEPS = 30     # steps of the training main path, one repeated batch
 REQUEST_SIZES = [(32, 32), (224, 224), (375, 500)]  # (h, w): CIFAR, model size, a photo
 N_IMAGES = 48      # seeded images the clients cycle through, sizes in turn
 N_CLIENTS = 4      # closed-loop client threads
-WINDOW_S = 10.0    # serving window: thousands of requests
+WINDOW_S = 5.0     # serving window: over a thousand requests
 
 
 class PhaseError(Exception):
@@ -137,6 +170,17 @@ def phase_build():
     emit("build", kernels=names, seconds=time.perf_counter() - t0)
 
 
+def dw_fwd_bound(x, w, y) -> dict:
+    """Least time of the depthwise forward: each input read once and the
+    output written once, or 9 multiply-adds per output element at the
+    float32 rate, whichever is longer."""
+    bytes_ms = (x.numel() + w.numel() + y.numel()) * x.element_size() \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 9 * y.numel() / F32_FLOP_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms)}
+
+
 def phase_kernels(torch):
     """Depthwise kernel against its plain version; returns per-shape rows."""
     import torch.nn.functional as F
@@ -183,15 +227,226 @@ def phase_kernels(torch):
             "library_loop_us": loop_us(torch, lambda: F.conv2d(
                 xl, wl, stride=s, padding=1, groups=c)),
         }
-        # Least time: each input read once and the output written once,
-        # or 9 multiply-adds per output element, whichever is longer.
-        row["bytes_ms"] = (xb.numel() + wb.numel() + kb.numel()) * 2 \
-            / HBM_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2 * 9 * kb.numel() / F32_FLOP_PER_S * 1e3
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row.update(dw_fwd_bound(xb, wb, kb))
+        if (h, c, s) in MAIN_SHAPES:
+            # The same layer at the training batch, bf16 (timing only).
+            xt = torch.randn(TRAIN_BATCH, h, w, c, generator=g).cuda().bfloat16()
+            xtl = xt.permute(0, 3, 1, 2)
+            yt = dw.depthwise_conv3x3(xt, wb, s)
+            b128 = dw_fwd_bound(xt, wb, yt)
+            row["b128"] = {
+                "kernel_ms": time_ms(torch, lambda: dw.depthwise_conv3x3(xt, wb, s)),
+                "plain_ms": time_ms(torch, lambda: dw.depthwise_conv3x3_reference(
+                    xt, wb, s), reps=10),
+                "library_ms": time_ms(torch, lambda: F.conv2d(
+                    xtl, wl, stride=s, padding=1, groups=c)),
+                "bound_ms": b128["bound_ms"], "bytes_ms": b128["bytes_ms"],
+                "ops_ms": b128["ops_ms"]}
         rows.append(row)
         emit("kernel_vs_plain", name="depthwise_conv3x3", **row)
     return rows
+
+
+def fused_shapes():
+    """[(h, ci, co, act, layers)] of the 33 fused-IR convs at 224 px."""
+    return ([(h, ci, co, True, k) for (h, ci, co), k in EXPAND_SHAPES.items()]
+            + [(h, ci, co, False, k)
+               for (h, ci, co), k in PROJECT_SHAPES.items()])
+
+
+def rand_chan(torch, co, gen):
+    """A [6, Co] float32 ``chan`` (inv, shift, r, mr, r1/n, r2/n) whose
+    ReLU6 mask cuts through the data: shifts of a few units."""
+    return torch.stack([torch.rand(co, generator=gen) + 0.5,
+                        torch.randn(co, generator=gen) * 3,
+                        torch.rand(co, generator=gen) + 0.5,
+                        torch.randn(co, generator=gen),
+                        torch.randn(co, generator=gen) * 0.1,
+                        torch.randn(co, generator=gen) * 0.1]).cuda()
+
+
+def within(torch, got, want, tol) -> tuple:
+    """(all |got - want| <= tol, max |got - want|, max of that over tol)."""
+    d = (got.float() - want.float()).abs()
+    return (bool((d <= tol).all()), d.max().item(),
+            (d / tol.clamp_min(1e-30)).max().item())
+
+
+def check_dw_bwd(torch, dw, x, wt, g, s, dtypes) -> float:
+    """Depthwise backward kernel against its plain version in each of
+    ``dtypes``. dx repeats the plain version's tap order: equal to the
+    bit. dw sums the same float32 products in another order: within 1e-5
+    of the sum of their magnitudes (an f32 sum of k terms in any order is
+    within ~k*2^-24 of it, k <= 1.6e6 here, and both orders are
+    pairwise-ish), plus one bf16 ulp when rounded to bf16. Returns the
+    max abs error."""
+    worst = 0.0
+    for dt in dtypes:
+        xd, wd, gd = x.to(dt), wt.to(dt), g.to(dt)
+        dx, dwt = dw.depthwise_conv3x3_backward(xd, wd, gd, s)
+        pdx, pdw = dw.depthwise_conv3x3_backward_reference(xd, wd, gd, s)
+        _, mag = dw.depthwise_conv3x3_backward_reference(xd.abs(), wd,
+                                                         gd.abs(), s)
+        torch.cuda.synchronize()
+        tag = f"depthwise backward {dt} {(*x.shape, s)}"
+        check(bool(torch.equal(dx, pdx)), f"{tag}: dx differs from the "
+              f"plain version by {(dx.float() - pdx.float()).abs().max().item()}")
+        tol = 1e-5 * mag + (bf16_ulp(torch, pdw) if dt == torch.bfloat16 else 0)
+        ok, err, ratio = within(torch, dwt, pdw, tol)
+        check(ok, f"{tag}: dw error {err} is {ratio:.3g}x its tolerance")
+        worst = max(worst, err)
+    return worst
+
+
+def check_fused(torch, fi, x, wt, y0, g, chan, act, dtypes) -> tuple:
+    """Fused-IR forward and backward kernels against their plain versions
+    in each of ``dtypes``. Every output is a float32 sum of products taken
+    in another order: within 1e-5 of the sum of the products' magnitudes,
+    plus one bf16 ulp for what is rounded to bf16 (y, dx). The column
+    sums of the rounded y: within 1e-5 of sum |y| (sum y^2). Returns the
+    max abs errors of (forward, backward)."""
+    worst_f = worst_b = 0.0
+    for dt in dtypes:
+        xd, wd, yd, gd = x.to(dt), wt.to(dt), y0.to(dt), g.to(dt)
+        tag = (f"fused_ir {dt} m={x.shape[0]} ci={x.shape[1]} "
+               f"co={wt.shape[1]} act={act}")
+        y, sums = fi.fused_ir_forward(xd, wd)
+        py, _ = fi.fused_ir_forward_reference(xd, wd)
+        ulp = bf16_ulp(torch, py.float()) if dt == torch.bfloat16 else 0
+        ok, err, ratio = within(torch, y, py,
+                                1e-5 * (xd.float().abs() @ wd.float().abs()) + ulp)
+        check(ok, f"{tag}: forward y error {err} is {ratio:.3g}x its tolerance")
+        yb = y.float()
+        want = torch.stack([yb.sum(0), (yb * yb).sum(0)])
+        smag = torch.stack([yb.abs().sum(0), (yb * yb).sum(0)])
+        del y, py, yb
+        ok, err_s, ratio = within(torch, sums, want, 1e-5 * smag + 1e-30)
+        check(ok, f"{tag}: forward sums error {err_s} is {ratio:.3g}x its tolerance")
+        worst_f = max(worst_f, err, err_s)
+        dx, dwt = fi.fused_ir_backward(xd, gd, yd, wd, chan, act)
+        pdx, pdw = fi.fused_ir_backward_reference(xd, gd, yd, wd, chan, act)
+        t = fi.grad_conv_out(gd, yd, chan, act).abs()
+        ulp = bf16_ulp(torch, pdx.float()) if dt == torch.bfloat16 else 0
+        ok, err, ratio = within(torch, dx, pdx,
+                                1e-5 * (t @ wd.float().abs().t()) + ulp)
+        check(ok, f"{tag}: backward dx error {err} is {ratio:.3g}x its tolerance")
+        ok, err_w, ratio = within(torch, dwt, pdw,
+                                  1e-5 * (xd.float().abs().t() @ t) + 1e-30)
+        check(ok, f"{tag}: backward dw error {err_w} is {ratio:.3g}x its tolerance")
+        worst_b = max(worst_b, err, err_w)
+    torch.cuda.synchronize()
+    return worst_f, worst_b
+
+
+def phase_train_kernels(torch):
+    """The training kernels against their plain versions at every shape
+    (batch 8, f32 and bf16, plus odd cases; then batch 128 in bf16, the
+    main path's inputs and splits), and their times at batch 128 in bf16
+    with L2 flushed. Returns {kernel name: per-shape rows}."""
+    from tpunet_torch.ops import depthwise as dw
+    from tpunet_torch.ops import fused_ir as fi
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf = torch.float32, torch.bfloat16
+    rows = {"depthwise_conv3x3_backward": [], "fused_ir_forward": [],
+            "fused_ir_backward": []}
+    gen = torch.Generator().manual_seed(SEED + 100)
+
+    def dw_inputs(n, h, w, c, s):
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        return (torch.randn(n, h, w, c, generator=gen).cuda(),
+                torch.randn(3, 3, c, generator=gen).cuda(),
+                torch.randn(n, ho, wo, c, generator=gen).cuda())
+
+    cases = [(h, h, c, s, k) for (h, c, s), k in MAIN_SHAPES.items()]
+    cases += [(h, w, c, s, 0) for (h, w, c, s) in ODD_SHAPES]
+    for h, w, c, s, layers in cases:
+        err = check_dw_bwd(torch, dw, *dw_inputs(BATCH, h, w, c, s), s,
+                           (f32, bf))
+        row = {"shape": [BATCH, h, w, c, s], "layers": layers,
+               "max_abs_err": err}
+        if layers:
+            x, wt, g = (t.to(bf) for t in dw_inputs(TRAIN_BATCH, h, w, c, s))
+            row["max_abs_err_b128"] = check_dw_bwd(torch, dw, x, wt, g, s, (bf,))
+            xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            wl = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
+            # x, g, w read once; dx and dw written once. dx: 9 taps per
+            # gradient element; dw: 9 products per gradient element.
+            nbytes = (x.numel() * 2 + g.numel() + wt.numel() * 2) * 2
+            row.update(b128_times(
+                torch, nbytes, 36 * g.numel() / F32_FLOP_PER_S * 1e3,
+                lambda: dw.depthwise_conv3x3_backward(x, wt, g, s),
+                lambda: dw.depthwise_conv3x3_backward_reference(x, wt, g, s),
+                lambda: torch.ops.aten.convolution_backward(
+                    gl, xl, wl, None, [s, s], [1, 1], [1, 1], False, [0, 0],
+                    c, [True, True, False])))
+            del x, wt, g, xl, gl
+        rows["depthwise_conv3x3_backward"].append(row)
+        emit("kernel_vs_plain", name="depthwise_conv3x3_backward", **row)
+
+    def fused_inputs(m, ci, co):
+        return (torch.randn(m, ci, generator=gen).cuda(),
+                (torch.randn(ci, co, generator=gen) / math.sqrt(ci)).cuda(),
+                (torch.randn(m, co, generator=gen) * 2).cuda(),
+                torch.randn(m, co, generator=gen).cuda(),
+                rand_chan(torch, co, gen))
+
+    cases = [(BATCH * h * h, ci, co, act, h, k)
+             for h, ci, co, act, k in fused_shapes()]
+    cases += [(m, ci, co, act, 0, 0) for m, ci, co in ODD_FUSED
+              for act in (True, False)]
+    for m, ci, co, act, h, layers in cases:
+        err_f, err_b = check_fused(torch, fi, *fused_inputs(m, ci, co), act,
+                                   (f32, bf))
+        base = {"shape": [m, ci, co], "act": act, "layers": layers}
+        frow = dict(base, max_abs_err=err_f)
+        brow = dict(base, max_abs_err=err_b)
+        if layers:
+            mt = TRAIN_BATCH * h * h
+            x, wt, y, g, chan = fused_inputs(mt, ci, co)
+            x, wt, y, g = x.to(bf), wt.to(bf), y.to(bf), g.to(bf)
+            frow["max_abs_err_b128"], brow["max_abs_err_b128"] = check_fused(
+                torch, fi, x, wt, y, g, chan, act, (bf,))
+            t = fi.grad_conv_out(g, y, chan, act).to(bf)
+            wtt = wt.t()
+            xt = x.t()
+            flops = 2 * mt * ci * co
+            # Forward: x and w read, y and the [2, Co] f32 sums written.
+            frow.update(b128_times(
+                torch, (mt * ci + ci * co + mt * co) * 2 + 2 * co * 4,
+                flops / BF16_FLOP_PER_S * 1e3,
+                lambda: fi.fused_ir_forward(x, wt),
+                lambda: fi.fused_ir_forward_reference(x, wt),
+                lambda: torch.matmul(x, wt)))
+            # Backward: x, g, y, w, chan read; dx and the f32 dw written.
+            brow.update(b128_times(
+                torch, (2 * mt * ci + 2 * mt * co + ci * co) * 2
+                + 6 * co * 4 + ci * co * 4,
+                2 * flops / BF16_FLOP_PER_S * 1e3,
+                lambda: fi.fused_ir_backward(x, g, y, wt, chan, act),
+                lambda: fi.fused_ir_backward_reference(x, g, y, wt, chan, act),
+                lambda: (torch.matmul(t, wtt), torch.matmul(xt, t))))
+            del x, wt, y, g, t, wtt, xt
+        rows["fused_ir_forward"].append(frow)
+        rows["fused_ir_backward"].append(brow)
+        emit("kernel_vs_plain", name="fused_ir_forward", **frow)
+        emit("kernel_vs_plain", name="fused_ir_backward", **brow)
+    return rows
+
+
+def b128_times(torch, nbytes, ops_ms, kernel, plain, library) -> dict:
+    """Device ms (cold L2) of the kernel's wrapper, its plain version and
+    the library call, and the bound: the larger of ``nbytes`` over the
+    memory rate and ``ops_ms``."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"batch": TRAIN_BATCH,
+            "kernel_ms": time_ms(torch, kernel, reps=20),
+            "plain_ms": time_ms(torch, plain, reps=10, warmup=2),
+            "library_ms": time_ms(torch, library, reps=20),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def randomize_bn(torch, model, gen) -> None:
@@ -414,6 +669,366 @@ def phase_main_path(torch):
     return launches
 
 
+class plain_versions:
+    """Context manager: the training kernels' wrappers replaced by their
+    plain versions (on the card) for the model's autograd Functions; the
+    kernel path is restored on exit. Used only to compare."""
+
+    def __enter__(self):
+        from tpunet_torch.ops import depthwise as dw
+        from tpunet_torch.ops import fused_ir as fi
+
+        def dw_bwd(x, w, g, stride):
+            dx, dwt = dw.depthwise_conv3x3_backward_reference(x, w, g, stride)
+            return dx, dwt.to(w.dtype)
+
+        self.saved = [(dw, "depthwise_conv3x3", dw.depthwise_conv3x3),
+                      (dw, "depthwise_conv3x3_backward",
+                       dw.depthwise_conv3x3_backward),
+                      (fi, "fused_ir_forward", fi.fused_ir_forward),
+                      (fi, "fused_ir_backward", fi.fused_ir_backward)]
+        dw.depthwise_conv3x3 = dw.depthwise_conv3x3_reference
+        dw.depthwise_conv3x3_backward = dw_bwd
+        fi.fused_ir_forward = fi.fused_ir_forward_reference
+        fi.fused_ir_backward = fi.fused_ir_backward_reference
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def launch_counts():
+    from tpunet_torch.ops import depthwise as dw
+    from tpunet_torch.ops import fused_ir as fi
+    return {"depthwise_conv3x3": dw.depthwise_conv3x3.launches,
+            "depthwise_conv3x3_backward": dw.depthwise_conv3x3_backward.launches,
+            "fused_ir_forward": fi.fused_ir_forward.launches,
+            "fused_ir_backward": fi.fused_ir_backward.launches}
+
+
+def reset_launch_counts():
+    from tpunet_torch.ops import depthwise as dw
+    from tpunet_torch.ops import fused_ir as fi
+    for fn in (dw.depthwise_conv3x3, dw.depthwise_conv3x3_backward,
+               fi.fused_ir_forward, fi.fused_ir_backward):
+        fn.launches = 0
+
+
+def grad_step(torch, model, augment, images_u8, labels, seed):
+    """Loss, parameter gradients and BN running statistics of one train
+    forward/backward (no update), from a step generator of ``seed``."""
+    import torch.nn.functional as F
+
+    from tpunet_torch.utils.prng import step_generator
+
+    model.zero_grad(set_to_none=True)
+    gen = step_generator(seed, 0)
+    x = augment(gen, images_u8).permute(0, 3, 1, 2)
+    loss = F.cross_entropy(model(x, train=True, generator=gen), labels)
+    loss.backward()
+    grads = {k: p.grad.detach().float().clone()
+             for k, p in model.named_parameters()}
+    stats = {k: v.detach().float().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    torch.cuda.synchronize()
+    return loss.item(), grads, stats
+
+
+def grad_errors(torch, got, want) -> dict:
+    """Per parameter, ||got - want|| / ||want|| (L2). A BN bias whose
+    output reaches the loss only through linear convs into train-mode BNs
+    (every project BN's: the residual sum feeds the next expand conv and
+    its BN) has a true gradient of 0, since each BN subtracts its batch
+    mean and a per-channel shift cancels; what is computed there is
+    rounding noise of sum(g). A bias is therefore measured against the
+    larger of its own gradient and its BN weight's, sum(g*yhat)."""
+    def scale(k):
+        norm = want[k].norm()
+        w = k[:-5] + ".weight"
+        if k.endswith(".bias") and w in want and want[w].shape == want[k].shape:
+            norm = torch.maximum(norm, want[w].norm())
+        return norm.clamp_min(1e-30)
+    return {k: ((got[k] - want[k]).norm() / scale(k)).item() for k in want}
+
+
+def stat_errors(torch, got, want) -> dict:
+    """Per BN, the batch statistics behind the running ones after one
+    update from (mean 0, var 1): |d mean| / std and |d var| / var, maxed
+    over channels."""
+    out = {}
+    for k in want:
+        if not k.endswith("running_mean"):
+            continue
+        v = k[:-4] + "var"
+        var = (want[v] - 0.9) / 0.1
+        dm = (got[k] - want[k]).abs() / 0.1
+        dv = (got[v] - want[v]).abs() / 0.1
+        out[k[:-13]] = max((dm / (var + 1e-5).sqrt()).max().item(),
+                           (dv / (var + 1e-5)).max().item())
+    return out
+
+
+def profile_step(torch, step, wall_ms: float) -> dict:
+    """Device time of one train step by kernel, from torch.profiler's CUDA
+    activity, and the card's idle share against the step's wall time
+    (measured without the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"device_ms": "not measured (no CUDA events in the trace)"}
+    by_name = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0, 0.0])
+        t[0] += 1
+        t[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(t for _, t in by_name.values())
+    families = {"depthwise3x3_fwd": 0.0, "depthwise3x3_bwd": 0.0,
+                "fused_ir_fwd": 0.0, "fused_ir_bwd": 0.0}
+    for name, (_, t) in by_name.items():
+        for fam in families:
+            if fam in name:
+                families[fam] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"device_ms": busy, "device_kernels": len(kernels),
+            "hand_kernel_ms": families, "wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "top_kernels": [{"name": n[:90], "calls": c, "ms": t}
+                            for n, (c, t) in top]}
+
+
+def phase_train(torch):
+    """The training main path at full width; returns its launch counts."""
+    import copy
+
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.data.augment import make_train_augment
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    data, optim = DataConfig(dataset="synthetic"), OptimConfig()
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    augment = make_train_augment(data)
+
+    def make(dtype, kernels=True):
+        cfg = ModelConfig(use_pallas_depthwise=kernels, fused_ir=kernels,
+                          dtype=dtype)              # width 1.0
+        return create_model(cfg, device="cuda",
+                            generator=torch.Generator().manual_seed(42))
+
+    def both_paths(model):
+        """(kernels, plain versions): loss, gradients, running statistics
+        of one step from the same weights, batch and draws."""
+        start = copy.deepcopy(model.state_dict())
+        grad_step(torch, model, augment, xb, yb, 7)           # warm-up
+        model.load_state_dict(start)
+        kern = grad_step(torch, model, augment, xb, yb, 7)
+        model.load_state_dict(start)
+        with plain_versions():
+            plain = grad_step(torch, model, augment, xb, yb, 7)
+        model.load_state_dict(start)
+        return kern, plain
+
+    # One step, kernels against the plain versions on the card: first in
+    # float32 (TF32 off), then in bf16, the main path's type. The backward
+    # through 52 train-mode BNs of a randomly initialised net amplifies a
+    # rounding difference many thousand times, so the yardstick is a
+    # third path with the same weights: fused_ir and the depthwise kernels
+    # off (cuDNN's depthwise conv, F.conv2d for the 1x1s, BN in torch).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (k_loss, k_grads, k_stats), (p_loss, f32_grads, p_stats) = both_paths(
+        make("float32"))
+    lib_model = make("float32", kernels=False)
+    l_loss, l_grads, l_stats = grad_step(torch, lib_model, augment, xb, yb, 7)
+    del lib_model
+    g_err = grad_errors(torch, k_grads, f32_grads)
+    g_lib = grad_errors(torch, l_grads, f32_grads)
+    s_err = stat_errors(torch, k_stats, p_stats)
+    s_lib = stat_errors(torch, l_stats, p_stats)
+    worst = sorted(g_err, key=g_err.get, reverse=True)
+    worst_s = max(s_err, key=s_err.get)
+    f32 = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
+               loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+               grad_err_worst={k: g_err[k] for k in worst[:4]},
+               grad_err_median=statistics.median(g_err.values()),
+               grad_err_max=g_err[worst[0]],
+               library_grad_err_median=statistics.median(g_lib.values()),
+               library_grad_err_max=max(g_lib.values()),
+               bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
+               library_bn_stat_err_max=max(s_lib.values()))
+    emit("train_grad_check_f32", **f32)
+    # Float32 tolerances: loss within 1e-5 relative; the kernels' gradient
+    # and BN-statistic errors against the plain versions (median and max
+    # over parameters, units in grad_errors/stat_errors) at most twice
+    # the library path's, plus 1e-5.
+    check(math.isfinite(k_loss) and f32["loss_rel_err"] <= 1e-5,
+          f"f32 train loss kernel {k_loss} vs plain {p_loss}")
+    for name, ours, lib in (
+            ("gradient median", f32["grad_err_median"],
+             f32["library_grad_err_median"]),
+            ("gradient max", f32["grad_err_max"], f32["library_grad_err_max"]),
+            ("BN statistic max", f32["bn_stat_err_max"],
+             f32["library_bn_stat_err_max"])):
+        check(ours <= 2 * lib + 1e-5, f"f32 {name} error {ours:.3g} against "
+              f"the plain versions; the library path's is {lib:.3g}")
+
+    torch.backends.cudnn.allow_tf32 = True      # a user's defaults again
+    model = make("bfloat16")
+    start = copy.deepcopy(model.state_dict())
+    (k_loss, k_grads, k_stats), (p_loss, p_grads, p_stats) = both_paths(model)
+    lib_model = make("bfloat16", kernels=False)
+    l_loss, l_grads, l_stats = grad_step(torch, lib_model, augment, xb, yb, 7)
+    del lib_model
+    s_err = stat_errors(torch, k_stats, p_stats)
+    worst_s = max(s_err, key=s_err.get)
+    # In bf16 the gradients of this randomly initialised net are mostly
+    # rounding noise through the BN backward: the plain versions' and the
+    # library path's bf16 gradients are as far from the float32 ones as
+    # the gradients are long. Their distances are printed as readings and
+    # gate nothing; the kernels at the main path's bf16 inputs are held to
+    # their plain versions in phase_train_kernels.
+    def to_f32(grads):
+        return statistics.median(grad_errors(torch, grads, f32_grads).values())
+
+    bf = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
+              loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+              grad_err_vs_f32_median_kernel=to_f32(k_grads),
+              grad_err_vs_f32_median_plain=to_f32(p_grads),
+              grad_err_vs_f32_median_library=to_f32(l_grads),
+              grad_err_kernel_vs_plain_median=statistics.median(
+                  grad_errors(torch, k_grads, p_grads).values()),
+              bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
+              library_bn_stat_err_max=max(
+                  stat_errors(torch, l_stats, p_stats).values()))
+    emit("train_grad_check_bf16", **bf)
+    # bf16 tolerances: loss within 2^-7 relative (a few bf16 ulps); the
+    # BN-statistic error against the plain versions at most twice the
+    # library path's plus 2^-10.
+    check(math.isfinite(k_loss) and bf["loss_rel_err"] <= 2.0**-7,
+          f"bf16 train loss kernel {k_loss} vs plain {p_loss}")
+    check(bf["bn_stat_err_max"] <= 2 * bf["library_bn_stat_err_max"] + 2.0**-10,
+          f"bf16 BN statistic {worst_s}: error {bf['bn_stat_err_max']:.3g}; "
+          f"the library path's is {bf['library_bn_stat_err_max']:.3g}")
+
+    # The main path: the train step as the trainer calls it, on one
+    # repeated batch, with every launch count at 0 before it.
+    state = TrainState(model, make_optimizer(model.parameters(), optim),
+                       lr_schedule(optim, 1, 20))
+    step_fn = make_train_step(data, optim)
+    step_fn(state, xb, yb, step_generator(42, 10_000))     # warm-up
+    torch.cuda.synchronize()
+    model.load_state_dict(start)
+    state = TrainState(model, make_optimizer(model.parameters(), optim),
+                       lr_schedule(optim, 1, 20))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step_fn(state, xb, yb, step_generator(42, state.global_step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss_sum"]) / TRAIN_BATCH)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
+            "fused_ir_forward": 33, "fused_ir_backward": 33}
+    for name, per_step in want.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps "
+              f"(want {per_step} a step)")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} "
+          f"steps on one batch: {losses[0]} -> {losses[-1]}")
+    from tpunet_torch.ops import depthwise as dw
+    from tpunet_torch.ops import fused_ir as fi
+    steady = sorted(times[2:])
+    p50 = statistics.median(steady)
+    emit("train_main_path", width_mult=1.0, image_size=224, batch=TRAIN_BATCH,
+         steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         loss_first=losses[0], loss_last=losses[-1], losses=losses,
+         step_ms_p50=p50 * 1e3, step_ms_min=steady[0] * 1e3,
+         step_ms_max=steady[-1] * 1e3, images_per_s=TRAIN_BATCH / p50,
+         peak_memory_bytes=peak,
+         grad_layout_copies={"depthwise": dw.grad_layout_copies,
+                             "fused_ir": fi.grad_layout_copies})
+    prof = profile_step(torch, lambda: step_fn(
+        state, xb, yb, step_generator(42, state.global_step)), p50 * 1e3)
+    emit("train_step_profile", **prof)
+    return launches, TRAIN_BATCH / p50
+
+
+def phase_trainer(torch):
+    """Trainer.train() for one epoch at full width, the best .pth loaded
+    back and evaluated, then --eval-only through the CLI."""
+    import dataclasses
+    import re
+
+    from tpunet_torch.config import (CheckpointConfig, DataConfig,
+                                     ModelConfig, TrainConfig)
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.convert import load_state_dict_file
+    from tpunet_torch.train.loop import Trainer
+
+    ckdir = ROOT / "build" / "tpunet_torch" / "smoke_trainer"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    cfg = TrainConfig(
+        epochs=1,
+        data=DataConfig(dataset="synthetic", synthetic_train_size=1024,
+                        synthetic_test_size=256, batch_size=TRAIN_BATCH),
+        model=ModelConfig(use_pallas_depthwise=True, fused_ir=True),
+        checkpoint=CheckpointConfig(directory=str(ckdir)))
+    t0 = time.perf_counter()
+    history = Trainer(cfg, device="cuda").train()
+    wall = time.perf_counter() - t0
+    check(len(history) == 1, f"{len(history)} epoch records")
+    rec = history[0]
+    check(all(math.isfinite(rec[k]) for k in ("train_loss", "test_loss")),
+          f"non-finite epoch record {rec}")
+    best = ckdir / "best.pth"
+    check(best.exists() and (ckdir / "state.pt").exists()
+          and (ckdir / "metrics.jsonl").exists(), f"files in {ckdir}: "
+          f"{sorted(p.name for p in ckdir.iterdir())}")
+    again = Trainer(dataclasses.replace(cfg, eval_only=True), device="cuda")
+    model = create_model(cfg.model, device="cuda")
+    load_state_dict_file(str(best), model)
+    again.state.model.load_state_dict(model.state_dict())
+    acc = again.evaluate()["accuracy"]
+    check(acc == rec["test_accuracy"], f"best.pth evaluates to {acc}, the "
+          f"epoch measured {rec['test_accuracy']}")
+    out = subprocess.run(
+        [sys.executable, "-m", "tpunet_torch.train", "--preset", "single",
+         "--dataset", "synthetic", "--synthetic-size", "1024",
+         "--pallas-depthwise", "--checkpoint-dir", str(ckdir), "--eval-only"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"--eval-only exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out.stdout)
+    check(found is not None, f"--eval-only printed no Eval line: {out.stdout}")
+    cli_acc = float(found.group(2))
+    check(abs(cli_acc - rec["test_accuracy"]) < 5e-5,
+          f"--eval-only accuracy {cli_acc} vs {rec['test_accuracy']}")
+    emit("trainer", epoch_record=rec, wall_s=wall, best_pth_accuracy=acc,
+         eval_only_line=found.group(0))
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -422,39 +1037,71 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def per_step(rows, key) -> float:
+    """Sum of ``key`` over the layers of one training step (per-shape value
+    times the number of layers with that shape), at batch 128."""
+    return sum(r[key] * r["layers"] for r in rows if r.get("layers"))
+
+
+def kernel_entry(name, source, replaces, launches, rows) -> dict:
+    bytes_ms, ops_ms = per_step(rows, "bytes_ms"), per_step(rows, "ops_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(max(r["max_abs_err"], r.get("max_abs_err_b128", 0))
+                               for r in rows),
+            "ms": per_step(rows, "kernel_ms"),
+            "plain_ms": per_step(rows, "plain_ms"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": per_step(rows, "library_ms")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     try:
         phase_build()
-        rows = phase_kernels(torch)
-        launches = phase_main_path(torch)
+        fwd_rows = phase_kernels(torch)
+        train_rows = phase_train_kernels(torch)
+        serve_launches = phase_main_path(torch)
+        launches, images_per_s = phase_train(torch)
+        phase_trainer(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    def per_forward(key):
-        by_shape = {(r["shape"][1], r["shape"][3], r["shape"][4]): r[key]
-                    for r in rows}
-        return sum(by_shape[s] * k for s, k in MAIN_SHAPES.items())
-
-    bytes_ms, ops_ms = per_forward("bytes_ms"), per_forward("ops_ms")
+    # Row 1 per training step: the batch-128 times of the depthwise
+    # forward's 10 shapes, each times its layer count.
+    fwd_b128 = [dict(r["b128"], max_abs_err=r["max_abs_err"],
+                     layers=MAIN_SHAPES[(r["shape"][1], r["shape"][3],
+                                         r["shape"][4])])
+                for r in fwd_rows if "b128" in r]
+    kernels = [
+        kernel_entry("depthwise_conv3x3", "tpunet_torch/csrc/depthwise.cu",
+                     "tpunet/ops/depthwise.py:74",
+                     launches["depthwise_conv3x3"], fwd_b128),
+        kernel_entry("depthwise_conv3x3_backward",
+                     "tpunet_torch/csrc/depthwise.cu",
+                     "tpunet/ops/depthwise.py:237",
+                     launches["depthwise_conv3x3_backward"],
+                     train_rows["depthwise_conv3x3_backward"]),
+        kernel_entry("fused_ir_forward", "tpunet_torch/csrc/fused_ir.cu",
+                     "tpunet/ops/fused_ir.py:138",
+                     launches["fused_ir_forward"],
+                     train_rows["fused_ir_forward"]),
+        kernel_entry("fused_ir_backward", "tpunet_torch/csrc/fused_ir.cu",
+                     "tpunet/ops/fused_ir.py:247",
+                     launches["fused_ir_backward"],
+                     train_rows["fused_ir_backward"]),
+    ]
+    emit("summary", seconds=time.perf_counter() - t0,
+         serve_depthwise_launches=serve_launches,
+         train_images_per_sec_per_chip=images_per_s)
     print(f"card: {card_line()}", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "depthwise_conv3x3",
-        "route": "cuda",
-        "source": "tpunet_torch/csrc/depthwise.cu",
-        "replaces": "tpunet/ops/depthwise.py:74",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_forward("kernel_ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": per_forward("library_ms"),
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

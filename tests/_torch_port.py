@@ -75,6 +75,27 @@ def jax_variables(seed: int = 0, width_mult: float = WIDTH,
     return params, stats
 
 
+def train_variables(seed: int = 0, width_mult: float = WIDTH,
+                    image_size: int = SIZE):
+    """(params, batch_stats) for train-mode tests, as numpy: tpunet's own
+    init (jitted) with BN scale/bias drawn from numpy, and no train-mode
+    pass for the running statistics (the slow part of
+    :func:`jax_variables`): train mode reads them only to update them."""
+    model = jax_create_model(JaxModelConfig(dtype="float32",
+                                            width_mult=width_mult))
+    v = jax.jit(lambda key: init_variables(model, key, image_size=image_size)
+                )(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def affine(bn):
+        c = bn["scale"].shape[0]
+        return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "bias": rng.normal(0.0, 0.1, c).astype(np.float32)}
+
+    return _map_bn(v["params"], affine), _map_bn(v["batch_stats"],
+                                                 lambda bn: bn)
+
+
 def port_model(params, stats, *, use_pallas_depthwise: bool = False,
                width_mult: float = WIDTH):
     """The port's float32 CPU MobileNetV2 holding the JAX weights."""

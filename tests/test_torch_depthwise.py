@@ -1,4 +1,4 @@
-"""Parity of the port's 3x3 depthwise conv with tpunet's Pallas kernel.
+"""Parity of the port's 3x3 depthwise conv with tpunet's Pallas kernels.
 
 On the CPU the port's wrapper runs its plain version; it is held
 against ``tpunet.ops.depthwise_conv3x3(x, w, s, True)`` (the Pallas
@@ -9,9 +9,12 @@ which import no JAX so that they run on the card's machine, and skip
 here.
 Tolerances: 1e-5 in float32 (the two sum the same 9 products in
 possibly another order); in bfloat16, 1 bf16 ulp (each side rounds its
-own float32 sum once).
+own float32 sum once). The backward — the port's autograd Function on
+the CPU — is held against ``jax.vjp`` of the Pallas backward in
+interpret mode to 2e-4, the tolerance of tests/test_ops.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,3 +130,64 @@ def test_rejects_what_the_kernel_does_not_take(case):
         x, w = x.to("meta"), w.to("meta")
     with pytest.raises(ValueError):
         depthwise_conv3x3(x, w, stride)
+
+
+# The odd grid of tests/test_ops.py's backward test: odd H/W, non-square,
+# channel counts off a multiple of 8, tiny and stride 2.
+BWD_GRID = [(8, 8, 16, 1), (8, 8, 16, 2), (7, 7, 24, 1), (7, 7, 24, 2),
+            (7, 9, 40, 1), (9, 7, 40, 2), (5, 5, 8, 2), (4, 6, 3, 2)]
+
+
+def _bwd_inputs(h, w, c, stride, seed):
+    rng = np.random.default_rng(seed)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return (rng.standard_normal((2, h, w, c)).astype(np.float32),
+            rng.standard_normal((3, 3, c)).astype(np.float32),
+            rng.standard_normal((2, ho, wo, c)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,w,c,stride", BWD_GRID, ids=str)
+def test_autograd_function_matches_pallas_backward(h, w, c, stride):
+    x, wt, g = _bwd_inputs(h, w, c, stride, h * 31 + stride)
+    _, vjp = jax.vjp(lambda xx, ww: jops.depthwise_conv3x3(xx, ww, stride,
+                                                           True),
+                     jnp.asarray(x), jnp.asarray(wt))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    wtt = torch.from_numpy(wt).requires_grad_()
+    y = port_dw.depthwise_conv3x3_train(xt, wtt, stride)
+    y.backward(torch.from_numpy(g))
+    assert xt.grad.is_contiguous()      # NHWC, as the kernel writes dx
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(wtt.grad.numpy(), np.asarray(want_dw),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_backward_bf16_returns_input_dtypes_and_launches_nothing():
+    x, wt, g = _bwd_inputs(8, 8, 32, 2, 0)
+    port_dw.depthwise_conv3x3_backward.launches = 0
+    xb, wb, gb = (torch.from_numpy(a).bfloat16() for a in (x, wt, g))
+    dx, dw = port_dw.depthwise_conv3x3_backward(xb, wb, gb, 2)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
+    assert port_dw.depthwise_conv3x3_backward.launches == 0
+    # dw is summed in float32 and then rounded: within one bf16 ulp of
+    # the float32 sum of the same bf16 inputs.
+    _, dw32 = port_dw.depthwise_conv3x3_backward_reference(
+        xb.float(), wb.float(), gb.float(), 2)
+    assert np.all(np.abs(dw.float().numpy() - dw32.numpy())
+                  <= _bf16_ulp(dw32.numpy()))
+
+
+@pytest.mark.parametrize("case", ["g_shape", "g_dtype", "g_not_contiguous"])
+def test_backward_rejects_a_bad_gradient(case):
+    x, w = torch.zeros(1, 8, 8, 8), torch.zeros(3, 3, 8)
+    g = torch.zeros(1, 4, 4, 8)
+    if case == "g_shape":
+        g = torch.zeros(1, 8, 8, 8)
+    elif case == "g_dtype":
+        g = g.bfloat16()
+    elif case == "g_not_contiguous":
+        g = torch.zeros(1, 8, 4, 4).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError):
+        port_dw.depthwise_conv3x3_backward(x, w, g, 2)

@@ -171,10 +171,16 @@ def test_state_dict_mismatch_raises(variables):
 
 
 def test_train_mode_and_unported_models_raise():
+    """Train mode (ported in slice 2) raises without the generator its
+    dropout mask is drawn from and runs with one; unported models raise
+    with their ROADMAP item."""
     model = create_model(ModelConfig(dtype="float32", width_mult=WIDTH),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 3, SIZE, SIZE), train=True)
+    with pytest.raises(ValueError, match="generator"):
+        model(torch.zeros(2, 3, SIZE, SIZE), train=True)
+    out = model(torch.randn(2, 3, SIZE, SIZE), train=True,
+                generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelConfig(name="vit")
     with pytest.raises(ValueError):

@@ -24,7 +24,7 @@ from tpunet.config import ServeConfig as JaxServeConfig
 from tpunet.infer.predict import Predictor as JaxPredictor
 from tpunet_torch.config import DataConfig, ModelConfig, ServeConfig
 from tpunet_torch.infer import app
-from tpunet_torch.infer.predict import Predictor, resize_bilinear
+from tpunet_torch.infer.predict import Predictor, preprocess, resize_bilinear
 from tpunet_torch.models.convert import state_dict_from_jax
 from tpunet_torch.obs.registry import Registry
 from tpunet_torch.serve import ClassifyBatcher
@@ -63,6 +63,22 @@ def test_resize_matches_jax_bilinear(src, dst):
                                        method="bilinear"))
     got = resize_bilinear(torch.from_numpy(x), dst).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_preprocess_takes_the_device_explicitly():
+    """No default device: the caller says where the work runs. On the CPU
+    it is the resize of the JAX Predictor, then the normalization."""
+    img = _image(48, 64, seed=4)
+    data = DataConfig(image_size=SIZE)
+    with pytest.raises(TypeError):
+        preprocess(img, data)
+    got = preprocess(img, data, "cpu")
+    assert got.device.type == "cpu" and got.shape == (SIZE, SIZE, 3)
+    want = (np.asarray(jax.image.resize(jnp.asarray(img, jnp.float32) / 255.0,
+                                        (SIZE, SIZE, 3), method="bilinear"))
+            - np.asarray(data.mean, np.float32)) / np.asarray(data.std,
+                                                             np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("hw", IMAGE_SIZES, ids=str)

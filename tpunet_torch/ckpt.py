@@ -1,0 +1,76 @@
+"""Checkpoints of the port: ``.pth`` files, as the reference project writes.
+
+- ``best.pth``: the model's state dict when it reached its best test
+  accuracy, in torchvision's MobileNetV2 key layout (the reference's
+  best-by-test-accuracy save). It loads into the port with
+  ``tpunet_torch.models.convert.load_state_dict_file`` and into tpunet
+  with ``tpunet.models.convert.load_pretrained``.
+- ``state.pt``: the full state after the last completed epoch (model,
+  optimizer, ``global_step``, epoch, ``best_acc``) for ``--resume``.
+
+Each file is written to a temporary name and renamed into place, so a
+crash never leaves a partial checkpoint. The JAX package's Orbax
+layout and its asynchronous saves do not carry over.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Any, Dict, Optional
+
+import torch
+
+from tpunet_torch.config import CheckpointConfig
+
+BEST = "best.pth"
+STATE = "state.pt"
+
+
+def _cpu(obj: Any) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
+
+
+class Checkpointer:
+    def __init__(self, cfg: CheckpointConfig):
+        self.directory = cfg.directory
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, name)
+
+    def _save(self, obj: Any, name: str) -> str:
+        os.makedirs(self.directory, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
+        os.close(fd)
+        try:
+            torch.save(_cpu(obj), tmp)
+            os.replace(tmp, self._path(name))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return self._path(name)
+
+    def save_best(self, model: torch.nn.Module) -> str:
+        """Write ``best.pth`` (torchvision layout)."""
+        return self._save(model.state_dict(), BEST)
+
+    def save_state(self, payload: Dict[str, Any]) -> str:
+        """Write ``state.pt``."""
+        return self._save(payload, STATE)
+
+    def best_path(self) -> Optional[str]:
+        path = self._path(BEST)
+        return path if os.path.exists(path) else None
+
+    def restore_state(self) -> Optional[Dict[str, Any]]:
+        """The saved full state (CPU tensors), or None when there is none."""
+        path = self._path(STATE)
+        if not os.path.exists(path):
+            return None
+        return torch.load(path, map_location="cpu", weights_only=True)

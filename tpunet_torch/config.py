@@ -1,17 +1,21 @@
-"""Configuration for the PyTorch port: the fields the ported slice honours.
+"""Configuration for the PyTorch port: the fields the ported slices honour.
 
 A copy of the matching parts of ``tpunet/config.py`` with identical
 defaults (the reference project's literals: 224 px, 10 classes,
 ImageNet normalization, MobileNetV2 width 1.0 with dropout 0.2, bf16
-activations over f32 parameters, classify micro-batching of 8 images in
-a 2 ms window). Fields of the JAX config that no ported module reads
-yet are left out rather than accepted and ignored.
+activations over f32 parameters, batch 128 (64 for ``serial``), Adam
+1e-4 with StepLR(10, 0.1), 20 epochs, seed 42, classify micro-batching
+of 8 images in a 2 ms window). Fields of the JAX config that no ported
+module reads are left out. Fields that the JAX config has and that a
+later slice ports are kept at their defaults, and setting one away from
+its default raises with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 # ImageNet normalization statistics: the reference trains with these,
 # and serving reuses the training stats (one constant everywhere).
@@ -36,14 +40,69 @@ _NOT_PORTED = {
 }
 
 
+def _refuse_unported(obj, items) -> None:
+    """Raise when a field that no ported module honours is set away from
+    its default. ``items`` maps field name -> the ROADMAP item."""
+    for name, item in items.items():
+        f = next(f for f in dataclasses.fields(obj) if f.name == name)
+        if getattr(obj, name) != f.default:
+            raise NotImplementedError(
+                f"{type(obj).__name__}.{name}={getattr(obj, name)!r} is not "
+                f"ported to tpunet_torch yet; it comes with ROADMAP {item}")
+
+
 @dataclass(frozen=True)
 class DataConfig:
-    """Image size, class count and normalization of the served model."""
+    """Data pipeline config: the reference's transforms and loaders."""
 
+    data_dir: str = "data"
+    dataset: str = "cifar10"          # "cifar10" | "synthetic"
+    download: bool = True
     image_size: int = 224
+    batch_size: int = 128             # GLOBAL batch
+    eval_batch_size: int = 0          # 0 -> same as batch_size
     num_classes: int = 10
+    rrc_scale: Tuple[float, float] = (0.7, 1.0)
+    rrc_ratio: Tuple[float, float] = (0.75, 4.0 / 3.0)
+    jitter_brightness: float = 0.3
+    jitter_contrast: float = 0.3
+    jitter_saturation: float = 0.3
+    jitter_hue: float = 0.1
+    rotation_degrees: float = 15.0
     mean: Tuple[float, float, float] = IMAGENET_MEAN
     std: Tuple[float, float, float] = IMAGENET_STD
+    mixup_alpha: float = 0.0
+    cutmix_alpha: float = 0.0
+    synthetic_train_size: int = 50_000
+    synthetic_test_size: int = 10_000
+    # The train remainder is dropped, and the test set is evaluated
+    # exactly (the last batch padded with masked examples).
+    drop_remainder: bool = True
+    # The JAX package uses its native C++ prefetcher when it can build
+    # it and numpy otherwise. The port has no prefetcher yet (ROADMAP
+    # Queue A item 2b): its loader is numpy, in the same order, and the
+    # field that chooses between the two waits for that item.
+    native_loader: bool = True
+
+    def __post_init__(self):
+        if self.dataset not in ("cifar10", "synthetic"):
+            raise ValueError(f"unknown dataset {self.dataset!r}; the port "
+                             "reads cifar10 | synthetic (token datasets "
+                             "come with ROADMAP Queue A item 4)")
+        if not self.drop_remainder:
+            raise ValueError("drop_remainder=False is not a mode of the "
+                             "JAX pipeline either: the train remainder is "
+                             "always dropped")
+        _refuse_unported(self, {
+            "mixup_alpha": "Queue A item 2b (mixup/CutMix)",
+            "cutmix_alpha": "Queue A item 2b (mixup/CutMix)",
+            "native_loader": "Queue A item 2b (the native C++ prefetcher "
+                             "and the choice between it and numpy)",
+        })
+
+    @property
+    def effective_eval_batch_size(self) -> int:
+        return self.eval_batch_size or self.batch_size
 
 
 @dataclass(frozen=True)
@@ -51,11 +110,14 @@ class ModelConfig:
     """MobileNetV2 config (torchvision's model with a 10-class head).
 
     ``use_pallas_depthwise`` keeps the JAX package's name: it routes the
-    17 depthwise convs through the hand-written depthwise kernel
-    (``tpunet_torch.ops.depthwise_conv3x3``) instead of ``F.conv2d``.
-    ``fused_bn`` is carried for config parity: in eval mode both BN
-    forms of the JAX package compute the same per-channel FMA + clamp,
-    which is the only BN the port runs so far.
+    17 depthwise convs through the hand-written depthwise kernels
+    (``tpunet_torch.ops.depthwise``) instead of ``F.conv2d``.
+    ``fused_ir`` (train mode only) routes the 33 expand/project 1x1 convs
+    through the fused conv + BN-statistics kernels
+    (``tpunet_torch.ops.fused_ir``); eval mode never does. ``fused_bn``
+    is carried for config parity: the port's BN is always FusedBNAct's
+    math, one per-channel FMA + clamp. ``pretrained_path`` is a local
+    torchvision-layout ``.pth``.
     """
 
     name: str = "mobilenet_v2"
@@ -64,6 +126,9 @@ class ModelConfig:
     dropout_rate: float = 0.2
     use_pallas_depthwise: bool = False
     fused_bn: bool = True
+    fused_ir: bool = True
+    block_remat: bool = False
+    pretrained_path: Optional[str] = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
@@ -74,6 +139,51 @@ class ModelConfig:
                 f"it comes with ROADMAP {_NOT_PORTED[self.name]}")
         if self.name != "mobilenet_v2":
             raise ValueError(f"unknown model {self.name!r}")
+        if not self.fused_bn:
+            raise ValueError("fused_bn=False (nn.BatchNorm + clamp) computes "
+                             "the same function; the port runs only the "
+                             "fused form")
+        _refuse_unported(self, {
+            "block_remat": "Queue A item 2b (block remat)"})
+        if self.pretrained_path == "auto":
+            raise NotImplementedError(
+                "pretrained_path='auto' downloads torchvision's ImageNet "
+                "checkpoint; the port takes a local .pth only until ROADMAP "
+                "Queue A item 2b (CIFAR-10 and the ImageNet .pth on the "
+                "card's machine)")
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer config (reference: Adam 1e-4 + StepLR(10, 0.1))."""
+
+    name: str = "adam"
+    learning_rate: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    schedule: str = "step"            # step | cosine | constant
+    step_size_epochs: int = 10
+    gamma: float = 0.1
+    warmup_epochs: float = 0.0
+    label_smoothing: float = 0.0
+    clip_norm: float = 0.0
+    ema_decay: float = 0.0
+    grad_accum: int = 1
+
+    def __post_init__(self):
+        _refuse_unported(self, {
+            "clip_norm": "Queue A item 2b (clip-norm)",
+            "ema_decay": "Queue A item 2b (EMA)",
+            "grad_accum": "Queue A item 2b (gradient accumulation)",
+        })
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "checkpoints"
+    resume: bool = False
 
 
 @dataclass(frozen=True)
@@ -84,3 +194,41 @@ class ServeConfig:
 
     classify_batch_max: int = 8
     classify_window_ms: float = 2.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level training config."""
+
+    epochs: int = 20                  # reference EPOCHS
+    seed: int = 42                    # reference torch.manual_seed(42)
+    eval_only: bool = False
+    log_every_steps: int = 0          # 0 -> per-epoch only, like the reference
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def preset(name: str) -> TrainConfig:
+    """The config of a named launch mode.
+
+    - ``serial``: the reference's serial script, batch 64;
+    - ``single``: the reference's one-accelerator script, batch 128;
+    - ``distributed``: data parallelism over NCCL, ROADMAP Queue A item 3.
+    """
+    base = TrainConfig()
+    if name == "serial":
+        return base.replace(data=dataclasses.replace(base.data, batch_size=64))
+    if name == "single":
+        return base
+    if name == "distributed":
+        raise NotImplementedError(
+            "preset 'distributed' (data parallelism over NCCL) is not "
+            "ported to tpunet_torch yet; it comes with ROADMAP Queue A "
+            "item 3")
+    raise ValueError(f"unknown preset {name!r}; expected "
+                     "serial|single|distributed")

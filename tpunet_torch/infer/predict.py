@@ -83,7 +83,7 @@ def to_uint8(image) -> np.ndarray:
 
 
 def preprocess(image_u8: np.ndarray, data_cfg: DataConfig,
-               device="cpu") -> torch.Tensor:
+               device) -> torch.Tensor:
     """uint8 [H, W, 3] -> normalized float32 [S, S, 3], computed on
     ``device``. On the card the upload is asynchronous (from pinned
     memory), so the calling thread does not wait for work already

@@ -40,6 +40,7 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
                         width_mult=cfg.width_mult,
                         dropout_rate=cfg.dropout_rate,
                         use_pallas=cfg.use_pallas_depthwise,
+                        fused_ir=cfg.fused_ir,
                         dtype=getattr(torch, cfg.dtype))
     init_weights(model, generator)
     return model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).eval()

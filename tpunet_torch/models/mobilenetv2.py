@@ -1,37 +1,52 @@
-"""MobileNetV2 eval-mode forward in PyTorch, port of ``tpunet/models/mobilenetv2.py``.
+"""MobileNetV2 in PyTorch, port of ``tpunet/models/mobilenetv2.py``.
 
 The module tree reproduces torchvision's ``mobilenet_v2`` state_dict keys
 (``features.0.0.weight``, ``features.N.conv...``, ``features.18.1.*``,
 ``classifier.1.weight``), so a torchvision-layout ``.pth`` — or a tpunet
 checkpoint exported by ``python -m tpunet.models.convert`` — loads
 strictly. The modules only hold parameters; the forward is written out
-functionally to mirror the JAX package's arithmetic:
+functionally to mirror the JAX package's arithmetic. Activations are
+channels_last in ``dtype`` (bf16 on the card) over ``param_dtype`` (f32)
+parameters, logits in f32.
 
-- activations are channels_last in ``dtype`` (bf16 on the card) over
-  ``param_dtype`` (f32) parameters, logits in f32; what is derived from
-  the parameters alone (weights cast to ``dtype``, the depthwise weights
-  in the kernel's [3,3,C] layout, eval BN's ``inv``/``shift``) is
-  computed once and reused until a parameter or buffer changes;
+Eval mode (``forward(x)``):
+- what is derived from the parameters alone (weights cast to ``dtype``,
+  the depthwise weights in the kernel's [3,3,C] layout, eval BN's
+  ``inv``/``shift``) is computed once, without autograd, and reused
+  until a parameter or buffer changes;
 - eval BN is ``FusedBNAct``'s eval math: ``inv = rsqrt(var+eps)*scale``,
   ``shift = bias - mean*inv``, ``y = x.f32*inv + shift``, ReLU6, cast;
 - the 17 depthwise 3x3 convs go to ``tpunet_torch.ops.depthwise_conv3x3``
   when ``use_pallas_depthwise`` is set (``ConvBN``'s routing) and to
-  ``F.conv2d(groups=C)`` otherwise; the stem and the 1x1 convs are
-  ``F.conv2d``, as the JAX package leaves them to XLA.
+  ``F.conv2d(groups=C)`` otherwise; every other conv is ``F.conv2d``.
 
-Training (train-mode BN, dropout, the fused-IR kernels) is ROADMAP
-Queue A item 2.
+Train mode (``forward(x, train=True, generator=g)``):
+- the weights are cast under autograd on every call (never the eval
+  cache, whose tensors carry no gradient);
+- BN is ``FusedBNAct``'s train math: one pass of float32 statistics over
+  the conv output, ``mean = E[x]``, ``var = max(0, E[x^2] - mean^2)``,
+  the same epilogue with the batch statistics, and the running update
+  ``ra = 0.9*ra + 0.1*batch`` with that biased ``var``;
+- with ``fused_ir`` the 33 stride-1 expand/project 1x1 convs and their
+  BN go through ``tpunet_torch.ops.fused_ir.conv1x1_bn_act``, and with
+  ``use_pallas_depthwise`` the 17 depthwise convs through the depthwise
+  autograd Function; the stem, the head 1x1 and the classifier stay
+  ``F.conv2d``/``F.linear``, as tpunet leaves them to XLA;
+- dropout keeps each pooled feature with probability ``1 - rate`` and
+  scales it by ``1 / (1 - rate)``; the mask comes from ``generator``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tpunet_torch.ops import depthwise_conv3x3
+from tpunet_torch.ops.depthwise import depthwise_conv3x3_train
+from tpunet_torch.ops.fused_ir import conv1x1_bn_act
 
 # (expansion, out_channels, num_blocks, first_stride)
 INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
@@ -45,6 +60,7 @@ INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
 )
 
 BN_EPSILON = 1e-5
+BN_MOMENTUM = 0.9      # running = 0.9 * running + 0.1 * batch (torch's 0.1)
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -111,18 +127,21 @@ class InvertedResidual(nn.Module):
 
 
 class MobileNetV2(nn.Module):
-    """MobileNetV2 backbone + linear classifier head, eval mode.
+    """MobileNetV2 backbone + linear classifier head.
 
-    ``forward(x)`` takes normalized float images [N,3,H,W] (any memory
-    format) and returns float32 logits [N, num_classes]."""
+    ``forward(x, train=False, generator=None)`` takes normalized float
+    images [N,3,H,W] (any memory format) and returns float32 logits
+    [N, num_classes]. ``train=True`` uses batch statistics, updates the
+    running ones, and draws the dropout mask from ``generator``."""
 
     def __init__(self, num_classes: int = 10, width_mult: float = 1.0,
                  dropout_rate: float = 0.2, use_pallas: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused_ir: bool = True):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
         self.use_pallas = use_pallas
+        self.fused_ir = fused_ir
         self.dtype = dtype
         cin = _make_divisible(32 * width_mult)
         features = [ConvBNAct(3, cin, 3, 2)]
@@ -191,12 +210,10 @@ class MobileNetV2(nn.Module):
     def _conv_bn(self, unit: ConvBNAct, x: torch.Tensor) -> torch.Tensor:
         return self._bn(unit[1], self._conv(unit[0], x), act=True)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if train:
-            raise NotImplementedError(
-                "tpunet_torch runs MobileNetV2 in eval mode only; training "
-                "comes with ROADMAP Queue A item 2 (the MobileNetV2 "
-                "training slice)")
+            return self._forward_train(x, generator)
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
         feats = list(self.features)
         x = self._conv_bn(feats[0], x)
@@ -214,3 +231,83 @@ class MobileNetV2(nn.Module):
         w, b = self._derived(head, (head.weight, head.bias), lambda: (
             head.weight.to(self.dtype), head.bias.to(self.dtype)))
         return F.linear(x, w, b).float()
+
+    # -- train mode -------------------------------------------------------
+
+    def _bn_train(self, bn: BN, x: torch.Tensor, act: bool) -> torch.Tensor:
+        """FusedBNAct's train math on a conv output [N,C,H,W]."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              0.0)
+        self._update_running(bn, mean, var)
+        inv = torch.rsqrt(var + BN_EPSILON) * bn.weight.float()
+        shift = bn.bias.float() - mean * inv
+        y = xf * inv[:, None, None] + shift[:, None, None]
+        if act:
+            y = torch.clamp(y, 0.0, 6.0)
+        return y.to(self.dtype)
+
+    @staticmethod
+    def _update_running(bn: BN, mean: torch.Tensor, var: torch.Tensor):
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
+                                                   * mean.detach())
+            bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
+                                                  * var.detach())
+            bn.num_batches_tracked.add_(1)
+
+    def _conv_train(self, conv: Conv, x: torch.Tensor) -> torch.Tensor:
+        w = conv.weight.to(self.dtype)
+        if self.use_pallas and conv.groups > 1:
+            # [C,1,3,3] -> [3,3,C]; channels_last NCHW -> NHWC is a view.
+            w = w[:, 0].permute(1, 2, 0).contiguous()
+            y = depthwise_conv3x3_train(x.permute(0, 2, 3, 1), w, conv.stride)
+            return y.permute(0, 3, 1, 2)
+        y = F.conv2d(x, w, stride=conv.stride, padding=conv.pad,
+                     groups=conv.groups)
+        return y.contiguous(memory_format=torch.channels_last)
+
+    def _unit_train(self, conv: Conv, bn: BN, x: torch.Tensor, act: bool,
+                    fused: bool) -> torch.Tensor:
+        if fused and self.fused_ir:
+            # Stride-1 1x1 conv + BN through the fused-IR op (ConvBN's
+            # routing); [Co,Ci,1,1] -> [Ci,Co].
+            w = conv.weight.to(self.dtype)[:, :, 0, 0].t().contiguous()
+            y, mean, var = conv1x1_bn_act(x.permute(0, 2, 3, 1), w,
+                                          bn.weight, bn.bias, act,
+                                          BN_EPSILON)
+            self._update_running(bn, mean, var)
+            return y.permute(0, 3, 1, 2)
+        return self._bn_train(bn, self._conv_train(conv, x), act)
+
+    def _forward_train(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        feats = list(self.features)
+        stem = feats[0]
+        x = self._unit_train(stem[0], stem[1], x, act=True, fused=False)
+        for block in feats[1:-1]:
+            units = list(block.conv)
+            y = x
+            for unit in units[:-2]:
+                # The expand 1x1 (fused) and the depthwise 3x3.
+                y = self._unit_train(unit[0], unit[1], y, act=True,
+                                     fused=unit[0].groups == 1)
+            y = self._unit_train(units[-2], units[-1], y, act=False,
+                                 fused=True)
+            x = y + x if block.use_res else y
+        head = feats[-1]
+        x = self._unit_train(head[0], head[1], x, act=True, fused=False)
+        x = x.mean(dim=(2, 3))  # global average pool -> [N, C]
+        rate = self.dropout_rate
+        if rate > 0.0:
+            if generator is None:
+                raise ValueError("train mode with dropout needs a generator")
+            u = torch.rand(x.shape, generator=generator,
+                           device=generator.device).to(x.device)
+            x = torch.where(u < 1.0 - rate, x / (1.0 - rate),
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+        lin = self.classifier[1]
+        return F.linear(x, lin.weight.to(self.dtype),
+                        lin.bias.to(self.dtype)).float()

@@ -1,13 +1,22 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-- ``depthwise``: the 3x3 depthwise convolution forward of MobileNetV2
-  (CUDA C++, ``csrc/depthwise.cu``), port of ``tpunet/ops/depthwise.py``.
+- ``depthwise``: the 3x3 depthwise convolution of MobileNetV2, forward
+  and backward (CUDA C++, ``csrc/depthwise.cu``), port of
+  ``tpunet/ops/depthwise.py``;
+- ``fused_ir``: the fused 1x1 conv + train-mode BN statistics forward
+  and its backward (CUDA C++, ``csrc/fused_ir.cu``), port of
+  ``tpunet/ops/fused_ir.py``.
 
 Kernels are built by ``_build`` at first use on a CUDA tensor; a CPU
 tensor always takes the plain version.
 """
 
 from tpunet_torch.ops.depthwise import (depthwise_conv3x3,
-                                        depthwise_conv3x3_reference)
+                                        depthwise_conv3x3_backward,
+                                        depthwise_conv3x3_reference,
+                                        depthwise_conv3x3_train)
+from tpunet_torch.ops.fused_ir import conv1x1_bn_act
 
-__all__ = ["depthwise_conv3x3", "depthwise_conv3x3_reference"]
+__all__ = ["conv1x1_bn_act", "depthwise_conv3x3",
+           "depthwise_conv3x3_backward", "depthwise_conv3x3_reference",
+           "depthwise_conv3x3_train"]

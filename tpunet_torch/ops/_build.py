@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -29,7 +29,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpunet_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,43 +55,43 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str, out: Path) -> None:
+def _build(name: str) -> None:
+    """nvcc ``csrc/<name>.cu`` into a temporary file, then rename it into
+    place: a concurrent build of the same source writes an identical
+    file, and a reader never sees a partial one."""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
+    out = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if out.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    # Rename into place: a concurrent build of the same source writes
-    # an identical file, and a reader never sees a partial one.
-    os.replace(tmp, out)
+                           f"(exit {out.returncode}):\n{out.stdout}")
+    os.replace(tmp, library_path(name))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
+    lib = _loaded.get(name)
+    if lib is None:
         path = library_path(name)
         if not path.exists():
-            _build(name, path)
+            _build(name)
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
-        _loaded[name] = lib
-        return lib
+        lib = _loaded.setdefault(name, lib)
+    return lib
 
 
 def build_all() -> List[str]:
-    """Build and load every source under ``csrc/``; returns the names."""
+    """Build and load every source under ``csrc/``, one nvcc process per
+    source, all running at once; returns the names."""
     names = sources()
-    for name in names:
-        load(name)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(load, names))
     return names

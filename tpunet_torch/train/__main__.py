@@ -1,0 +1,132 @@
+"""``python -m tpunet_torch.train``: the training CLI, port of
+``tpunet/main.py`` over the flags the port honours.
+
+    python -m tpunet_torch.train --preset single              # on the card
+    python -m tpunet_torch.train --preset serial --dataset synthetic \\
+        --image-size 32 --width-mult 0.5 --dtype float32 --device cpu
+
+Presets: ``serial`` (batch 64), ``single`` (batch 128); ``distributed``
+waits for ROADMAP Queue A item 3. Any other flag of tpunet's CLI is
+refused with an error, never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from tpunet_torch.config import preset
+from tpunet_torch.utils import log0
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m tpunet_torch.train",
+                                description="tpunet_torch trainer")
+    p.add_argument("--preset", default="single",
+                   choices=["serial", "single", "distributed"])
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--eval-batch-size", type=int, default=None,
+                   help="eval batch (default: --batch-size)")
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--lr-schedule", default=None,
+                   choices=["step", "cosine", "constant"],
+                   help="step = the reference's StepLR(10, 0.1)")
+    p.add_argument("--warmup-epochs", type=float, default=None)
+    p.add_argument("--label-smoothing", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--dataset", default=None, choices=["cifar10", "synthetic"])
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--synthetic-size", type=int, default=None,
+                   help="train-set size when --dataset synthetic (test: "
+                        "a quarter of it)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--eval-only", action="store_true",
+                   help="evaluate the saved checkpoint (best.pth if "
+                        "present, else state.pt) and exit")
+    p.add_argument("--pallas-depthwise", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="route the 3x3 depthwise convs through the "
+                        "hand-written kernels (tpunet's flag name)")
+    p.add_argument("--fused-ir", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="train-mode expand/project 1x1 convs through the "
+                        "fused conv + BN-statistics kernels (default on)")
+    p.add_argument("--width-mult", type=float, default=None)
+    p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--log-every-steps", type=int, default=None,
+                   help="a step/loss/lr line every N steps (0 = per epoch "
+                        "only, like the reference)")
+    return p
+
+
+def config_from_args(argv=None):
+    parser = build_argparser()
+    args, unknown = parser.parse_known_args(argv)
+    if unknown:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)} "
+                     "(tpunet flags that tpunet_torch does not honour yet "
+                     "are refused; ROADMAP Queue A lists what is ported)")
+    cfg = preset(args.preset)
+    data, model, optim, ckpt = cfg.data, cfg.model, cfg.optim, cfg.checkpoint
+    for dest, obj_field in (("batch_size", "batch_size"),
+                            ("eval_batch_size", "eval_batch_size"),
+                            ("image_size", "image_size"),
+                            ("dataset", "dataset"), ("data_dir", "data_dir")):
+        val = getattr(args, dest)
+        if val is not None:
+            data = dataclasses.replace(data, **{obj_field: val})
+    if args.synthetic_size is not None:
+        data = dataclasses.replace(
+            data, synthetic_train_size=args.synthetic_size,
+            synthetic_test_size=max(1, args.synthetic_size // 4))
+    for dest, obj_field in (("pallas_depthwise", "use_pallas_depthwise"),
+                            ("fused_ir", "fused_ir"),
+                            ("width_mult", "width_mult"),
+                            ("dtype", "dtype")):
+        val = getattr(args, dest)
+        if val is not None:
+            model = dataclasses.replace(model, **{obj_field: val})
+    for dest, obj_field in (("lr", "learning_rate"),
+                            ("lr_schedule", "schedule"),
+                            ("warmup_epochs", "warmup_epochs"),
+                            ("label_smoothing", "label_smoothing")):
+        val = getattr(args, dest)
+        if val is not None:
+            optim = dataclasses.replace(optim, **{obj_field: val})
+    if args.checkpoint_dir is not None:
+        ckpt = dataclasses.replace(ckpt, directory=args.checkpoint_dir)
+    if args.resume:
+        ckpt = dataclasses.replace(ckpt, resume=True)
+    cfg = cfg.replace(data=data, model=model, optim=optim, checkpoint=ckpt)
+    for dest in ("epochs", "seed", "log_every_steps"):
+        val = getattr(args, dest)
+        if val is not None:
+            cfg = cfg.replace(**{dest: val})
+    if args.eval_only:
+        cfg = cfg.replace(eval_only=True)
+    return cfg, args.device
+
+
+def main(argv=None) -> int:
+    cfg, device = config_from_args(argv)
+    # Imported here: the trainer pulls in torch and the model.
+    from tpunet_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    if cfg.eval_only:
+        m = trainer.evaluate_checkpoint()
+        log0(f"Eval: Test Loss: {m['loss']:.4f} "
+             f"Test Acc: {m['accuracy']:.4f}")
+    else:
+        trainer.train()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""Exact metrics as sums: a torch copy of ``tpunet/train/metrics.py``.
+
+Every metric is a (loss_sum, correct, count) triple of sums over the
+batch; they stay on the device while they are accumulated and are read
+once, by :func:`summarize`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def from_batch(loss_sum, correct, count, device=None) -> Metrics:
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return {"loss_sum": f32(loss_sum), "correct": f32(correct),
+            "count": f32(count)}
+
+
+def zeros_metrics(device=None) -> Metrics:
+    return from_batch(0.0, 0.0, 0.0, device)
+
+
+def accumulate(acc: Metrics, new: Metrics) -> Metrics:
+    return {k: acc[k] + new[k] for k in acc}
+
+
+def summarize(acc: Metrics) -> Dict[str, float]:
+    """Device scalars -> python floats {loss, accuracy, count}, with one
+    read from the device."""
+    loss_sum, correct, n = torch.stack(
+        [acc["loss_sum"], acc["correct"], acc["count"]]).tolist()
+    count = max(n, 1.0)
+    return {"loss": loss_sum / count, "accuracy": correct / count,
+            "count": n}

@@ -1,0 +1,107 @@
+"""Train state and optimization stack, port of ``tpunet/train/state.py``.
+
+The reference's stack is CrossEntropyLoss + Adam(lr=1e-4) +
+StepLR(step_size=10, gamma=0.1). tpunet writes StepLR as an optax
+piecewise-constant schedule over steps; :func:`lr_schedule` is that
+schedule as a plain function of the 0-based update index, and the train
+step sets each update's learning rate from it. The update at index
+``10 * steps_per_epoch`` is the first at the decayed rate, as with
+torch's per-epoch ``StepLR``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterable
+
+import torch
+
+from tpunet_torch.config import OptimConfig
+
+Schedule = Callable[[int], float]
+
+
+def lr_schedule(cfg: OptimConfig, steps_per_epoch: int,
+                epochs: int) -> Schedule:
+    """Step-indexed learning rate: ``schedule(t)`` is the rate of update
+    ``t`` (0-based).
+
+    ``step``: the base rate times ``gamma`` for every boundary at
+    ``step_size_epochs``, ``2*step_size_epochs``, ... epochs (up to
+    ``epochs``) with ``t >= boundary``; ``cosine``: decays to 0 over the
+    steps after warmup; ``constant``. A linear warmup over
+    ``warmup_epochs`` (fractional allowed) from 0 comes first, and the
+    base schedule's clock starts when it ends (optax.join_schedules)."""
+    total = steps_per_epoch * epochs
+    warm = int(round(cfg.warmup_epochs * steps_per_epoch))
+    lr = cfg.learning_rate
+    if cfg.schedule == "step":
+        bounds = [e * steps_per_epoch
+                  for e in range(cfg.step_size_epochs, epochs + 1,
+                                 cfg.step_size_epochs)]
+
+        def base(t: int) -> float:
+            v = lr
+            for b in bounds:
+                if t >= b:
+                    v *= cfg.gamma
+            return v
+    elif cfg.schedule == "cosine":
+        decay = max(1, total - warm)
+
+        def base(t: int) -> float:
+            frac = min(max(t, 0), decay) / decay
+            return lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+    elif cfg.schedule == "constant":
+        def base(t: int) -> float:
+            return lr
+    else:
+        raise ValueError(f"unknown schedule {cfg.schedule!r}; "
+                         "expected step|cosine|constant")
+    if warm <= 0:
+        return base
+
+    def warmed(t: int) -> float:
+        if t < warm:
+            return lr * max(t, 0) / warm
+        return base(t - warm)
+    return warmed
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   cfg: OptimConfig) -> torch.optim.Optimizer:
+    """The optimizer of tpunet's ``make_optimizer``: Adam (with
+    ``weight_decay`` 0), else AdamW with decoupled decay, or SGD with
+    momentum 0.9. eps sits outside the square root, as in optax. The
+    learning rate is set before every update from :func:`lr_schedule`."""
+    params = list(params)
+    if cfg.name == "adam" and cfg.weight_decay == 0.0:
+        return torch.optim.Adam(params, lr=cfg.learning_rate,
+                                betas=(cfg.b1, cfg.b2), eps=cfg.eps)
+    if cfg.name in ("adam", "adamw"):
+        return torch.optim.AdamW(params, lr=cfg.learning_rate,
+                                 betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.name == "sgd":
+        return torch.optim.SGD(params, lr=cfg.learning_rate, momentum=0.9)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, the schedule, and the number of updates
+    taken (``global_step``, the index of the next update)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Schedule
+    global_step: int = 0
+
+    def apply_gradients(self) -> None:
+        """One optimizer update at the schedule's rate for this step."""
+        lr = self.schedule(self.global_step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.global_step += 1

@@ -1,0 +1,23 @@
+"""Deterministic per-step randomness.
+
+tpunet folds the global step into a root key (``step_key``,
+``tpunet/utils/prng.py``); here one CPU ``torch.Generator`` per step is
+seeded from (seed, global step). A resumed run therefore repeats the
+same draws, and the draws do not depend on the device: the step's
+augmentation parameters and dropout mask are drawn on the CPU and moved.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_AUGMENT_STREAM = 0x5EED   # tpunet's step_key folds the same constant
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The generator of global step ``step`` of a run seeded ``seed``."""
+    words = np.random.SeedSequence([seed, _AUGMENT_STREAM, step]
+                                   ).generate_state(2, np.uint32)
+    value = (int(words[0]) << 32 | int(words[1])) & (2**63 - 1)
+    return torch.Generator().manual_seed(value)
