@@ -28,7 +28,25 @@ Phases, each of which must pass:
   6. run the Trainer for one epoch (1,024 synthetic images, batch 128)
      with eval, reload the best .pth and evaluate it again, then
      ``python -m tpunet_torch.train --eval-only`` on it;
-  7. print the kernel list and the card's name and power limit.
+  7. hold the three flash-attention kernels (forward with lse, dQ, dK/dV)
+     against their plain versions in f32 and bf16 at ViT-B/16's shapes
+     (batch 8 and 128, T 196, 12 heads of 64) and at odd ones (causal
+     T 1024, causal tq < tk, packed segments with a query that sees no
+     key, T that no tile divides, head dims 32 and 128, a nonzero glse),
+     and time them at batch 128 against their bound, their plain
+     versions and scaled_dot_product_attention (forward; its backward
+     through autograd for dQ and dK/dV together);
+  8. serve ViT-B/16 (224 px, bf16, random weights from a seed) through
+     Predictor and ClassifyBatcher with the same clients and images as
+     phase 4, 12 flash launches a batched forward, logits against the
+     plain versions on the card;
+  9. train ViT-B/16 (batch 128, bf16 over f32, Adam 1e-4, seeded
+     synthetic CIFAR-10): one f32 step's loss and gradients with the
+     kernels against the plain versions; 30 steps with 12 + 12 + 12
+     flash launches each, step time, images/s, peak memory and a
+     profiled step; a Trainer epoch with --model vit_base and
+     --eval-only on its best.pth;
+ 10. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -80,6 +98,20 @@ REQUEST_SIZES = [(32, 32), (224, 224), (375, 500)]  # (h, w): CIFAR, model size,
 N_IMAGES = 48      # seeded images the clients cycle through, sizes in turn
 N_CLIENTS = 4      # closed-loop client threads
 WINDOW_S = 5.0     # serving window: over a thousand requests
+VIT_LAYERS = 12    # ViT-B/16: one flash call per layer and direction
+# (b, tq, tk, h, d, causal, segments, glse) of the flash kernel checks:
+# the serving and training shapes of ViT-B/16 first, then odd cases.
+FLASH_CASES = [
+    (BATCH, 196, 196, 12, 64, False, False, False),
+    (TRAIN_BATCH, 196, 196, 12, 64, False, False, False),
+    (2, 1024, 1024, 12, 64, True, False, False),    # the LM's max_seq_len
+    (4, 100, 300, 4, 64, True, False, False),       # tq < tk: tk - tq offset
+    (4, 256, 256, 4, 64, False, True, False),       # a query with no key
+    (4, 200, 200, 4, 64, True, True, False),
+    (4, 77, 77, 4, 32, False, False, False),        # no tile divides T
+    (2, 150, 150, 2, 128, True, False, False),
+    (BATCH, 196, 196, 12, 64, False, False, True),  # nonzero glse
+]
 
 
 class PhaseError(Exception):
@@ -682,15 +714,30 @@ class plain_versions:
             dx, dwt = dw.depthwise_conv3x3_backward_reference(x, w, g, stride)
             return dx, dwt.to(w.dtype)
 
+        from tpunet_torch.ops import flash as fl
+
+        def fl_fwd(q, k, v, *, causal=False, scale=None, segment_ids=None,
+                   with_lse=False):
+            out, lse = fl.flash_attention_forward_reference(
+                q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)
+            return (out, lse) if with_lse else out
+
         self.saved = [(dw, "depthwise_conv3x3", dw.depthwise_conv3x3),
                       (dw, "depthwise_conv3x3_backward",
                        dw.depthwise_conv3x3_backward),
                       (fi, "fused_ir_forward", fi.fused_ir_forward),
-                      (fi, "fused_ir_backward", fi.fused_ir_backward)]
+                      (fi, "fused_ir_backward", fi.fused_ir_backward),
+                      (fl, "flash_attention_forward",
+                       fl.flash_attention_forward),
+                      (fl, "flash_attention_dq", fl.flash_attention_dq),
+                      (fl, "flash_attention_dkv", fl.flash_attention_dkv)]
         dw.depthwise_conv3x3 = dw.depthwise_conv3x3_reference
         dw.depthwise_conv3x3_backward = dw_bwd
         fi.fused_ir_forward = fi.fused_ir_forward_reference
         fi.fused_ir_backward = fi.fused_ir_backward_reference
+        fl.flash_attention_forward = fl_fwd
+        fl.flash_attention_dq = fl.flash_attention_dq_reference
+        fl.flash_attention_dkv = fl.flash_attention_dkv_reference
         return self
 
     def __exit__(self, *exc):
@@ -698,20 +745,22 @@ class plain_versions:
             setattr(mod, name, fn)
 
 
-def launch_counts():
+def _counted():
     from tpunet_torch.ops import depthwise as dw
+    from tpunet_torch.ops import flash as fl
     from tpunet_torch.ops import fused_ir as fi
-    return {"depthwise_conv3x3": dw.depthwise_conv3x3.launches,
-            "depthwise_conv3x3_backward": dw.depthwise_conv3x3_backward.launches,
-            "fused_ir_forward": fi.fused_ir_forward.launches,
-            "fused_ir_backward": fi.fused_ir_backward.launches}
+    return (dw.depthwise_conv3x3, dw.depthwise_conv3x3_backward,
+            fi.fused_ir_forward, fi.fused_ir_backward,
+            fl.flash_attention_forward, fl.flash_attention_dq,
+            fl.flash_attention_dkv)
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def reset_launch_counts():
-    from tpunet_torch.ops import depthwise as dw
-    from tpunet_torch.ops import fused_ir as fi
-    for fn in (dw.depthwise_conv3x3, dw.depthwise_conv3x3_backward,
-               fi.fused_ir_forward, fi.fused_ir_backward):
+    for fn in _counted():
         fn.launches = 0
 
 
@@ -769,7 +818,9 @@ def stat_errors(torch, got, want) -> dict:
     return out
 
 
-def profile_step(torch, step, wall_ms: float) -> dict:
+def profile_step(torch, step, wall_ms: float,
+                 family_names=("depthwise3x3_fwd", "depthwise3x3_bwd",
+                               "fused_ir_fwd", "fused_ir_bwd")) -> dict:
     """Device time of one train step by kernel, from torch.profiler's CUDA
     activity, and the card's idle share against the step's wall time
     (measured without the profiler)."""
@@ -791,8 +842,7 @@ def profile_step(torch, step, wall_ms: float) -> dict:
         t[0] += 1
         t[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(t for _, t in by_name.values())
-    families = {"depthwise3x3_fwd": 0.0, "depthwise3x3_bwd": 0.0,
-                "fused_ir_fwd": 0.0, "fused_ir_bwd": 0.0}
+    families = dict.fromkeys(family_names, 0.0)
     for name, (_, t) in by_name.items():
         for fam in families:
             if fam in name:
@@ -975,7 +1025,8 @@ def phase_train(torch):
     return launches, TRAIN_BATCH / p50
 
 
-def phase_trainer(torch):
+def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
+                  tag="trainer"):
     """Trainer.train() for one epoch at full width, the best .pth loaded
     back and evaluated, then --eval-only through the CLI."""
     import dataclasses
@@ -987,14 +1038,15 @@ def phase_trainer(torch):
     from tpunet_torch.models.convert import load_state_dict_file
     from tpunet_torch.train.loop import Trainer
 
-    ckdir = ROOT / "build" / "tpunet_torch" / "smoke_trainer"
+    if model_cfg is None:
+        model_cfg = ModelConfig(use_pallas_depthwise=True, fused_ir=True)
+    ckdir = ROOT / "build" / "tpunet_torch" / f"smoke_{tag}"
     shutil.rmtree(ckdir, ignore_errors=True)
     cfg = TrainConfig(
         epochs=1,
         data=DataConfig(dataset="synthetic", synthetic_train_size=1024,
                         synthetic_test_size=256, batch_size=TRAIN_BATCH),
-        model=ModelConfig(use_pallas_depthwise=True, fused_ir=True),
-        checkpoint=CheckpointConfig(directory=str(ckdir)))
+        model=model_cfg, checkpoint=CheckpointConfig(directory=str(ckdir)))
     t0 = time.perf_counter()
     history = Trainer(cfg, device="cuda").train()
     wall = time.perf_counter() - t0
@@ -1016,7 +1068,7 @@ def phase_trainer(torch):
     out = subprocess.run(
         [sys.executable, "-m", "tpunet_torch.train", "--preset", "single",
          "--dataset", "synthetic", "--synthetic-size", "1024",
-         "--pallas-depthwise", "--checkpoint-dir", str(ckdir), "--eval-only"],
+         *cli_flags, "--checkpoint-dir", str(ckdir), "--eval-only"],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     check(out.returncode == 0, f"--eval-only exited {out.returncode}: "
           f"{out.stderr[-2000:]}")
@@ -1025,8 +1077,418 @@ def phase_trainer(torch):
     cli_acc = float(found.group(2))
     check(abs(cli_acc - rec["test_accuracy"]) < 5e-5,
           f"--eval-only accuracy {cli_acc} vs {rec['test_accuracy']}")
-    emit("trainer", epoch_record=rec, wall_s=wall, best_pth_accuracy=acc,
+    emit(tag, epoch_record=rec, wall_s=wall, best_pth_accuracy=acc,
          eval_only_line=found.group(0))
+
+# ---------------------------------------------------------------------------
+# Flash attention and ViT-B/16
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(torch, case, dtype, seed):
+    """q, k, v, dO, segment ids and glse of one flash check, on the card."""
+    b, tq, tk, h, d, causal, segmented, with_glse = case
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, tq, h, d, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, tk, h, d, generator=gen) for _ in range(2))
+    seg = None
+    if segmented:
+        qs = torch.randint(1, 5, (b, tq), generator=gen).sort(dim=1).values
+        ks = torch.randint(1, 5, (b, tk), generator=gen).sort(dim=1).values
+        qs[:, 0] = 99                      # a query whose segment has no key
+        seg = (qs.cuda(), ks.cuda())
+    glse = (torch.randn(b, h, tq, generator=gen).cuda() if with_glse
+            else None)
+    return [t.to("cuda", dtype) for t in (q, k, v, do)], seg, causal, glse
+
+
+def flash_mags(torch, fl, q, k, v, do, lse, delta, glse, causal, seg):
+    """Per output element of dQ, dK, dV: the sum of the magnitudes of the
+    products that make it (the yardstick of the backward tolerances)."""
+    p, _ = fl._p_ds(q, k, v, do, lse, delta, None, causal,
+                    q.shape[-1] ** -0.5, seg)
+    dpm = torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), v.float().abs())
+    extra = delta.abs() + (glse.abs() if glse is not None else 0)
+    dsm = p * (dpm + extra[..., None]) * q.shape[-1] ** -0.5
+    del dpm
+    return (torch.einsum("bhqk,bkhd->bqhd", dsm, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", dsm, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()))
+
+
+def check_flash(torch, fl, case, dtype, seed) -> dict:
+    """The three flash kernels against their plain versions on one case.
+    Forward: out within 1e-5 of max |v| (float32 sums of p.v in another
+    order); in bf16 plus one ulp of the output and 2^-8 max |v| (p is
+    rounded to bf16 on both sides from float32 values that may round
+    apart); lse within 1e-5 (1 + |lse|) and exactly -1e30 with a zero
+    output on rows that see no key. Backward (from the plain lse):
+    within 1e-5 of the sum of the products' magnitudes, in bf16 plus one
+    ulp and 2^-8 of that sum. Returns, per kernel, the max abs error,
+    the largest error over its tolerance and the largest |plain output|
+    (so that an error of 0 is seen to be over values that are not)."""
+    (q, k, v, do), seg, causal, glse = flash_inputs(torch, case, dtype, seed)
+    tag = f"flash {dtype} {case}"
+    out, lse = fl.flash_attention_forward(q, k, v, causal=causal,
+                                          segment_ids=seg, with_lse=True)
+    pout, plse = fl.flash_attention_forward_reference(q, k, v, causal=causal,
+                                                      segment_ids=seg)
+    vmax = v.float().abs().max()
+    bf = dtype == torch.bfloat16
+    tol = 1e-5 * vmax + ((bf16_ulp(torch, pout.float()) + 2.0**-8 * vmax)
+                         if bf else 0)
+    ok, err_f, ratio_f = within(torch, out, pout, tol)
+    check(ok, f"{tag}: forward error {err_f} is {ratio_f:.3g}x its tolerance")
+    ok, err_l, ratio = within(torch, lse, plse, 1e-5 * (1 + plse.abs()))
+    check(ok, f"{tag}: lse error {err_l} is {ratio:.3g}x its tolerance")
+    fwd = "flash_attention_forward"
+    errs = {fwd: max(err_f, err_l)}
+    ratios = {fwd: max(ratio_f, ratio)}
+    refs = {fwd: pout.float().abs().max().item()}
+    dead = plse <= -1e30
+    check(bool((lse[dead] == plse[dead]).all())
+          and bool((out.float().transpose(1, 2)[dead] == 0).all()),
+          f"{tag}: rows with no key are not 0 with lse -1e30")
+    check(not seg or bool(dead.any()), f"{tag}: no row without a key")
+    delta = (pout.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    del out, pout
+    kw = dict(causal=causal, segment_ids=seg, glse=glse)
+    got = (fl.flash_attention_dq(q, k, v, do, plse, delta, **kw),
+           *fl.flash_attention_dkv(q, k, v, do, plse, delta, **kw))
+    want = (fl.flash_attention_dq_reference(q, k, v, do, plse, delta, **kw),
+            *fl.flash_attention_dkv_reference(q, k, v, do, plse, delta, **kw))
+    mags = flash_mags(torch, fl, q, k, v, do, plse, delta, glse, causal, seg)
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        tol = 1e-5 * m + ((bf16_ulp(torch, w.float()) + 2.0**-8 * m)
+                          if bf else 0)
+        ok, err, ratio = within(torch, g, w, tol)
+        check(ok, f"{tag}: {name} error {err} is {ratio:.3g}x its tolerance")
+        key = "flash_attention_dq" if name == "dq" else "flash_attention_dkv"
+        errs[key] = max(errs.get(key, 0.0), err)
+        ratios[key] = max(ratios.get(key, 0.0), ratio)
+        refs[key] = max(refs.get(key, 0.0), w.float().abs().max().item())
+    torch.cuda.synchronize()
+    return {"max_abs_err": errs, "max_err_over_tol": ratios,
+            "max_abs_plain": refs}
+
+
+def flash_bounds(b, t, h, d, elem, kind) -> dict:
+    """Least time of one flash call: its inputs read once and outputs
+    written once over the memory rate, or its products at the bf16
+    tensor-core rate, whichever is longer. Forward (with lse): q, k, v
+    read, o and lse written, QKᵀ and PV. dQ: q, k, v, dO, lse, delta
+    read, dq written, QKᵀ, dO.Vᵀ and dS.K. dK/dV: the same reads, dk and
+    dv written, and one more product."""
+    x = b * t * h * d * elem
+    row = b * h * t * 4
+    product = 2 * b * h * t * t * d
+    nbytes, flops = {"forward": (4 * x + row, 2 * product),
+                     "dq": (5 * x + 2 * row, 3 * product),
+                     "dkv": (6 * x + 2 * row, 4 * product)}[kind]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms)}
+
+
+def phase_flash_kernels(torch) -> dict:
+    """Every flash case in f32 and bf16, then the times at batch 128 in
+    bf16 (the training main path's inputs), cold L2. Returns {kernel
+    name: [per-layer row]} for the kernel line."""
+    import torch.nn.functional as F
+
+    from tpunet_torch.ops import flash as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {}
+    for i, case in enumerate(FLASH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = check_flash(torch, fl, case, dtype, SEED + 200 + i)
+            for k, e in res["max_abs_err"].items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            emit("kernel_vs_plain", name="flash_attention", case=list(case),
+                 dtype=str(dtype), **res)
+            torch.cuda.empty_cache()
+
+    def timed(b):
+        gen = torch.Generator().manual_seed(SEED + 300 + b)
+        qkv = torch.randn(b, 196, 3, 12, 64, generator=gen).cuda().bfloat16()
+        do = torch.randn(b, 196, 12, 64, generator=gen).cuda().bfloat16()
+        return (*qkv.unbind(2), do)
+
+    # Serving: batch 8, the forward without lse (emitted, not in the line).
+    q, k, v, _ = timed(BATCH)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    emit("flash_serving_forward", batch=BATCH, **flash_bounds(
+        BATCH, 196, 12, 64, 2, "forward"),
+         kernel_ms=time_ms(torch, lambda: fl.flash_attention_forward(q, k, v)),
+         plain_ms=time_ms(torch, lambda: fl.flash_attention_forward_reference(
+             q, k, v), reps=10),
+         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+             qh, kh, vh)))
+
+    q, k, v, do = timed(TRAIN_BATCH)
+    out, lse = fl.flash_attention_forward(q, k, v, with_lse=True)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    lib = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib)
+    lib_do = do.transpose(1, 2)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, lib, lib_do, retain_graph=True)
+
+    bwd_lib_ms = time_ms(torch, lib_bwd, reps=20)
+    rows = {
+        "flash_attention_forward": dict(
+            kernel_ms=time_ms(torch, lambda: fl.flash_attention_forward(
+                q, k, v, with_lse=True), reps=20),
+            plain_ms=time_ms(torch, lambda: fl.flash_attention_forward_reference(
+                q, k, v), reps=5, warmup=2),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                *lib), reps=20),
+            **flash_bounds(TRAIN_BATCH, 196, 12, 64, 2, "forward")),
+        "flash_attention_dq": dict(
+            kernel_ms=time_ms(torch, lambda: fl.flash_attention_dq(
+                q, k, v, do, lse, delta), reps=20),
+            plain_ms=time_ms(torch, lambda: fl.flash_attention_dq_reference(
+                q, k, v, do, lse, delta), reps=5, warmup=2),
+            library_ms=bwd_lib_ms,
+            **flash_bounds(TRAIN_BATCH, 196, 12, 64, 2, "dq")),
+        "flash_attention_dkv": dict(
+            kernel_ms=time_ms(torch, lambda: fl.flash_attention_dkv(
+                q, k, v, do, lse, delta), reps=20),
+            plain_ms=time_ms(torch, lambda: fl.flash_attention_dkv_reference(
+                q, k, v, do, lse, delta), reps=5, warmup=2),
+            library_ms=bwd_lib_ms,
+            **flash_bounds(TRAIN_BATCH, 196, 12, 64, 2, "dkv")),
+    }
+    for name, row in rows.items():
+        row.update(batch=TRAIN_BATCH, layers=VIT_LAYERS,
+                   max_abs_err=worst[name],
+                   bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
+                   else "operations")
+        emit("flash_timing", name=name, **row)
+    del lib, lib_out
+    torch.cuda.empty_cache()
+    return {name: [row] for name, row in rows.items()}
+
+
+def vit_state(torch):
+    """ViT-B/16 weights from a seed, with the zero-initialised classifier
+    drawn at random (a zero head makes every logit 0 and every gradient
+    above it 0, and any comparison would pass)."""
+    from tpunet_torch.config import ModelConfig
+    from tpunet_torch.models import create_model
+
+    gen = torch.Generator().manual_seed(SEED + 400)
+    model = create_model(ModelConfig(name="vit_base", dtype="float32"),
+                         device="cpu", generator=gen)
+    with torch.no_grad():
+        model.classifier.weight.normal_(0.0, 0.05, generator=gen)
+        model.classifier.bias.normal_(0.0, 0.1, generator=gen)
+    return model.state_dict()
+
+
+def phase_vit_serving(torch, state):
+    """ViT-B/16 classify serving: the same clients, images and window as
+    the MobileNetV2 window, 12 flash launches a batched forward, and the
+    batched logits with the kernel against the plain versions."""
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, ServeConfig
+    from tpunet_torch.infer.predict import Predictor, preprocess
+    from tpunet_torch.ops import flash as fl
+    from tpunet_torch.serve import ClassifyBatcher
+
+    data, serve = DataConfig(), ServeConfig()
+    pred = Predictor(ModelConfig(name="vit_base"), data, state_dict=state,
+                     device="cuda")
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 256, (*REQUEST_SIZES[i % 3], 3), np.uint8)
+              for i in range(N_IMAGES)]
+
+    def batcher():
+        return ClassifyBatcher(pred, batch_max=serve.classify_batch_max,
+                               window_ms=serve.classify_window_ms)
+
+    warm = batcher()
+    try:
+        for img in images[:3]:
+            warm.submit(img, timeout=120.0)
+    finally:
+        warm.close()
+    torch.cuda.synchronize()
+    served = batcher()
+    reset_launch_counts()
+    try:
+        wall, answers, errors = serve_window(served, images)
+    finally:
+        served.close()
+    launches = launch_counts()
+    snap = served.registry.snapshot()
+    check(not errors, f"ViT requests failed: {errors[:3]}")
+    n = len(answers)
+    batches = snap.get("serve_classify_batches_total", 0)
+    check(n >= 16 and snap.get("serve_classify_requests_total") == n,
+          f"ViT: {n} answers, {snap.get('serve_classify_requests_total')} "
+          "requests counted")
+    probs = np.stack([p for _, _, p in answers])
+    check(probs.shape == (n, 10) and bool(np.isfinite(probs).all())
+          and bool(np.all(np.abs(probs.sum(1) - 1.0) <= 1e-4)),
+          f"ViT probabilities {probs.shape} not finite rows summing to 1")
+    fwd = launches["flash_attention_forward"]
+    check(fwd == VIT_LAYERS * batches and launches["flash_attention_dq"] == 0
+          and launches["flash_attention_dkv"] == 0,
+          f"ViT serving: {launches} for {batches} batched forwards (want "
+          f"{VIT_LAYERS} forward launches each, no backward)")
+    lat_ms = np.array([s for _, s, _ in answers]) * 1e3
+    emit("vit_serving", requests=n, clients=N_CLIENTS, window_s=WINDOW_S,
+         wall_s=wall, batches=batches, mean_batch=n / batches,
+         flash_launches=fwd, flash_launches_per_forward=fwd / batches,
+         requests_per_s=n / wall,
+         latency_p50_ms=float(np.percentile(lat_ms, 50)),
+         latency_p99_ms=float(np.percentile(lat_ms, 99)),
+         latency_max_ms=float(lat_ms.max()),
+         batch_s_p50_ms=snap["serve_classify_s_p50"] * 1e3,
+         batch_s_p99_ms=snap["serve_classify_s_p99"] * 1e3)
+
+    # One batch through the kernels and through the plain versions on the
+    # card: the same arithmetic up to the order of float32 sums and the
+    # bf16 roundings of p, so the tolerance is 2 bf16 ulps of the largest
+    # logit.
+    x = torch.stack([preprocess(images[i], data, "cuda")
+                     for i in range(BATCH)]).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        kern = pred.model(x)
+        with plain_versions():
+            plain = pred.model(x)
+        wall_ms = [loop_us(torch, lambda: pred.model(x), n=20) / 1e3
+                   for _ in range(2)]
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs().max().item()
+    tol = 2 * 2.0**-7 * plain.abs().max().item()
+    check(bool(torch.isfinite(kern).all()) and plain.abs().max().item() > 0,
+          "ViT logits non-finite or all zero")
+    check(diff <= tol, f"ViT batched logits kernel vs plain: {diff} > {tol}")
+    emit("vit_serving_checks", logits_kernel_vs_plain_max_abs=diff,
+         tolerance=tol, forward_wall_ms_batch8=wall_ms)
+    del pred
+    torch.cuda.empty_cache()
+    return fwd / batches
+
+
+def phase_vit_train(torch, state):
+    """ViT-B/16 training at batch 128: the f32 whole-step check, then the
+    bf16 main path; returns (launch counts, images/s)."""
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.data.augment import make_train_augment
+    from tpunet_torch.models import create_model
+    from tpunet_torch.ops.attention import dense_attention
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    data, optim = DataConfig(dataset="synthetic"), OptimConfig()
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    augment = make_train_augment(data)
+
+    def make(dtype):
+        model = create_model(ModelConfig(name="vit_base", dtype=dtype),
+                             device="cuda")
+        model.load_state_dict(state)
+        return model
+
+    # One float32 step (dropout 0.2 from the same step generator on every
+    # path), matrix products in full float32 (TF32 off; the patch
+    # embedding is a matmul, not a cuDNN convolution): the loss within
+    # 1e-5 and every gradient within 1e-4 in relative L2 norm of the
+    # plain versions'. The ViT has no BatchNorm, so float32 gradients are
+    # well conditioned; the dense attention path is printed beside as a
+    # yardstick.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = make("float32")
+    grad_step(torch, model, augment, xb, yb, 7)                 # warm-up
+    k_loss, k_grads, _ = grad_step(torch, model, augment, xb, yb, 7)
+    with plain_versions():
+        p_loss, p_grads, _ = grad_step(torch, model, augment, xb, yb, 7)
+    model.attn_fn = dense_attention
+    d_loss, d_grads, _ = grad_step(torch, model, augment, xb, yb, 7)
+    del model
+    torch.cuda.empty_cache()
+
+    def rel(got, want):
+        return {k: ((got[k] - want[k]).norm()
+                    / want[k].norm().clamp_min(1e-30)).item() for k in want}
+
+    g_err, g_dense = rel(k_grads, p_grads), rel(d_grads, p_grads)
+    worst = sorted(g_err, key=g_err.get, reverse=True)
+    f32 = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_dense=d_loss,
+               loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+               grad_err_worst={k: g_err[k] for k in worst[:4]},
+               grad_err_median=statistics.median(g_err.values()),
+               grad_err_max=g_err[worst[0]],
+               dense_grad_err_median=statistics.median(g_dense.values()),
+               dense_grad_err_max=max(g_dense.values()),
+               zero_grads=[k for k, g in p_grads.items()
+                           if g.abs().max().item() == 0])
+    emit("vit_train_grad_check_f32", **f32)
+    del k_grads, p_grads, d_grads
+    check(math.isfinite(k_loss) and f32["loss_rel_err"] <= 1e-5,
+          f"ViT f32 train loss kernel {k_loss} vs plain {p_loss}")
+    check(not f32["zero_grads"], f"ViT zero gradients: {f32['zero_grads']}")
+    check(f32["grad_err_max"] <= 1e-4, f"ViT f32 gradient {worst[0]}: "
+          f"relative L2 error {f32['grad_err_max']:.3g} > 1e-4")
+
+    # The bf16 main path: the train step as the trainer calls it, on one
+    # repeated batch, with every launch count at 0 before it.
+    model = make("bfloat16")
+    state_fn = TrainState(model, make_optimizer(model.parameters(), optim),
+                          lr_schedule(optim, 1, 20))
+    step_fn = make_train_step(data, optim)
+    step_fn(state_fn, xb, yb, step_generator(42, 10_000))     # warm-up
+    torch.cuda.synchronize()
+    model.load_state_dict(state)
+    state_fn = TrainState(model, make_optimizer(model.parameters(), optim),
+                          lr_schedule(optim, 1, 20))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step_fn(state_fn, xb, yb, step_generator(42, state_fn.global_step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss_sum"]) / TRAIN_BATCH)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("flash_attention_forward", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        check(launches[name] == VIT_LAYERS * TRAIN_STEPS,
+              f"ViT {name}: {launches[name]} launches in {TRAIN_STEPS} "
+              f"steps (want {VIT_LAYERS} a step)")
+    check(all(math.isfinite(v) for v in losses), f"ViT non-finite loss: "
+          f"{losses}")
+    steady = sorted(times[2:])
+    p50 = statistics.median(steady)
+    emit("vit_train_main_path", model="vit_base", image_size=224,
+         batch=TRAIN_BATCH, steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         loss_first=losses[0], loss_last=losses[-1], losses=losses,
+         step_ms_p50=p50 * 1e3, step_ms_min=steady[0] * 1e3,
+         step_ms_max=steady[-1] * 1e3, images_per_s=TRAIN_BATCH / p50,
+         peak_memory_bytes=peak)
+    prof = profile_step(torch, lambda: step_fn(
+        state_fn, xb, yb, step_generator(42, state_fn.global_step)),
+        p50 * 1e3, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    emit("vit_train_step_profile", **prof)
+    del model, state_fn
+    torch.cuda.empty_cache()
+    return launches, TRAIN_BATCH / p50
 
 
 def card_line() -> str:
@@ -1069,6 +1531,14 @@ def main() -> int:
         serve_launches = phase_main_path(torch)
         launches, images_per_s = phase_train(torch)
         phase_trainer(torch)
+        torch.cuda.empty_cache()
+        flash_rows = phase_flash_kernels(torch)
+        state = vit_state(torch)
+        vit_serve_launches = phase_vit_serving(torch, state)
+        vit_launches, vit_images_per_s = phase_vit_train(torch, state)
+        from tpunet_torch.config import ModelConfig
+        phase_trainer(torch, ModelConfig(name="vit_base"),
+                      ("--model", "vit_base"), "vit_trainer")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1097,9 +1567,19 @@ def main() -> int:
                      launches["fused_ir_backward"],
                      train_rows["fused_ir_backward"]),
     ]
+    # Rows 5-7 per ViT-B/16 training step: 12 layers at batch 128, bf16;
+    # launches from the ViT training main path.
+    for name, line in (("flash_attention_forward", 115),
+                       ("flash_attention_dq", 393),
+                       ("flash_attention_dkv", 437)):
+        kernels.append(kernel_entry(name, "tpunet_torch/csrc/flash.cu",
+                                    f"tpunet/ops/flash.py:{line}",
+                                    vit_launches[name], flash_rows[name]))
     emit("summary", seconds=time.perf_counter() - t0,
          serve_depthwise_launches=serve_launches,
-         train_images_per_sec_per_chip=images_per_s)
+         train_images_per_sec_per_chip=images_per_s,
+         vit_serve_flash_launches_per_forward=vit_serve_launches,
+         vit_train_images_per_sec_per_chip=vit_images_per_s)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -280,3 +280,187 @@ def test_train_step_on_card_launches_and_matches_plain(cuda, monkeypatch):
     theirs = list(_grad_errors(lib_grads, want).values())
     assert np.median(ours) <= 2 * np.median(theirs) + 1e-5
     assert max(ours) <= 2 * max(theirs) + 1e-5
+
+
+# -- flash attention -----------------------------------------------------------
+
+# (b, tq, tk, h, d, causal, segments): the ViT-B/16 shape, causal with
+# tq = tk and tq < tk, packed segments with a fully masked row, a T that
+# no 64-row tile divides, and each head dim the kernels are built for.
+FLASH = [(2, 196, 196, 3, 64, False, False), (1, 130, 130, 2, 32, True, False),
+         (2, 40, 130, 2, 128, True, False), (2, 70, 70, 2, 16, False, True),
+         (1, 100, 100, 2, 64, True, True)]
+
+
+def _flash_inputs(case, dtype, seed):
+    b, tq, tk, h, d, causal, segmented = case
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, tq, h, d, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, tk, h, d, generator=gen) for _ in range(2))
+    seg = None
+    if segmented:
+        qs = torch.randint(1, 4, (b, tq), generator=gen).sort(dim=1).values
+        ks = torch.randint(1, 4, (b, tk), generator=gen).sort(dim=1).values
+        qs[:, 0] = 9                   # a query whose segment has no key
+        seg = (qs.cuda(), ks.cuda())
+    return ([t.to("cuda", dtype) for t in (q, k, v, do)], seg, causal)
+
+
+def _bwd_magnitudes(q, k, v, do, lse, delta, glse, causal, scale, seg):
+    """Per output element, the sum of the magnitudes of the products that
+    make it (dq, dk, dv), the yardstick of the backward tolerances."""
+    from tpunet_torch.ops import flash
+    p, _ = flash._p_ds(q, k, v, do, lse, delta, None, causal, scale, seg)
+    dpm = torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), v.float().abs())
+    extra = delta.abs() + (glse.abs() if glse is not None else 0)
+    dsm = p * (dpm + extra[..., None]) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", dsm, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", dsm, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()))
+
+
+def _within(got, want, tol):
+    return bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_forward_kernel_vs_plain(cuda, case, dtype):
+    """out: float32 sums of p.v in another order, within 1e-5 of max |v|;
+    in bf16 plus one ulp of the output and 2^-8 max |v|, for the p that
+    the two sides round to bf16 apart. lse within 1e-5 (1 + |lse|), -1e30
+    exactly on the rows with no key."""
+    from tpunet_torch.ops import flash
+    (q, k, v, _), seg, causal = _flash_inputs(case, dtype, 10)
+    before = flash.flash_attention_forward.launches
+    out, lse = flash.flash_attention_forward(q, k, v, causal=causal,
+                                             segment_ids=seg, with_lse=True)
+    plain = flash.flash_attention_forward(q, k, v, causal=causal,
+                                          segment_ids=seg)
+    assert flash.flash_attention_forward.launches == before + 2
+    pout, plse = flash.flash_attention_forward_reference(
+        q, k, v, causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(plain, out, rtol=0, atol=0)
+    vmax = v.float().abs().max()
+    tol = 1e-5 * vmax
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(pout.float()) + 2.0**-8 * vmax
+    assert _within(out, pout, tol)
+    assert bool(((lse - plse).abs() <= 1e-5 * (1 + plse.abs())).all())
+    dead = plse <= -1e30
+    assert bool((lse[dead] == plse[dead]).all())
+    assert bool((out.float().transpose(1, 2)[dead] == 0).all())
+    if seg is not None:
+        assert bool(dead.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("with_glse", [False, True])
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_backward_kernels_vs_plain(cuda, case, with_glse, dtype):
+    """dq, dk, dv: float32 sums of products of p and ds in another order,
+    within 1e-5 of the sum of their magnitudes; in bf16 plus one ulp of
+    the output and 2^-8 of that sum (p and ds are rounded to bf16 on both
+    sides from float32 values that may round apart)."""
+    from tpunet_torch.ops import flash
+    (q, k, v, do), seg, causal = _flash_inputs(case, dtype, 11)
+    out, lse = flash.flash_attention_forward_reference(
+        q, k, v, causal=causal, segment_ids=seg)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    glse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(12)
+                       ).cuda() if with_glse else None
+    kw = dict(causal=causal, segment_ids=seg, glse=glse)
+    counts = (flash.flash_attention_dq.launches,
+              flash.flash_attention_dkv.launches)
+    dq = flash.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    assert (flash.flash_attention_dq.launches,
+            flash.flash_attention_dkv.launches) == (counts[0] + 1,
+                                                    counts[1] + 1)
+    want = (flash.flash_attention_dq_reference(q, k, v, do, lse, delta, **kw),
+            *flash.flash_attention_dkv_reference(q, k, v, do, lse, delta,
+                                                 **kw))
+    mags = _bwd_magnitudes(q, k, v, do, lse, delta, glse, causal,
+                           q.shape[-1] ** -0.5, seg)
+    torch.cuda.synchronize()
+    for name, got, ref, mag in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                   mags):
+        assert got.dtype == dtype and got.is_contiguous(), name
+        tol = 1e-5 * mag
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(ref.float()) + 2.0**-8 * mag
+        assert _within(got, ref, tol), (name, (got.float() - ref.float()
+                                               ).abs().max().item())
+
+
+def test_flash_takes_views_of_a_fused_projection(cuda):
+    """q, k, v as qkv[:, :, 0..2] of one [B,T,3,H,D] tensor (strided, no
+    copies): the same bits as from contiguous copies, forward and
+    backward."""
+    from tpunet_torch.ops import flash
+    gen = torch.Generator().manual_seed(13)
+    qkv = torch.randn(2, 196, 3, 4, 64, generator=gen).cuda().bfloat16()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 196, 4, 64, generator=gen).cuda().bfloat16()
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    out, lse = flash.flash_attention_forward(q, k, v, with_lse=True)
+    outc, lsec = flash.flash_attention_forward(qc, kc, vc, with_lse=True)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    a = (flash.flash_attention_dq(q, k, v, do, lse, delta),
+         *flash.flash_attention_dkv(q, k, v, do, lse, delta))
+    b = (flash.flash_attention_dq(qc, kc, vc, do, lse, delta),
+         *flash.flash_attention_dkv(qc, kc, vc, do, lse, delta))
+    assert torch.equal(out, outc) and torch.equal(lse, lsec)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from tpunet_torch.ops import flash
+    x = torch.randn(1, 8, 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_attention_forward(x[..., :48], x[..., :48], x[..., :48])
+    with pytest.raises(ValueError, match="dtypes"):
+        flash.flash_attention_forward(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.randn(1, 8, 1, 128, device="cuda")[..., ::2]
+        flash.flash_attention_forward(y, y, y)
+
+
+def test_vit_on_card_launches_the_flash_kernels(cuda):
+    """A 2-block bf16 ViT: 2 forward launches in eval (no lse), and one
+    train forward/backward launches 2 + 2 + 2; its f32 gradients equal
+    those of the plain versions on the card to 1e-4 of the largest."""
+    from tpunet_torch.ops import flash
+    cfg = ModelConfig(name="vit", vit_patch=4, vit_hidden=128, vit_depth=2,
+                      vit_heads=2, dtype="float32", dropout_rate=0.1)
+    model = create_model(cfg, image_size=32)
+    with torch.no_grad():
+        model.classifier.weight.normal_(
+            0, 0.5, generator=torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(4, 3, 32, 32, generator=gen).cuda()
+    y = torch.randint(0, 10, (4,), generator=gen).cuda()
+    counters = (flash.flash_attention_forward, flash.flash_attention_dq,
+                flash.flash_attention_dkv)
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        model(x)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = model(x, train=True, generator=torch.Generator().manual_seed(1))
+        torch.nn.functional.cross_entropy(out, y).backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    before = [c.launches for c in counters]
+    got = grads()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    from tpunet_torch.ops.attention import dense_attention
+    model.attn_fn = dense_attention
+    want = grads()
+    gmax = max(g.abs().max().item() for g in want.values())
+    for k in want:
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4 * gmax, k

@@ -1,10 +1,10 @@
 """Checkpoints of the port: ``.pth`` files, as the reference project writes.
 
 - ``best.pth``: the model's state dict when it reached its best test
-  accuracy, in torchvision's MobileNetV2 key layout (the reference's
-  best-by-test-accuracy save). It loads into the port with
-  ``tpunet_torch.models.convert.load_state_dict_file`` and into tpunet
-  with ``tpunet.models.convert.load_pretrained``.
+  accuracy (the reference's best-by-test-accuracy save); MobileNetV2's
+  in torchvision's key layout. It loads into the port with
+  ``tpunet_torch.models.convert.load_state_dict_file``, and a
+  MobileNetV2's into tpunet with ``tpunet.models.convert.load_pretrained``.
 - ``state.pt``: the full state after the last completed epoch (model,
   optimizer, ``global_step``, epoch, ``best_acc``) for ``--resume``.
 

@@ -30,14 +30,12 @@ CIFAR10_CLASSES: Tuple[str, ...] = (
 # Model names of the JAX package that the port does not build yet, and
 # the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "vit": "Queue A item 4 (ViT/LM with the flash trio)",
-    "vit_tiny": "Queue A item 4 (ViT/LM with the flash trio)",
-    "vit_small": "Queue A item 4 (ViT/LM with the flash trio)",
-    "vit_base": "Queue A item 4 (ViT/LM with the flash trio)",
-    "lm": "Queue A item 4 (ViT/LM with the flash trio)",
+    "lm": "Queue A item 4b (the LM on the flash kernels)",
     "vit_pp": "Queue A item 8 (parallelism beyond DP)",
     "lm_pp": "Queue A item 8 (parallelism beyond DP)",
 }
+VIT_NAMES = ("vit", "vit_tiny", "vit_small", "vit_base")
+ATTENTIONS = ("auto", "dense", "blockwise", "flash", "ring", "ulysses")
 
 
 def _refuse_unported(obj, items) -> None:
@@ -88,7 +86,7 @@ class DataConfig:
         if self.dataset not in ("cifar10", "synthetic"):
             raise ValueError(f"unknown dataset {self.dataset!r}; the port "
                              "reads cifar10 | synthetic (token datasets "
-                             "come with ROADMAP Queue A item 4)")
+                             "come with ROADMAP Queue A item 4b)")
         if not self.drop_remainder:
             raise ValueError("drop_remainder=False is not a mode of the "
                              "JAX pipeline either: the train remainder is "
@@ -107,20 +105,28 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """MobileNetV2 config (torchvision's model with a 10-class head).
+    """Model config: MobileNetV2 (torchvision's model with a 10-class
+    head) or the ViT family (``vit`` from the ``vit_*`` fields, or the
+    ``vit_tiny``/``vit_small``/``vit_base`` presets).
 
-    ``use_pallas_depthwise`` keeps the JAX package's name: it routes the
-    17 depthwise convs through the hand-written depthwise kernels
-    (``tpunet_torch.ops.depthwise``) instead of ``F.conv2d``.
-    ``fused_ir`` (train mode only) routes the 33 expand/project 1x1 convs
-    through the fused conv + BN-statistics kernels
-    (``tpunet_torch.ops.fused_ir``); eval mode never does. ``fused_bn``
-    is carried for config parity: the port's BN is always FusedBNAct's
-    math, one per-channel FMA + clamp. ``pretrained_path`` is a local
-    torchvision-layout ``.pth``.
+    MobileNetV2 only: ``use_pallas_depthwise`` keeps the JAX package's
+    name: it routes the 17 depthwise convs through the hand-written
+    depthwise kernels (``tpunet_torch.ops.depthwise``) instead of
+    ``F.conv2d``. ``fused_ir`` (train mode only) routes the 33
+    expand/project 1x1 convs through the fused conv + BN-statistics
+    kernels (``tpunet_torch.ops.fused_ir``); eval mode never does.
+    ``fused_bn`` is carried for config parity: the port's BN is always
+    FusedBNAct's math, one per-channel FMA + clamp. ``pretrained_path``
+    is a local ``.pth`` in the port's layout.
+
+    ViT: ``attention`` picks the core, ``auto`` and ``flash`` the flash
+    kernels (``tpunet_torch.ops.flash``), ``dense`` or ``blockwise`` the
+    plain versions; ``attention_block`` is the blockwise chunk and the
+    flash call's TPU block size. The sequence-parallel cores, MoE and
+    remat wait for their ROADMAP items and raise when set.
     """
 
-    name: str = "mobilenet_v2"
+    name: str = "mobilenet_v2"  # mobilenet_v2 | vit | vit_{tiny,small,base}
     num_classes: int = 10
     width_mult: float = 1.0
     dropout_rate: float = 0.2
@@ -131,20 +137,60 @@ class ModelConfig:
     pretrained_path: Optional[str] = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    vit_patch: int = 16
+    vit_hidden: int = 192
+    vit_depth: int = 6
+    vit_heads: int = 3
+    vit_mlp_ratio: float = 4.0
+    attention: str = "auto"
+    attention_block: int = 512
+    attention_core: str = "auto"
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_dispatch: str = "auto"
+    remat: bool = False
 
     def __post_init__(self):
         if self.name in _NOT_PORTED:
             raise NotImplementedError(
                 f"model {self.name!r} is not ported to tpunet_torch yet; "
                 f"it comes with ROADMAP {_NOT_PORTED[self.name]}")
-        if self.name != "mobilenet_v2":
+        if self.name != "mobilenet_v2" and self.name not in VIT_NAMES:
             raise ValueError(f"unknown model {self.name!r}")
         if not self.fused_bn:
             raise ValueError("fused_bn=False (nn.BatchNorm + clamp) computes "
                              "the same function; the port runs only the "
                              "fused form")
+        if self.attention not in ATTENTIONS:
+            raise ValueError(f"unknown attention {self.attention!r}; "
+                             f"expected one of {ATTENTIONS}")
+        if self.attention in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attention={self.attention!r} (sequence parallelism over a "
+                "mesh) is not ported to tpunet_torch yet; it comes with "
+                "ROADMAP Queue A item 8")
+        if self.attention_block < 1:
+            raise ValueError(f"attention_block must be >= 1, got "
+                             f"{self.attention_block}")
+        moe = "Queue A item 8 (MoE and expert parallelism)"
         _refuse_unported(self, {
-            "block_remat": "Queue A item 2b (block remat)"})
+            "block_remat": "Queue A item 2b (block remat)",
+            "remat": "Queue A item 2b (block remat)",
+            "attention_core": "Queue A item 8 (the ring/Ulysses cores)",
+            "moe_experts": moe, "moe_every": moe, "moe_top_k": moe,
+            "moe_capacity_factor": moe, "moe_aux_weight": moe,
+            "moe_dispatch": moe})
+        if self.name != "mobilenet_v2":
+            for f in ("width_mult", "use_pallas_depthwise", "fused_ir"):
+                default = next(x.default for x in dataclasses.fields(self)
+                               if x.name == f)
+                if getattr(self, f) != default:
+                    raise ValueError(f"ModelConfig.{f} is a MobileNetV2 "
+                                     f"field; model {self.name!r} does not "
+                                     "read it")
         if self.pretrained_path == "auto":
             raise NotImplementedError(
                 "pretrained_path='auto' downloads torchvision's ImageNet "

@@ -5,7 +5,7 @@ layout (what torchvision's download produces) and kept in host memory
 (50k x 32x32x3 uint8 = 150 MB). A deterministic synthetic dataset with
 CIFAR-10's shapes stands in when the real data is absent; for one seed
 it is bit-equal to tpunet's. The JAX package's token datasets come with
-ROADMAP Queue A item 4.
+ROADMAP Queue A item 4b.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-from tpunet_torch.infer.predict import Predictor
+from tpunet_torch.config import ModelConfig
+from tpunet_torch.infer.predict import Predictor, add_model_args, model_config
 
 
 def make_classify(predictor: Predictor):
@@ -28,7 +29,8 @@ def make_classify(predictor: Predictor):
 
 
 def build_interface(predictor: Optional[Predictor] = None,
-                    checkpoint: Optional[str] = None, device: str = "cuda"):
+                    checkpoint: Optional[str] = None, device: str = "cuda",
+                    model_cfg: Optional[ModelConfig] = None):
     try:
         import gradio as gr
     except ImportError as e:
@@ -36,12 +38,14 @@ def build_interface(predictor: Optional[Predictor] = None,
             "gradio is not installed; install it to serve the web app, or "
             "use tpunet_torch.infer.predict.Predictor directly") from e
 
-    predictor = predictor or Predictor(checkpoint=checkpoint, device=device)
+    predictor = predictor or Predictor(model_cfg, checkpoint=checkpoint,
+                                       device=device)
     return gr.Interface(
         fn=make_classify(predictor),
         inputs=gr.Image(type="pil", label="Input image"),
         outputs=gr.Label(num_top_classes=3, label="Prediction"),
-        title="tpunet CIFAR-10 classifier (MobileNetV2 on CUDA)",
+        title=f"tpunet CIFAR-10 classifier ({predictor.model_cfg.name} "
+              "on CUDA)",
         description="Top-3 classes with confidences.",
     )
 
@@ -50,12 +54,14 @@ def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(description="tpunet_torch web serving app")
     p.add_argument("--checkpoint", required=True,
-                   help="torchvision-layout MobileNetV2 .pth")
+                   help=".pth in the port's layout (a trainer's best.pth)")
+    add_model_args(p)
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7861)  # reference port
     args = p.parse_args(argv)
-    demo = build_interface(checkpoint=args.checkpoint, device=args.device)
+    demo = build_interface(checkpoint=args.checkpoint, device=args.device,
+                           model_cfg=model_config(args))
     demo.launch(server_name=args.host, server_port=args.port)
 
 

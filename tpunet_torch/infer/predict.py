@@ -1,7 +1,8 @@
 """Top-k inference with a confidence threshold, port of ``tpunet/infer/predict.py``.
 
 image (uint8 HWC) -> /255 -> bilinear resize to ``image_size`` -> the
-training normalization -> MobileNetV2 -> softmax -> top-k (default 3);
+training normalization -> the model of the ``ModelConfig`` (MobileNetV2
+or a ViT) -> softmax -> top-k (default 3);
 a best probability below ``conf_threshold`` (default 0.5) is reported
 as "uncertain".
 
@@ -108,11 +109,13 @@ class PredictionResult:
 
 
 class Predictor:
-    """Holds MobileNetV2 weights on ``device`` and serves top-k predictions.
+    """Holds a classifier's weights on ``device`` and serves top-k
+    predictions; any model of ``ModelConfig``.
 
-    Weights come from ``state_dict`` (torchvision layout, e.g.
-    :func:`tpunet_torch.models.convert.state_dict_from_jax`), or from the
-    ``.pth`` file ``checkpoint``, or else from the seeded init."""
+    Weights come from ``state_dict`` (the port's layout, e.g.
+    :func:`tpunet_torch.models.convert.state_dict_from_jax` or
+    :func:`~tpunet_torch.models.convert.vit_state_dict_from_jax`), or from
+    the ``.pth`` file ``checkpoint``, or else from the seeded init."""
 
     def __init__(self,
                  model_cfg: Optional[ModelConfig] = None,
@@ -125,7 +128,8 @@ class Predictor:
         self.data_cfg = data_cfg or DataConfig()
         self.device = torch.device(device)
         self.class_names = tuple(class_names)
-        self.model = create_model(self.model_cfg, device=device)
+        self.model = create_model(self.model_cfg, device=device,
+                                  image_size=self.data_cfg.image_size)
         if state_dict is not None:
             load_state_dict(self.model, state_dict)
         elif checkpoint:
@@ -158,6 +162,33 @@ class Predictor:
         )
 
 
+def add_model_args(p) -> None:
+    """The model flags of the serving CLIs, with tpunet's names."""
+    p.add_argument("--model", default="mobilenet_v2",
+                   choices=["mobilenet_v2", "vit", "vit_tiny", "vit_small",
+                            "vit_base"])
+    p.add_argument("--width-mult", type=float, default=None,
+                   help="MobileNetV2 width multiplier")
+    p.add_argument("--vit-patch", type=int, default=None)
+    p.add_argument("--vit-hidden", type=int, default=None)
+    p.add_argument("--vit-depth", type=int, default=None)
+    p.add_argument("--vit-heads", type=int, default=None)
+    p.add_argument("--vit-mlp-ratio", type=float, default=None)
+    p.add_argument("--attention", default=None,
+                   choices=["auto", "dense", "blockwise", "flash"],
+                   help="ViT attention core (auto = the flash kernels)")
+
+
+def model_config(args, **kw) -> ModelConfig:
+    """The ModelConfig of :func:`add_model_args`' flags (those not given
+    keep their defaults)."""
+    for name in ("width_mult", "vit_patch", "vit_hidden", "vit_depth",
+                 "vit_heads", "vit_mlp_ratio", "attention"):
+        if getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    return ModelConfig(name=args.model, **kw)
+
+
 def main(argv=None):
     import argparse
 
@@ -166,16 +197,15 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="tpunet_torch top-k inference")
     p.add_argument("image", help="path to an image file")
     p.add_argument("--checkpoint", required=True,
-                   help="torchvision-layout MobileNetV2 .pth")
-    p.add_argument("--width-mult", type=float, default=1.0)
+                   help=".pth in the port's layout (a trainer's best.pth)")
+    add_model_args(p)
     p.add_argument("--num-classes", type=int, default=10)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--device", default="cuda")
     p.add_argument("--topk", type=int, default=3)
     p.add_argument("--conf-threshold", type=float, default=0.5)
     args = p.parse_args(argv)
-    pred = Predictor(ModelConfig(width_mult=args.width_mult,
-                                 num_classes=args.num_classes),
+    pred = Predictor(model_config(args, num_classes=args.num_classes),
                      DataConfig(image_size=args.image_size,
                                 num_classes=args.num_classes),
                      checkpoint=args.checkpoint, device=args.device)

@@ -1,10 +1,13 @@
-"""Model registry of the port: ``create_model(cfg, device, generator)``.
+"""Model registry of the port: ``create_model(cfg, device, generator, image_size)``.
 
-Only MobileNetV2 is ported (``ModelConfig`` refuses other names). The
-initialization follows torchvision's: kaiming-normal fan_out convs,
-N(0, 0.01) classifier, unit/zero BN, drawn from an explicit
-``torch.Generator`` on the CPU and then moved, so one seed gives the
-same weights on every device.
+Dispatches on ``ModelConfig.name`` as ``tpunet/models/__init__.py``
+does: MobileNetV2, and the ViT family (``vit`` from the ``vit_*``
+fields, or the ``vit_tiny``/``vit_small``/``vit_base`` presets); the
+config refuses the names that are not ported. Weights are drawn from an
+explicit ``torch.Generator`` on the CPU and then moved, so one seed
+gives the same weights on every device. MobileNetV2 follows
+torchvision's initialisation (kaiming-normal fan_out convs, N(0, 0.01)
+classifier, unit/zero BN); the ViT follows Flax's (``init_vit``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from tpunet_torch.config import ModelConfig
 from tpunet_torch.models.mobilenetv2 import Conv, Linear, MobileNetV2
+from tpunet_torch.models.vit import create_vit
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -31,18 +35,24 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def create_model(cfg: ModelConfig, device: str = "cuda",
-                 generator: Optional[torch.Generator] = None) -> MobileNetV2:
-    """Build MobileNetV2 for ``cfg`` on ``device`` with weights drawn from
-    ``generator`` (a CPU generator seeded with 0 when None)."""
+                 generator: Optional[torch.Generator] = None,
+                 image_size: int = 224) -> torch.nn.Module:
+    """Build the model of ``cfg`` on ``device`` in eval mode, with weights
+    drawn from ``generator`` (a CPU generator seeded with 0 when None).
+    ``image_size`` sizes the ViT's position embedding; MobileNetV2 takes
+    any size."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = MobileNetV2(num_classes=cfg.num_classes,
-                        width_mult=cfg.width_mult,
-                        dropout_rate=cfg.dropout_rate,
-                        use_pallas=cfg.use_pallas_depthwise,
-                        fused_ir=cfg.fused_ir,
-                        dtype=getattr(torch, cfg.dtype))
-    init_weights(model, generator)
+    if cfg.name == "mobilenet_v2":
+        model = MobileNetV2(num_classes=cfg.num_classes,
+                            width_mult=cfg.width_mult,
+                            dropout_rate=cfg.dropout_rate,
+                            use_pallas=cfg.use_pallas_depthwise,
+                            fused_ir=cfg.fused_ir,
+                            dtype=getattr(torch, cfg.dtype))
+        init_weights(model, generator)
+    else:
+        model = create_vit(cfg, image_size, generator)
     return model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).eval()
 
 

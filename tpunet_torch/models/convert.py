@@ -1,18 +1,24 @@
-"""Carry MobileNetV2 weights across: Flax trees and ``.pth`` files -> the port.
+"""Carry weights across: Flax trees and ``.pth`` files -> the port.
 
 Port of the parts of ``tpunet/models/convert.py`` the port needs:
 
 - :func:`state_dict_from_jax` mirrors ``export_torch_state_dict``: Flax
-  ``params``/``batch_stats`` (as numpy arrays) -> torchvision-layout
-  state dict (HWIO -> OIHW, ``scale`` -> ``weight``, ``mean``/``var`` ->
-  ``running_*``);
+  MobileNetV2 ``params``/``batch_stats`` (as numpy arrays) ->
+  torchvision-layout state dict (HWIO -> OIHW, ``scale`` -> ``weight``,
+  ``mean``/``var`` -> ``running_*``);
+- :func:`vit_state_dict_from_jax`: a Flax ViT ``params`` tree -> the
+  port's ViT state dict (the patch kernel HWIO -> OIHW, Dense kernels
+  transposed to ``weight`` [out, in], LayerNorm ``scale`` -> ``weight``;
+  the qkv columns keep their (3, heads, head_dim) order);
 - :func:`load_state_dict` / :func:`load_state_dict_file` load such a
-  dict (bare, or under ``state_dict``/``model``/``params``; ``module.``
-  prefixes stripped) and, like ``convert_torch_state_dict``, leave the
-  head at its fresh init when the checkpoint's class count differs.
+  dict into either model (bare, or under ``state_dict``/``model``/
+  ``params``; ``module.`` prefixes stripped) and, like
+  ``convert_torch_state_dict``, leave the head at its fresh init when
+  the checkpoint's class count differs.
 
-From a tpunet checkpoint the user path is
-``python -m tpunet.models.convert out.pth`` and then this loader.
+From a tpunet MobileNetV2 checkpoint the user path is
+``python -m tpunet.models.convert out.pth`` and then this loader; from a
+Flax ViT tree, ``vit_state_dict_from_jax`` and then this loader.
 """
 
 from __future__ import annotations
@@ -23,8 +29,6 @@ import numpy as np
 import torch
 
 from tpunet_torch.models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS
-
-_HEAD_KEYS = ("classifier.1.weight", "classifier.1.bias")
 
 
 def _block_specs() -> Tuple[Tuple[str, int, bool], ...]:
@@ -79,6 +83,45 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     return sd
 
 
+def _dense(sd: Dict[str, torch.Tensor], key: str, node: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def _ln(sd: Dict[str, torch.Tensor], key: str, node: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(node["scale"])
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ViT ``params`` tree (numpy-convertible leaves) -> the port's
+    ViT state dict, CPU float32 tensors. The Dense kernel [in, out]
+    becomes ``weight`` [out, in] with its output index unchanged, so the
+    qkv projection's (3, heads, head_dim) column order is kept."""
+    pe = params["patch_embed"]
+    sd = {"patch_embed.weight": _t(np.asarray(pe["kernel"],
+                                              np.float32).transpose(3, 2, 0, 1)),
+          "patch_embed.bias": _t(pe["bias"]),
+          "pos_embed": _t(params["pos_embed"])}
+    i = 0
+    while f"block{i:02d}" in params:
+        blk, key = params[f"block{i:02d}"], f"blocks.{i}"
+        if "moe" in blk:
+            raise NotImplementedError(
+                "MoE blocks are not ported to tpunet_torch yet; they come "
+                "with ROADMAP Queue A item 8")
+        _ln(sd, f"{key}.ln1", blk["ln1"])
+        _dense(sd, f"{key}.attn.qkv", blk["attn"]["qkv"])
+        _dense(sd, f"{key}.attn.out", blk["attn"]["out"])
+        _ln(sd, f"{key}.ln2", blk["ln2"])
+        _dense(sd, f"{key}.mlp.fc1", blk["mlp"]["fc1"])
+        _dense(sd, f"{key}.mlp.fc2", blk["mlp"]["fc2"])
+        i += 1
+    _ln(sd, "ln", params["ln"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
 def _unwrap(obj: Mapping) -> Dict[str, torch.Tensor]:
     if not any(hasattr(v, "shape") for v in obj.values()):
         for key in ("state_dict", "model", "params"):
@@ -89,21 +132,24 @@ def _unwrap(obj: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_state_dict(model: torch.nn.Module, obj: Mapping) -> bool:
-    """Load a torchvision-layout state dict into ``model``; returns whether
-    the classifier head was loaded. A head of another class count (an
-    ImageNet checkpoint's 1000) is skipped and keeps its fresh init;
-    every other key must match (``num_batches_tracked`` may be absent)."""
+    """Load a state dict in the port's layout into ``model``; returns
+    whether the classifier head (``model.HEAD_KEYS``) was loaded. A head
+    of another class count (an ImageNet checkpoint's 1000) is skipped and
+    keeps its fresh init; every other key must match
+    (``num_batches_tracked`` may be absent)."""
     sd = _unwrap(obj)
-    head_ok = tuple(sd["classifier.1.weight"].shape) == tuple(
-        model.classifier[1].weight.shape)
+    head = model.HEAD_KEYS
+    head_ok = tuple(sd[head[0]].shape) == tuple(
+        model.get_parameter(head[0]).shape)
     if not head_ok:
-        sd = {k: v for k, v in sd.items() if k not in _HEAD_KEYS}
+        sd = {k: v for k, v in sd.items() if k not in head}
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")
-               and (head_ok or k not in _HEAD_KEYS)]
+               and (head_ok or k not in head)]
     if missing or unexpected:
-        raise RuntimeError(f"state dict does not match MobileNetV2: "
-                           f"missing {missing}, unexpected {unexpected}")
+        raise RuntimeError(f"state dict does not match "
+                           f"{type(model).__name__}: missing {missing}, "
+                           f"unexpected {unexpected}")
     return head_ok
 
 

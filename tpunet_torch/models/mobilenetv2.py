@@ -134,6 +134,8 @@ class MobileNetV2(nn.Module):
     [N, num_classes]. ``train=True`` uses batch statistics, updates the
     running ones, and draws the dropout mask from ``generator``."""
 
+    HEAD_KEYS = ("classifier.1.weight", "classifier.1.bias")
+
     def __init__(self, num_classes: int = 10, width_mult: float = 1.0,
                  dropout_rate: float = 0.2, use_pallas: bool = False,
                  dtype: torch.dtype = torch.bfloat16, fused_ir: bool = True):

@@ -1,0 +1,287 @@
+"""Vision Transformer in PyTorch, port of ``tpunet/models/vit.py``.
+
+Pre-LN encoder over non-overlapping patches, mean-pooled tokens (no CLS
+token), a linear head; float32 parameters, activations in ``dtype``
+(bf16 on the card), logits in float32. The parameter names mirror the
+Flax tree (``patch_embed``, ``pos_embed``, ``blocks.<i>.{ln1, attn.qkv,
+attn.out, ln2, mlp.fc1, mlp.fc2}``, ``ln``, ``classifier``), with torch
+layouts: Dense kernels as ``weight`` [out, in], the patch kernel OIHW;
+``tpunet_torch.models.convert.vit_state_dict_from_jax`` carries a Flax
+tree across.
+
+Flax's defaults, kept: LayerNorm epsilon 1e-6; GELU in its tanh form;
+the mean pool after the final LayerNorm; the classifier initialised to
+zero. The patch embedding (a p x p stride-p convolution) is written as
+the patches unfolded and one matrix product, so that a float32 forward
+on the card is float32 (cuDNN would run the convolution in TF32) and the
+product goes to a single large GEMM.
+
+``forward(x, train=False, generator=None)`` takes normalised images
+[N,3,H,W] (any memory format), as MobileNetV2's does, so the train
+step, the Predictor and the Trainer need no branch. The attention core
+is injected (:func:`make_attn_fn`): ``auto`` and ``flash`` give
+``tpunet_torch.ops.flash.flash_attention`` (the hand-written kernels on
+the card, their plain versions on the CPU), ``dense`` and ``blockwise``
+the plain versions of ``tpunet_torch.ops.attention``; q, k and v reach
+it as views of the fused projection. Dropout (``dropout_rate``) sits
+after the position embedding, each attention output and each MLP, 25
+masks in ViT-B/16: their bits come from a generator on the activations'
+device, seeded by one draw from the step's generator, so no mask is
+drawn on the host and copied. In eval mode the weights cast to
+``dtype`` are computed once and reused until a parameter changes.
+
+Not ported: the decode path and its KV caches (``decode``, ``PagedKV``:
+ROADMAP Queue A items 4b and 5), MoE blocks and the sequence-parallel
+cores (item 8), block remat (item 2b); the config refuses them.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpunet_torch.ops.attention import blockwise_attention, dense_attention
+from tpunet_torch.ops.flash import flash_attention
+
+AttnFn = Callable[..., torch.Tensor]  # (q, k, v) BTHD -> BTHD
+
+LN_EPSILON = 1e-6      # flax.linen.LayerNorm's default
+
+# Name -> (patch, hidden, depth, heads). "vit" uses the ModelConfig's
+# vit_* fields directly.
+VIT_PRESETS = {
+    "vit_tiny": (16, 192, 12, 3),
+    "vit_small": (16, 384, 12, 6),
+    "vit_base": (16, 768, 12, 12),
+}
+
+
+class Dense(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+
+class Attention(nn.Module):
+    """The fused qkv projection [C -> 3C] and the output projection."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.qkv = Dense(c, 3 * c)
+        self.out = Dense(c, c)
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, c: int, mlp_dim: int):
+        super().__init__()
+        self.fc1 = Dense(c, mlp_dim)
+        self.fc2 = Dense(mlp_dim, c)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN block: x + Attn(LN(x)); x + Mlp(LN(x))."""
+
+    def __init__(self, c: int, mlp_dim: int):
+        super().__init__()
+        self.ln1 = LayerNorm(c)
+        self.attn = Attention(c)
+        self.ln2 = LayerNorm(c)
+        self.mlp = MlpBlock(c, mlp_dim)
+
+
+class PatchEmbed(nn.Module):
+    """The p x p stride-p patch convolution's weight [hidden, 3, p, p]."""
+
+    def __init__(self, hidden: int, patch: int, channels: int = 3):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(hidden, channels, patch, patch))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+
+
+class ViT(nn.Module):
+    """ViT backbone + linear head for ``image_size`` square images."""
+
+    HEAD_KEYS = ("classifier.weight", "classifier.bias")
+
+    def __init__(self, num_classes: int = 10, image_size: int = 224,
+                 patch_size: int = 16, hidden: int = 192, depth: int = 6,
+                 heads: int = 3, mlp_ratio: float = 4.0,
+                 dropout_rate: float = 0.0,
+                 attn_fn: AttnFn = dense_attention,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if image_size % patch_size:
+            raise ValueError(f"image {image_size} not divisible by patch "
+                             f"{patch_size}")
+        if hidden % heads:
+            raise ValueError(f"hidden dim {hidden} not divisible by {heads} "
+                             "heads")
+        self.num_classes = num_classes
+        self.patch_size = patch_size
+        self.heads = heads
+        self.dropout_rate = dropout_rate
+        self.attn_fn = attn_fn
+        self.dtype = dtype
+        tokens = (image_size // patch_size) ** 2
+        self.patch_embed = PatchEmbed(hidden, patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
+        self.ln = LayerNorm(hidden)
+        self.classifier = Dense(hidden, num_classes)
+        # id(parameter) -> (source state, parameter, cast copy); eval only.
+        self._consts: Dict[int, tuple] = {}
+
+    def _cast(self, t: torch.Tensor, train: bool) -> torch.Tensor:
+        """``t`` in the activation dtype. In eval mode the cast is made
+        once and reused until ``t`` changes (load_state_dict and in-place
+        updates bump its version, ``.to()`` moves its storage); in train
+        mode it is made under autograd on every call."""
+        if train or t.is_inference():
+            return t.to(self.dtype)
+        state = (t.data_ptr(), t._version, self.dtype)
+        hit = self._consts.get(id(t))
+        if hit is None or hit[0] != state:
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (state, t, t.to(self.dtype))
+            self._consts[id(t)] = hit
+        return hit[2]
+
+    def _linear(self, dense: Dense, x: torch.Tensor, train: bool):
+        return F.linear(x, self._cast(dense.weight, train),
+                        self._cast(dense.bias, train))
+
+    def _norm(self, ln: LayerNorm, x: torch.Tensor, train: bool):
+        return F.layer_norm(x, x.shape[-1:], self._cast(ln.weight, train),
+                            self._cast(ln.bias, train), LN_EPSILON)
+
+    def _dropout(self, train: bool, generator: Optional[torch.Generator],
+                 device: torch.device) -> Callable[[torch.Tensor],
+                                                   torch.Tensor]:
+        """The step's dropout: x -> x / keep where a Bernoulli(keep) draw
+        is 1, else 0 (flax's ``nn.Dropout``); the identity in eval mode or
+        at rate 0."""
+        rate = self.dropout_rate
+        if not train or rate == 0.0:
+            return lambda x: x
+        if generator is None:
+            raise ValueError("train mode with dropout needs a generator")
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        bits = torch.Generator(device=device).manual_seed(seed)
+        keep = 1.0 - rate
+
+        def drop(x):
+            mask = torch.empty_like(x).bernoulli_(keep, generator=bits)
+            return x * mask / keep
+        return drop
+
+    def _attention(self, attn: Attention, x: torch.Tensor, train: bool):
+        b, t, c = x.shape
+        qkv = self._linear(attn.qkv, x, train)
+        q, k, v = qkv.view(b, t, 3, self.heads, c // self.heads).unbind(2)
+        y = self.attn_fn(q, k, v).reshape(b, t, c)
+        return self._linear(attn.out, y, train)
+
+    def _mlp(self, mlp: MlpBlock, x: torch.Tensor, train: bool):
+        y = F.gelu(self._linear(mlp.fc1, x, train), approximate="tanh")
+        return self._linear(mlp.fc2, y, train)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        n, ch, h, w = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"image {h}x{w} not divisible by patch {p}")
+        # [N,C,H,W] -> [N, tokens, C*p*p], tokens row-major over the patch
+        # grid and each patch in the (c, i, j) order of the OIHW weight;
+        # through NHWC, so a channels_last input is copied once.
+        x = x.to(self.dtype).permute(0, 2, 3, 1)
+        x = x.reshape(n, h // p, p, w // p, p, ch).permute(0, 1, 3, 5, 2, 4)
+        x = x.reshape(n, (h // p) * (w // p), ch * p * p)
+        pe = self.patch_embed
+        x = F.linear(x, self._cast(pe.weight, train).reshape(pe.weight.shape[0],
+                                                             -1),
+                     self._cast(pe.bias, train))
+        x = x + self._cast(self.pos_embed, train)
+        drop = self._dropout(train, generator, x.device)
+        x = drop(x)
+        for blk in self.blocks:
+            x = x + drop(self._attention(blk.attn,
+                                         self._norm(blk.ln1, x, train), train))
+            x = x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
+                                   train))
+        x = self._norm(self.ln, x, train).mean(dim=1)  # mean pool over tokens
+        return self._linear(self.classifier, x, train).float()
+
+
+def make_attn_fn(cfg) -> AttnFn:
+    """The configured attention core: ``auto`` and ``flash`` give the
+    flash kernels (``attention_block`` is their TPU block size, not read
+    by the CUDA kernels), ``dense`` the plain softmax, ``blockwise`` the
+    chunked online softmax over ``attention_block`` keys."""
+    if cfg.attention in ("auto", "flash"):
+        return functools.partial(flash_attention,
+                                 block_q=cfg.attention_block,
+                                 block_k=cfg.attention_block)
+    if cfg.attention == "dense":
+        return dense_attention
+    if cfg.attention == "blockwise":
+        return functools.partial(blockwise_attention,
+                                 block_size=cfg.attention_block)
+    if cfg.attention in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention={cfg.attention!r} (sequence parallelism over a mesh) "
+            "is not ported to tpunet_torch yet; it comes with ROADMAP "
+            "Queue A item 8")
+    raise ValueError(f"unknown attention {cfg.attention!r}")
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """Flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled so that the variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def init_vit(model: ViT, generator: torch.Generator) -> None:
+    """Flax's initialisers: lecun-normal Dense and patch kernels with zero
+    biases, N(0, 0.02) position embedding, unit/zero LayerNorms and a
+    zero classifier."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense):
+                _lecun_normal_(m.weight, m.weight.shape[1], generator)
+                m.bias.zero_()
+            elif isinstance(m, PatchEmbed):
+                _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                m.bias.zero_()
+        model.pos_embed.normal_(0.0, 0.02, generator=generator)
+        model.classifier.weight.zero_()
+
+
+def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
+    """The ViT of ``cfg``: a preset's (patch, hidden, depth, heads), or
+    the ``vit_*`` fields for ``vit``."""
+    patch, hidden, depth, heads = VIT_PRESETS.get(cfg.name, (
+        cfg.vit_patch, cfg.vit_hidden, cfg.vit_depth, cfg.vit_heads))
+    model = ViT(num_classes=cfg.num_classes, image_size=image_size,
+                patch_size=patch, hidden=hidden, depth=depth, heads=heads,
+                mlp_ratio=cfg.vit_mlp_ratio, dropout_rate=cfg.dropout_rate,
+                attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype))
+    init_vit(model, generator)
+    return model

@@ -5,7 +5,11 @@
   ``tpunet/ops/depthwise.py``;
 - ``fused_ir``: the fused 1x1 conv + train-mode BN statistics forward
   and its backward (CUDA C++, ``csrc/fused_ir.cu``), port of
-  ``tpunet/ops/fused_ir.py``.
+  ``tpunet/ops/fused_ir.py``;
+- ``flash``: flash attention, the forward with optional lse, dQ and
+  dK/dV (CUDA C++, ``csrc/flash.cu``), port of ``tpunet/ops/flash.py``;
+  ``attention`` holds the plain dense and blockwise attentions of
+  ``tpunet/ops/attention.py``.
 
 Kernels are built by ``_build`` at first use on a CUDA tensor; a CPU
 tensor always takes the plain version.

@@ -1,3 +1,3 @@
-"""MobileNetV2 training: ``python -m tpunet_torch.train`` (see
+"""Training of the image classifiers (MobileNetV2, the ViT family): ``python -m tpunet_torch.train`` (see
 ``__main__``), the ``Trainer`` (``loop``), the steps, the optimizer
 stack and the metric sums."""

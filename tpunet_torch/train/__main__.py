@@ -4,6 +4,7 @@
     python -m tpunet_torch.train --preset single              # on the card
     python -m tpunet_torch.train --preset serial --dataset synthetic \\
         --image-size 32 --width-mult 0.5 --dtype float32 --device cpu
+    python -m tpunet_torch.train --model vit_base                 # ViT-B/16
 
 Presets: ``serial`` (batch 64), ``single`` (batch 128); ``distributed``
 waits for ROADMAP Queue A item 3. Any other flag of tpunet's CLI is
@@ -55,6 +56,22 @@ def build_argparser() -> argparse.ArgumentParser:
                    action=argparse.BooleanOptionalAction,
                    help="train-mode expand/project 1x1 convs through the "
                         "fused conv + BN-statistics kernels (default on)")
+    p.add_argument("--model", default=None,
+                   choices=["mobilenet_v2", "vit", "vit_tiny", "vit_small",
+                            "vit_base", "vit_pp", "lm", "lm_pp"])
+    p.add_argument("--vit-patch", type=int, default=None)
+    p.add_argument("--vit-hidden", type=int, default=None)
+    p.add_argument("--vit-depth", type=int, default=None)
+    p.add_argument("--vit-heads", type=int, default=None)
+    p.add_argument("--vit-mlp-ratio", type=float, default=None)
+    p.add_argument("--attention", default=None,
+                   choices=["auto", "dense", "blockwise", "flash", "ring",
+                            "ulysses"],
+                   help="ViT attention core: auto and flash run the "
+                        "hand-written flash kernels on the card")
+    p.add_argument("--attention-block", type=int, default=None,
+                   help="K/V chunk for --attention blockwise; the TPU "
+                        "block size of --attention flash")
     p.add_argument("--width-mult", type=float, default=None)
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
@@ -85,13 +102,19 @@ def config_from_args(argv=None):
         data = dataclasses.replace(
             data, synthetic_train_size=args.synthetic_size,
             synthetic_test_size=max(1, args.synthetic_size // 4))
-    for dest, obj_field in (("pallas_depthwise", "use_pallas_depthwise"),
+    fields = {}
+    for dest, obj_field in (("model", "name"),
+                            ("pallas_depthwise", "use_pallas_depthwise"),
                             ("fused_ir", "fused_ir"),
                             ("width_mult", "width_mult"),
-                            ("dtype", "dtype")):
+                            ("dtype", "dtype")) + tuple(
+            (f, f) for f in ("vit_patch", "vit_hidden", "vit_depth",
+                             "vit_heads", "vit_mlp_ratio", "attention",
+                             "attention_block")):
         val = getattr(args, dest)
         if val is not None:
-            model = dataclasses.replace(model, **{obj_field: val})
+            fields[obj_field] = val
+    model = dataclasses.replace(model, **fields)
     for dest, obj_field in (("lr", "learning_rate"),
                             ("lr_schedule", "schedule"),
                             ("warmup_epochs", "warmup_epochs"),

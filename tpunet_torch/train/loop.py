@@ -5,8 +5,9 @@ The reference's shape: per epoch, a reshuffled train pass, a full eval
 pass, the scheduler tick, one epoch line, best-accuracy tracking; then
 the summary lines. Here the step is the port's train step on one device
 (``cuda`` unless the caller asks for ``cpu``), the metrics are exact
-sums read once per epoch, the best weights are a torchvision-layout
-``.pth`` and the full state allows ``--resume``. Each epoch appends one
+sums read once per epoch, the best weights are a ``.pth`` in the port's
+layout and the full state allows ``--resume``; all of it for any model
+of ``ModelConfig``, with or without BN. Each epoch appends one
 plain record to ``<checkpoint-dir>/metrics.jsonl``
 (``docs/metrics_schema.md``). Not in this slice (ROADMAP Queue A items
 2b and 7): the obs subsystem, preemption, chaos and elastic paths.
@@ -70,7 +71,8 @@ class Trainer:
         if self.spe == 0:
             raise ValueError("batch size larger than training set")
         model = create_model(cfg.model, device=str(self.device),
-                             generator=torch.Generator().manual_seed(cfg.seed))
+                             generator=torch.Generator().manual_seed(cfg.seed),
+                             image_size=cfg.data.image_size)
         if cfg.model.pretrained_path:
             load_state_dict_file(cfg.model.pretrained_path, model)
         self._schedule = lr_schedule(cfg.optim, self.spe, cfg.epochs)

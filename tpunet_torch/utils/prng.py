@@ -3,8 +3,13 @@
 tpunet folds the global step into a root key (``step_key``,
 ``tpunet/utils/prng.py``); here one CPU ``torch.Generator`` per step is
 seeded from (seed, global step). A resumed run therefore repeats the
-same draws, and the draws do not depend on the device: the step's
-augmentation parameters and dropout mask are drawn on the CPU and moved.
+same draws. The step's augmentation parameters and MobileNetV2's one
+dropout mask are drawn on the CPU and moved, so they do not depend on
+the device. The ViT's dropout masks (25 in ViT-B/16, up to 128 x 196 x
+3072 elements each) are too large to draw on the host: their bits come
+from a generator on the activations' device seeded by one draw from the
+step's generator, so they are a function of (seed, step) on a given
+device, and differ between the CPU and the card.
 """
 
 from __future__ import annotations
