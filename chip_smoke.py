@@ -3,7 +3,9 @@
     python3 chip_smoke.py          # from the repo root; needs a CUDA card and nvcc
 
 Phases, each of which must pass:
-  1. build every kernel under tpunet_torch/csrc with nvcc;
+  1. build every kernel under tpunet_torch/csrc with nvcc, print ptxas's
+     registers and spills per kernel, and fail if a tensor-core flash
+     kernel spills at head dim 64;
   2. hold the depthwise forward kernel against its plain PyTorch version
      at MobileNetV2's 10 depthwise shapes (batch 8, f32 and bf16) plus
      odd cases, and time kernel, plain version, the library call and the
@@ -32,10 +34,13 @@ Phases, each of which must pass:
      against their plain versions in f32 and bf16 at ViT-B/16's shapes
      (batch 8 and 128, T 196, 12 heads of 64) and at odd ones (causal
      T 1024, causal tq < tk, packed segments with a query that sees no
-     key, T that no tile divides, head dims 32 and 128, a nonzero glse),
-     and time them at batch 128 against their bound, their plain
-     versions and scaled_dot_product_attention (forward; its backward
-     through autograd for dQ and dK/dV together);
+     key, T that no tile divides, head dims 16, 32 and 128, a nonzero
+     glse, T of 1, 15, 17, 65, Tk 9 < Tq 40, causal Tq 5 < Tk 70); in
+     bf16 also the forward output, dK and dV against the plain versions
+     on float32 copies of the inputs, within twice the plain bf16
+     versions' error; and time them at batch 128 against their bound,
+     their plain versions and scaled_dot_product_attention (forward; its
+     backward through autograd for dQ and dK/dV together);
   8. serve ViT-B/16 (224 px, bf16, random weights from a seed) through
      Predictor and ClassifyBatcher with the same clients and images as
      phase 4, 12 flash launches a batched forward, logits against the
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -111,7 +117,26 @@ FLASH_CASES = [
     (4, 77, 77, 4, 32, False, False, False),        # no tile divides T
     (2, 150, 150, 2, 128, True, False, False),
     (BATCH, 196, 196, 12, 64, False, False, True),  # nonzero glse
+    # T that cut through the tensor-core kernels' 16-row warps and their
+    # 8-key / 16-key steps.
+    (2, 1, 1, 4, 64, False, False, False),
+    (2, 15, 15, 4, 64, False, False, False),
+    (2, 17, 17, 4, 64, True, False, False),
+    (2, 65, 65, 4, 64, False, False, True),
+    (2, 40, 9, 4, 64, False, False, False),         # Tk below one n8 step
+    (2, 5, 70, 4, 64, True, False, False),          # the diagonal in a warp
+    (2, 196, 196, 4, 16, False, False, False),
+    (2, 196, 196, 4, 128, False, False, False),
+    (2, 33, 33, 4, 32, False, True, False),
 ]
+# How each flash kernel computes, in bf16 (the main path's type).
+FLASH_DESIGN = {
+    "flash_attention_forward": "mma.sync m16n8k16 bf16, ldmatrix, "
+                               "cp.async x2, P in registers",
+    "flash_attention_dq": "float32 SIMT",
+    "flash_attention_dkv": "mma.sync m16n8k16 bf16, ldmatrix, "
+                           "cp.async x2, P and dS in registers",
+}
 
 
 class PhaseError(Exception):
@@ -195,11 +220,66 @@ def bf16_ulp(torch, v):
     return torch.exp2(e - 7)
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_mma<64>`` for the mangled name of a kernel in the
+    anonymous namespace of a csrc source, or the mangled name itself."""
+    m = re.match(r"_ZN(\d+)", mangled)        # the namespace's length
+    m = m and re.compile(r"\d+").match(mangled, m.end() + int(m.group(1)))
+    if not m:
+        return mangled
+    end = m.end() + int(m.group())
+    name, rest = mangled[m.end():end], mangled[end:]
+    args = []
+    if rest.startswith("If"):
+        args.append("float")
+    elif rest.startswith("I13__nv_bfloat16"):
+        args.append("bf16")
+    args += re.findall(r"Li(\d+)E", rest)
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def sass_mix(path, labels) -> dict:
+    """Static instruction mix of the kernels ``labels`` in a built library,
+    from cuobjdump: all instructions, and the tensor-core products (HMMA),
+    shared-memory matrix loads (LDSM), special-function ops (MUFU, the
+    exps) and async copies (LDGSTS) among them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, timeout=300).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"not measured": str(e)}
+    mix = {}
+    for sec in re.split(r"\n\s*Function : ", sass)[1:]:
+        label = kernel_label(sec.split("\n", 1)[0].strip())
+        if label in labels:
+            ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                             sec)
+            mix[label] = {"instructions": len(ops), **{
+                op: ops.count(op) for op in ("HMMA", "LDSM", "MUFU",
+                                             "LDGSTS")}}
+    return mix
+
+
 def phase_build():
+    """Build every kernel source; emit ptxas's registers and spills per
+    kernel and the instruction mix of the tensor-core flash kernels at
+    D = 64, and fail if one of those spills (the main path)."""
     from tpunet_torch.ops import _build
     t0 = time.perf_counter()
     names = _build.build_all()
-    emit("build", kernels=names, seconds=time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    ptxas = {f"{name}:{kernel_label(k)}": v for name in names
+             for k, v in _build.resources(name).items()}
+    emit("build", kernels=names, seconds=seconds, ptxas=ptxas,
+         sass=sass_mix(_build.library_path("flash"),
+                       ("flash_fwd_mma<64>", "flash_bwd_dkv_mma<64>")))
+    mma = {k: v for k, v in ptxas.items() if "_mma<" in k}
+    check(len(mma) == 8, f"ptxas reported {sorted(mma)}, want the 2 "
+          "tensor-core flash kernels at 4 head dims")
+    spills = [k for k, v in mma.items()
+              if k.endswith("<64>") and v.get("spill_stores", 1)]
+    check(not spills, f"{spills} spill registers at D = 64")
 
 
 def dw_fwd_bound(x, w, y) -> dict:
@@ -1124,9 +1204,15 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
     apart); lse within 1e-5 (1 + |lse|) and exactly -1e30 with a zero
     output on rows that see no key. Backward (from the plain lse):
     within 1e-5 of the sum of the products' magnitudes, in bf16 plus one
-    ulp and 2^-8 of that sum. Returns, per kernel, the max abs error,
-    the largest error over its tolerance and the largest |plain output|
-    (so that an error of 0 is seen to be over values that are not)."""
+    ulp and 2^-8 of that sum. In bf16 also against the truth, the plain
+    versions run on float32 copies of the same bf16 inputs: the kernels'
+    largest errors in the forward output, dK and dV are at most twice the
+    plain bf16 versions' (plus 1e-5 of max |v| or of the products'
+    magnitudes, the float32 allowance for sums in another order, which
+    only counts where both errors are that small). Returns, per kernel,
+    the max abs error, the largest error over its tolerance, the largest
+    |plain output| (so that an error of 0 is seen to be over values that
+    are not) and, in bf16, both errors against the truth."""
     (q, k, v, do), seg, causal, glse = flash_inputs(torch, case, dtype, seed)
     tag = f"flash {dtype} {case}"
     out, lse = fl.flash_attention_forward(q, k, v, causal=causal,
@@ -1145,6 +1231,12 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
     errs = {fwd: max(err_f, err_l)}
     ratios = {fwd: max(ratio_f, ratio)}
     refs = {fwd: pout.float().abs().max().item()}
+    truth = {}
+    if bf:
+        f32 = [t.float() for t in (q, k, v, do)]
+        tout, tlse = fl.flash_attention_forward_reference(
+            *f32[:3], causal=causal, segment_ids=seg)
+        truth[fwd] = (out, pout, tout, 1e-5 * vmax)
     dead = plse <= -1e30
     check(bool((lse[dead] == plse[dead]).all())
           and bool((out.float().transpose(1, 2)[dead] == 0).all()),
@@ -1167,9 +1259,24 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
         errs[key] = max(errs.get(key, 0.0), err)
         ratios[key] = max(ratios.get(key, 0.0), ratio)
         refs[key] = max(refs.get(key, 0.0), w.float().abs().max().item())
+    if bf:
+        tdelta = (tout * f32[3]).sum(-1).transpose(1, 2).contiguous()
+        tdk, tdv = fl.flash_attention_dkv_reference(
+            *f32, tlse, tdelta, causal=causal, segment_ids=seg, glse=glse)
+        truth["dk"] = (got[1], want[1], tdk, 1e-5 * mags[1].max())
+        truth["dv"] = (got[2], want[2], tdv, 1e-5 * mags[2].max())
+    f32_truth = {}
+    for name, (kern, plain, true, floor) in truth.items():
+        e_k = (kern.float() - true).abs().max().item()
+        e_p = (plain.float() - true).abs().max().item()
+        f32_truth[name] = {"kernel": e_k, "plain_bf16": e_p,
+                           "within_2x": e_k <= 2 * e_p}
+        check(e_k <= 2 * e_p + float(floor),
+              f"{tag}: {name} is {e_k} from the float32 truth, more than "
+              f"twice the plain bf16 version's {e_p}")
     torch.cuda.synchronize()
     return {"max_abs_err": errs, "max_err_over_tol": ratios,
-            "max_abs_plain": refs}
+            "max_abs_plain": refs, "f32_truth": f32_truth}
 
 
 def flash_bounds(b, t, h, d, elem, kind) -> dict:
@@ -1263,8 +1370,12 @@ def phase_flash_kernels(torch) -> dict:
             **flash_bounds(TRAIN_BATCH, 196, 12, 64, 2, "dkv")),
     }
     for name, row in rows.items():
+        # Shares of the memory and bf16 tensor-core rates that the kernel
+        # reaches: what is left is neither bytes nor products.
+        row.update(hbm_share=row["bytes_ms"] / row["kernel_ms"],
+                   tensor_share=row["ops_ms"] / row["kernel_ms"])
         row.update(batch=TRAIN_BATCH, layers=VIT_LAYERS,
-                   max_abs_err=worst[name],
+                   design=FLASH_DESIGN[name], max_abs_err=worst[name],
                    bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
                    else "operations")
         emit("flash_timing", name=name, **row)

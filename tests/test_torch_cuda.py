@@ -287,9 +287,19 @@ def test_train_step_on_card_launches_and_matches_plain(cuda, monkeypatch):
 # (b, tq, tk, h, d, causal, segments): the ViT-B/16 shape, causal with
 # tq = tk and tq < tk, packed segments with a fully masked row, a T that
 # no 64-row tile divides, and each head dim the kernels are built for.
+# Then T that cut through the tensor-core kernels' 16-row warps and
+# 8-key / 16-key steps: Tq = Tk of 1, 15, 17 and 65; Tk 9 under Tq 40;
+# causal Tq 5 < Tk 70 (the diagonal inside one warp's rows); D 16 and
+# 128 at T 196; segments with a row that sees no key at T 33.
 FLASH = [(2, 196, 196, 3, 64, False, False), (1, 130, 130, 2, 32, True, False),
          (2, 40, 130, 2, 128, True, False), (2, 70, 70, 2, 16, False, True),
-         (1, 100, 100, 2, 64, True, True)]
+         (1, 100, 100, 2, 64, True, True),
+         (2, 1, 1, 2, 64, False, False), (2, 15, 15, 2, 64, False, False),
+         (2, 17, 17, 2, 64, True, False), (2, 65, 65, 2, 64, False, False),
+         (2, 40, 9, 2, 64, False, False), (2, 5, 70, 2, 64, True, False),
+         (1, 196, 196, 2, 16, False, False),
+         (1, 196, 196, 2, 128, False, False),
+         (2, 33, 33, 2, 32, False, True)]
 
 
 def _flash_inputs(case, dtype, seed):
@@ -426,6 +436,23 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         y = torch.randn(1, 8, 1, 128, device="cuda")[..., ::2]
         flash.flash_attention_forward(y, y, y)
+
+
+def test_flash_refuses_an_unaligned_bf16_view(cuda):
+    """A bf16 view whose token stride (D + 1 elements) is no multiple of
+    16 bytes is refused before any launch: the tensor-core kernels copy
+    16-byte chunks."""
+    from tpunet_torch.ops import flash
+    buf = torch.randn(2, 40, 65, device="cuda").bfloat16()
+    bad = buf[..., :64].unsqueeze(2)
+    ok = bad.contiguous()
+    before = flash.flash_attention_forward.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash.flash_attention_forward(ok, bad, ok)
+    assert flash.flash_attention_forward.launches == before
+    flash.flash_attention_forward(ok, ok, ok)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_forward.launches == before + 1
 
 
 def test_vit_on_card_launches_the_flash_kernels(cuda):

@@ -230,3 +230,71 @@ def test_backward_wrappers_check_their_row_inputs():
             x, x, x, segment_ids=(torch.zeros(2, 6), torch.zeros(2, 6)))
     with pytest.raises(ValueError, match="block_q"):
         flash.flash_attention(x, x, x, block_q=0)
+
+
+
+def _token_stride_d_plus_1(x, dtype=torch.bfloat16):
+    """x [B,T,1,D] as a view whose token stride is D + 1 elements."""
+    b, t, _, d = x.shape
+    buf = torch.zeros(b, t, d + 1, dtype=dtype)
+    buf[..., :d] = x[:, :, 0]
+    return buf[..., :d].unsqueeze(2)
+
+
+def _pointer_plus_2(x):
+    """x as a contiguous bf16 view 2 bytes past a 16-byte boundary."""
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("make", [_token_stride_d_plus_1, _pointer_plus_2],
+                         ids=["token_stride_d_plus_1", "pointer_plus_2"])
+def test_unaligned_bf16_operands_raise(make):
+    """The bf16 kernels copy 16-byte chunks, so a bf16 operand whose data
+    pointer or batch/token/head stride is no multiple of 16 bytes is
+    refused on the CPU as on the card, by every wrapper."""
+    x = torch.randn(2, 6, 1, 16)
+    bad, ok = make(x), x.bfloat16()
+    assert bad.stride(-1) == 1 and torch.equal(bad, ok)
+    lse = torch.zeros(2, 1, 6)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash.flash_attention_forward(ok, bad, ok)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash.flash_attention(bad, ok, ok)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash.flash_attention_dq(ok, ok, ok, bad, lse, lse)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash.flash_attention_dkv(ok, ok, bad, ok, lse, lse)
+
+
+def test_float32_and_fused_projection_views_pass_the_alignment_rule():
+    """float32 operands may have any token stride; the ViT's qkv.unbind(2)
+    views of a fused projection pass in bf16. Both give the values of
+    contiguous copies."""
+    x = torch.randn(2, 6, 1, 16)
+    f32 = _token_stride_d_plus_1(x, torch.float32)
+    assert f32.stride(1) == 17
+    torch.testing.assert_close(flash.flash_attention_forward(f32, f32, f32),
+                               flash.flash_attention_forward(x, x, x),
+                               rtol=0, atol=0)
+    qkv = torch.randn(2, 6, 3, 2, 16).bfloat16()
+    q, k, v = qkv.unbind(2)
+    out = flash.flash_attention_forward(q, k, v)
+    want = flash.flash_attention_forward(*(t.contiguous() for t in (q, k, v)))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def test_backward_copies_an_unaligned_output_gradient():
+    """An output gradient that is a bf16 view the kernels cannot read
+    (token stride D + 1) is copied before the backward, which then gives
+    the gradients of its contiguous copy."""
+    gen = torch.Generator().manual_seed(9)
+    x = [torch.randn(2, 6, 1, 16, generator=gen).bfloat16().requires_grad_()
+         for _ in range(3)]
+    g = _token_stride_d_plus_1(torch.randn(2, 6, 1, 16, generator=gen))
+    assert flash._misaligned(g)
+    got = torch.autograd.grad(flash.flash_attention(*x), x, g)
+    want = torch.autograd.grad(flash.flash_attention(*x), x, g.contiguous())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

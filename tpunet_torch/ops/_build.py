@@ -4,10 +4,13 @@ Every ``tpunet_torch/csrc/<name>.cu`` is compiled at first use into a
 shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/tpunet_torch/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/tpunet_torch/lib<name>-<hash>.so <name>.cu
 
 The library's file name carries a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
+ptxas's report of each kernel's registers and spills is kept beside the
+library (``lib<name>-<hash>.ptxas.txt``) and read by :func:`resources`.
 The source includes no PyTorch header, which keeps a build to seconds.
 A failed build or load raises with nvcc's output; there is no fallback.
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +31,7 @@ from typing import Dict, List
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpunet_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -70,6 +74,7 @@ def _build(name: str) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
                            f"(exit {out.returncode}):\n{out.stdout}")
+    library_path(name).with_suffix(".ptxas.txt").write_text(out.stdout)
     os.replace(tmp, library_path(name))
 
 
@@ -95,3 +100,28 @@ def build_all() -> List[str]:
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         list(pool.map(load, names))
     return names
+
+
+def resources(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (by mangled name), the registers a
+    thread and the spill stores and loads in bytes, from ptxas's report
+    of its build; empty before the library is built."""
+    log = library_path(name).with_suffix(".ptxas.txt")
+    found: Dict[str, Dict[str, int]] = {}
+    if not log.exists():
+        return found
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = found.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return found

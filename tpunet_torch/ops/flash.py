@@ -24,7 +24,23 @@ their probabilities 0, so a query with no key gives 0 and lse -1e30.
 
 Dispatch is by device only: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel (``tpunet_torch/csrc/flash.cu``) or
-raises. The kernels tile queries and keys by 64 whatever ``block_q`` and
+raises. Which kernel is chosen by type inside the library:
+
+- bfloat16 forward and dK/dV: tensor-core kernels (``mma.sync`` bf16
+  products with float32 sums, tiles brought in by 16-byte ``cp.async``,
+  p and ds kept in registers between the two products). Bytes set their
+  least time at ViT's shapes, so the design reads each operand once,
+  keeps the next tile's loads in flight, keeps the elementwise work lean
+  (the card shows them bound by instruction issue) and skips the parts
+  of the ragged last tile that lie past T. Their 16-byte copies need a
+  bf16 operand's data pointer and batch/token/head strides to be
+  multiples of 16 bytes; :func:`_check` raises otherwise (the views
+  ``qkv.unbind(2)`` of a fused projection pass);
+- float32 in all three, and dQ in both types: SIMT kernels that stage
+  tiles as float32 and multiply on the CUDA cores, summing in the plain
+  versions' order (dQ and dK/dV equal them bit for bit at ViT's shapes).
+
+The kernels tile queries and keys by 64 whatever ``block_q`` and
 ``block_k`` say (those are the TPU kernel's block sizes, accepted for
 tpunet's signature), and the plain forward steps through keys in the
 same tiles of :data:`KERNEL_BLOCK`, so that p is rounded to the input
@@ -153,6 +169,19 @@ def flash_attention_dkv_reference(q, k, v, do, lse, delta, *,
 # ---------------------------------------------------------------------------
 
 
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' 16-byte copies cannot read ``t``: a
+    bfloat16 BTHD tensor whose data pointer, or whose batch, token or
+    head stride along a dim longer than 1, is not a multiple of 16
+    bytes."""
+    if t.dtype != torch.bfloat16:
+        return False
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 != 0
+            or any(s % step for s, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1))
+
+
 def _check(name: str, q, k, v, segment_ids, do=None, rows=()) -> None:
     """Raise on what the kernels do not take, on either device."""
     tensors = [q, k, v] + ([do] if do is not None else [])
@@ -181,6 +210,13 @@ def _check(name: str, q, k, v, segment_ids, do=None, rows=()) -> None:
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: the head dim must be contiguous "
                          "(stride 1); batch, token and head strides are free")
+    bad = [t for t in tensors if _misaligned(t)]
+    if bad:
+        raise ValueError(
+            f"{name}: a bfloat16 operand's data pointer and batch, token "
+            "and head strides must be multiples of 16 bytes (the kernels "
+            "copy 16-byte chunks with cp.async); got strides "
+            f"{[tuple(t.stride()) for t in bad]}")
     if b > 65535 or h > 65535:
         raise ValueError(f"{name}: batch {b} or heads {h} above 65535")
     for r in rows:
@@ -378,8 +414,9 @@ class FlashAttentionFunction(torch.autograd.Function):
         seg = None if q_seg is None else (q_seg, kv_seg)
         if g_out is None:
             g_out = torch.zeros_like(out)
-        elif g_out.stride(-1) != 1:
-            g_out = g_out.contiguous()     # the kernels read d contiguous
+        elif g_out.stride(-1) != 1 or _misaligned(g_out):
+            # The kernels read d contiguous, and bf16 in 16-byte chunks.
+            g_out = g_out.clone(memory_format=torch.contiguous_format)
         # delta = rowsum(dO * O) in float32, [B,H,Tq] (tpunet's :508).
         delta = (out.float() * g_out.float()).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
