@@ -12,8 +12,10 @@ Phases, each of which must pass:
      bound at batch 8 (serving) and 128 (training);
   3. the same for the training kernels — the depthwise backward and the
      fused-IR forward and backward — at every MobileNetV2 shape (batch 8,
-     f32 and bf16) plus odd cases, then checked again and timed at batch
-     128 in bf16, the training main path's inputs;
+     f32 and bf16) plus odd cases, then checked again (the depthwise
+     backward in f32 and bf16) and timed at batch 128 in bf16, the
+     training main path's inputs, where two launches of the depthwise
+     backward must also give the same dx and dw bit for bit;
   4. serve classify requests at full width (MobileNetV2 1.0, 224 px,
      bf16, hand-written depthwise kernel) through Predictor and
      ClassifyBatcher from 4 closed-loop client threads for a 5 s
@@ -36,9 +38,9 @@ Phases, each of which must pass:
      T 1024, causal tq < tk, packed segments with a query that sees no
      key, T that no tile divides, head dims 16, 32 and 128, a nonzero
      glse, T of 1, 15, 17, 65, Tk 9 < Tq 40, causal Tq 5 < Tk 70); in
-     bf16 also the forward output, dK and dV against the plain versions
-     on float32 copies of the inputs, within twice the plain bf16
-     versions' error; and time them at batch 128 against their bound,
+     bf16 also the forward output, dQ, dK and dV against the plain
+     versions on float32 copies of the inputs, within twice the plain
+     bf16 versions' error; and time them at batch 128 against their bound,
      their plain versions and scaled_dot_product_attention (forward; its
      backward through autograd for dQ and dK/dV together);
   8. serve ViT-B/16 (224 px, bf16, random weights from a seed) through
@@ -133,7 +135,8 @@ FLASH_CASES = [
 FLASH_DESIGN = {
     "flash_attention_forward": "mma.sync m16n8k16 bf16, ldmatrix, "
                                "cp.async x2, P in registers",
-    "flash_attention_dq": "float32 SIMT",
+    "flash_attention_dq": "mma.sync m16n8k16 bf16, ldmatrix, "
+                          "cp.async x2, dS in registers, no atomics",
     "flash_attention_dkv": "mma.sync m16n8k16 bf16, ldmatrix, "
                            "cp.async x2, P and dS in registers",
 }
@@ -192,7 +195,6 @@ def profile_forward(torch, model, x, wall_ms: float) -> dict:
     """Device time of one batched forward by kernel family, from
     torch.profiler's CUDA activity, and the card's idle share against the
     forward's wall time (measured without the profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -202,7 +204,7 @@ def profile_forward(torch, model, x, wall_ms: float) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             model(x)
             torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, _ = device_activity(prof)
     if not kernels:
         return {"device_ms": "not measured (no CUDA events in the trace)"}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -212,6 +214,27 @@ def profile_forward(torch, model, x, wall_ms: float) -> dict:
             "depthwise_device_ms": sum(e.time_range.elapsed_us()
                                        for e in dw) / 1e3,
             "wall_ms": wall_ms, "device_idle_share": 1.0 - busy / wall_ms}
+
+
+def device_activity(prof) -> tuple:
+    """The card's own activity in a torch.profiler trace: its kernels,
+    copies and fills, as (events, {name: ms} of what was left out). A GPU
+    user annotation (the ``Optimizer.step`` range, which spans kernels
+    that are counted already) is a CUDA-side event too; torch marks it
+    ``is_user_annotation`` (torch 2.11 exposes no activity kind), and it
+    is left out, as torch's own device-time totals leave it out."""
+    from torch.autograd import DeviceType
+
+    kept, excluded = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation:
+            excluded[e.name] = (excluded.get(e.name, 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+        else:
+            kept.append(e)
+    return kept, excluded
 
 
 def bf16_ulp(torch, v):
@@ -263,8 +286,8 @@ def sass_mix(path, labels) -> dict:
 
 def phase_build():
     """Build every kernel source; emit ptxas's registers and spills per
-    kernel and the instruction mix of the tensor-core flash kernels at
-    D = 64, and fail if one of those spills (the main path)."""
+    kernel and the instruction mix of the three tensor-core flash kernels
+    at D = 64, and fail if one of those spills (the main path)."""
     from tpunet_torch.ops import _build
     t0 = time.perf_counter()
     names = _build.build_all()
@@ -273,9 +296,10 @@ def phase_build():
              for k, v in _build.resources(name).items()}
     emit("build", kernels=names, seconds=seconds, ptxas=ptxas,
          sass=sass_mix(_build.library_path("flash"),
-                       ("flash_fwd_mma<64>", "flash_bwd_dkv_mma<64>")))
+                       ("flash_fwd_mma<64>", "flash_bwd_dq_mma<64>",
+                        "flash_bwd_dkv_mma<64>")))
     mma = {k: v for k, v in ptxas.items() if "_mma<" in k}
-    check(len(mma) == 8, f"ptxas reported {sorted(mma)}, want the 2 "
+    check(len(mma) == 12, f"ptxas reported {sorted(mma)}, want the 3 "
           "tensor-core flash kernels at 4 head dims")
     spills = [k for k, v in mma.items()
               if k.endswith("<64>") and v.get("spill_stores", 1)]
@@ -479,8 +503,19 @@ def phase_train_kernels(torch):
         row = {"shape": [BATCH, h, w, c, s], "layers": layers,
                "max_abs_err": err}
         if layers:
-            x, wt, g = (t.to(bf) for t in dw_inputs(TRAIN_BATCH, h, w, c, s))
-            row["max_abs_err_b128"] = check_dw_bwd(torch, dw, x, wt, g, s, (bf,))
+            x, wt, g = dw_inputs(TRAIN_BATCH, h, w, c, s)
+            row["max_abs_err_b128"] = check_dw_bwd(torch, dw, x, wt, g, s,
+                                                   (f32, bf))
+            x, wt, g = x.to(bf), wt.to(bf), g.to(bf)
+            # No atomics: a second launch on the same inputs gives the
+            # same bits.
+            first = dw.depthwise_conv3x3_backward(x, wt, g, s)
+            again = dw.depthwise_conv3x3_backward(x, wt, g, s)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"depthwise backward {(TRAIN_BATCH, h, w, c, s)}: two "
+                  "launches on the same inputs differ")
+            del first, again
             xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             wl = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
             # x, g, w read once; dx and dw written once. dx: 9 taps per
@@ -902,9 +937,9 @@ def profile_step(torch, step, wall_ms: float,
                  family_names=("depthwise3x3_fwd", "depthwise3x3_bwd",
                                "fused_ir_fwd", "fused_ir_bwd")) -> dict:
     """Device time of one train step by kernel, from torch.profiler's CUDA
-    activity, and the card's idle share against the step's wall time
-    (measured without the profiler)."""
-    from torch.autograd import DeviceType
+    activity (kernels, copies and fills; not the GPU user annotations,
+    see device_activity), and the card's idle share against the step's
+    wall time (measured without the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -913,7 +948,7 @@ def profile_step(torch, step, wall_ms: float,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, excluded = device_activity(prof)
     if not kernels:
         return {"device_ms": "not measured (no CUDA events in the trace)"}
     by_name = {}
@@ -929,7 +964,8 @@ def profile_step(torch, step, wall_ms: float,
                 families[fam] += t
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {"device_ms": busy, "device_kernels": len(kernels),
-            "hand_kernel_ms": families, "wall_ms": wall_ms,
+            "annotations_left_out_ms": excluded, "hand_kernel_ms": families,
+            "wall_ms": wall_ms,
             "device_idle_share": 1.0 - busy / wall_ms,
             "top_kernels": [{"name": n[:90], "calls": c, "ms": t}
                             for n, (c, t) in top]}
@@ -1206,8 +1242,8 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
     within 1e-5 of the sum of the products' magnitudes, in bf16 plus one
     ulp and 2^-8 of that sum. In bf16 also against the truth, the plain
     versions run on float32 copies of the same bf16 inputs: the kernels'
-    largest errors in the forward output, dK and dV are at most twice the
-    plain bf16 versions' (plus 1e-5 of max |v| or of the products'
+    largest errors in the forward output, dQ, dK and dV are at most twice
+    the plain bf16 versions' (plus 1e-5 of max |v| or of the products'
     magnitudes, the float32 allowance for sums in another order, which
     only counts where both errors are that small). Returns, per kernel,
     the max abs error, the largest error over its tolerance, the largest
@@ -1261,8 +1297,10 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
         refs[key] = max(refs.get(key, 0.0), w.float().abs().max().item())
     if bf:
         tdelta = (tout * f32[3]).sum(-1).transpose(1, 2).contiguous()
-        tdk, tdv = fl.flash_attention_dkv_reference(
-            *f32, tlse, tdelta, causal=causal, segment_ids=seg, glse=glse)
+        tkw = dict(causal=causal, segment_ids=seg, glse=glse)
+        tdq = fl.flash_attention_dq_reference(*f32, tlse, tdelta, **tkw)
+        tdk, tdv = fl.flash_attention_dkv_reference(*f32, tlse, tdelta, **tkw)
+        truth["dq"] = (got[0], want[0], tdq, 1e-5 * mags[0].max())
         truth["dk"] = (got[1], want[1], tdk, 1e-5 * mags[1].max())
         truth["dv"] = (got[2], want[2], tdv, 1e-5 * mags[2].max())
     f32_truth = {}

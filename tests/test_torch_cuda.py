@@ -130,6 +130,73 @@ def test_depthwise_backward_kernel_vs_plain(cuda, shape, dtype):
     assert bool(((dw.float() - pdw).abs() <= tol).all())
 
 
+# (h, w, c, stride): MobileNetV2's 10 depthwise shapes at 224 px, and the
+# odd shapes of chip_smoke.py (odd H/W at stride 2; C no multiple of 8,
+# the kernel's scalar path).
+MNV2_DW = [(112, 112, 32, 1), (112, 112, 96, 2), (56, 56, 144, 1),
+           (56, 56, 144, 2), (28, 28, 192, 1), (28, 28, 192, 2),
+           (14, 14, 384, 1), (14, 14, 576, 1), (14, 14, 576, 2),
+           (7, 7, 960, 1), (15, 17, 144, 2), (28, 28, 100, 1)]
+
+
+def _dw_bwd_inputs(n, h, w, c, s, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    return (torch.randn(n, h, w, c, generator=gen).to("cuda", dtype),
+            torch.randn(3, 3, c, generator=gen).to("cuda", dtype),
+            torch.randn(n, ho, wo, c, generator=gen).to("cuda", dtype))
+
+
+def _check_dw_bwd(x, wt, g, s):
+    """dx equal to the plain version's to the bit; dw within 1e-5 of the
+    sum of its products' magnitudes (plus one bf16 ulp); a second launch
+    gives the same bits (no atomics)."""
+    before = dwmod.depthwise_conv3x3_backward.launches
+    dx, dw = dwmod.depthwise_conv3x3_backward(x, wt, g, s)
+    dx2, dw2 = dwmod.depthwise_conv3x3_backward(x, wt, g, s)
+    assert dwmod.depthwise_conv3x3_backward.launches == before + 2
+    pdx, pdw = dwmod.depthwise_conv3x3_backward_reference(x, wt, g, s)
+    _, mag = dwmod.depthwise_conv3x3_backward_reference(x.abs(), wt,
+                                                        g.abs(), s)
+    torch.cuda.synchronize()
+    assert dx.dtype == x.dtype and dw.dtype == wt.dtype
+    torch.testing.assert_close(dx, pdx, rtol=0, atol=0)
+    tol = 1e-5 * mag + (_bf16_ulp(pdw) if x.dtype == torch.bfloat16 else 0)
+    assert bool(((dw.float() - pdw).abs() <= tol).all())
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", MNV2_DW, ids=str)
+def test_depthwise_backward_at_mobilenetv2_shapes(cuda, shape, dtype):
+    """Every MobileNetV2 shape and the odd ones, batch 2: the kernel's
+    tile plan at each (bands, channel chunks, stride-2 parity classes)."""
+    x, wt, g = _dw_bwd_inputs(2, *shape, dtype, 20)
+    _check_dw_bwd(x, wt, g, shape[-1])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_depthwise_backward_unaligned_input_takes_scalar_path(cuda, stride):
+    """C % 8 == 0 but x not 16-byte aligned: the scalar path, the same dx
+    bits and dw as the plain version."""
+    x, wt, g = _dw_bwd_inputs(2, 17, 17, 24, stride, torch.bfloat16, 21)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    _check_dw_bwd(xu, wt, g, stride)
+
+
+def test_depthwise_backward_is_deterministic_at_the_training_batch(cuda):
+    """Batch 128 bf16 at the layer with the most dw partials (112 x 112,
+    32 channels: 1,792 of them): two launches, the same dx and dw bits."""
+    x, wt, g = _dw_bwd_inputs(128, 112, 112, 32, 1, torch.bfloat16, 22)
+    a = dwmod.depthwise_conv3x3_backward(x, wt, g, 1)
+    b = dwmod.depthwise_conv3x3_backward(x, wt, g, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # (m, ci, co): MobileNetV2 widths, and Ci/Co off a multiple of 8 with M
 # off a multiple of the 64-row tile.
 FUSED = [(128, 16, 24), (63, 13, 24), (25, 8, 10), (8 * 196, 96, 576),
@@ -402,6 +469,56 @@ def test_flash_backward_kernels_vs_plain(cuda, case, with_glse, dtype):
             tol = tol + _bf16_ulp(ref.float()) + 2.0**-8 * mag
         assert _within(got, ref, tol), (name, (got.float() - ref.float()
                                                ).abs().max().item())
+
+
+# (b, tq, tk, h, d, causal, segments) of the bf16 tensor-core dQ: T of 1,
+# 15, 17, 77 and 196, which cut its 16-row warps and 8- and 16-key steps;
+# T 77 at every head dim; causal with tq < tk and the diagonal inside a
+# warp; segments with a row that sees no key, alone and causal.
+DQ = [(2, 1, 1, 2, 64, False, False), (2, 15, 15, 2, 64, False, False),
+      (2, 17, 17, 2, 64, True, False), (2, 77, 77, 2, 16, False, False),
+      (2, 77, 77, 2, 32, False, False), (2, 77, 77, 2, 64, False, False),
+      (2, 77, 77, 2, 128, False, False), (2, 196, 196, 3, 64, False, False),
+      (2, 100, 300, 2, 64, True, False), (2, 5, 70, 2, 64, True, False),
+      (2, 100, 100, 2, 32, False, True), (1, 150, 150, 2, 64, True, True)]
+
+
+@pytest.mark.parametrize("with_glse", [False, True])
+@pytest.mark.parametrize("case", DQ, ids=str)
+def test_flash_dq_bf16_tensor_core_kernel(cuda, case, with_glse):
+    """bf16 dQ on the tensor cores against its plain version (float32 sums
+    in another order, within 1e-5 of the sum of the products' magnitudes
+    plus one bf16 ulp and 2^-8 of that sum), against the float32 truth
+    (the plain version on float32 copies of the inputs: within twice the
+    plain bf16 version's error, plus the 1e-5 allowance), and the same
+    bits from a second launch."""
+    from tpunet_torch.ops import flash
+    (q, k, v, do), seg, causal = _flash_inputs(case, torch.bfloat16, 15)
+    out, lse = flash.flash_attention_forward_reference(
+        q, k, v, causal=causal, segment_ids=seg)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    glse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(16)
+                       ).cuda() if with_glse else None
+    kw = dict(causal=causal, segment_ids=seg, glse=glse)
+    before = flash.flash_attention_dq.launches
+    dq = flash.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    again = flash.flash_attention_dq(q, k, v, do, lse, delta, **kw)
+    assert flash.flash_attention_dq.launches == before + 2
+    want = flash.flash_attention_dq_reference(q, k, v, do, lse, delta, **kw)
+    mag = _bwd_magnitudes(q, k, v, do, lse, delta, glse, causal,
+                          q.shape[-1] ** -0.5, seg)[0]
+    f32 = [t.float() for t in (q, k, v, do)]
+    tout, tlse = flash.flash_attention_forward_reference(
+        *f32[:3], causal=causal, segment_ids=seg)
+    tdelta = (tout * f32[3]).sum(-1).transpose(1, 2).contiguous()
+    truth = flash.flash_attention_dq_reference(*f32, tlse, tdelta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, again)
+    tol = 1e-5 * mag + _bf16_ulp(want.float()) + 2.0**-8 * mag
+    assert _within(dq, want, tol), (dq.float() - want.float()).abs().max()
+    e_k = (dq.float() - truth).abs().max().item()
+    e_p = (want.float() - truth).abs().max().item()
+    assert e_k <= 2 * e_p + 1e-5 * mag.max().item(), (e_k, e_p)
 
 
 def test_flash_takes_views_of_a_fused_projection(cuda):

@@ -191,3 +191,88 @@ def test_backward_rejects_a_bad_gradient(case):
         g = torch.zeros(1, 8, 4, 4).permute(0, 2, 3, 1)
     with pytest.raises(ValueError):
         port_dw.depthwise_conv3x3_backward(x, w, g, 2)
+
+
+# (n, h, w, c, stride) the backward kernel's tile plan is held to: the 10
+# MobileNetV2 depthwise shapes at the training batch, the odd shapes of
+# chip_smoke.py (odd H/W at stride 2, C no multiple of 8) and BWD_GRID.
+PLAN_SHAPES = ([(128, h, h, c, s) for h, c, s in (
+    (112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1),
+    (28, 192, 2), (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1))]
+    + [(8, 15, 17, 144, 2), (8, 28, 28, 100, 1)]
+    + [(2, h, w, c, s) for h, w, c, s in BWD_GRID])
+
+
+def _kernel_columns(wd, chunk, stride):
+    """The column of each (column, channel pair) item of a band row, in
+    item order, as csrc/depthwise.cu's backward maps them: the pair is the
+    fastest index; at stride 2 the even columns come first, then the odd
+    ones."""
+    order = range(wd) if stride == 1 else [*range(0, wd, 2),
+                                           *range(1, wd, 2)]
+    return [q for q in order for _ in range(chunk // 2)]
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_backward_plan_covers_every_pixel_and_channel_once(shape, elem):
+    """The bands cover every input row once, the chunks every channel
+    once, and a band row's items every (column, channel pair) once, with
+    each thread on one pair throughout; the staged gradient rows hold
+    every tap the band reaches; the tile fits 48 KB; and the dw partials
+    number one per image and band of at least 4 rows (or the whole
+    image), not one per pixel."""
+    n, h, w, c, s = shape
+    plan = port_dw.backward_plan(n, h, w, c, s, elem)
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    rows = np.zeros(h, int)
+    for b in range(plan.bands):
+        rows[b * plan.rows:(b + 1) * plan.rows] += 1
+    assert (rows == 1).all() and (plan.bands - 1) * plan.rows < h
+    chans = np.zeros(plan.chunks * plan.chunk, int)
+    for k in range(plan.chunks):
+        chans[k * plan.chunk:(k + 1) * plan.chunk] += 1
+    assert (chans[:c] == 1).all() and (plan.chunks - 1) * plan.chunk < c
+    assert plan.chunk in (8, 16, 32, 64) and (c % 8 or c % plan.chunk == 0)
+    pairs = plan.chunk // 2
+    cols = _kernel_columns(w, plan.chunk, s)
+    items = {(q, i % pairs) for i, q in enumerate(cols)}
+    assert len(cols) == w * pairs and items == {
+        (q, k) for q in range(w) for k in range(pairs)}
+    assert plan.threads % 32 == 0 and plan.threads % pairs == 0
+    assert 32 <= plan.threads <= 128
+    if s == 2:
+        assert plan.rows % 2 == 0
+        # Even columns first: a warp's lanes share the column's parity
+        # but in at most one warp.
+        parity = np.array(cols) % 2
+        assert (np.diff(parity) >= 0).all()
+    for b in range(plan.bands):
+        p0 = b * plan.rows
+        gi0 = p0 - 1 if s == 1 else p0 // 2
+        for p in range(p0, min(h, p0 + plan.rows)):
+            for dy in range(3):
+                if (p + 1 - dy) % s == 0 and 0 <= (p + 1 - dy) // s < ho:
+                    assert 0 <= (p + 1 - dy) // s - gi0 < plan.grad_rows
+    assert plan.stage_bytes == (plan.grad_rows * (wo + 2)
+                                + plan.rows * w) * plan.chunk * elem
+    assert plan.stage_bytes <= 48 * 1024
+    assert min(h, 4) <= plan.rows <= 16
+    assert plan.partials == n * plan.bands <= n * -(-h // min(h, 4))
+
+
+def test_backward_plan_keeps_the_widest_chunk_that_fits():
+    """MobileNetV2's first block at batch 128 (112 x 112, 32 channels,
+    bf16): 4 rows of x and 6 of the gradient, 112 and 114 pixels wide,
+    take 72 KB at 32 channels and 36 KB at 16, which then fits 5 rows
+    (23 bands, the last of 2 rows); the 7 x 7 x 960 layer takes 64
+    channels and its whole image in one band; a 14-row image is cut into
+    two bands of 7."""
+    first = port_dw.backward_plan(128, 112, 112, 32, 1, 2)
+    assert (first.chunk, first.rows, first.bands, first.threads) == (
+        16, 5, 23, 128)
+    last = port_dw.backward_plan(128, 7, 7, 960, 1, 2)
+    assert (last.chunk, last.rows, last.bands, last.threads) == (
+        64, 7, 1, 128)
+    mid = port_dw.backward_plan(128, 14, 14, 384, 1, 2)
+    assert (mid.chunk, mid.rows, mid.bands) == (64, 7, 2)

@@ -19,13 +19,12 @@
 // every accumulator is float32.
 //
 // Which kernel serves which type:
-// - bfloat16 forward and dK/dV: flash_fwd_mma and flash_bwd_dkv_mma,
+// - bfloat16: flash_fwd_mma, flash_bwd_dq_mma and flash_bwd_dkv_mma,
 //   tensor-core kernels (mma.sync m16n8k16, ldmatrix, cp.async), below;
-// - float32 in all three, and dQ in both types: the SIMT kernels
-//   flash_fwd, flash_bwd_dq and flash_bwd_dkv. They sum in the plain
-//   versions' order, so dQ and dK/dV equal them bit for bit wherever
-//   cuBLAS sums those products in order too (every shape checked on the
-//   card but T = 1).
+// - float32: the SIMT kernels flash_fwd, flash_bwd_dq and flash_bwd_dkv.
+//   They sum in the plain versions' order, so dQ and dK/dV equal them bit
+//   for bit wherever cuBLAS sums those products in order too (every shape
+//   checked on the card but T = 1).
 // The choice is by type alone, inside launch(): two hand-written kernels,
 // not a fallback.
 //
@@ -38,18 +37,21 @@
 // Design of the tensor-core kernels, against that byte bound: read each
 // operand once, keep p and ds in registers, keep the next tile's loads in
 // flight, and compute no more of the ragged last tile than it holds.
-// - 4 warps a block, each owning 16 rows (queries in the forward, keys in
-//   dK/dV) of a 64-row tile; the forward holds its Q tile in registers as
-//   mma A fragments for the whole loop; dK/dV reads its K and V fragments
-//   from shared memory for each product, which leaves room for three
-//   blocks an SM at D = 64;
+// - 4 warps a block, each owning 16 rows (queries in the forward and dQ,
+//   keys in dK/dV) of a 64-row tile; the forward holds its Q tile in
+//   registers as mma A fragments for the whole loop; dQ and dK/dV read
+//   theirs (Q and dO; K and V) from shared memory for each product, which
+//   leaves room for four (dQ) and three (dK/dV) blocks an SM at D = 64;
 // - the tiles it loops over (K, V of 64 keys; Q, dO of 32 queries at
 //   D >= 64, 64 below) arrive by 16-byte cp.async in two stages, rows
 //   padded by 16 bytes so that ldmatrix is free of bank conflicts; rows
 //   past T are zero-filled by the copy;
 // - the probabilities (and ds) are formed on the float32 accumulators of
 //   the first product and rounded to bf16 straight into the A fragments
-//   of the second (FlashAttention-2's register reuse);
+//   of the next (FlashAttention-2's register reuse); dQ is not summed into
+//   by the dK/dV blocks with float atomics, as FlashAttention-2 does, but
+//   by its own kernel in a fixed order, so that two runs give the same
+//   bits;
 // - at T = 196 the last tile holds 4 rows: warps whose rows lie wholly
 //   past T skip the products, and n8 blocks and k16 steps of keys (or
 //   queries) wholly past T, or wholly hidden by the causal mask, are not
@@ -98,9 +100,9 @@
 // (__fmul_rn, __fadd_rn) so that the compiler does not fuse them into
 // a multiply-add that the plain versions do not make. The tensor cores
 // sum the products in their own order and the bf16 kernels take exp and
-// 1/l to within 2 ulp, so the bf16 forward and dK/dV differ from the plain
-// versions by float32 rounding before p, ds and the outputs are rounded
-// to bf16 at the same places.
+// 1/l to within 2 ulp, so the bf16 kernels differ from the plain versions
+// by float32 rounding before p, ds and the outputs are rounded to bf16 at
+// the same places.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -604,11 +606,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels: the bf16 forward and dK/dV
+// Tensor-core kernels: the bf16 forward, dQ and dK/dV
 // ---------------------------------------------------------------------------
 //
 // Four warps a block, each owning 16 rows of the block's 64-row tile:
-// query rows in the forward, key rows in dK/dV. Every product is an
+// query rows in the forward and dQ, key rows in dK/dV. Every product is an
 // mma.sync m16n8k16 (bf16 operands, float32 accumulators). The tiles the
 // block loops over (K, V; Q, dO) come in by 16-byte cp.async into two
 // stages of shared memory, so that the next tile is in flight while this
@@ -1293,10 +1295,209 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                 hi, p.h, p.tk, w0, p.tk);
 }
 
+template <int D>
+__host__ __device__ constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * 6 * kBlock * (D + 8) + sizeof(int) * 2 * kBlock;
+}
+
+// The bf16 dQ. Grid (query tiles of 64, heads, batch); each warp owns 16
+// query rows, whose Q and dO rows stay in shared memory with their lse,
+// delta and glse in registers. Per key tile of 64 (K, V and the key
+// segment ids in two cp.async stages, as in the forward): S = Q.K^T and
+// dP = dO.V^T (16 x 64 a warp each), then on the accumulators p =
+// exp(s scale - lse), masked, and ds = p (dp - delta + glse) scale,
+// rounded to bf16 straight into the A fragments of dQ += dS.K, with K read
+// through ldmatrix.trans as V is in the forward's P.V. One block owns its
+// dQ rows and walks the keys in order: no atomics, and the same sums in
+// the same order on every run. A warp whose rows all lie past Tq, or
+// whose causal rows see no key of the tile, skips the products; n8 blocks
+// and k16 steps wholly past the keys the block can see are not computed.
+// The A fragments of Q and dO are read from shared memory for each key
+// tile: at 128 registers four blocks fit an SM at D = 64, which the card
+// ran faster than holding them in registers at three blocks.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 1)
+    flash_bwd_dq_mma(Params p) {
+  constexpr int kS = D + 8, kK = D / 16, kN = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);  // [64][kS] queries
+  bf16* dsm = qsm + kBlock * kS;                  // [64][kS] dO
+  bf16* ksm = dsm + kBlock * kS;                  // [2][64][kS] keys
+  bf16* vsm = ksm + 2 * kBlock * kS;              // [2][64][kS] values
+  int* kseg = reinterpret_cast<int*>(vsm + 2 * kBlock * kS);  // [2][64]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int q0 = blockIdx.x * kBlock, hi = blockIdx.y, bi = blockIdx.z;
+  const int w0 = q0 + 16 * warp;  // the warp's first query row
+  const int off = p.tk - p.tq;
+  // Row 0 of head hi, batch bi of q, dO, k and v.
+  const bf16* q = static_cast<const bf16*>(p.q) + bi * p.sq.b + hi * p.sq.h;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + bi * p.sdo.b + hi * p.sdo.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + bi * p.sk.b + hi * p.sk.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + bi * p.sv.b + hi * p.sv.h;
+  const int* kseg_g =
+      p.kseg == nullptr ? nullptr : p.kseg + int64_t(bi) * p.tk;
+
+  const int k_end = key_end(p, q0);
+  const int n_tiles = (k_end + kBlock - 1) / kBlock;
+  // Exclusive end of the keys this warp's rows can see.
+  const int wk_end = p.causal ? min(p.tk, max(0, w0 + 16 + off)) : p.tk;
+  const bool active = w0 < p.tq;
+
+  auto load_kv = [&](int tile, int st) {
+    const int k0 = tile * kBlock;
+    tile_async<D, kBlock>(ksm + st * kBlock * kS, k, p.sk.t, k0, p.tk);
+    tile_async<D, kBlock>(vsm + st * kBlock * kS, v, p.sv.t, k0, p.tk);
+    if (kseg_g != nullptr)
+      vec_async<kBlock>(kseg + st * kBlock, kseg_g, k0, p.tk, true);
+  };
+  tile_async<D, kBlock>(qsm, q, p.sq.t, q0, p.tq);
+  tile_async<D, kBlock>(dsm, dout, p.sdo.t, q0, p.tq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // lse log2 e, delta, glse and the segment id of rows g and g + 8.
+  float ll[2] = {0.f, 0.f}, de[2] = {0.f, 0.f}, gl[2] = {0.f, 0.f};
+  int qs[2] = {0, 0};
+  const int64_t rows = (int64_t(bi) * p.h + hi) * p.tq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row < p.tq) {
+      ll[r] = p.lse[rows + row] * kLog2e;
+      de[r] = p.delta[rows + row];
+      if (p.glse != nullptr) gl[r] = p.glse[rows + row];
+      if (p.qseg != nullptr) qs[r] = p.qseg[int64_t(bi) * p.tq + row];
+    }
+  }
+
+  cp_async_wait<1>();
+  __syncthreads();
+  const bf16* qw = qsm + 16 * warp * kS;
+  const bf16* dw = dsm + 16 * warp * kS;
+
+  float dq[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlock, st = it & 1;
+    if (it + 1 < n_tiles) load_kv(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+
+    // Keys of this tile before the block's end (a bound the whole block
+    // shares, so that the branches on it stay uniform around mma.sync).
+    const int kn = min(kBlock, k_end - k0);
+    if (active && wk_end > k0) {
+      const bf16* kt = ksm + st * kBlock * kS;
+      const bf16* vt = vsm + st * kBlock * kS;
+      const int* ks = kseg + st * kBlock;
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kK; ++kk) {
+        uint32_t qa[4], da[4];
+        ldsm_a<D>(qa, qw, kk);
+        ldsm_a<D>(da, dw, kk);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (16 * jj >= kn) continue;
+          uint32_t bk[4], bv[4];
+          ldsm_b<D>(bk, kt, 16 * jj, kk);
+          ldsm_b<D>(bv, vt, 16 * jj, kk);
+          mma_bf16(s[2 * jj], qa, bk[0], bk[1]);
+          mma_bf16(dp[2 * jj], da, bv[0], bv[1]);
+          if (16 * jj + 8 < kn) {
+            mma_bf16(s[2 * jj + 1], qa, bk[2], bk[3]);
+            mma_bf16(dp[2 * jj + 1], da, bv[2], bv[3]);
+          }
+        }
+      }
+
+      // ds = p (dp - delta + glse) scale in place of s, with p = exp(s
+      // scale - lse), on a tile that a mask touches (kMasked: key c of row
+      // r is kept where c < cend[r], for bounds and causality, and the
+      // segment ids agree; n8 blocks past the block's keys give ds = 0)
+      // or on one of 64 keys that none does. The scale product is its own
+      // rounded operation and (dp - delta) + glse is summed in the plain
+      // version's order.
+      auto grads = [&](auto masked) {
+        constexpr bool kMasked = decltype(masked)::value;
+        int cend[2] = {kBlock, kBlock};
+        if constexpr (kMasked) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int lim = p.causal ? w0 + g + 8 * r + off - k0 + 1 : kBlock;
+            cend[r] = min(kn, lim) - 2 * t4;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (kMasked && 8 * j >= kn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+            continue;
+          }
+          int2 kseg2 = make_int2(0, 0);
+          if (kMasked && p.qseg != nullptr)
+            kseg2 = *reinterpret_cast<const int2*>(ks + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e / 2, h = e & 1;
+            float pr = exp2_approx(
+                fmaf(__fmul_rn(s[j][e], p.scale), kLog2e, -ll[r]));
+            if constexpr (kMasked) {
+              const bool keep =
+                  8 * j + h < cend[r] &&
+                  (p.qseg == nullptr || qs[r] == (h ? kseg2.y : kseg2.x));
+              pr = keep ? pr : 0.f;
+            }
+            s[j][e] = pr * ((dp[j][e] - de[r]) + gl[r]) * p.scale;
+          }
+        }
+      };
+      if (p.causal || p.qseg != nullptr || kn < kBlock)
+        grads(std::true_type{});
+      else
+        grads(std::false_type{});
+
+      // dQ += dS.K, dS rounded to bf16 in the A fragments.
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (16 * jj >= kn) continue;
+        uint32_t dsa[4];
+        repack(dsa, s[2 * jj], s[2 * jj + 1]);
+#pragma unroll
+        for (int nn = 0; nn < kN / 2; ++nn) {
+          uint32_t b[4];
+          ldsm_bt<D>(b, kt, 16 * jj, nn);
+          mma_bf16(dq[2 * nn], dsa, b[0], b[1]);
+          mma_bf16(dq[2 * nn + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is free for tile it + 2
+  }
+  cp_async_wait<0>();
+
+  // This warp's rows of the query tile are read only by it: stage dQ there.
+  store_rows<D>(qsm + 16 * warp * kS, dq, static_cast<bf16*>(p.dq), bi, hi,
+                p.h, p.tq, w0, p.tq);
+}
+
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// bf16 forward and dK/dV launch the tensor-core kernels; float32, and dQ
-// in either type, the SIMT kernels.
+// bfloat16 launches the tensor-core kernels, float32 the SIMT kernels.
 template <typename T, int D>
 int launch(Kind kind, const Params& p, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
@@ -1314,8 +1515,14 @@ int launch(Kind kind, const Params& p, cudaStream_t stream) {
       smem = fwd_smem<D>();
     }
   } else if (kind == kDq) {
-    kern = flash_bwd_dq<T, D>;
-    smem = dq_smem<D>();
+    if constexpr (kMma) {
+      kern = flash_bwd_dq_mma<D>;
+      smem = dq_mma_smem<D>();
+      threads = kMmaThreads;
+    } else {
+      kern = flash_bwd_dq<T, D>;
+      smem = dq_smem<D>();
+    }
   } else {
     tiles = (p.tk + kBlock - 1) / kBlock;
     if constexpr (kMma) {

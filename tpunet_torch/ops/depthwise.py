@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -166,8 +166,8 @@ def _check_grad(x: torch.Tensor, g: torch.Tensor, stride: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = _build.load("depthwise").tpunet_depthwise3x3_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -177,41 +177,102 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def backward_grid(n: int, h: int, wd: int, c: int, sms: int
-                  ) -> Tuple[int, int, int]:
-    """(channel groups per block, blocks along the pixels, pixels per
-    block) of the backward kernel: up to 32 groups of 8 channels across
-    a block's 256 threads, and about 4 blocks per SM in all, so the dw
-    partials number ``p`` and not one per pixel."""
-    groups = -(-c // 8)
-    tg = min(groups, 32)
-    lanes = 256 // tg
-    pixels = n * h * wd
-    p = max(1, min(-(-pixels // lanes), -(-4 * sms // -(-groups // tg))))
-    per_block = -(-pixels // p)
-    return tg, -(-pixels // per_block), per_block
+# Shared memory a backward block may stage its tile in, and its threads:
+# four blocks an SM (the kernel is compiled for 128 registers a thread).
+_BWD_STAGE_BYTES = 48 * 1024
+_BWD_THREADS = 128
+_BWD_ROWS = 16
+
+
+class BackwardPlan(NamedTuple):
+    """How the backward kernel cuts one call: blocks of ``rows`` input
+    rows of one image (the whole width) by ``chunk`` channels, each run by
+    ``threads`` threads that take two channels apiece; ``bands`` blocks
+    down an image, ``chunks`` across the channels, and one float32 [9, C]
+    dw partial per (image, band): ``partials`` in all."""
+    chunk: int
+    rows: int
+    threads: int
+    bands: int
+    chunks: int
+    grad_rows: int      # gradient rows a block stages (with the halo)
+    stage_bytes: int    # shared memory its x and gradient rows take
+    partials: int
+
+
+def _grad_rows(rows: int, stride: int) -> int:
+    """Gradient rows that a band of ``rows`` input rows reaches, with the
+    halo: one above and one below at stride 1, one below at stride 2."""
+    return rows + 2 if stride == 1 else rows // 2 + 1
+
+
+def _stage_bytes(rows: int, wd: int, wo: int, chunk: int, stride: int,
+                 elem: int) -> int:
+    return ((_grad_rows(rows, stride) * (wo + 2) + rows * wd) * chunk
+            * elem)
+
+
+def backward_plan(n: int, h: int, wd: int, c: int, stride: int,
+                  elem: int) -> BackwardPlan:
+    """The tiles of the backward kernel for x [n, h, wd, c] of ``elem``
+    bytes an element, as ``csrc/depthwise.cu`` walks them.
+
+    A block stages its band's x rows and the gradient rows they reach in
+    at most 48 KB. The chunk is the widest of 64, 32, 16 and 8 channels
+    (one that divides C when C is a multiple of 8, the 16-byte path) that
+    fits a band of at least 4 rows (or the whole image); the band then
+    takes as many rows as fit, up to 16 (a multiple of the stride, so
+    that every band starts on a row the stride divides), evened out over
+    the image. As many threads as a band row has (column, channel pair)
+    items, rounded up to a warp, at most 128."""
+    wo = (wd - 1) // stride + 1
+    top = min(h + h % stride, _BWD_ROWS)
+
+    def fits(rows, chunk):
+        return _stage_bytes(rows, wd, wo, chunk, stride,
+                            elem) <= _BWD_STAGE_BYTES
+
+    chunk, rows = 8, stride
+    for cand in (64, 32, 16, 8):
+        if cand > -(-c // 8) * 8 or (c % 8 == 0 and c % cand):
+            continue
+        if fits(min(top, 4), cand) or cand == 8:
+            chunk = cand
+            rows = max([r for r in range(stride, top + 1, stride)
+                        if fits(r, cand)], default=stride)
+            break
+    rows = -(-h // -(-h // rows))
+    rows += rows % stride
+    bands = -(-h // rows)
+    threads = min(_BWD_THREADS, -(-(wd * chunk // 2) // 32) * 32)
+    return BackwardPlan(chunk, rows, threads, bands, -(-c // chunk),
+                        _grad_rows(rows, stride),
+                        _stage_bytes(rows, wd, wo, chunk, stride, elem),
+                        n * bands)
 
 
 def _launch_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                 stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
     fn = _bwd_kernel()
     n, h, wd, c = x.shape
-    tg, p, per_block = backward_grid(n, h, wd, c, _sm_count(x.device.index
-                                                            or 0))
+    plan = backward_plan(n, h, wd, c, stride, x.element_size())
     dx = torch.empty_like(x)
-    dwp = torch.empty((p, 3, 3, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.partials, 9, c), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((3, 3, c), dtype=w.dtype, device=x.device)
     vectorised = c % 8 == 0 and all(t.data_ptr() % 16 == 0
                                     for t in (x, w, g, dx))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 dwp.data_ptr(), n, h, wd, c, stride, tg, p, per_block,
-                 _DTYPE_CODES[x.dtype], int(vectorised), stream)
+                 part.data_ptr(), dw.data_ptr(), n, h, wd, c, stride,
+                 plan.chunk, plan.rows, plan.threads, _DTYPE_CODES[x.dtype],
+                 int(vectorised), stream)
     if err != 0:
         raise RuntimeError(f"depthwise_conv3x3_backward: kernel launch "
                            f"failed with CUDA error {err}")
     depthwise_conv3x3_backward.launches += 1
-    return dx, dwp.sum(dim=0)
+    return dx, dw
 
 
 def depthwise_conv3x3_backward(x: torch.Tensor, w: torch.Tensor,
@@ -222,8 +283,9 @@ def depthwise_conv3x3_backward(x: torch.Tensor, w: torch.Tensor,
     w.dtype)``, dw accumulated in float32 (tpunet's
     ``jnp.sum(dwp, 0).astype(w.dtype)``).
 
-    On a CUDA tensor it launches the hand-written kernel and counts the
-    launch in ``depthwise_conv3x3_backward.launches``; on a CPU tensor
+    On a CUDA tensor it launches the hand-written kernel, which also sums
+    dw's partials and casts them on the card in a fixed order, and counts
+    the call in ``depthwise_conv3x3_backward.launches``; on a CPU tensor
     it runs the plain version."""
     _check(x, w, stride)
     _check_grad(x, g, stride)

@@ -26,9 +26,11 @@ Dispatch is by device only: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel (``tpunet_torch/csrc/flash.cu``) or
 raises. Which kernel is chosen by type inside the library:
 
-- bfloat16 forward and dK/dV: tensor-core kernels (``mma.sync`` bf16
-  products with float32 sums, tiles brought in by 16-byte ``cp.async``,
-  p and ds kept in registers between the two products). Bytes set their
+- bfloat16, all three: tensor-core kernels (``mma.sync`` bf16 products
+  with float32 sums, tiles brought in by 16-byte ``cp.async``, p and ds
+  kept in registers between the products; each output is summed by the
+  one block that owns it, in a fixed order, so two runs give the same
+  bits). Bytes set their
   least time at ViT's shapes, so the design reads each operand once,
   keeps the next tile's loads in flight, keeps the elementwise work lean
   (the card shows them bound by instruction issue) and skips the parts
@@ -36,9 +38,9 @@ raises. Which kernel is chosen by type inside the library:
   bf16 operand's data pointer and batch/token/head strides to be
   multiples of 16 bytes; :func:`_check` raises otherwise (the views
   ``qkv.unbind(2)`` of a fused projection pass);
-- float32 in all three, and dQ in both types: SIMT kernels that stage
-  tiles as float32 and multiply on the CUDA cores, summing in the plain
-  versions' order (dQ and dK/dV equal them bit for bit at ViT's shapes).
+- float32, all three: SIMT kernels that stage tiles as float32 and
+  multiply on the CUDA cores, summing in the plain versions' order (dQ
+  and dK/dV equal them bit for bit at ViT's shapes).
 
 The kernels tile queries and keys by 64 whatever ``block_q`` and
 ``block_k`` say (those are the TPU kernel's block sizes, accepted for
