@@ -4,8 +4,10 @@
 
 Phases, each of which must pass:
   1. build every kernel under tpunet_torch/csrc with nvcc, print ptxas's
-     registers and spills per kernel, and fail if a tensor-core flash
-     kernel spills at head dim 64;
+     registers and spills per kernel and the SASS mix of the tensor-core
+     kernels, and fail if a tensor-core flash kernel spills at head dim
+     64, or a bf16 fused-IR kernel is missing, spills, or (the tensor-core
+     ones) has no HMMA;
   2. hold the depthwise forward kernel against its plain PyTorch version
      at MobileNetV2's 10 depthwise shapes (batch 8, f32 and bf16) plus
      odd cases, and time kernel, plain version, the library call and the
@@ -15,7 +17,8 @@ Phases, each of which must pass:
      f32 and bf16) plus odd cases, then checked again (the depthwise
      backward in f32 and bf16) and timed at batch 128 in bf16, the
      training main path's inputs, where two launches of the depthwise
-     backward must also give the same dx and dw bit for bit;
+     backward, and of the fused-IR forward and backward, must also give
+     the same outputs bit for bit;
   4. serve classify requests at full width (MobileNetV2 1.0, 224 px,
      bf16, hand-written depthwise kernel) through Predictor and
      ClassifyBatcher from 4 closed-loop client threads for a 5 s
@@ -61,6 +64,7 @@ nothing of the tpunet package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -140,6 +144,13 @@ FLASH_DESIGN = {
     "flash_attention_dkv": "mma.sync m16n8k16 bf16, ldmatrix, "
                            "cp.async x2, P and dS in registers",
 }
+# The bf16 fused-IR kernels (csrc/fused_ir.cu): the tensor-core ones, and
+# the kernel that writes t for the wide ones.
+FUSED_TC_KERNELS = ("fused_ir_fwd_mma", "fused_ir_bwd_one_pass",
+                    "fused_ir_bwd_dx_mma<true>", "fused_ir_bwd_dx_mma<false>",
+                    "fused_ir_bwd_dw_mma<true>", "fused_ir_bwd_dw_mma<false>")
+FUSED_BF16_KERNELS = FUSED_TC_KERNELS + ("fused_ir_bwd_t<true>",
+                                         "fused_ir_bwd_t<false>")
 
 
 class PhaseError(Exception):
@@ -258,6 +269,8 @@ def kernel_label(mangled: str) -> str:
     elif rest.startswith("I13__nv_bfloat16"):
         args.append("bf16")
     args += re.findall(r"Li(\d+)E", rest)
+    args += ["true" if b == "1" else "false"
+             for b in re.findall(r"Lb([01])E", rest)]
     return f"{name}<{', '.join(args)}>" if args else name
 
 
@@ -287,23 +300,38 @@ def sass_mix(path, labels) -> dict:
 def phase_build():
     """Build every kernel source; emit ptxas's registers and spills per
     kernel and the instruction mix of the three tensor-core flash kernels
-    at D = 64, and fail if one of those spills (the main path)."""
+    at D = 64 and of the tensor-core fused-IR kernels; fail if one of
+    those flash kernels spills, or a bf16 fused-IR kernel is missing or
+    spills, or a tensor-core fused-IR kernel has no HMMA (the main
+    paths)."""
     from tpunet_torch.ops import _build
     t0 = time.perf_counter()
     names = _build.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {f"{name}:{kernel_label(k)}": v for name in names
              for k, v in _build.resources(name).items()}
-    emit("build", kernels=names, seconds=seconds, ptxas=ptxas,
-         sass=sass_mix(_build.library_path("flash"),
-                       ("flash_fwd_mma<64>", "flash_bwd_dq_mma<64>",
-                        "flash_bwd_dkv_mma<64>")))
-    mma = {k: v for k, v in ptxas.items() if "_mma<" in k}
+    sass = sass_mix(_build.library_path("flash"),
+                    ("flash_fwd_mma<64>", "flash_bwd_dq_mma<64>",
+                     "flash_bwd_dkv_mma<64>"))
+    sass.update(sass_mix(_build.library_path("fused_ir"), FUSED_TC_KERNELS))
+    emit("build", kernels=names, seconds=seconds, ptxas=ptxas, sass=sass)
+    mma = {k: v for k, v in ptxas.items()
+           if k.startswith("flash:") and "_mma<" in k}
     check(len(mma) == 12, f"ptxas reported {sorted(mma)}, want the 3 "
           "tensor-core flash kernels at 4 head dims")
     spills = [k for k, v in mma.items()
               if k.endswith("<64>") and v.get("spill_stores", 1)]
     check(not spills, f"{spills} spill registers at D = 64")
+    fused = {k: ptxas.get(f"fused_ir:{k}") for k in FUSED_BF16_KERNELS}
+    check(all(fused.values()), f"ptxas reported no "
+          f"{[k for k, v in fused.items() if not v]} in csrc/fused_ir.cu")
+    spills = [k for k, v in fused.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)]
+    check(not spills, f"fused-IR kernels {spills} spill registers")
+    no_hmma = [k for k in FUSED_TC_KERNELS
+               if not sass.get(k, {}).get("HMMA")]
+    check(not no_hmma, f"fused-IR kernels {no_hmma} show no HMMA in their "
+          f"SASS ({sass.get('not measured', 'cuobjdump ran')})")
 
 
 def dw_fwd_bound(x, w, y) -> dict:
@@ -559,6 +587,22 @@ def phase_train_kernels(torch):
             wtt = wt.t()
             xt = x.t()
             flops = 2 * mt * ci * co
+            # No atomics: a second launch on the same inputs gives the
+            # same bits, forward and backward.
+            first = fi.fused_ir_forward(x, wt) + fi.fused_ir_backward(
+                x, g, y, wt, chan, act)
+            again = fi.fused_ir_forward(x, wt) + fi.fused_ir_backward(
+                x, g, y, wt, chan, act)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"fused_ir {(mt, ci, co, act)}: two launches on the same "
+                  "inputs differ")
+            del first, again
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            fplan = fi.forward_plan(mt, ci, co, bf, sms)
+            bplan = fi.backward_plan(mt, ci, co, bf, sms)
+            frow.update(design=fplan.design, plan=dataclasses.asdict(fplan))
+            brow.update(design=bplan.design, plan=dataclasses.asdict(bplan))
             # Forward: x and w read, y and the [2, Co] f32 sums written.
             frow.update(b128_times(
                 torch, (mt * ci + ci * co + mt * co) * 2 + 2 * co * 4,
@@ -574,6 +618,12 @@ def phase_train_kernels(torch):
                 lambda: fi.fused_ir_backward(x, g, y, wt, chan, act),
                 lambda: fi.fused_ir_backward_reference(x, g, y, wt, chan, act),
                 lambda: (torch.matmul(t, wtt), torch.matmul(xt, t))))
+            for row in (frow, brow):
+                # Shares of the memory and bf16 tensor-core rates the
+                # kernel reaches (the backward's split of t doubles its
+                # tensor-core work; the share counts the two products).
+                row.update(hbm_share=row["bytes_ms"] / row["kernel_ms"],
+                           tensor_share=row["ops_ms"] / row["kernel_ms"])
             del x, wt, y, g, t, wtt, xt
         rows["fused_ir_forward"].append(frow)
         rows["fused_ir_backward"].append(brow)

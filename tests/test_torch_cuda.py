@@ -264,6 +264,86 @@ def test_fused_ir_backward_kernel_vs_plain(cuda, shape, dtype, act):
                  + 1e-30).all())
 
 
+# (h, ci, co) of MobileNetV2's 18 distinct fused-IR 1x1 convs at 224 px.
+MNV2_FUSED = [(112, 16, 96), (56, 24, 144), (28, 32, 192), (14, 64, 384),
+              (14, 96, 576), (7, 160, 960), (112, 32, 16), (56, 96, 24),
+              (56, 144, 24), (28, 144, 32), (28, 192, 32), (14, 192, 64),
+              (14, 384, 64), (14, 384, 96), (14, 576, 96), (7, 576, 160),
+              (7, 960, 160), (7, 960, 320)]
+# The tensor-core kernels at MobileNetV2's shapes at batch 8, and FUSED.
+TC_FUSED = [(8 * h * h, ci, co) for h, ci, co in MNV2_FUSED] + FUSED
+
+
+def _fused_grad_inputs(m, co, seed):
+    gen = torch.Generator().manual_seed(seed)
+    y = (torch.randn(m, co, generator=gen) * 2).to("cuda", torch.bfloat16)
+    g = torch.randn(m, co, generator=gen).to("cuda", torch.bfloat16)
+    chan = torch.stack([torch.rand(co, generator=gen) + 0.5,
+                        torch.randn(co, generator=gen) * 3,
+                        torch.rand(co, generator=gen) + 0.5,
+                        torch.randn(co, generator=gen),
+                        torch.randn(co, generator=gen) * 0.1,
+                        torch.randn(co, generator=gen) * 0.1]).cuda()
+    return g, y, chan
+
+
+def _check_fused_bf16(x, w, g, y, chan, act):
+    """The bf16 tensor-core forward and backward against their plain
+    versions, at the tolerances of the tests above, with one launch each
+    counted."""
+    f0, b0 = fused_ir.fused_ir_forward.launches, fused_ir.fused_ir_backward.launches
+    yk, s = fused_ir.fused_ir_forward(x, w)
+    dx, dw = fused_ir.fused_ir_backward(x, g, y, w, chan, act)
+    assert fused_ir.fused_ir_forward.launches == f0 + 1
+    assert fused_ir.fused_ir_backward.launches == b0 + 1
+    py, _ = fused_ir.fused_ir_forward_reference(x, w)
+    pdx, pdw = fused_ir.fused_ir_backward_reference(x, g, y, w, chan, act)
+    torch.cuda.synchronize()
+    tol = 1e-5 * (x.float().abs() @ w.float().abs()) + _bf16_ulp(py.float())
+    assert bool(((yk.float() - py.float()).abs() <= tol).all())
+    yb = yk.float()
+    want = torch.stack([yb.sum(0), (yb * yb).sum(0)])
+    smag = torch.stack([yb.abs().sum(0), (yb * yb).sum(0)])
+    assert bool(((s - want).abs() <= 1e-5 * smag + 1e-30).all())
+    t = fused_ir.grad_conv_out(g, y, chan, act).abs()
+    tol = 1e-5 * (t @ w.float().abs().t()) + _bf16_ulp(pdx.float())
+    assert bool(((dx.float() - pdx.float()).abs() <= tol).all())
+    assert bool(((dw - pdw).abs() <= 1e-5 * (x.float().abs().t() @ t)
+                 + 1e-30).all())
+    return yk, s, dx, dw
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("shape", TC_FUSED, ids=str)
+def test_fused_ir_tensor_core_kernels_vs_plain(cuda, shape, act):
+    """The bf16 forward and backward (tensor cores, each design its plan
+    picks) at every MobileNetV2 shape at batch 8 and at FUSED's odd ones,
+    ReLU6 on and off, against the plain versions; then a second launch
+    on the same inputs gives the same bits (no float atomics)."""
+    m, ci, co = shape
+    x, w = _fused_inputs(m, ci, co, torch.bfloat16, 11)
+    g, y, chan = _fused_grad_inputs(m, co, 12)
+    first = _check_fused_bf16(x, w, g, y, chan, act)
+    again = fused_ir.fused_ir_forward(x, w) + \
+        fused_ir.fused_ir_backward(x, g, y, w, chan, act)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("act", [True, False])
+def test_fused_ir_unaligned_view_takes_the_narrow_copy_path(cuda, act):
+    """A [1:] row slice of an [M, 13] bf16 tensor starts 26 bytes past a
+    16-byte boundary: the kernels load it element by element into the
+    same zero-padded tiles, and still agree with the plain versions."""
+    m, ci, co = 1000, 13, 24
+    xb, w = _fused_inputs(m + 1, ci, co, torch.bfloat16, 13)
+    x = xb[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    g, y, chan = _fused_grad_inputs(m, co, 14)
+    _check_fused_bf16(x, w, g, y, chan, act)
+
+
 def test_fused_ir_op_on_card_agrees_with_plain_op(cuda):
     """conv1x1_bn_act through the kernels against the plain composition,
     float32: outputs, statistics and the four gradients."""

@@ -142,3 +142,146 @@ def test_rejects_what_the_kernels_do_not_take(case):
         pfi.fused_ir_forward(x, w)
     with pytest.raises(ValueError):
         pfi.fused_ir_backward(x, g, y, w, chan, True)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' tile plans (csrc/fused_ir.cu), checked here without a card
+# ---------------------------------------------------------------------------
+
+# (h, ci, co) of MobileNetV2's 18 distinct fused-IR 1x1 convs at 224 px
+# (chip_smoke.py's EXPAND_SHAPES and PROJECT_SHAPES).
+MNV2_FUSED = [(112, 16, 96), (56, 24, 144), (28, 32, 192), (14, 64, 384),
+              (14, 96, 576), (7, 160, 960), (112, 32, 16), (56, 96, 24),
+              (56, 144, 24), (28, 144, 32), (28, 192, 32), (14, 192, 64),
+              (14, 384, 64), (14, 384, 96), (14, 576, 96), (7, 576, 160),
+              (7, 960, 160), (7, 960, 320)]
+PLAN_SHAPES = ([(b * h * h, ci, co) for b in (8, 128)
+                for h, ci, co in MNV2_FUSED]
+               + [(1000, 13, 24), (777, 96, 10), (63, 13, 24), (25, 8, 10),
+                  (1, 16, 16), (128, 16, 24), (1000, 144, 24)])
+SMS = 132   # the H100's SMs
+
+
+def _cover(n, starts, width):
+    """How often each of n positions lies in one of [s, s + width)."""
+    count = np.zeros(n, np.int64)
+    for s in starts:
+        count[s:s + width] += 1
+    return count
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_forward_plan_covers_y_once(shape, dtype):
+    m, ci, co = shape
+    p = pfi.forward_plan(m, ci, co, dtype, SMS)
+    tiles = -(-m // p.tile_rows)
+    assert 1 <= p.blocks <= min(tiles, 65535) and p.partials == p.blocks
+    # Rows: block b walks the tiles b, b + blocks, ...
+    rows = _cover(m, [t * p.tile_rows for b in range(p.blocks)
+                      for t in range(b, tiles, p.blocks)], p.tile_rows)
+    assert (rows == 1).all()
+    cols = _cover(co, [s * p.strip for s in range(p.strips)], p.strip)
+    assert (cols == 1).all() and (p.strips - 1) * p.strip < co
+    assert p.scratch_bytes == p.partials * 2 * co * 4
+    if dtype == torch.bfloat16:
+        cip = -(-ci // 16) * 16
+        assert p.design == "mma" and p.strip % 8 == 0 and p.strip <= 96
+        assert cip % p.k_chunk == 0 and p.k_chunk % 16 == 0
+        assert p.smem_bytes == pfi.forward_smem(ci, p.strip, p.k_chunk)
+        assert p.smem_bytes <= pfi._MAX_SMEM
+        # The strips are whole n8 blocks: at Co = 16, 24 or 32 a block
+        # computes no padding column.
+        if co % 8 == 0 and co <= 96:
+            assert p.strips == 1 and p.strip == co
+    else:
+        assert (p.design, p.strip, p.k_chunk, p.smem_bytes) == \
+            ("simt", 64, 16, 0)
+
+
+def _one_pass_slots(cip, cop):
+    """(warp, slot) -> dw tile index as csrc/fused_ir.cu fills its table:
+    slot i of warp v holds tile min(4i + v, last) and stores it only when
+    4i + v is a tile."""
+    ntiles = (cip // 16) * (cop // 8)
+    nt = -(-ntiles // 4)
+    return [(v, i, min(4 * i + v, ntiles - 1), 4 * i + v < ntiles)
+            for v in range(4) for i in range(nt)], ntiles, nt
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_backward_plan_covers_dx_and_dw_once(shape, dtype):
+    m, ci, co = shape
+    p = pfi.backward_plan(m, ci, co, dtype, SMS)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    tiles = -(-m // p.tile_rows)
+    cip, cop = -(-ci // 16) * 16, -(-co // 16) * 16
+    # The scratch of the dw partials stays under its cap, a quarter of the
+    # bytes of x and g (one partial at least).
+    assert p.scratch_bytes == p.partials * ci * co * 4
+    assert p.partials == 1 or \
+        p.scratch_bytes <= m * (ci + co) * elem // 4
+    assert tiles <= 65535 and 1 <= p.partials <= 65535
+    if p.design == "one_pass":
+        assert p.blocks == p.partials <= tiles and p.span == p.tile_rows
+        rows = _cover(m, [t * p.tile_rows for b in range(p.blocks)
+                          for t in range(b, tiles, p.blocks)], p.tile_rows)
+        assert (rows == 1).all()
+        assert p.strip == cip >= ci          # dx: all of Ci a tile
+        slots, ntiles, nt = _one_pass_slots(cip, cop)
+        assert nt <= 12                      # 12 m16 x n8 tiles a warp
+        stored = sorted(t for _, _, t, keep in slots if keep)
+        assert stored == list(range(ntiles))
+        dw = np.zeros((cip, cop), np.int64)  # every partial covers dw
+        for t in stored:
+            mi, nj = divmod(t, cop // 8)
+            dw[mi * 16:mi * 16 + 16, nj * 8:nj * 8 + 8] += 1
+        assert (dw == 1).all()
+        assert p.smem_bytes == pfi.one_pass_smem(ci, co) <= pfi._MAX_SMEM
+        assert p.t_rows == p.t_bytes == 0
+    else:
+        # dx: every row tile by every strip of 64 Ci columns.
+        assert p.strip == 64 and p.smem_bytes == 0
+        cols = _cover(ci, range(0, ci, p.strip), p.strip)
+        assert (cols == 1).all()
+        # dw: 64x64 (Ci, Co) tiles, each over p spans of rows.
+        dw_tiles = -(-ci // 64) * -(-co // 64)
+        assert p.blocks == dw_tiles * p.partials
+        step = 32 if dtype == torch.bfloat16 else 16
+        assert p.span % step == 0
+        spans = _cover(m, range(0, m, p.span), p.span)
+        assert (spans == 1).all() and p.partials == -(-m // p.span)
+        if p.design == "t_first":
+            assert p.t_bytes == 2 * m * co * 2 and 1 <= p.t_rows <= m
+        else:
+            assert p.t_rows == p.t_bytes == 0
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_one_pass_is_chosen_exactly_where_its_dw_fits(shape):
+    """bf16 takes the one-pass kernel exactly where its dw accumulator fits
+    a block (48 m16 x n8 tiles) and two blocks an SM fit; float32 never."""
+    m, ci, co = shape
+    cip, cop = -(-ci // 16) * 16, -(-co // 16) * 16
+    fits = (cip // 16) * (cop // 8) <= 48 and \
+        pfi._per_sm(pfi.one_pass_smem(ci, co)) >= 2
+    got = pfi.backward_plan(m, ci, co, torch.bfloat16, SMS).design
+    assert (got == "one_pass") == fits
+    if not fits:
+        assert got == ("two_kernel" if -(-ci // 64) <= 2 else "t_first")
+    assert pfi.backward_plan(m, ci, co, torch.float32, SMS).design == "simt"
+
+
+def test_mobilenetv2_designs():
+    """At batch 128 the 112, 56 and 28 px layers take the one-pass kernel
+    but the 28 px expand (32 -> 192, one block an SM), and the 14 and 7 px
+    layers the two wide kernels."""
+    designs = {(h, ci, co): pfi.backward_plan(128 * h * h, ci, co,
+                                              torch.bfloat16, SMS).design
+               for h, ci, co in MNV2_FUSED}
+    for (h, ci, co), d in designs.items():
+        if h >= 28 and (ci, co) != (32, 192):
+            assert d == "one_pass", (h, ci, co, d)
+        else:
+            assert d in ("two_kernel", "t_first"), (h, ci, co, d)

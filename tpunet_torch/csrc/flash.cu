@@ -111,6 +111,8 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kBlock = 64;        // rows of a query tile and of a key tile
@@ -621,89 +623,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
 // in registers into the A fragments of the second: they never touch
 // shared memory.
 
-using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps of 16 rows each
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes from global to shared memory, past L1; when !valid nothing is
-// read and the 16 bytes are zero (src must still be a global address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// The same for one 4-byte word (lse, delta, glse, segment ids).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and r[i] holds matrix i in the mma fragment
-// layout (row lane / 4, columns 2 (lane % 4) and 2 (lane % 4) + 1), or
-// transposed with .trans.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-// c += a . b for a 16x16 A (row-major), a 16x8 B (column-major) and a
-// 16x8 float32 C: thread lane holds c[0..1] at row lane / 4, c[2..3] at
-// row lane / 4 + 8, columns 2 (lane % 4) and 2 (lane % 4) + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// lo and hi rounded to bf16 and packed, lo in the low half: two
-// neighbouring columns of an A fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragments of the 16 x 16j.. columns of a 16-row operand from the
-// float32 accumulators of two n8 blocks (columns 8(2j), 8(2j + 1)).
-__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
 
 // A fragments (16 rows x 16 columns from column 16kk) of the 16 rows
 // starting at rows of a [.][D + 8] shared-memory tile.

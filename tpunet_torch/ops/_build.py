@@ -7,8 +7,10 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -Xptxas -v \\
          -o build/tpunet_torch/lib<name>-<hash>.so <name>.cu
 
-The library's file name carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+The library's file name carries a hash of the source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. A header is never built
+on its own.
 ptxas's report of each kernel's registers and spills is kept beside the
 library (``lib<name>-<hash>.ptxas.txt``) and read by :func:`resources`.
 The source includes no PyTorch header, which keeps a build to seconds.
@@ -55,6 +57,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -22,14 +22,39 @@ expand and project 1x1 convs of every inverted residual here
 Activations are the NHWC tensor as a matrix ``[M = N*H*W, C]``. Dispatch
 is by device only: a CPU tensor runs the plain version, a CUDA tensor
 launches the hand-written kernels (``tpunet_torch/csrc/fused_ir.cu``)
-or raises. There is no per-shape rule: every call on the card launches
-the kernels.
+or raises. No shape is sent to the plain version: every call on the card
+launches the kernels.
+
+The kernels replace the Pallas TPU kernels ``tpunet/ops/fused_ir.py``
+``_fwd_kernel`` (the forward) and ``_bwd_kernel`` (the backward). Which
+kernel serves which type is chosen by type alone, in the C entries:
+
+- bfloat16 (the main path): tensor-core kernels, ``mma.sync`` m16n8k16
+  with float32 accumulators, fed by ``ldmatrix`` and 16-byte ``cp.async``
+  (element copies for odd widths and unaligned views). Bytes bound them
+  at MobileNetV2's widths (8 to 240 operations a byte, below the ~295 at
+  which the H100's bf16 tensor cores would), so the designs read each
+  operand once: the forward's persistent blocks cover Co in n8 blocks up
+  to 96 columns and keep their column sums in registers; the backward
+  rebuilds the float32 ``t`` as two bf16 terms (``t_hi + t_lo``, two
+  products each, since one bf16 rounding of ``t`` would fail the
+  gates), in one pass over x, g and y where dw fits a block's registers
+  (the 112, 56 and 28 px layers but the 28 px expand), else as a dx
+  kernel and a split-K dw kernel, after a kernel that writes ``t`` once
+  where Ci > 128 (the 14 px projects and the 7 px layers).
+  :func:`forward_plan` and :func:`backward_plan` say how a call is cut;
+  the choice among these hand-written kernels is by shape, and no shape
+  goes to torch.
+- float32: the SIMT kernels (64x64 tiles, ``fmaf`` on the CUDA cores).
+
+No kernel sums with float atomics: two launches give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -37,8 +62,6 @@ import torch
 from tpunet_torch.ops import _build
 from tpunet_torch.ops.depthwise import _DTYPE_CODES, _sm_count
 
-_TILE = 64     # rows and columns of a block's output tile (csrc/fused_ir.cu)
-_STEP = 16     # the kernels' step along the summed dimension
 
 
 # ---------------------------------------------------------------------------
@@ -118,23 +141,203 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"{name}: x and w must be contiguous")
 
 
-def forward_splits(m: int, co: int, sms: int) -> int:
-    """Blocks along the rows of the forward: about 8 blocks per SM, each
-    walking a span of 64-row tiles, one [2,Co] partial each."""
-    tiles = -(-m // _TILE)
-    return max(1, min(tiles, -(-8 * sms // -(-co // _TILE))))
+# Rows of a tile in every kernel (4 warps x 16 rows in the bf16 ones).
+_ROWS = 64
+# float32 SIMT kernels: 64x64 output tiles, k in steps of 16.
+_SIMT_TILE = 64
+_SIMT_STEP = 16
+# bf16 kernels (csrc/fused_ir.cu): cp.async stages of the pipelined loops,
+# the forward's widest strip (12 n8 blocks), the one-pass dw tiles a
+# block holds (12 a warp), the wide kernels' dx strip and dw tile, and
+# their dw rows a stage.
+_STAGES = 3
+_FWD_STRIP = 96
+_FWD_WHOLE_K = 192   # Ci (padded) staged whole at most, w resident
+_ONE_PASS_TILES = 48
+_WIDE_TILE = 64
+_DW_ROWS = 32
+# Blocks an SM: the bf16 kernels take up to ~160 registers a thread, so 3
+# blocks of 128 threads, fewer where shared memory runs out; the SIMT
+# ones as before.
+_BLOCKS_PER_SM = 3
+_MAX_SMEM = 232448   # dynamic shared memory a block may take
+_SM_BYTES = 233472   # shared memory of an SM, 1 KB of it reserved a block
+_GRID_Y = 65535
 
 
-def backward_splits(m: int, ci: int, co: int, itemsize: int, sms: int
-                    ) -> Tuple[int, int]:
-    """``(p, span)`` of the dw product: ``p`` spans of ``span`` rows, one
-    float32 [Ci,Co] partial each. About 4 blocks per SM, but the p*Ci*Co*4
-    bytes of scratch never exceed a quarter of the bytes of x and g."""
-    tiles = -(-ci // _TILE) * -(-co // _TILE)
-    cap = max(1, m * (ci + co) * itemsize // 4 // (ci * co * 4))
-    p = max(1, min(-(-4 * sms // tiles), cap, -(-m // _STEP)))
-    span = -(-(-(-m // p)) // _STEP) * _STEP
-    return -(-m // span), span
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _r16(v: int) -> int:
+    return _ceil(v, 16) * 16
+
+
+def _per_sm(smem: int) -> int:
+    return max(1, min(_BLOCKS_PER_SM, _SM_BYTES // (smem + 1024)))
+
+
+@dataclass(frozen=True)
+class ForwardPlan:
+    """How the forward kernel cuts y = x.w: ``strips`` strips of
+    ``strip`` output columns by ``blocks`` blocks along the rows; block b
+    of a strip takes the ``tile_rows``-row tiles b, b + blocks, ... with
+    k in chunks of ``k_chunk`` and writes one float32 [2, Co] partial of
+    the column sums (``partials`` = ``blocks``, ``scratch_bytes`` of
+    them). ``design``: "mma", the bf16 tensor-core kernel, or "simt",
+    the float32 one; ``smem_bytes``: its dynamic shared memory."""
+    design: str
+    tile_rows: int
+    strip: int
+    strips: int
+    k_chunk: int
+    blocks: int
+    partials: int
+    scratch_bytes: int
+    smem_bytes: int
+
+
+@dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward kernels cut one call.
+
+    ``design``:
+    - "one_pass" (bf16, dw fits a block's registers): ``blocks`` blocks
+      each walk the ``tile_rows``-row tiles b, b + blocks, ... (``span``
+      = ``tile_rows``), write dx for those tiles (all Ci, ``strip`` =
+      Ci padded to 16) and one float32 [Ci, Co] dw partial;
+    - "two_kernel" (bf16): dx by ``tile_rows``-row tiles x ``strip``-wide
+      Ci strips; dw by 64x64 (Ci, Co) tiles x ``partials`` spans of
+      ``span`` rows (``blocks`` dw blocks in all), one partial a span;
+      each kernel rebuilds t from g and y;
+    - "t_first" (bf16): as "two_kernel", after a kernel that takes
+      ``t_rows`` rows at a time has written t_hi and t_lo (``t_bytes``),
+      which the two then read in place of g and y;
+    - "simt" (float32): as "two_kernel", on the SIMT kernels.
+
+    ``scratch_bytes``: the dw partials; ``smem_bytes``: dynamic shared
+    memory of a one-pass block (0 for the others)."""
+    design: str
+    tile_rows: int
+    strip: int
+    blocks: int
+    partials: int
+    span: int
+    scratch_bytes: int
+    smem_bytes: int
+    t_rows: int
+    t_bytes: int
+
+
+_BWD_DESIGNS = {"simt": 0, "one_pass": 1, "two_kernel": 2, "t_first": 3}
+
+
+def forward_smem(ci: int, strip: int, k_chunk: int) -> int:
+    """Dynamic shared memory of a bf16 forward block (as
+    ``csrc/fused_ir.cu:fwd_smem``)."""
+    cip, ns = _r16(ci), strip // 8
+    ldw = _ceil(ns, 2) * 16 + 8
+    wrows = cip if k_chunk >= cip else _STAGES * k_chunk
+    return ((_STAGES * _ROWS * (k_chunk + 8) + wrows * ldw
+             + _ROWS * (strip + 8)) * 2 + 128 * 16 * 4)
+
+
+def _forward_chunk(cip: int, strip: int, strips: int) -> int:
+    """k a forward step takes (it divides Ci padded to 16, so every step
+    is the same). All of Ci where it is at most 192 and two blocks an SM
+    still fit: w then stays resident and a tile is one step, which the
+    card ran fastest at large M. Else 32 for strips of 96 columns or 4
+    strips or more, 64 for the others: on the card the wide layers ran
+    fastest with these, trading blocks an SM against steps."""
+    if cip <= _FWD_WHOLE_K and _per_sm(forward_smem(cip, strip, cip)) >= 2:
+        return cip
+    k = 32 if strip >= _FWD_STRIP or strips >= 4 else 64
+    while cip % k:
+        k //= 2
+    return k
+
+
+def forward_plan(m: int, ci: int, co: int, dtype: torch.dtype, sms: int
+                 ) -> ForwardPlan:
+    """The forward's tiles for x [m, ci] and w [ci, co] of ``dtype`` on a
+    card of ``sms`` SMs. bf16: strips of whole n8 blocks, as few as cover
+    Co at up to 96 columns, evened out (Co = 144 gives two of 72), k in
+    equal chunks (:func:`_forward_chunk`), and as many blocks along the rows as the SMs hold
+    at once (the blocks are persistent). float32: 64-column strips and
+    about 8 blocks an SM."""
+    tiles = _ceil(m, _ROWS)
+    if dtype == torch.bfloat16:
+        strips = _ceil(co, _FWD_STRIP)
+        strip = _ceil(_ceil(co, 8), strips) * 8
+        strips = _ceil(co, strip)
+        k_chunk = _forward_chunk(_r16(ci), strip, strips)
+        smem = forward_smem(ci, strip, k_chunk)
+        blocks = _ceil(_per_sm(smem) * sms, strips)
+        design = "mma"
+    else:
+        strip, k_chunk, smem = _SIMT_TILE, _SIMT_STEP, 0
+        strips = _ceil(co, strip)
+        blocks = _ceil(8 * sms, strips)
+        design = "simt"
+    blocks = max(1, min(tiles, blocks, _GRID_Y))
+    return ForwardPlan(design, _ROWS, strip, strips, k_chunk, blocks, blocks,
+                       blocks * 2 * co * 4, smem)
+
+
+def one_pass_smem(ci: int, co: int) -> int:
+    """Dynamic shared memory of a one-pass backward block (as
+    ``csrc/fused_ir.cu:one_pass_smem``): two stages of x, g and y tiles,
+    w, the dx tile, chan and the warps' dw tile table, rows padded by 8
+    elements."""
+    cip, cop = _r16(ci), _r16(co)
+    return ((3 * _ROWS * (cip + 8) + 4 * _ROWS * (cop + 8) + cip * (cop + 8))
+            * 2 + 6 * cop * 4 + 4 * 12 * 8)
+
+
+def backward_plan(m: int, ci: int, co: int, dtype: torch.dtype, sms: int
+                  ) -> BackwardPlan:
+    """The backward's tiles for x [m, ci] and g, y [m, co] of ``dtype``
+    on a card of ``sms`` SMs. The float32 scratch of the dw partials,
+    partials*Ci*Co*4 bytes, never exceeds a quarter of the bytes of x and
+    g (one partial at least).
+
+    bf16 takes the one-pass kernel where its dw accumulator, (Ci/16) x
+    (Co/8) m16 x n8 tiles with Ci and Co padded to 16, fits 48 tiles (12
+    a warp) and two blocks an SM fit its shared memory, with as many
+    blocks as the SMs hold at once (on the card one block an SM, at 28 px
+    32 -> 192, ran slower than the two kernels). Else the dx and
+    dw kernels, with the dw split aiming at 4 blocks an SM: they rebuild
+    t themselves where Ci is at most two 64-column tiles ("two_kernel"),
+    else t is written once first ("t_first"), since each kernel would
+    rebuild it once per 64 columns of Ci. float32 takes the SIMT
+    kernels."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    cap = max(1, m * (ci + co) * elem // 4 // (ci * co * 4))
+    tiles = _ceil(m, _ROWS)
+    cip, cop = _r16(ci), _r16(co)
+    if (dtype == torch.bfloat16
+            and (cip // 16) * (cop // 8) <= _ONE_PASS_TILES
+            and _per_sm(one_pass_smem(ci, co)) >= 2):
+        smem = one_pass_smem(ci, co)
+        blocks = max(1, min(tiles, cap, _per_sm(smem) * sms))
+        return BackwardPlan("one_pass", _ROWS, cip, blocks, blocks, _ROWS,
+                            blocks * ci * co * 4, smem, 0, 0)
+    if dtype == torch.bfloat16:
+        step, per_sm = _DW_ROWS, 4
+        design = ("two_kernel" if _ceil(ci, _WIDE_TILE) <= 2 else "t_first")
+    else:
+        design, step, per_sm = "simt", _SIMT_STEP, 4
+    dw_tiles = _ceil(ci, _WIDE_TILE) * _ceil(co, _WIDE_TILE)
+    p = max(1, min(_ceil(per_sm * sms, dw_tiles), cap, _ceil(m, step),
+                   _GRID_Y))
+    span = _ceil(_ceil(m, p), step) * step
+    p = _ceil(m, span)
+    t_rows = t_bytes = 0
+    if design == "t_first":
+        t_rows = max(1, min(m, 2048 * sms // (co // 8 if co % 8 == 0 else co)))
+        t_bytes = 2 * m * co * 2
+    return BackwardPlan(design, _ROWS, _WIDE_TILE, dw_tiles * p, p, span,
+                        p * ci * co * 4, 0, t_rows, t_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,10 +345,10 @@ def _kernels():
     lib = _build.load("fused_ir")
     fwd, bwd = lib.tpunet_fused_ir_fwd, lib.tpunet_fused_ir_bwd
     fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
-                    + [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_void_p])
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64]
+                    + [ctypes.c_int] * 5 + [ctypes.c_int64]
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -169,13 +372,15 @@ def fused_ir_forward(x: torch.Tensor, w: torch.Tensor
         raise ValueError("fused_ir_forward: 2^31 elements or more")
     m, ci = x.shape
     co = w.shape[1]
-    p = forward_splits(m, co, _sm_count(x.device.index or 0))
+    plan = forward_plan(m, ci, co, x.dtype, _sm_count(x.device.index or 0))
     y = torch.empty((m, co), dtype=x.dtype, device=x.device)
-    part = torch.empty((p, 2, co), dtype=torch.float32, device=x.device)
+    part = torch.empty((plan.partials, 2, co), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         err = _kernels()[0](x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                            part.data_ptr(), m, ci, co, p,
-                            _DTYPE_CODES[x.dtype], _stream(x))
+                            part.data_ptr(), m, ci, co, plan.blocks,
+                            plan.strip, plan.k_chunk, _DTYPE_CODES[x.dtype],
+                            _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_ir_forward: kernel launch failed with "
                            f"CUDA error {err}")
@@ -212,16 +417,21 @@ def fused_ir_backward(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
     if x.device.type == "cpu":
         return fused_ir_backward_reference(x, g, y, w, chan, act)
     ci = x.shape[1]
-    if x.numel() >= 2**31 or g.numel() >= 2**31 or -(-m // _TILE) > 65535:
+    if x.numel() >= 2**31 or g.numel() >= 2**31 or _ceil(m, _ROWS) > _GRID_Y:
         raise ValueError("fused_ir_backward: too many rows for the grid")
-    p, span = backward_splits(m, ci, co, x.element_size(),
-                              _sm_count(x.device.index or 0))
+    plan = backward_plan(m, ci, co, x.dtype, _sm_count(x.device.index or 0))
     dx = torch.empty_like(x)
-    dwp = torch.empty((p, ci, co), dtype=torch.float32, device=x.device)
+    dwp = torch.empty((plan.partials, ci, co), dtype=torch.float32,
+                      device=x.device)
+    tbuf = (torch.empty((2, m, co), dtype=x.dtype, device=x.device)
+            if plan.t_bytes else None)
     with torch.cuda.device(x.device):
         err = _kernels()[1](x.data_ptr(), g.data_ptr(), y.data_ptr(),
                             w.data_ptr(), chan.data_ptr(), dx.data_ptr(),
-                            dwp.data_ptr(), m, ci, co, int(act), p, span,
+                            dwp.data_ptr(),
+                            None if tbuf is None else tbuf.data_ptr(),
+                            m, ci, co, int(act), _BWD_DESIGNS[plan.design],
+                            plan.partials, plan.span, plan.t_rows,
                             _DTYPE_CODES[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_ir_backward: kernel launch failed with "
