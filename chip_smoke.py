@@ -5,13 +5,15 @@
 Phases, each of which must pass:
   1. build every kernel under tpunet_torch/csrc with nvcc, print ptxas's
      registers and spills per kernel and the SASS mix of the tensor-core
-     kernels, and fail if a tensor-core flash kernel spills at head dim
-     64, or a bf16 fused-IR kernel is missing, spills, or (the tensor-core
-     ones) has no HMMA;
-  2. hold the depthwise forward kernel against its plain PyTorch version
-     at MobileNetV2's 10 depthwise shapes (batch 8, f32 and bf16) plus
-     odd cases, and time kernel, plain version, the library call and the
-     bound at batch 8 (serving) and 128 (training);
+     kernels, and fail if the depthwise forward is missing or spills, a
+     tensor-core flash kernel spills at head dim 64, or a bf16 fused-IR
+     kernel is missing, spills, or (the tensor-core ones) has no HMMA;
+  2. hold the depthwise forward kernel to its plain PyTorch version, bit
+     for bit, at MobileNetV2's 10 depthwise shapes (batch 8, f32 and
+     bf16) plus odd cases and at the 10 shapes at batch 128 in bf16, and
+     time kernel, plain version, the library call and the bound at batch
+     8 (serving) and 128 (training), with the share of the memory rate
+     and the plan;
   3. the same for the training kernels — the depthwise backward and the
      fused-IR forward and backward — at every MobileNetV2 shape (batch 8,
      f32 and bf16) plus odd cases, then checked again (the depthwise
@@ -300,10 +302,10 @@ def sass_mix(path, labels) -> dict:
 def phase_build():
     """Build every kernel source; emit ptxas's registers and spills per
     kernel and the instruction mix of the three tensor-core flash kernels
-    at D = 64 and of the tensor-core fused-IR kernels; fail if one of
-    those flash kernels spills, or a bf16 fused-IR kernel is missing or
-    spills, or a tensor-core fused-IR kernel has no HMMA (the main
-    paths)."""
+    at D = 64 and of the tensor-core fused-IR kernels; fail if the
+    depthwise forward is missing or spills, if one of those flash kernels
+    spills, or a bf16 fused-IR kernel is missing or spills, or a
+    tensor-core fused-IR kernel has no HMMA (the main paths)."""
     from tpunet_torch.ops import _build
     t0 = time.perf_counter()
     names = _build.build_all()
@@ -314,7 +316,16 @@ def phase_build():
                     ("flash_fwd_mma<64>", "flash_bwd_dq_mma<64>",
                      "flash_bwd_dkv_mma<64>"))
     sass.update(sass_mix(_build.library_path("fused_ir"), FUSED_TC_KERNELS))
-    emit("build", kernels=names, seconds=seconds, ptxas=ptxas, sass=sass)
+    dw_fwd = {k: v for k, v in ptxas.items()
+              if k.startswith("depthwise:depthwise3x3_fwd<")}
+    emit("build", kernels=names, seconds=seconds, ptxas=ptxas, sass=sass,
+         depthwise_fwd_registers={k: v.get("registers")
+                                  for k, v in dw_fwd.items()})
+    check(len(dw_fwd) == 4, f"ptxas reported {sorted(dw_fwd)}, want the "
+          "depthwise forward in f32 and bf16, vector and scalar paths")
+    spills = [k for k, v in dw_fwd.items()
+              if v.get("spill_stores", 1) or v.get("spill_loads", 1)]
+    check(not spills, f"depthwise forward kernels {spills} spill registers")
     mma = {k: v for k, v in ptxas.items()
            if k.startswith("flash:") and "_mma<" in k}
     check(len(mma) == 12, f"ptxas reported {sorted(mma)}, want the 3 "
@@ -346,7 +357,10 @@ def dw_fwd_bound(x, w, y) -> dict:
 
 
 def phase_kernels(torch):
-    """Depthwise kernel against its plain version; returns per-shape rows."""
+    """Depthwise forward kernel against its plain version, to the bit, at
+    every shape in f32 and bf16 (batch 8) and in bf16 at batch 128 (the
+    training main path's inputs); returns per-shape rows with the times,
+    the share of the memory rate and the plan."""
     import torch.nn.functional as F
 
     from tpunet_torch.ops import depthwise as dw
@@ -355,6 +369,7 @@ def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [(BATCH, h, h, c, s) for (h, c, s) in MAIN_SHAPES]
     cases += [(BATCH, h, w, c, s) for (h, w, c, s) in ODD_SHAPES]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for i, (n, h, w, c, s) in enumerate(cases):
         g = torch.Generator().manual_seed(SEED + i)
@@ -367,6 +382,11 @@ def phase_kernels(torch):
         pb = dw.depthwise_conv3x3_reference(xb, wb, s)
         sum32 = dw.depthwise_conv3x3_reference(xb.float(), wb.float(), s)
         torch.cuda.synchronize()
+        # The kernel repeats the plain version's arithmetic: the same bits.
+        check(bool(torch.equal(k32, p32)), f"depthwise f32 {(n, h, w, c, s)}: "
+              "differs from the plain version")
+        check(bool(torch.equal(kb, pb)), f"depthwise bf16 {(n, h, w, c, s)}: "
+              "differs from the plain version")
         rel32 = ((k32 - p32).abs().max() / p32.abs().max()).item()
         check(rel32 <= 1e-5, f"depthwise f32 {(n, h, w, c, s)}: max error "
               f"{rel32:.3g} of max |y| > 1e-5")
@@ -392,11 +412,19 @@ def phase_kernels(torch):
                 xl, wl, stride=s, padding=1, groups=c)),
         }
         row.update(dw_fwd_bound(xb, wb, kb))
+        row.update(hbm_share=row["bytes_ms"] / row["kernel_ms"],
+                   plan=dw.forward_plan(n, h, w, c, s, 2, sms)._asdict())
         if (h, c, s) in MAIN_SHAPES:
-            # The same layer at the training batch, bf16 (timing only).
+            # The same layer at the training batch, bf16: held to the plain
+            # version to the bit, then timed.
             xt = torch.randn(TRAIN_BATCH, h, w, c, generator=g).cuda().bfloat16()
             xtl = xt.permute(0, 3, 1, 2)
             yt = dw.depthwise_conv3x3(xt, wb, s)
+            pt = dw.depthwise_conv3x3_reference(xt, wb, s)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(yt, pt)), f"depthwise bf16 "
+                  f"{(TRAIN_BATCH, h, w, c, s)}: differs from the plain version")
+            del pt
             b128 = dw_fwd_bound(xt, wb, yt)
             row["b128"] = {
                 "kernel_ms": time_ms(torch, lambda: dw.depthwise_conv3x3(xt, wb, s)),
@@ -405,7 +433,11 @@ def phase_kernels(torch):
                 "library_ms": time_ms(torch, lambda: F.conv2d(
                     xtl, wl, stride=s, padding=1, groups=c)),
                 "bound_ms": b128["bound_ms"], "bytes_ms": b128["bytes_ms"],
-                "ops_ms": b128["ops_ms"]}
+                "ops_ms": b128["ops_ms"],
+                "plan": dw.forward_plan(TRAIN_BATCH, h, w, c, s, 2,
+                                        sms)._asdict()}
+            row["b128"]["hbm_share"] = (row["b128"]["bytes_ms"]
+                                        / row["b128"]["kernel_ms"])
         rows.append(row)
         emit("kernel_vs_plain", name="depthwise_conv3x3", **row)
     return rows

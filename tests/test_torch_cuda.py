@@ -139,6 +139,32 @@ MNV2_DW = [(112, 112, 32, 1), (112, 112, 96, 2), (56, 56, 144, 1),
            (7, 7, 960, 1), (15, 17, 144, 2), (28, 28, 100, 1)]
 
 
+# (n, h, w, c, stride, dtype) of the forward's card checks: every shape of
+# MNV2_DW at batch 8 in both dtypes, and the 10 main shapes at the
+# training batch in bf16 (the most tiles a block walks).
+DW_FWD = ([(8, *s, dt) for s in MNV2_DW
+           for dt in (torch.float32, torch.bfloat16)]
+          + [(128, *s, torch.bfloat16) for s in MNV2_DW[:10]])
+
+
+@pytest.mark.parametrize("case", DW_FWD, ids=str)
+def test_depthwise_forward_at_mobilenetv2_shapes(cuda, case):
+    """The forward's tiles, bands, chunks and persistent blocks at every
+    MobileNetV2 shape and the odd ones: equal to the plain version to the
+    bit, one launch a call, and a second launch gives the same bits."""
+    n, h, w, c, s, dtype = case
+    x, wt = _inputs((n, h, w, c, s), 30, dtype)
+    before = depthwise_conv3x3.launches
+    got = depthwise_conv3x3(x, wt, s)
+    assert depthwise_conv3x3.launches == before + 1
+    again = depthwise_conv3x3(x, wt, s)
+    want = depthwise_conv3x3_reference(x, wt, s)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
 def _dw_bwd_inputs(n, h, w, c, s, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     ho, wo = (h - 1) // s + 1, (w - 1) // s + 1

@@ -276,3 +276,94 @@ def test_backward_plan_keeps_the_widest_chunk_that_fits():
         64, 7, 1, 128)
     mid = port_dw.backward_plan(128, 14, 14, 384, 1, 2)
     assert (mid.chunk, mid.rows, mid.bands) == (64, 7, 2)
+
+
+# (n, h, w, c, stride) the forward kernel's plan is held to: the 10
+# MobileNetV2 depthwise shapes at the serving and the training batch, the
+# odd shapes of chip_smoke.py, SHAPES and BWD_GRID.
+_MNV2_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2),
+            (28, 192, 1), (28, 192, 2), (14, 384, 1), (14, 576, 1),
+            (14, 576, 2), (7, 960, 1)]
+FWD_PLAN_SHAPES = ([(n, h, h, c, s) for n in (8, 128) for h, c, s in _MNV2_DW]
+                   + [(8, 15, 17, 144, 2), (8, 28, 28, 100, 1)] + SHAPES
+                   + [(2, h, w, c, s) for h, w, c, s in BWD_GRID])
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", FWD_PLAN_SHAPES, ids=str)
+def test_forward_plan_covers_every_output_and_channel_once(shape, elem):
+    """The bands cover every output row once and the chunks every channel
+    once; the threads, as csrc/depthwise.cu maps them (channel pair the
+    fastest index, two neighbouring columns a thread), every (column,
+    channel pair) of a band row once, each thread on one pair; a tile's
+    staged rows and columns hold every tap its outputs reach; two tiles
+    fit the shared memory a block may take at its blocks an SM (72 KB at
+    three, 110 KB at two); and the persistent blocks walk every tile once,
+    each block on one chunk, within the launch limits."""
+    n, h, w, c, s = shape
+    plan = port_dw.forward_plan(n, h, w, c, s, elem, H100_SMS)
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    rows = np.zeros(ho, int)
+    for b in range(plan.bands):
+        rows[b * plan.rows:(b + 1) * plan.rows] += 1
+    assert (rows == 1).all() and (plan.bands - 1) * plan.rows < ho
+    assert 1 <= plan.rows <= 16
+    chans = np.zeros(plan.chunks * plan.chunk, int)
+    for k in range(plan.chunks):
+        chans[k * plan.chunk:(k + 1) * plan.chunk] += 1
+    assert (chans[:c] == 1).all() and (plan.chunks - 1) * plan.chunk < c
+    assert plan.chunk % 8 == 0 and plan.chunk * elem <= 128
+    assert c % 8 or c % plan.chunk == 0
+    pairs, col_pairs = plan.chunk // 2, -(-wo // 2)
+    assert plan.threads % 32 == 0 and plan.threads % pairs == 0
+    assert 32 <= plan.threads <= 256
+    seen = np.zeros((wo, pairs), int)
+    for t in range(plan.threads):
+        for j in range(t // pairs, col_pairs, plan.threads // pairs):
+            for q in (2 * j, 2 * j + 1):
+                if q < wo:
+                    seen[q, t % pairs] += 1
+    assert (seen == 1).all()
+    # Staged rows o0 * s - 1 .., columns -1 .. (staged column i holds
+    # image column i - 1); a thread's columns 2j, 2j + 1 reach staged
+    # columns s * 2j .. s * (2j + 1) + 2.
+    for b in range(plan.bands):
+        r0 = b * plan.rows * s - 1
+        for o in range(b * plan.rows, min(ho, (b + 1) * plan.rows)):
+            for dy in range(3):
+                assert 0 <= o * s - 1 + dy - r0 < plan.in_rows
+    assert s * (2 * col_pairs - 1) + 2 < plan.in_cols
+    assert plan.in_cols >= w + 2 - (s == 2 and w % 2 == 0)
+    tile = plan.in_rows * plan.in_cols * plan.chunk * elem
+    assert plan.stage_bytes == 2 * -(-tile // 128) * 128
+    assert plan.stage_bytes <= {3: 72, 2: 110}[plan.per_sm] * 1024
+    assert plan.tiles == n * plan.bands * plan.chunks < 2**31
+    assert plan.blocks % plan.chunks == 0 and plan.blocks <= plan.tiles
+    assert plan.blocks <= max(plan.per_sm * H100_SMS, plan.chunks)
+    walked = np.zeros(plan.tiles, int)
+    for blk in range(plan.blocks):
+        mine = np.arange(blk, plan.tiles, plan.blocks)
+        assert (mine % plan.chunks == blk % plan.chunks).all()
+        walked[mine] += 1
+    assert (walked == 1).all()
+
+
+def test_forward_plan_at_the_training_shapes():
+    """The plans that the chip's sweep of chunks, bands and blocks chose
+    at batch 128 in bf16 (scripts/torch_depthwise_sweep.py): whole 64- or
+    96-byte pieces of a pixel where C allows (32 channels at 112 px, 48
+    of 144 at 56 px), two blocks an SM where three would cut the band
+    below 7 rows, and the 7 x 7 x 960 layer's whole image in one tile of
+    64 channels, three blocks an SM."""
+    first = port_dw.forward_plan(128, 112, 112, 32, 1, 2, H100_SMS)
+    assert (first.chunk, first.rows, first.threads, first.per_sm,
+            first.blocks) == (32, 5, 256, 2, 264)
+    wide = port_dw.forward_plan(128, 56, 56, 144, 1, 2, H100_SMS)
+    assert (wide.chunk, wide.rows, wide.threads, wide.per_sm) == (
+        48, 8, 192, 2)
+    down = port_dw.forward_plan(128, 112, 112, 96, 2, 2, H100_SMS)
+    assert (down.chunk, down.rows, down.in_rows) == (48, 2, 5)
+    last = port_dw.forward_plan(128, 7, 7, 960, 1, 2, H100_SMS)
+    assert (last.chunk, last.rows, last.bands, last.threads, last.per_sm,
+            last.blocks) == (64, 7, 1, 128, 3, 390)

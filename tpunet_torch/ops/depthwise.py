@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -51,19 +52,21 @@ def depthwise_conv3x3_reference(x: torch.Tensor, w: torch.Tensor,
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stride: int) -> None:
-    if x.device.type not in ("cpu", "cuda"):
+    # Every call of the forward runs this, so each test is one of the
+    # cheapest torch offers that still names what it refuses.
+    if not (x.is_cuda or x.is_cpu):
         raise ValueError(f"depthwise_conv3x3: unsupported device {x.device}")
     if w.device != x.device:
         raise ValueError(f"depthwise_conv3x3: x on {x.device}, w on {w.device}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(f"depthwise_conv3x3: x {x.dtype} and w {w.dtype}; "
                          "both must be float32 or both bfloat16")
-    if stride not in (1, 2):
+    if stride != 1 and stride != 2:
         raise ValueError(f"depthwise_conv3x3: stride {stride} is not 1 or 2")
-    if x.dim() != 4 or min(x.shape) < 1:
+    if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"depthwise_conv3x3: x must be a non-empty "
                          f"[N,H,W,C], got {tuple(x.shape)}")
-    if tuple(w.shape) != (3, 3, x.shape[3]):
+    if w.shape != (3, 3, x.shape[3]):
         raise ValueError(f"depthwise_conv3x3: w must be [3,3,{x.shape[3]}], "
                          f"got {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -76,23 +79,151 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """The C entry of ``csrc/depthwise.cu``, built, loaded and bound once."""
-    fn = _build.load("depthwise").tpunet_depthwise3x3_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entry of ``csrc/depthwise.cu``, built, loaded and bound once,
+    as a prototype call (cheaper a call than a library attribute with
+    ``argtypes``)."""
+    lib = _build.load("depthwise")
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * 4,
+                             ctypes.c_int, ctypes.c_void_p)
+    return proto(ctypes.cast(lib.tpunet_depthwise3x3_fwd,
+                             ctypes.c_void_p).value)
+
+
+class FwdCall(ctypes.Structure):
+    """The C entry's ``FwdCall``: one call's shape and plan."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "h", "w", "c", "stride", "chunk", "rows", "threads", "blocks",
+        "dtype")]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The forward's blocks hold two tiles of staged rows in at most 72 KB
+# (three blocks an SM) or 110 KB (two an SM), with up to 256 threads (the
+# kernel is compiled for 85 registers a thread, which three blocks of 256
+# threads fit). A chunk spans at most 128 bytes of a pixel.
+_FWD_STAGE_BYTES = {3: 72 * 1024, 2: 110 * 1024}
+_FWD_THREADS = 256
+_FWD_ROWS = 16
+_FWD_CHUNK_BYTES = 128
+
+
+class ForwardPlan(NamedTuple):
+    """How the forward kernel cuts one call: tiles of ``rows`` output rows
+    of one image (the whole width) by ``chunk`` channels, ``bands`` down
+    an image and ``chunks`` across the channels, ``tiles`` in all (the
+    chunk the fastest index, then the band, then the image). ``blocks``
+    persistent blocks of ``threads`` threads, ``per_sm`` an SM, walk them
+    with the grid's stride; a thread takes two channels and two
+    neighbouring columns."""
+    chunk: int
+    rows: int
+    threads: int
+    bands: int
+    chunks: int
+    tiles: int
+    blocks: int
+    per_sm: int
+    in_rows: int        # input rows a tile stages, with the halo
+    in_cols: int        # and columns: the halo and whole column pairs
+    stage_bytes: int    # shared memory of a block: two tiles' rows
+
+
+def _in_rows(rows: int, stride: int) -> int:
+    """Input rows that a band of ``rows`` output rows reaches, with the
+    halo: one above and one below at stride 1, one above at stride 2."""
+    return rows + 2 if stride == 1 else 2 * rows + 1
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(n: int, h: int, wd: int, c: int, stride: int, elem: int,
+                 sms: int) -> ForwardPlan:
+    """The tiles and blocks of the forward kernel for x [n, h, wd, c] of
+    ``elem`` bytes an element on a card of ``sms`` SMs, as
+    ``csrc/depthwise.cu`` walks them.
+
+    The chunk is the widest multiple of 8 channels of at most 128 bytes
+    (one that divides C when C is a multiple of 8, the 16-byte path) for
+    which two tiles of at least 4 output rows at stride 1 (1 at stride 2;
+    or the whole image) fit 110 KB: narrower chunks read each pixel in
+    more, smaller pieces, which the card's copy engine fetches more
+    slowly. The band takes as many rows as fit 72 KB, up to 16, and three
+    blocks an SM, if that is at least 7 rows at stride 1 (2 at stride 2;
+    or the whole image); else as many as fit 110 KB, and two blocks an
+    SM; evened out over the image. The threads: the multiple of 32 and of
+    the chunk's channel pairs nearest 256 from below, or fewer if a band
+    row has fewer (column pair, channel pair) items. The grid: that many
+    blocks an SM, a multiple of the chunks, or the tiles if fewer."""
+    ho, wo = _out_size(h, stride), _out_size(wd, stride)
+    col_pairs = -(-wo // 2)
+    in_cols = stride * 2 * col_pairs + 3 - stride
+
+    def fit(chunk, per_sm):
+        """The most rows, up to 16, of which two tiles fit the budget."""
+        tile = in_cols * chunk * elem
+        return max([r for r in range(1, min(ho, _FWD_ROWS) + 1)
+                    if 2 * -(-_in_rows(r, stride) * tile // 128) * 128
+                    <= _FWD_STAGE_BYTES[per_sm]], default=0)
+
+    # Bands of fewer rows than these stage over 1.5 (for the chunk) or
+    # 1.3 (for three blocks an SM) input rows for each one they read.
+    least, enough = (4, 7) if stride == 1 else (1, 2)
+    cands = [k for k in range(8, _FWD_CHUNK_BYTES // elem + 1, 8)
+             if (c % k == 0 if c % 8 == 0 else k < c + 8)]
+    chunk = cands[0]
+    for cand in reversed(cands):
+        if fit(cand, 2) >= min(ho, least):
+            chunk = cand
+            break
+    rows, per_sm = fit(chunk, 3), 3
+    if rows < min(ho, enough):
+        rows, per_sm = max(1, fit(chunk, 2)), 2
+    rows = -(-ho // -(-ho // rows))
+    bands = -(-ho // rows)
+    pairs = chunk // 2
+    unit = pairs * 32 // math.gcd(pairs, 32)
+    threads = max(unit, _FWD_THREADS // unit * unit)
+    threads = min(threads, -(-col_pairs * pairs // unit) * unit)
+    chunks = -(-c // chunk)
+    tiles = n * bands * chunks
+    blocks = min(tiles, max(1, per_sm * sms // chunks) * chunks)
+    in_rows = _in_rows(rows, stride)
+    return ForwardPlan(chunk, rows, threads, bands, chunks, tiles, blocks,
+                       per_sm, in_rows, in_cols,
+                       2 * -(-in_rows * in_cols * chunk * elem // 128) * 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _call(n: int, h: int, wd: int, c: int, stride: int, dtype: torch.dtype,
+          index: int):
+    """The plan of a call, its ``FwdCall`` and that struct's address (the
+    cache keeps the struct alive)."""
+    plan = forward_plan(n, h, wd, c, stride, dtype.itemsize, _sm_count(index))
+    call = FwdCall(n, h, wd, c, stride, plan.chunk, plan.rows, plan.threads,
+                   plan.blocks, _DTYPE_CODES[dtype])
+    return plan, call, ctypes.addressof(call)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    fn = _kernel()
     n, h, wd, c = x.shape
-    y = torch.empty((n, _out_size(h, stride), _out_size(wd, stride), c),
-                    dtype=x.dtype, device=x.device)
-    vectorised = c % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, w, y))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c,
-                 stride, _DTYPE_CODES[x.dtype], int(vectorised), stream)
+    index = x.get_device()
+    plan, _, call = _call(n, h, wd, c, stride, x.dtype, index)
+    y = x.new_empty((n, (h - 1) // stride + 1, (wd - 1) // stride + 1, c))
+    xp, wp, yp = x.data_ptr(), w.data_ptr(), y.data_ptr()
+    # The 16-byte path: whole 16-byte pieces of every pixel's channels,
+    # and a tile's columns within one box of the copy engine (256).
+    vectorised = int(c % 8 == 0 and plan.in_cols <= 256
+                     and not (xp | wp | yp) & 15)
+    if index == torch.cuda.current_device():
+        err = _kernel()(xp, wp, yp, call, vectorised,
+                        torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(xp, wp, yp, call, vectorised,
+                            torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"depthwise_conv3x3: kernel launch failed with "
                            f"CUDA error {err}")
@@ -170,11 +301,6 @@ def _bwd_kernel():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # Shared memory a backward block may stage its tile in, and its threads:
