@@ -37,7 +37,23 @@ Phases, each of which must pass:
   6. run the Trainer for one epoch (1,024 synthetic images, batch 128)
      with eval, reload the best .pth and evaluate it again, then
      ``python -m tpunet_torch.train --eval-only`` on it;
-  7. hold the three flash-attention kernels (forward with lse, dQ, dK/dV)
+  7. dp_step: data parallelism with 2 ranks sharing the card (gloo; NCCL
+     refuses two ranks on one device), each a subprocess of this script
+     (``--dp-worker step``) on 64 rows of phase 5's seeded batch of 128
+     at full width: one f32 step's all-reduced gradients and BN running
+     statistics against phase 5's world-1 kernel step on the 128 (each
+     error at most twice the cuDNN/F.conv2d path's distance from it),
+     the first bf16 step's global loss within 2^-7 of the world-1 one,
+     the ranks' parameters equal to the bit after 3 updates, and
+     17 + 17 + 33 + 33 launches a rank-step;
+  8. dp_trainer: ``python -m tpunet_torch.train --preset distributed``
+     at world 1 over NCCL for phase 6's epoch, its epoch record against
+     phase 6's (losses within 1e-3 relative, accuracies within 0.01;
+     whether it is equal to the bit is printed), ``--eval-only`` of its
+     best.pth, and 30 steps at batch 128 timed over NCCL (``--dp-worker
+     time``) against phase 5's step, with 105 all-reduces a step (52 BN
+     forward, 52 BN backward, 1 gradient buffer) and their device share;
+  9. hold the three flash-attention kernels (forward with lse, dQ, dK/dV)
      against their plain versions in f32 and bf16 at ViT-B/16's shapes
      (batch 8 and 128, T 196, 12 heads of 64) and at odd ones (causal
      T 1024, causal tq < tk, packed segments with a query that sees no
@@ -48,17 +64,17 @@ Phases, each of which must pass:
      bf16 versions' error; and time them at batch 128 against their bound,
      their plain versions and scaled_dot_product_attention (forward; its
      backward through autograd for dQ and dK/dV together);
-  8. serve ViT-B/16 (224 px, bf16, random weights from a seed) through
+ 10. serve ViT-B/16 (224 px, bf16, random weights from a seed) through
      Predictor and ClassifyBatcher with the same clients and images as
      phase 4, 12 flash launches a batched forward, logits against the
      plain versions on the card;
-  9. train ViT-B/16 (batch 128, bf16 over f32, Adam 1e-4, seeded
+ 11. train ViT-B/16 (batch 128, bf16 over f32, Adam 1e-4, seeded
      synthetic CIFAR-10): one f32 step's loss and gradients with the
      kernels against the plain versions; 30 steps with 12 + 12 + 12
      flash launches each, step time, images/s, peak memory and a
      profiled step; a Trainer epoch with --model vit_base and
      --eval-only on its best.pth;
- 10. print the kernel list and the card's name and power limit.
+ 12. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -1136,6 +1152,10 @@ def phase_train(torch):
         check(ours <= 2 * lib + 1e-5, f"f32 {name} error {ours:.3g} against "
               f"the plain versions; the library path's is {lib:.3g}")
 
+    # The world-1 references of phase_dp_step: this f32 kernel step and
+    # the library path's distance from it.
+    dp_ref = dict(grads=k_grads, stats=k_stats, lib_grads=l_grads,
+                  lib_stats=l_stats)
     torch.backends.cudnn.allow_tf32 = True      # a user's defaults again
     model = make("bfloat16")
     start = copy.deepcopy(model.state_dict())
@@ -1220,7 +1240,8 @@ def phase_train(torch):
     prof = profile_step(torch, lambda: step_fn(
         state, xb, yb, step_generator(42, state.global_step)), p50 * 1e3)
     emit("train_step_profile", **prof)
-    return launches, TRAIN_BATCH / p50
+    return launches, TRAIN_BATCH / p50, dict(dp_ref, bf16_loss=losses[0],
+                                             step_ms=p50 * 1e3)
 
 
 def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
@@ -1277,6 +1298,345 @@ def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
           f"--eval-only accuracy {cli_acc} vs {rec['test_accuracy']}")
     emit(tag, epoch_record=rec, wall_s=wall, best_pth_accuracy=acc,
          eval_only_line=found.group(0))
+    return rec
+
+# ---------------------------------------------------------------------------
+# Data parallelism
+# ---------------------------------------------------------------------------
+
+DP_DIR = ROOT / "build" / "tpunet_torch" / "smoke_dp"
+DP_STEP_BATCH = TRAIN_BATCH // 2   # per rank: 2 ranks on one card
+DP_UPDATES = 3
+DP_TIMEOUT_S = 300
+# The dp_trainer epoch against the single-process Trainer's: losses within
+# 1e-3 relative, accuracies within 0.01 (bf16 steps through cuDNN, whose
+# convolution backward need not give the same bits twice).
+DP_EPOCH_RTOL = 1e-3
+DP_EPOCH_ACC_TOL = 0.01
+
+
+def run_workers(cmds, env=None) -> list:
+    """Run the commands together, stdout and stderr to files under
+    DP_DIR; each must exit 0 within DP_TIMEOUT_S, and all are killed on
+    any failure. Returns their stdout. A worker finds its rendezvous in
+    its arguments or ``env``, never in an inherited MASTER_ADDR."""
+    import os
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                         "LOCAL_RANK")}
+    procs = []
+    try:
+        for name, cmd in cmds:
+            out = open(DP_DIR / f"{name}.out", "w")
+            err = open(DP_DIR / f"{name}.err", "w")
+            procs.append((name, out, err, subprocess.Popen(
+                cmd, stdout=out, stderr=err, cwd=ROOT,
+                env={**base, **(env or {}).get(name, {})})))
+        for name, out, err, p in procs:
+            try:
+                p.wait(timeout=DP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"{name} did not finish in "
+                                 f"{DP_TIMEOUT_S} s") from None
+            check(p.returncode == 0, f"{name} exited {p.returncode}: "
+                  f"{(DP_DIR / f'{name}.err').read_text()[-3000:]}")
+        return [(DP_DIR / f"{name}.out").read_text() for name, _ in cmds]
+    finally:
+        for name, out, err, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+
+
+def dp_worker(role: str, world: int, rank: int) -> int:
+    """One rank of a data-parallel phase (``chip_smoke.py --dp-worker``):
+
+    - ``step``: one of 2 ranks that share the card over gloo (NCCL refuses
+      two ranks on one device). On its 64 rows of the seeded batch of 128:
+      one f32 kernel step's all-reduced gradients and BN running
+      statistics (TF32 off, the generator of phase_train's grad_step),
+      then 3 bf16 train-step updates with their launch counts, the first
+      step's global loss, and whether both ranks hold the same parameters
+      after them;
+    - ``time``: one process, 30 bf16 steps at batch 128 on one repeated
+      batch in turns without a process group and at world 1 over NCCL
+      (none, NCCL, NCCL, none): the wall times, the NCCL runs'
+      collective calls and launches, the host time inside the
+      all-reduces over 10 more steps, and one profiled step.
+    Writes its results to DP_DIR/<role>_rank<rank>.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    import torch.nn.functional as F
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.data.augment import make_train_augment
+    from tpunet_torch.models import create_model
+    from tpunet_torch.parallel import dist
+    from tpunet_torch.train import metrics as M
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step, reduce_gradients
+    from tpunet_torch.utils.prng import step_generator
+
+    if role == "step":
+        dist.initialize_distributed(
+            init_method=(DP_DIR / "store").as_uri(), world_size=world,
+            rank=rank, backend="gloo")
+    device = dist.local_device()
+    torch.cuda.set_device(device)
+    data, optim = DataConfig(dataset="synthetic"), OptimConfig()
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    n = TRAIN_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    xb = torch.from_numpy(images[rows]).to(device)
+    yb = torch.from_numpy(labels[rows].astype(np.int64)).to(device)
+
+    def make(dtype):
+        return create_model(ModelConfig(use_pallas_depthwise=True,
+                                        fused_ir=True, dtype=dtype),
+                            device=str(device),
+                            generator=torch.Generator().manual_seed(42))
+
+    out = {}
+    if role == "step":
+        out.update(backend=dist.backend_name(), world=dist.process_count())
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = make("float32")
+        gen = step_generator(7, 0)
+        x = make_train_augment(data)(gen, xb).permute(0, 3, 1, 2)
+        loss = F.cross_entropy(model(x, train=True, generator=gen), yb)
+        loss.backward()
+        reduce_gradients(model.parameters())
+        out["f32_grads"] = {k: p.grad.detach().float().cpu()
+                            for k, p in model.named_parameters()}
+        out["f32_stats"] = {k: v.detach().float().cpu()
+                            for k, v in model.state_dict().items()
+                            if k.endswith(("running_mean", "running_var"))}
+        del model, x, loss
+        torch.backends.cudnn.allow_tf32 = True
+        model = make("bfloat16")
+        state = TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20))
+        step_fn = make_train_step(data, optim)
+        reset_launch_counts()
+        first = None
+        for _ in range(DP_UPDATES):
+            m = step_fn(state, xb, yb, step_generator(42, state.global_step))
+            if first is None:
+                first = M.summarize(m)["loss"]   # the global batch's
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        out["bf16_loss"] = first
+        flat = torch.cat([p.detach().reshape(-1) for p in
+                          model.parameters()]).cpu()
+        gathered = [torch.empty_like(flat) for _ in range(world)]
+        tdist.all_gather(gathered, flat)
+        out["params_equal"] = all(torch.equal(gathered[0], g)
+                                  for g in gathered[1:])
+    else:
+        model = make("bfloat16")
+        state = TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20))
+        step_fn = make_train_step(data, optim)
+
+        def step():
+            step_fn(state, xb, yb, step_generator(42, state.global_step))
+
+        def p50_ms():
+            times = []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            steady = sorted(times[2:])
+            return (statistics.median(steady) * 1e3, steady[0] * 1e3,
+                    steady[-1] * 1e3)
+
+        step()                                     # warm-up
+        torch.cuda.synchronize()
+        runs = {"none_a": p50_ms()}
+        dist.initialize_distributed(world_size=1, rank=0)
+        out.update(backend=dist.backend_name(), world=dist.process_count())
+        step()                                     # the communicator
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        calls = dist.all_reduce.calls
+        runs["nccl_a"] = p50_ms()
+        out["collectives"] = dist.all_reduce.calls - calls
+        out["launches"] = launch_counts()
+        runs["nccl_b"] = p50_ms()
+        # Host time inside the all-reduces (NCCL returns once the call
+        # is queued), over 10 more steps, outside the timed runs.
+        spent = [0.0]
+        raw = tdist.all_reduce
+
+        def timed_all_reduce(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return raw(*a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+
+        tdist.all_reduce = timed_all_reduce
+        try:
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+        finally:
+            tdist.all_reduce = raw
+        out["collective_host_ms_per_step"] = spent[0] * 1e3 / 10
+        out["profile"] = profile_step(
+            torch, step, runs["nccl_a"][0], family_names=(
+                "nccl", "depthwise3x3_fwd", "depthwise3x3_bwd",
+                "fused_ir_fwd", "fused_ir_bwd"))
+        dist.destroy()
+        runs["none_b"] = p50_ms()
+        out["runs"] = runs
+    torch.save(out, DP_DIR / f"{role}_rank{rank}.pt")
+    dist.destroy()
+    return 0
+
+
+def phase_dp_step(torch, ref) -> None:
+    """dp_step: 2 ranks share the card (gloo), 64 rows each of the seeded
+    batch of 128, against phase_train's world-1 kernel step on the 128."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    me = str(Path(__file__).resolve())
+    run_workers([(f"step_rank{r}", [sys.executable, me, "--dp-worker",
+                                    "step", "2", str(r)]) for r in range(2)],
+                env={f"step_rank{r}": {"LOCAL_RANK": str(r)}
+                     for r in range(2)})
+    outs = [torch.load(DP_DIR / f"step_rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    got = outs[0]
+    check(all(o["backend"] == "gloo" and o["world"] == 2 for o in outs),
+          f"dp_step ran as {[(o['backend'], o['world']) for o in outs]}")
+    want = {k: v.float().cpu() for k, v in ref["grads"].items()}
+    lib = {k: v.float().cpu() for k, v in ref["lib_grads"].items()}
+    g_err = grad_errors(torch, got["f32_grads"], want)
+    g_lib = grad_errors(torch, lib, want)
+    s_want = {k: v.float().cpu() for k, v in ref["stats"].items()}
+    s_err = stat_errors(torch, got["f32_stats"], s_want)
+    s_lib = stat_errors(torch, {k: v.float().cpu() for k, v in
+                                ref["lib_stats"].items()}, s_want)
+    res = dict(ranks=2, backend="gloo", rows_per_rank=DP_STEP_BATCH,
+               grad_err_median=statistics.median(g_err.values()),
+               grad_err_max=max(g_err.values()),
+               library_grad_err_median=statistics.median(g_lib.values()),
+               library_grad_err_max=max(g_lib.values()),
+               bn_stat_err_max=max(s_err.values()),
+               library_bn_stat_err_max=max(s_lib.values()),
+               bf16_loss=got["bf16_loss"], bf16_loss_world1=ref["bf16_loss"],
+               bf16_loss_rel_err=abs(got["bf16_loss"] - ref["bf16_loss"])
+               / abs(ref["bf16_loss"]),
+               params_equal_after_updates=got["params_equal"],
+               updates=DP_UPDATES,
+               launches_per_step=[{k: v / DP_UPDATES for k, v in
+                                   o["launches"].items()} for o in outs])
+    emit("dp_step", **res)
+    # The f32 gate of phase_train: each error against the world-1 kernel
+    # step at most twice the library path's distance from it, plus 1e-5.
+    for name, ours, lib_err in (
+            ("gradient median", res["grad_err_median"],
+             res["library_grad_err_median"]),
+            ("gradient max", res["grad_err_max"], res["library_grad_err_max"]),
+            ("BN statistic max", res["bn_stat_err_max"],
+             res["library_bn_stat_err_max"])):
+        check(ours <= 2 * lib_err + 1e-5, f"dp_step f32 {name} error "
+              f"{ours:.3g} against the world-1 step; the library path's is "
+              f"{lib_err:.3g}")
+    check(math.isfinite(got["bf16_loss"])
+          and res["bf16_loss_rel_err"] <= 2.0**-7,
+          f"dp_step bf16 loss {got['bf16_loss']} vs world 1 "
+          f"{ref['bf16_loss']}")
+    check(got["params_equal"], "the two ranks' parameters differ after "
+          f"{DP_UPDATES} updates")
+    want_launches = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
+                     "fused_ir_forward": 33, "fused_ir_backward": 33}
+    for o in outs:
+        for name, k in want_launches.items():
+            check(o["launches"][name] == k * DP_UPDATES,
+                  f"dp_step {name}: {o['launches'][name]} launches in "
+                  f"{DP_UPDATES} steps (want {k} a step)")
+
+
+def phase_dp_trainer(torch, single_epoch, single_step_ms) -> None:
+    """dp_trainer: ``python -m tpunet_torch.train --preset distributed`` at
+    world 1 over NCCL, one epoch at phase_trainer's sizes, against its
+    epoch; --eval-only of the best.pth; then 30 timed steps against
+    phase_train's single-process step."""
+    ckdir = DP_DIR / "ck"
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    flags = [sys.executable, "-m", "tpunet_torch.train", "--preset",
+             "distributed", "--pallas-depthwise", "--dataset", "synthetic",
+             "--synthetic-size", "1024", "--epochs", "1",
+             "--checkpoint-dir", str(ckdir)]
+    t0 = time.perf_counter()
+    (out,) = run_workers([("trainer", flags)], env={"trainer": env})
+    wall = time.perf_counter() - t0
+    check("Processes: 1 (nccl), global batch 128" in out,
+          f"the distributed CLI did not report NCCL at world 1: {out[:2000]}")
+    lines = (ckdir / "metrics.jsonl").read_text().splitlines()
+    check(len(lines) == 1 and (ckdir / "best.pth").exists(),
+          f"files in {ckdir}: {sorted(p.name for p in ckdir.iterdir())}")
+    rec = json.loads(lines[0])
+    keys = ("train_loss", "train_accuracy", "test_loss", "test_accuracy")
+    diff = {k: rec[k] - single_epoch[k] for k in keys}
+    bit_equal = all(rec[k] == single_epoch[k] for k in keys)
+    (ev,) = run_workers([("eval_only", flags + ["--eval-only"])],
+                        env={"eval_only": env})
+    found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", ev)
+    check(found is not None, f"--eval-only printed no Eval line: {ev}")
+    me = str(Path(__file__).resolve())
+    run_workers([("time_rank0", [sys.executable, me, "--dp-worker", "time",
+                                 "1", "0"])])
+    timed = torch.load(DP_DIR / "time_rank0.pt", weights_only=False)
+    prof, runs = timed["profile"], timed["runs"]
+    nccl_ms = prof.get("hand_kernel_ms", {}).get("nccl")
+    p50 = statistics.median([runs["nccl_a"][0], runs["nccl_b"][0]])
+    none = statistics.median([runs["none_a"][0], runs["none_b"][0]])
+    emit("dp_trainer", backend=timed["backend"], epoch_record=rec,
+         single_epoch_record={k: single_epoch[k] for k in keys},
+         epoch_diff=diff, epoch_bit_equal=bit_equal,
+         tolerance={"loss_rel": DP_EPOCH_RTOL, "accuracy": DP_EPOCH_ACC_TOL},
+         cli_wall_s=wall, eval_only_line=found.group(0),
+         step_ms_runs={k: v[0] for k, v in runs.items()},
+         step_ms_p50=p50, images_per_s=TRAIN_BATCH / (p50 / 1e3),
+         single_step_ms_p50=none,
+         single_images_per_s=TRAIN_BATCH / (none / 1e3),
+         phase_train_step_ms_p50=single_step_ms,
+         collectives_per_step=timed["collectives"] / TRAIN_STEPS,
+         collective_host_ms_per_step=timed["collective_host_ms_per_step"],
+         collective_host_share=timed["collective_host_ms_per_step"] / p50,
+         step_overhead_share=(p50 - none) / p50,
+         launches_per_step={k: v / TRAIN_STEPS
+                            for k, v in timed["launches"].items()},
+         nccl_device_ms=nccl_ms,
+         nccl_device_share=None if nccl_ms is None else nccl_ms / p50,
+         profile=prof)
+    for k in ("train_loss", "test_loss"):
+        check(abs(diff[k]) <= DP_EPOCH_RTOL * abs(single_epoch[k]),
+              f"dp_trainer {k} {rec[k]} vs the single Trainer's "
+              f"{single_epoch[k]}")
+    for k in ("train_accuracy", "test_accuracy"):
+        check(abs(diff[k]) <= DP_EPOCH_ACC_TOL, f"dp_trainer {k} {rec[k]} "
+              f"vs the single Trainer's {single_epoch[k]}")
+    check(abs(float(found.group(2)) - rec["test_accuracy"]) < 5e-5,
+          f"--eval-only accuracy {found.group(2)} vs {rec['test_accuracy']}")
+    check(timed["backend"] == "nccl", f"timed on {timed['backend']}")
+    check(timed["collectives"] == 105 * TRAIN_STEPS,
+          f"{timed['collectives']} collectives in {TRAIN_STEPS} steps (want "
+          "52 BN forward + 52 BN backward + 1 gradient buffer a step)")
+    for name, k in (("depthwise_conv3x3", 17), ("fused_ir_backward", 33)):
+        check(timed["launches"][name] == k * TRAIN_STEPS,
+              f"dp_trainer {name}: {timed['launches'][name]} launches")
+
 
 # ---------------------------------------------------------------------------
 # Flash attention and ViT-B/16
@@ -1760,8 +2120,12 @@ def main() -> int:
         fwd_rows = phase_kernels(torch)
         train_rows = phase_train_kernels(torch)
         serve_launches = phase_main_path(torch)
-        launches, images_per_s = phase_train(torch)
-        phase_trainer(torch)
+        launches, images_per_s, dp_ref = phase_train(torch)
+        epoch = phase_trainer(torch)
+        torch.cuda.empty_cache()
+        phase_dp_step(torch, dp_ref)
+        phase_dp_trainer(torch, epoch, dp_ref["step_ms"])
+        del dp_ref
         torch.cuda.empty_cache()
         flash_rows = phase_flash_kernels(torch)
         state = vit_state(torch)
@@ -1820,4 +2184,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

@@ -36,12 +36,14 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("tpunet_torch.serve.classify", "tpunet_torch.ops.fused_ir",
                 "tpunet_torch.train.loop", "tpunet_torch.train.__main__",
-                "tpunet_torch.data.augment", "tpunet_torch.ckpt"):
+                "tpunet_torch.data.augment", "tpunet_torch.ckpt",
+                "tpunet_torch.parallel", "tpunet_torch.parallel.dist"):
         assert mod in res["mods"]
     assert res["bad"] == []
 
 
-@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py",
+                                                "tests/_torch_dp_worker.py"])
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = []

@@ -9,7 +9,10 @@
   optimizer, ``global_step``, epoch, ``best_acc``) for ``--resume``.
 
 Each file is written to a temporary name and renamed into place, so a
-crash never leaves a partial checkpoint. The JAX package's Orbax
+crash never leaves a partial checkpoint. Under data parallelism rank 0
+writes and then every rank passes a barrier, so a file is complete
+before any rank goes on; every rank reads the same file when it
+restores (tpunet restores on every process). The JAX package's Orbax
 layout and its asynchronous saves do not carry over.
 """
 
@@ -22,6 +25,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from tpunet_torch.config import CheckpointConfig
+from tpunet_torch.parallel.dist import sync_hosts
+from tpunet_torch.utils.logging import is_coordinator
 
 BEST = "best.pth"
 STATE = "state.pt"
@@ -45,15 +50,17 @@ class Checkpointer:
         return os.path.join(self.directory, name)
 
     def _save(self, obj: Any, name: str) -> str:
-        os.makedirs(self.directory, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
-        os.close(fd)
-        try:
-            torch.save(_cpu(obj), tmp)
-            os.replace(tmp, self._path(name))
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        if is_coordinator():
+            os.makedirs(self.directory, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
+            os.close(fd)
+            try:
+                torch.save(_cpu(obj), tmp)
+                os.replace(tmp, self._path(name))
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        sync_hosts(f"saved-{name}")
         return self._path(name)
 
     def save_best(self, model: torch.nn.Module) -> str:

@@ -201,7 +201,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """Optimizer config (reference: Adam 1e-4 + StepLR(10, 0.1))."""
+    """Optimizer config (reference: Adam 1e-4 + StepLR(10, 0.1)).
+
+    ``grad_accum``: microbatches a step (strided rows of the batch), one
+    update; ``clip_norm``: optax's ``clip_by_global_norm`` before the
+    update, 0 = off."""
 
     name: str = "adam"
     learning_rate: float = 1e-4
@@ -219,11 +223,11 @@ class OptimConfig:
     grad_accum: int = 1
 
     def __post_init__(self):
-        _refuse_unported(self, {
-            "clip_norm": "Queue A item 2b (clip-norm)",
-            "ema_decay": "Queue A item 2b (EMA)",
-            "grad_accum": "Queue A item 2b (gradient accumulation)",
-        })
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
+        if self.clip_norm < 0:
+            raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
+        _refuse_unported(self, {"ema_decay": "Queue A item 2b (EMA)"})
 
 
 @dataclass(frozen=True)
@@ -264,17 +268,14 @@ def preset(name: str) -> TrainConfig:
 
     - ``serial``: the reference's serial script, batch 64;
     - ``single``: the reference's one-accelerator script, batch 128;
-    - ``distributed``: data parallelism over NCCL, ROADMAP Queue A item 3.
+    - ``distributed``: the reference's MPI script, data parallelism over
+      NCCL: the ``single`` config, 128 a rank (the CLI multiplies the
+      batch by the world size).
     """
     base = TrainConfig()
     if name == "serial":
         return base.replace(data=dataclasses.replace(base.data, batch_size=64))
-    if name == "single":
+    if name in ("single", "distributed"):
         return base
-    if name == "distributed":
-        raise NotImplementedError(
-            "preset 'distributed' (data parallelism over NCCL) is not "
-            "ported to tpunet_torch yet; it comes with ROADMAP Queue A "
-            "item 3")
     raise ValueError(f"unknown preset {name!r}; expected "
                      "serial|single|distributed")

@@ -15,8 +15,10 @@ Randomness is split from the transform: :func:`sample_augment_params`
 draws each image's parameters from a ``torch.Generator``, and
 :func:`augment_with_params` applies them. The JAX package draws from its
 key tree instead, so the two give other numbers from one seed; a test
-feeds the port the parameters that JAX's keys draw. Mixup/CutMix is
-ROADMAP Queue A item 2b.
+feeds the port the parameters that JAX's keys draw. Under data
+parallelism the train augment draws the parameters of the global batch
+and each rank takes its rows, so N ranks see the images one rank would.
+Mixup/CutMix is ROADMAP Queue A item 2b.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from tpunet_torch.config import DataConfig
+from tpunet_torch.parallel.dist import process_count, process_index
 
 SRC = 32  # CIFAR-10 native resolution
 
@@ -299,11 +302,15 @@ def augment_with_params(images_u8: torch.Tensor,
 
 
 def make_train_augment(cfg: DataConfig) -> Callable:
-    """fn(generator, images_u8 [B,32,32,3]) -> float32 [B,S,S,3]."""
+    """fn(generator, images_u8 [B,32,32,3]) -> float32 [B,S,S,3]; ``B``
+    is this rank's share of the global batch, whose parameters are drawn
+    (a [B * ranks, 8] draw on the CPU costs nothing) and sliced."""
     def augment(generator, images_u8):
+        n = images_u8.shape[0]
+        lo = n * process_index()
+        params = sample_augment_params(generator, n * process_count(), cfg)
         return augment_with_params(
-            images_u8, sample_augment_params(generator, images_u8.shape[0],
-                                             cfg), cfg)
+            images_u8, {k: v[lo:lo + n] for k, v in params.items()}, cfg)
     return augment
 
 

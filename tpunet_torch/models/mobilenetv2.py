@@ -34,6 +34,17 @@ Train mode (``forward(x, train=True, generator=g)``):
   ``F.conv2d``/``F.linear``, as tpunet leaves them to XLA;
 - dropout keeps each pooled feature with probability ``1 - rate`` and
   scales it by ``1 / (1 - rate)``; the mask comes from ``generator``.
+
+Under data parallelism (a process group, ``tpunet_torch.parallel``)
+train mode computes the function of the global batch, as tpunet's jit
+over a batch-sharded mesh does: every train-mode BN normalises by the
+statistics of the whole batch (its per-channel sums summed over the
+ranks, forward and backward, and divided by the global count), the
+running statistics are updated from them and so agree on every rank,
+and the dropout mask is drawn at the global batch's shape, of which
+each rank takes its rows. Without a group the reduction is the identity
+on the same code path, so one rank computes bit for bit what a run
+without a group does.
 """
 
 from __future__ import annotations
@@ -47,6 +58,8 @@ from torch import nn
 from tpunet_torch.ops import depthwise_conv3x3
 from tpunet_torch.ops.depthwise import depthwise_conv3x3_train
 from tpunet_torch.ops.fused_ir import conv1x1_bn_act
+from tpunet_torch.parallel.dist import (all_reduce_sum, process_count,
+                                        process_index)
 
 # (expansion, out_channels, num_blocks, first_stride)
 INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
@@ -237,11 +250,14 @@ class MobileNetV2(nn.Module):
     # -- train mode -------------------------------------------------------
 
     def _bn_train(self, bn: BN, x: torch.Tensor, act: bool) -> torch.Tensor:
-        """FusedBNAct's train math on a conv output [N,C,H,W]."""
+        """FusedBNAct's train math on a conv output [N,C,H,W], with the
+        statistics of the global batch."""
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              0.0)
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                           (xf * xf).sum(dim=(0, 2, 3))]))
+        count = xf.numel() // xf.shape[1] * process_count()
+        mean = sums[0] / count
+        var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
         self._update_running(bn, mean, var)
         inv = torch.rsqrt(var + BN_EPSILON) * bn.weight.float()
         shift = bn.bias.float() - mean * inv
@@ -306,8 +322,11 @@ class MobileNetV2(nn.Module):
         if rate > 0.0:
             if generator is None:
                 raise ValueError("train mode with dropout needs a generator")
-            u = torch.rand(x.shape, generator=generator,
-                           device=generator.device).to(x.device)
+            # The global batch's mask; this rank's rows of it.
+            n = x.shape[0]
+            u = torch.rand((n * process_count(),) + x.shape[1:],
+                           generator=generator, device=generator.device)
+            u = u[n * process_index():n * (process_index() + 1)].to(x.device)
             x = torch.where(u < 1.0 - rate, x / (1.0 - rate),
                             torch.zeros((), dtype=x.dtype, device=x.device))
         lin = self.classifier[1]

@@ -26,8 +26,12 @@ the plain versions of ``tpunet_torch.ops.attention``; q, k and v reach
 it as views of the fused projection. Dropout (``dropout_rate``) sits
 after the position embedding, each attention output and each MLP, 25
 masks in ViT-B/16: their bits come from a generator on the activations'
-device, seeded by one draw from the step's generator, so no mask is
-drawn on the host and copied. In eval mode the weights cast to
+device, seeded by one draw from the step's generator and this process's
+rank, so no mask is drawn on the host and copied. Under data parallelism
+each rank therefore draws its own masks: with dropout above 0, N ranks
+do not repeat the masks of one rank on the same global batch (they
+already differ between the CPU and the card); at dropout 0 they compute
+the same step. In eval mode the weights cast to
 ``dtype`` are computed once and reused until a parameter changes.
 
 Not ported: the decode path and its KV caches (``decode``, ``PagedKV``:
@@ -47,6 +51,7 @@ from torch import nn
 
 from tpunet_torch.ops.attention import blockwise_attention, dense_attention
 from tpunet_torch.ops.flash import flash_attention
+from tpunet_torch.parallel.dist import process_index
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v) BTHD -> BTHD
 
@@ -180,6 +185,9 @@ class ViT(nn.Module):
         if generator is None:
             raise ValueError("train mode with dropout needs a generator")
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        # Rank 0 keeps the draw; the others step away from it by a large
+        # odd constant (2^64 / golden ratio).
+        seed = (seed + process_index() * 0x9E3779B97F4A7C15) % 2**63
         bits = torch.Generator(device=device).manual_seed(seed)
         keep = 1.0 - rate
 

@@ -17,7 +17,12 @@ expand and project 1x1 convs of every inverted residual here
   running-statistics update and are not differentiable (tpunet's
   contract at ``fused_ir.py:387-391``). The (C,)-sized statistics, the
   epilogue and the backward's two batch reductions are plain torch, as
-  tpunet leaves them to XLA.
+  tpunet leaves them to XLA. Under data parallelism the statistics are
+  those of the global batch, as tpunet's psum under batch sharding
+  gives them (``fused_ir.py:364,414``): the forward's column sums and
+  the backward's two reductions are summed over the ranks
+  (``tpunet_torch.parallel.all_reduce``) before they are used, and the
+  row count is the global one; the kernels do not change.
 
 Activations are the NHWC tensor as a matrix ``[M = N*H*W, C]``. Dispatch
 is by device only: a CPU tensor runs the plain version, a CUDA tensor
@@ -61,6 +66,7 @@ import torch
 
 from tpunet_torch.ops import _build
 from tpunet_torch.ops.depthwise import _DTYPE_CODES, _sm_count
+from tpunet_torch.parallel.dist import all_reduce, process_count
 
 
 
@@ -456,7 +462,8 @@ class Conv1x1BNActFunction(torch.autograd.Function):
     """Fused 1x1 conv + train-mode BN (+ReLU6), the counterpart of
     tpunet's ``_fused`` custom_vjp: kernel forward, then the statistics
     and epilogue in torch; in the backward, the two batch reductions in
-    torch, then the kernel."""
+    torch, then the kernel. The column sums and the two reductions are
+    summed over the ranks, and divided by the global row count."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias, act, eps):
@@ -465,6 +472,8 @@ class Conv1x1BNActFunction(torch.autograd.Function):
         m = n * h * wd
         x2 = x.reshape(m, ci)
         y, s = fused_ir_forward(x2, w)
+        s = all_reduce(s)
+        m = m * process_count()
         mean = s[0] / m
         var = torch.clamp_min(s[1] / m - mean * mean, 0.0)
         r = torch.rsqrt(var + eps)
@@ -477,6 +486,7 @@ class Conv1x1BNActFunction(torch.autograd.Function):
         ctx.save_for_backward(x2, w, y, inv, shift, r, mean * r)
         ctx.mark_non_differentiable(mean, var)
         ctx.dtypes = (x.shape, scale.dtype, bias.dtype)
+        ctx.rows = m
         return o.to(y.dtype).view(n, h, wd, co), mean, var
 
     @staticmethod
@@ -494,9 +504,13 @@ class Conv1x1BNActFunction(torch.autograd.Function):
             yn = yf * inv + shift
             gm = gm * ((yn > 0.0) & (yn < 6.0)).float()
         yh = yf * r - mr
-        r1 = gm.sum(dim=0)            # = dbias
-        r2 = (gm * yh).sum(dim=0)     # = dscale
-        chan = torch.stack([inv, shift, r, mr, r1 / m, r2 / m])
+        r1 = gm.sum(dim=0)            # = dbias (this rank's rows)
+        r2 = (gm * yh).sum(dim=0)     # = dscale (this rank's rows)
+        # dx sees the whole batch's reductions: rank r's rows feed every
+        # rank's outputs through the global statistics.
+        rr = all_reduce(torch.stack([r1, r2]))
+        chan = torch.stack([inv, shift, r, mr, rr[0] / ctx.rows,
+                            rr[1] / ctx.rows])
         dx, dw = fused_ir_backward(x2, g2, y, w, chan, ctx.act)
         return (dx.view(x_shape), dw.to(w.dtype), r2.to(scale_dtype),
                 r1.to(bias_dtype), None, None)

@@ -1,0 +1,156 @@
+"""Process group bootstrap and the collectives of data parallelism, port
+of ``tpunet/parallel/dist.py``.
+
+The reference boots with mpirun, then a TCP rendezvous at a hardcoded
+localhost:29500, then an NCCL process group, and binds rank ``r`` to
+card ``r % device_count`` (cifar10_mpi_mobilenet_224.py:24-40). Here
+:func:`initialize_distributed` reads the launcher's standard variables
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``, as ``torchrun`` sets them); explicit arguments override
+them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
+
+    torchrun --standalone --nproc-per-node 2 -m tpunet_torch.train \\
+        --preset distributed --device cpu ...
+
+Every collective of the port goes through :func:`all_reduce`, which
+counts its calls (``all_reduce.calls``), as the kernel wrappers count
+their launches. Without a process group every helper here is the
+identity (one rank, index 0), so single-process code runs unchanged.
+Not ported: the collective-free host agreements (``agree_any``,
+``kv_live_processes``) of the preemption and elastic paths, ROADMAP
+Queue A items 2b and 9.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# How long a rank waits at a rendezvous or a collective before it fails.
+TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def is_initialized() -> bool:
+    """True when this process belongs to a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def initialize_distributed(init_method: Optional[str] = None,
+                           world_size: Optional[int] = None,
+                           rank: Optional[int] = None,
+                           backend: Optional[str] = None,
+                           device: str = "cuda") -> None:
+    """Join the process group of this run; a no-op when one exists.
+
+    ``world_size`` and ``rank`` default to ``WORLD_SIZE`` (1) and
+    ``RANK`` (0); ``init_method`` to ``env://`` (``MASTER_ADDR`` and
+    ``MASTER_PORT``) when ``MASTER_ADDR`` is set. A one-process world
+    without an address takes an in-memory store. ``backend`` defaults to
+    NCCL when ``device`` is a CUDA device and gloo otherwise; two ranks
+    that share one card pass ``backend="gloo"``, since NCCL refuses
+    them."""
+    if is_initialized():
+        return
+    env = os.environ
+    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None \
+        else world_size
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    kind = torch.device(device).type
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    kw = {"backend": backend, "world_size": world_size, "rank": rank,
+          "timeout": TIMEOUT}
+    if init_method is None and env.get("MASTER_ADDR"):
+        init_method = "env://"
+    if init_method is not None:
+        kw["init_method"] = init_method
+    elif world_size == 1:
+        kw["store"] = dist.HashStore()
+    else:
+        raise ValueError(f"a world of {world_size} processes needs "
+                         "MASTER_ADDR and MASTER_PORT or an init_method")
+    if backend == "nccl":
+        # Binds the communicator to this rank's card up front.
+        kw["device_id"] = local_device(kind, rank)
+    dist.init_process_group(**kw)
+
+
+def destroy() -> None:
+    """Leave the process group, if this process is in one."""
+    if is_initialized():
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    """This process's rank (the reference's ``rank``)."""
+    return dist.get_rank() if is_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes (the reference's ``world_size``)."""
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def backend_name() -> Optional[str]:
+    """The process group's backend (``nccl``, ``gloo``), or None."""
+    return dist.get_backend() if is_initialized() else None
+
+
+def local_device(kind: str = "cuda",
+                 rank: Optional[int] = None) -> torch.device:
+    """This rank's device: ``cuda:{LOCAL_RANK % device_count}``, the
+    reference's ``rank % device_count`` binding (``LOCAL_RANK`` defaults
+    to the rank), or the CPU."""
+    if kind == "cpu":
+        return torch.device("cpu")
+    rank = process_index() if rank is None else rank
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def sync_hosts(name: str = "barrier") -> None:
+    """A barrier across the ranks (the reference's ``dist.barrier()``);
+    ``name`` says what it waits for. Nothing to wait for in a world of
+    one."""
+    del name
+    if process_count() > 1:
+        dist.barrier()
+
+
+def all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the ranks in place and return it; counts the call
+    in ``all_reduce.calls``. The identity without a process group."""
+    if is_initialized():
+        dist.all_reduce(t)
+        all_reduce.calls += 1
+    return t
+
+
+all_reduce.calls = 0
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks, forward and backward. The gradient of a rank's
+    local summand is the sum over the ranks of the gradients of the
+    global sum, so the backward is a sum too."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone())
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """Differentiable sum of ``t`` over the ranks; the identity (``t``
+    itself) without a process group."""
+    if not is_initialized():
+        return t
+    return _AllReduceSum.apply(t)

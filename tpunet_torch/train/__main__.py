@@ -5,10 +5,18 @@
     python -m tpunet_torch.train --preset serial --dataset synthetic \\
         --image-size 32 --width-mult 0.5 --dtype float32 --device cpu
     python -m tpunet_torch.train --model vit_base                 # ViT-B/16
+    torchrun --standalone --nproc-per-node N -m tpunet_torch.train \
+        --preset distributed                                  # N ranks
 
-Presets: ``serial`` (batch 64), ``single`` (batch 128); ``distributed``
-waits for ROADMAP Queue A item 3. Any other flag of tpunet's CLI is
-refused with an error, never ignored.
+Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
+(128 a rank: data parallelism, the reference's MPI script). Under
+``distributed`` each process joins the process group first, even alone
+(one card still reduces through NCCL), from the launcher's ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``;
+``--batch-size`` is per rank, and the global batch is that times the
+world size; rank 0 materialises the dataset while the others wait; the
+group is left on exit. Any other flag of tpunet's CLI is refused with an
+error, never ignored.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import dataclasses
 import sys
 
 from tpunet_torch.config import preset
+from tpunet_torch.parallel import dist
 from tpunet_torch.utils import log0
 
 
@@ -27,7 +36,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default="single",
                    choices=["serial", "single", "distributed"])
     p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="batch a step; per rank under --preset distributed")
     p.add_argument("--eval-batch-size", type=int, default=None,
                    help="eval batch (default: --batch-size)")
     p.add_argument("--image-size", type=int, default=None)
@@ -37,6 +47,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="step = the reference's StepLR(10, 0.1)")
     p.add_argument("--warmup-epochs", type=float, default=None)
     p.add_argument("--label-smoothing", type=float, default=None)
+    p.add_argument("--optimizer", default=None,
+                   choices=["adam", "adamw", "sgd"],
+                   help="adam is the reference stack; adamw activates "
+                        "--weight-decay; sgd uses momentum 0.9")
+    p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--clip-norm", type=float, default=None,
+                   help="global gradient-norm clip; 0 = off")
+    p.add_argument("--grad-accum", type=int, default=None,
+                   help="microbatches accumulated per optimizer step "
+                        "(strided rows of the batch)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dataset", default=None, choices=["cifar10", "synthetic"])
     p.add_argument("--data-dir", default=None)
@@ -73,6 +93,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="K/V chunk for --attention blockwise; the TPU "
                         "block size of --attention flash")
     p.add_argument("--width-mult", type=float, default=None)
+    p.add_argument("--dropout-rate", type=float, default=None)
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
@@ -82,13 +103,23 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(argv=None):
+def _parse(argv=None) -> argparse.Namespace:
     parser = build_argparser()
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"unrecognized arguments: {' '.join(unknown)} "
                      "(tpunet flags that tpunet_torch does not honour yet "
                      "are refused; ROADMAP Queue A lists what is ported)")
+    return args
+
+
+def config_from_args(argv=None):
+    """(TrainConfig, device) of the command line ``argv``."""
+    args = _parse(argv)
+    return _config(args), args.device
+
+
+def _config(args: argparse.Namespace):
     cfg = preset(args.preset)
     data, model, optim, ckpt = cfg.data, cfg.model, cfg.optim, cfg.checkpoint
     for dest, obj_field in (("batch_size", "batch_size"),
@@ -107,6 +138,7 @@ def config_from_args(argv=None):
                             ("pallas_depthwise", "use_pallas_depthwise"),
                             ("fused_ir", "fused_ir"),
                             ("width_mult", "width_mult"),
+                            ("dropout_rate", "dropout_rate"),
                             ("dtype", "dtype")) + tuple(
             (f, f) for f in ("vit_patch", "vit_hidden", "vit_depth",
                              "vit_heads", "vit_mlp_ratio", "attention",
@@ -118,7 +150,11 @@ def config_from_args(argv=None):
     for dest, obj_field in (("lr", "learning_rate"),
                             ("lr_schedule", "schedule"),
                             ("warmup_epochs", "warmup_epochs"),
-                            ("label_smoothing", "label_smoothing")):
+                            ("label_smoothing", "label_smoothing"),
+                            ("optimizer", "name"),
+                            ("weight_decay", "weight_decay"),
+                            ("clip_norm", "clip_norm"),
+                            ("grad_accum", "grad_accum")):
         val = getattr(args, dest)
         if val is not None:
             optim = dataclasses.replace(optim, **{obj_field: val})
@@ -133,12 +169,39 @@ def config_from_args(argv=None):
             cfg = cfg.replace(**{dest: val})
     if args.eval_only:
         cfg = cfg.replace(eval_only=True)
-    return cfg, args.device
+    return cfg
 
 
-def main(argv=None) -> int:
-    cfg, device = config_from_args(argv)
-    # Imported here: the trainer pulls in torch and the model.
+def run(argv=None):
+    """Train (or ``--eval-only``) as the command line ``argv`` says and
+    return the Trainer; under ``distributed`` inside the process group,
+    which is left on the way out, on an error too."""
+    args = _parse(argv)
+    cfg = _config(args)
+    if args.preset != "distributed":
+        return _run(cfg, args.device)
+    dist.initialize_distributed(device=args.device)
+    try:
+        ranks = dist.process_count()
+        # The reference's per-rank batch of 128: the global batch grows
+        # with the world (cifar10_mpi_mobilenet_224.py:117).
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, batch_size=cfg.data.batch_size * ranks))
+        log0(f"Processes: {ranks} ({dist.backend_name()}), global batch "
+             f"{cfg.data.batch_size}")
+        if dist.process_index() == 0:
+            # Rank 0 fetches the data first, the others wait (the
+            # reference's rank-0 download and barrier, :93-102).
+            from tpunet_torch.data import get_dataset
+            get_dataset(cfg.data)
+        dist.sync_hosts("dataset-ready")
+        return _run(cfg, args.device)
+    finally:
+        dist.destroy()
+
+
+def _run(cfg, device: str):
+    # Imported here: the trainer pulls in the model and the kernels.
     from tpunet_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, device=device)
@@ -148,6 +211,11 @@ def main(argv=None) -> int:
              f"Test Acc: {m['accuracy']:.4f}")
     else:
         trainer.train()
+    return trainer
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

@@ -9,8 +9,19 @@ sums read once per epoch, the best weights are a ``.pth`` in the port's
 layout and the full state allows ``--resume``; all of it for any model
 of ``ModelConfig``, with or without BN. Each epoch appends one
 plain record to ``<checkpoint-dir>/metrics.jsonl``
-(``docs/metrics_schema.md``). Not in this slice (ROADMAP Queue A items
-2b and 7): the obs subsystem, preemption, chaos and elastic paths.
+(``docs/metrics_schema.md``).
+
+Under a process group (``tpunet_torch.parallel``) the Trainer is one
+rank of a data-parallel run (tpunet's ``_epoch_batches`` and
+``evaluate``): its device is the rank's card (``local_device``), it
+trains on its slice of every global batch and evaluates its slice of
+every padded global eval batch, and the metric sums are summed over the
+ranks when an epoch or an eval ends, so every rank holds the global
+numbers and the best checkpoint follows the global test accuracy (the
+reference script's is rank 0's own, :196,224). Rank 0 alone writes
+files, and the ranks meet at a barrier after each write. Not in this
+slice (ROADMAP Queue A items 2b and 7): the obs subsystem, preemption,
+chaos and elastic paths.
 """
 
 from __future__ import annotations
@@ -30,26 +41,29 @@ from tpunet_torch.data import (eval_batches, get_dataset, steps_per_epoch,
                                train_batches)
 from tpunet_torch.models import create_model, num_params
 from tpunet_torch.models.convert import load_state_dict_file
+from tpunet_torch.parallel.dist import (is_initialized, local_device,
+                                        process_count, process_index,
+                                        sync_hosts)
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
 from tpunet_torch.train.steps import make_eval_step, make_train_step
-from tpunet_torch.utils.logging import (MetricsLogger, epoch_line, log0,
-                                        summary_lines)
+from tpunet_torch.utils.logging import (MetricsLogger, epoch_line,
+                                        is_coordinator, log0, summary_lines)
 from tpunet_torch.utils.prng import step_generator
 
 
 def _run_id(directory: str, resume: bool) -> str:
     """The run's identity, persisted under the checkpoint directory and
-    reused by ``--resume`` (docs/metrics_schema.md, "Run identity")."""
+    reused by ``--resume`` (docs/metrics_schema.md, "Run identity");
+    rank 0 writes it and every rank reads it."""
     path = os.path.join(directory, "run_id")
-    if resume and os.path.exists(path):
-        with open(path) as f:
-            return f.read().strip()
-    run_id = uuid.uuid4().hex[:12]
-    os.makedirs(directory, exist_ok=True)
-    with open(path, "w") as f:
-        f.write(run_id + "\n")
-    return run_id
+    if is_coordinator() and not (resume and os.path.exists(path)):
+        os.makedirs(directory, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(uuid.uuid4().hex[:12] + "\n")
+    sync_hosts("run-id")
+    with open(path) as f:
+        return f.read().strip()
 
 
 class Trainer:
@@ -64,7 +78,9 @@ class Trainer:
                 f"warmup_epochs ({cfg.optim.warmup_epochs}) must be in "
                 f"[0, epochs={cfg.epochs})")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = (local_device(torch.device(device).type)
+                       if is_initialized() else torch.device(device))
+        self.rank, self.ranks = process_index(), process_count()
         ds = dataset if dataset is not None else get_dataset(cfg.data)
         self.train_x, self.train_y, self.test_x, self.test_y = ds
         self.spe = steps_per_epoch(len(self.train_x), cfg.data.batch_size)
@@ -78,7 +94,7 @@ class Trainer:
         self._schedule = lr_schedule(cfg.optim, self.spe, cfg.epochs)
         self.state = TrainState(model, make_optimizer(model.parameters(),
                                                       cfg.optim),
-                                self._schedule)
+                                self._schedule, clip_norm=cfg.optim.clip_norm)
         self.train_step = make_train_step(cfg.data, cfg.optim)
         self.eval_step = make_eval_step(cfg.data)
         self.ckpt = Checkpointer(cfg.checkpoint)
@@ -129,7 +145,9 @@ class Trainer:
         acc: Optional[M.Metrics] = None
         for bx, by in train_batches(self.train_x, self.train_y,
                                     global_batch=cfg.data.batch_size,
-                                    seed=cfg.seed, epoch=epoch):
+                                    seed=cfg.seed, epoch=epoch,
+                                    process_index=self.rank,
+                                    process_count=self.ranks):
             gen = step_generator(cfg.seed, self.state.global_step)
             m = self.train_step(self.state, self._to_device(bx),
                                 self._to_device(by, torch.int64), gen)
@@ -148,7 +166,8 @@ class Trainer:
         acc: Optional[M.Metrics] = None
         for bx, by, bm in eval_batches(
                 self.test_x, self.test_y,
-                global_batch=cfg.data.effective_eval_batch_size):
+                global_batch=cfg.data.effective_eval_batch_size,
+                process_index=self.rank, process_count=self.ranks):
             m = self.eval_step(self.state.model, self._to_device(bx),
                                self._to_device(by, torch.int64),
                                self._to_device(bm))
@@ -181,7 +200,7 @@ class Trainer:
         directory = cfg.checkpoint.directory
         metrics_log = MetricsLogger(directory, resume=cfg.checkpoint.resume)
         identity = {"run_id": _run_id(directory, cfg.checkpoint.resume),
-                    "process_index": 0, "host": socket.gethostname()}
+                    "process_index": self.rank, "host": socket.gethostname()}
         total = time.perf_counter()
         for epoch in range(self.start_epoch, cfg.epochs + 1):
             t0 = time.perf_counter()

@@ -2,7 +2,8 @@
 
 Every metric is a (loss_sum, correct, count) triple of sums over the
 batch; they stay on the device while they are accumulated and are read
-once, by :func:`summarize`.
+once, by :func:`summarize`, which sums them over the ranks first, so
+every rank reads the global numbers.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from tpunet_torch.parallel.dist import all_reduce
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -30,10 +33,11 @@ def accumulate(acc: Metrics, new: Metrics) -> Metrics:
 
 
 def summarize(acc: Metrics) -> Dict[str, float]:
-    """Device scalars -> python floats {loss, accuracy, count}, with one
-    read from the device."""
-    loss_sum, correct, n = torch.stack(
-        [acc["loss_sum"], acc["correct"], acc["count"]]).tolist()
+    """Device scalars -> python floats {loss, accuracy, count} of the
+    global batch: one all-reduce over the ranks, one read from the
+    device."""
+    loss_sum, correct, n = all_reduce(torch.stack(
+        [acc["loss_sum"], acc["correct"], acc["count"]])).tolist()
     count = max(n, 1.0)
     return {"loss": loss_sum / count, "accuracy": correct / count,
             "count": n}

@@ -6,14 +6,15 @@ piecewise-constant schedule over steps; :func:`lr_schedule` is that
 schedule as a plain function of the 0-based update index, and the train
 step sets each update's learning rate from it. The update at index
 ``10 * steps_per_epoch`` is the first at the decayed rate, as with
-torch's per-epoch ``StepLR``.
+torch's per-epoch ``StepLR``. ``clip_norm`` > 0 puts optax's
+``clip_by_global_norm`` before the optimizer, as tpunet chains it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, List
 
 import torch
 
@@ -88,18 +89,34 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     raise ValueError(f"unknown optimizer {cfg.name!r}")
 
 
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax's ``clip_by_global_norm``, in place and without a host sync:
+    every gradient times ``max_norm / norm`` when the L2 norm of all of
+    them together is at least ``max_norm``, else unchanged (no epsilon
+    and no clamp, unlike ``torch.nn.utils.clip_grad_norm_``)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer, the schedule, and the number of updates
-    taken (``global_step``, the index of the next update)."""
+    """The model, its optimizer, the schedule, the global-norm clip (0 =
+    off), and the number of updates taken (``global_step``, the index of
+    the next update)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     global_step: int = 0
+    clip_norm: float = 0.0
 
     def apply_gradients(self) -> None:
-        """One optimizer update at the schedule's rate for this step."""
+        """One optimizer update at the schedule's rate for this step,
+        after the clip."""
+        if self.clip_norm > 0:
+            clip_by_global_norm([p.grad for p in self.model.parameters()
+                                 if p.grad is not None], self.clip_norm)
         lr = self.schedule(self.global_step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

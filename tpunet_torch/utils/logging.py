@@ -19,12 +19,13 @@ import json
 import os
 import sys
 
+from tpunet_torch.parallel.dist import process_index
+
 
 def is_coordinator() -> bool:
-    """True on the process allowed to do I/O (reference rank==0 guards).
-    The port runs one process until data parallelism (ROADMAP Queue A
-    item 3), and that process is rank 0."""
-    return True
+    """True on the process allowed to do I/O (reference rank==0 guards):
+    rank 0, and the only process of a run without a process group."""
+    return process_index() == 0
 
 
 def log0(*args, **kwargs) -> None:

@@ -8,8 +8,12 @@ dropout mask are drawn on the CPU and moved, so they do not depend on
 the device. The ViT's dropout masks (25 in ViT-B/16, up to 128 x 196 x
 3072 elements each) are too large to draw on the host: their bits come
 from a generator on the activations' device seeded by one draw from the
-step's generator, so they are a function of (seed, step) on a given
-device, and differ between the CPU and the card.
+step's generator and the process's rank, so they are a function of
+(seed, step, rank) on a given device, and differ between the CPU and
+the card. Under data parallelism the augmentation parameters and
+MobileNetV2's mask are drawn for the global batch and each rank takes
+its rows, so N ranks repeat one rank's draws; a ViT with dropout above
+0 does not: each rank draws its own masks.
 """
 
 from __future__ import annotations
