@@ -74,7 +74,26 @@ Phases, each of which must pass:
      flash launches each, step time, images/s, peak memory and a
      profiled step; a Trainer epoch with --model vit_base and
      --eval-only on its best.pth;
- 12. print the kernel list and the card's name and power limit.
+ 12. the LM (``--model lm`` at ViT-B/16's widths: hidden 768, depth 12,
+     12 heads of 64, vocab 256, T 1024, batch 16, bf16 over f32, random
+     weights from a seed): ``lm_kernels`` holds the three flash kernels
+     to their plain versions in f32 and bf16 (bf16 also against the
+     float32 truth) at B 16, T 1024, causal, and on the first 16 packed
+     rows of a corpus concatenated from the repo's Markdown (causal +
+     segments), and times them there against their bound, their plain
+     versions and SDPA (``is_causal=True``; a boolean mask for the packed
+     rows); ``lm_train``: one f32 step with the kernels against the plain
+     versions (loss within 1e-5, every gradient within 1e-4 of the
+     largest), 30 bf16 steps on synthetic_lm (12 + 12 + 12 flash
+     launches a step, a falling loss, step time, tokens/s, peak memory,
+     a profiled step), 5 packed steps (the same launches, a falling
+     loss); ``lm_trainer``: the CLI for one synthetic_lm epoch and
+     ``--eval-only``, one packed text_lm epoch, and the generate CLI on
+     it; ``lm_generate``: greedy KV-cache decoding at B 8 (128-token
+     prompts, 256 new) with no flash launch, its logits teacher-forced
+     against the no-cache forward's (12 flash launches), and in f32 the
+     cache and no-cache tokens equal;
+ 13. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -1675,6 +1694,14 @@ def flash_mags(torch, fl, q, k, v, do, lse, delta, glse, causal, seg):
 
 
 def check_flash(torch, fl, case, dtype, seed) -> dict:
+    """:func:`check_flash_on` the inputs of one of FLASH_CASES."""
+    (q, k, v, do), seg, causal, glse = flash_inputs(torch, case, dtype, seed)
+    return check_flash_on(torch, fl, (q, k, v, do), seg, causal, glse,
+                          f"flash {dtype} {case}", expect_dead=bool(seg))
+
+
+def check_flash_on(torch, fl, inputs, seg, causal, glse, tag,
+                   expect_dead=False) -> dict:
     """The three flash kernels against their plain versions on one case.
     Forward: out within 1e-5 of max |v| (float32 sums of p.v in another
     order); in bf16 plus one ulp of the output and 2^-8 max |v| (p is
@@ -1687,12 +1714,13 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
     largest errors in the forward output, dQ, dK and dV are at most twice
     the plain bf16 versions' (plus 1e-5 of max |v| or of the products'
     magnitudes, the float32 allowance for sums in another order, which
-    only counts where both errors are that small). Returns, per kernel,
-    the max abs error, the largest error over its tolerance, the largest
-    |plain output| (so that an error of 0 is seen to be over values that
-    are not) and, in bf16, both errors against the truth."""
-    (q, k, v, do), seg, causal, glse = flash_inputs(torch, case, dtype, seed)
-    tag = f"flash {dtype} {case}"
+    only counts where both errors are that small). ``expect_dead``: the
+    segments leave a query with no key. Returns, per kernel, the max abs
+    error, the largest error over its tolerance, the largest |plain
+    output| (so that an error of 0 is seen to be over values that are
+    not) and, in bf16, both errors against the truth."""
+    q, k, v, do = inputs
+    dtype = q.dtype
     out, lse = fl.flash_attention_forward(q, k, v, causal=causal,
                                           segment_ids=seg, with_lse=True)
     pout, plse = fl.flash_attention_forward_reference(q, k, v, causal=causal,
@@ -1719,7 +1747,8 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
     check(bool((lse[dead] == plse[dead]).all())
           and bool((out.float().transpose(1, 2)[dead] == 0).all()),
           f"{tag}: rows with no key are not 0 with lse -1e30")
-    check(not seg or bool(dead.any()), f"{tag}: no row without a key")
+    check(not expect_dead or bool(dead.any()), f"{tag}: no row without a "
+          "key")
     delta = (pout.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     del out, pout
     kw = dict(causal=causal, segment_ids=seg, glse=glse)
@@ -1759,16 +1788,19 @@ def check_flash(torch, fl, case, dtype, seed) -> dict:
             "max_abs_plain": refs, "f32_truth": f32_truth}
 
 
-def flash_bounds(b, t, h, d, elem, kind) -> dict:
+def flash_bounds(b, t, h, d, elem, kind, pairs=None) -> dict:
     """Least time of one flash call: its inputs read once and outputs
     written once over the memory rate, or its products at the bf16
     tensor-core rate, whichever is longer. Forward (with lse): q, k, v
     read, o and lse written, QKᵀ and PV. dQ: q, k, v, dO, lse, delta
     read, dq written, QKᵀ, dO.Vᵀ and dS.K. dK/dV: the same reads, dk and
-    dv written, and one more product."""
+    dv written, and one more product. ``pairs``: the (query, key) pairs
+    per head that the mask keeps, summed over the batch (b * t * t when
+    nothing is masked); a product costs 2 * d * pairs a head."""
     x = b * t * h * d * elem
     row = b * h * t * 4
-    product = 2 * b * h * t * t * d
+    pairs = b * t * t if pairs is None else pairs
+    product = 2 * h * pairs * d
     nbytes, flops = {"forward": (4 * x + row, 2 * product),
                      "dq": (5 * x + 2 * row, 3 * product),
                      "dkv": (6 * x + 2 * row, 4 * product)}[kind]
@@ -2082,6 +2114,461 @@ def phase_vit_train(torch, state):
     return launches, TRAIN_BATCH / p50
 
 
+# ---------------------------------------------------------------------------
+# The LM (--model lm) at ViT-B/16's widths
+# ---------------------------------------------------------------------------
+
+LM_BATCH = 16        # sequences a training step: 16,384 tokens
+LM_T = 1024          # --seq-len and --max-seq-len
+LM_VOCAB = 256       # byte-level, the text_lm vocabulary
+LM_LAYERS = 12       # one flash call per layer and direction
+LM_HIDDEN, LM_HEADS = 768, 12                  # head dim 64
+LM_PACKED_STEPS = 5
+# bf16 decode logits against the flash forward's, as a share of the
+# largest logit: the decode attend keeps p in float32, the kernel rounds
+# it to bf16 before p.V (measured on the H100: 0.0108, argmax agreement
+# 0.988; the gate leaves a factor of 2.9).
+LM_DECODE_BF16_TOL = 2.0**-5
+LM_GEN_BATCH, LM_PROMPT, LM_NEW = 8, 128, 256
+LM_FLAGS = ("--model", "lm", "--vit-hidden", str(LM_HIDDEN), "--vit-depth",
+            str(LM_LAYERS), "--vit-heads", str(LM_HEADS), "--seq-len",
+            str(LM_T), "--max-seq-len", str(LM_T), "--vocab-size",
+            str(LM_VOCAB))
+LM_DIR = ROOT / "build" / "tpunet_torch"
+# The corpus of the packed phases: the repo's own Markdown, one document
+# a non-empty line.
+LM_CORPUS_SOURCES = ("README.md", "SURVEY.md", "docs/*.md")
+
+
+def lm_config(dtype="bfloat16", dropout_rate=0.2):
+    from tpunet_torch.config import ModelConfig
+    return ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=LM_LAYERS,
+                       vit_heads=LM_HEADS, vocab_size=LM_VOCAB,
+                       max_seq_len=LM_T,
+                       dtype=dtype, dropout_rate=dropout_rate)
+
+
+def lm_corpus() -> Path:
+    """Concatenate the corpus into build/ (nothing is downloaded)."""
+    path = LM_DIR / "lm_corpus" / "corpus.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    files = [f for pat in LM_CORPUS_SOURCES for f in sorted(ROOT.glob(pat))]
+    path.write_bytes(b"".join(f.read_bytes() for f in files))
+    return path
+
+
+def lm_batches(torch):
+    """(tokens [16,1024] of synthetic_lm, (tokens, segment ids) of the
+    packed corpus's first 16 rows), int32 on the card."""
+    from tpunet_torch.data.lm import synthetic_lm, text_lm_packed
+
+    toks = synthetic_lm(LM_BATCH, 1, seq_len=LM_T, vocab=LM_VOCAB)[0]
+    px, py = text_lm_packed(str(lm_corpus()), LM_T)[:2]
+    check(len(px) >= LM_BATCH, f"the corpus packs into {len(px)} rows")
+    return (torch.from_numpy(toks).cuda(),
+            (torch.from_numpy(px[:LM_BATCH]).cuda(),
+             torch.from_numpy(py[:LM_BATCH]).cuda()))
+
+
+def attended_pairs(torch, segs) -> int:
+    """(query, key) pairs that causality and the segments keep, summed
+    over the rows: a run of n tokens of one id keeps n (n + 1) / 2 (the
+    padding tail of id 0 included: the kernels compute it)."""
+    n = torch.cat([torch.bincount(r.long()) for r in segs.cpu()])
+    return int((n * (n + 1) // 2).sum())
+
+
+def phase_lm_kernels(torch) -> dict:
+    """The three flash kernels at the LM's shapes (B 16, T 1024, 12 x 64,
+    causal; then the packed corpus's first 16 rows as segments) against
+    their plain versions in f32 and bf16 (bf16 also against the float32
+    truth), then timed in bf16, cold L2, against their bound, their plain
+    versions and SDPA (``is_causal=True``; a boolean mask for the packed
+    rows; its backward through autograd). Returns {kernel: {shape: row}}."""
+    import torch.nn.functional as F
+
+    from tpunet_torch.ops import flash as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, (_, segs) = lm_batches(torch)
+    shapes = {"causal": None, "packed": (segs.int(), segs.int())}
+    hd = LM_HIDDEN // LM_HEADS
+    worst = {}
+
+    def inputs(dtype, seed):
+        gen = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(LM_BATCH, LM_T, 3, LM_HEADS, hd, generator=gen)
+        do = torch.randn(LM_BATCH, LM_T, LM_HEADS, hd, generator=gen)
+        return (*qkv.to("cuda", dtype).unbind(2), do.to("cuda", dtype))
+
+    for i, (shape, seg) in enumerate(shapes.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = check_flash_on(torch, fl, inputs(dtype, SEED + 500 + i),
+                                 seg, True, None, f"LM flash {shape} {dtype}")
+            for k, e in res["max_abs_err"].items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            emit("lm_kernel_vs_plain", name="flash_attention", shape=shape,
+                 case=[LM_BATCH, LM_T, LM_HEADS, hd], dtype=str(dtype), **res)
+            torch.cuda.empty_cache()
+
+    rows = {name: {} for name in ("flash_attention_forward",
+                                  "flash_attention_dq", "flash_attention_dkv")}
+    for i, (shape, seg) in enumerate(shapes.items()):
+        q, k, v, do = inputs(torch.bfloat16, SEED + 510 + i)
+        out, lse = fl.flash_attention_forward(q, k, v, causal=True,
+                                              segment_ids=seg, with_lse=True)
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        kw = dict(causal=True, segment_ids=seg)
+        lib = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        if seg is None:
+            pairs = LM_BATCH * LM_T * (LM_T + 1) // 2
+            sdpa = dict(is_causal=True)
+        else:
+            pairs = attended_pairs(torch, seg[0])
+            pos = torch.arange(LM_T, device="cuda")
+            mask = ((pos[:, None] >= pos[None, :])
+                    & (seg[0][:, :, None] == seg[0][:, None, :]))[:, None]
+            sdpa = dict(attn_mask=mask)
+        lib_out = F.scaled_dot_product_attention(*lib, **sdpa)
+        lib_do = do.transpose(1, 2)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, lib, lib_do, retain_graph=True)
+
+        bwd_lib_ms = time_ms(torch, lib_bwd, reps=20)
+        timed = {
+            "flash_attention_forward": (
+                lambda: fl.flash_attention_forward(q, k, v, with_lse=True,
+                                                   **kw),
+                lambda: fl.flash_attention_forward_reference(q, k, v, **kw),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    *lib, **sdpa), reps=20), "forward"),
+            "flash_attention_dq": (
+                lambda: fl.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+                lambda: fl.flash_attention_dq_reference(q, k, v, do, lse,
+                                                        delta, **kw),
+                bwd_lib_ms, "dq"),
+            "flash_attention_dkv": (
+                lambda: fl.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+                lambda: fl.flash_attention_dkv_reference(q, k, v, do, lse,
+                                                         delta, **kw),
+                bwd_lib_ms, "dkv")}
+        for name, (kern, plain, lib_ms, kind) in timed.items():
+            row = dict(kernel_ms=time_ms(torch, kern, reps=20),
+                       plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+                       library_ms=lib_ms, pairs=pairs,
+                       **flash_bounds(LM_BATCH, LM_T, LM_HEADS, hd, 2, kind,
+                                      pairs))
+            row.update(hbm_share=row["bytes_ms"] / row["kernel_ms"],
+                       tensor_share=row["ops_ms"] / row["kernel_ms"],
+                       bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
+                       else "operations", layers=LM_LAYERS,
+                       max_abs_err=worst[name])
+            rows[name][shape] = row
+            emit("lm_flash_timing", name=name, shape=shape, batch=LM_BATCH,
+                 t=LM_T, **row)
+        del lib, lib_out, q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_grads(torch, model, tokens, segs=None):
+    """Loss and parameter gradients of one LM forward/backward (the
+    train step's loss, no update) from a fixed generator."""
+    from tpunet_torch.train.steps import _next_token, _packed_target_weights
+
+    model.zero_grad(set_to_none=True)
+    ce, _ = _next_token(model, tokens, segs, 0.0, train=True,
+                        generator=torch.Generator().manual_seed(7))
+    if segs is None:
+        loss = ce.mean()
+    else:
+        wt = _packed_target_weights(segs)
+        loss = (ce * wt).sum() / wt.sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {k: p.grad.detach().float().clone()
+                         for k, p in model.named_parameters()}
+
+
+def phase_lm_train(torch) -> dict:
+    """The LM's training main path: one f32 step with the kernels against
+    the plain versions; 30 bf16 steps on synthetic_lm with the launch
+    counts, step time, tokens/s, peak memory and a profiled step; 5
+    packed steps on the corpus. Returns the launch counts a step."""
+    from tpunet_torch.config import OptimConfig
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_lm_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    tokens, (ptok, psegs) = lm_batches(torch)
+    gen = torch.Generator().manual_seed(SEED + 600)
+    state = create_model(lm_config("float32", 0.0), device="cpu",
+                         generator=gen).state_dict()
+
+    # One float32 step at dropout 0, TF32 off: the loss within 1e-5
+    # relative and every gradient within 1e-4 of the largest gradient of
+    # the plain versions' step (ViT's gate); packed rows the same.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = create_model(lm_config("float32", 0.0), device="cuda")
+    model.load_state_dict(state)
+    f32 = {}
+    for shape, (x, s) in (("causal", (tokens, None)),
+                          ("packed", (ptok, psegs))):
+        lm_grads(torch, model, x, s)                       # warm-up
+        k_loss, k_grads = lm_grads(torch, model, x, s)
+        with plain_versions():
+            p_loss, p_grads = lm_grads(torch, model, x, s)
+        gmax = max(g.abs().max().item() for g in p_grads.values())
+        err = {k: (k_grads[k] - p_grads[k]).abs().max().item() / gmax
+               for k in p_grads}
+        rel = {k: ((k_grads[k] - p_grads[k]).norm()
+                   / p_grads[k].norm().clamp_min(1e-30)).item()
+               for k in p_grads}
+        worst = max(err, key=err.get)
+        f32[shape] = dict(loss_kernel=k_loss, loss_plain=p_loss,
+                          loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+                          grad_err_of_largest_max=err[worst],
+                          grad_err_worst=worst, grad_max=gmax,
+                          grad_rel_l2_median=statistics.median(rel.values()),
+                          grad_rel_l2_max=max(rel.values()))
+        check(math.isfinite(k_loss) and f32[shape]["loss_rel_err"] <= 1e-5,
+              f"LM f32 {shape} loss kernel {k_loss} vs plain {p_loss}")
+        check(err[worst] <= 1e-4, f"LM f32 {shape} gradient {worst}: "
+              f"{err[worst]:.3g} of the largest gradient > 1e-4")
+        del k_grads, p_grads
+    emit("lm_train_grad_check_f32", **f32)
+    del model
+    torch.cuda.empty_cache()
+
+    optim = OptimConfig()
+    model = create_model(lm_config(), device="cuda")
+    model.load_state_dict(state)
+
+    def fresh(packed=False):
+        model.load_state_dict(state)
+        return (TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20)),
+                make_lm_train_step(optim, packed))
+
+    st, step_fn = fresh()
+    step_fn(st, tokens, tokens, step_generator(42, 10_000))   # warm-up
+    torch.cuda.synchronize()
+    st, step_fn = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step_fn(st, tokens, tokens, step_generator(42, st.global_step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss_sum"]) / float(m["count"]))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash_names = ("flash_attention_forward", "flash_attention_dq",
+                   "flash_attention_dkv")
+    for name in flash_names:
+        check(launches[name] == LM_LAYERS * TRAIN_STEPS,
+              f"LM {name}: {launches[name]} launches in {TRAIN_STEPS} steps "
+              f"(want {LM_LAYERS} a step)")
+    check(all(math.isfinite(v) for v in losses), f"LM non-finite loss: "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"LM loss did not fall over {TRAIN_STEPS} "
+          f"steps: {losses[0]} -> {losses[-1]}")
+    steady = sorted(times[2:])
+    p50 = statistics.median(steady)
+    emit("lm_train_main_path", batch=LM_BATCH, seq_len=LM_T,
+         steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         loss_first=losses[0], loss_last=losses[-1], losses=losses,
+         step_ms_p50=p50 * 1e3, step_ms_min=steady[0] * 1e3,
+         step_ms_max=steady[-1] * 1e3,
+         tokens_per_s=LM_BATCH * LM_T / p50, peak_memory_bytes=peak)
+    prof = profile_step(torch, lambda: step_fn(
+        st, tokens, tokens, step_generator(42, st.global_step)), p50 * 1e3,
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    emit("lm_train_step_profile", **prof)
+
+    # Packed rows of the corpus: the same launches, a falling loss.
+    st, step_fn = fresh(packed=True)
+    step_fn(st, ptok, psegs, step_generator(42, 10_000))      # warm-up
+    torch.cuda.synchronize()
+    st, step_fn = fresh(packed=True)
+    plosses, ptimes = [], []
+    reset_launch_counts()
+    for _ in range(LM_PACKED_STEPS):
+        t0 = time.perf_counter()
+        m = step_fn(st, ptok, psegs, step_generator(42, st.global_step))
+        torch.cuda.synchronize()
+        ptimes.append(time.perf_counter() - t0)
+        plosses.append(float(m["loss_sum"]) / float(m["count"]))
+    plaunches = launch_counts()
+    for name in flash_names:
+        check(plaunches[name] == LM_LAYERS * LM_PACKED_STEPS,
+              f"LM packed {name}: {plaunches[name]} launches in "
+              f"{LM_PACKED_STEPS} steps (want {LM_LAYERS} a step)")
+    check(all(math.isfinite(v) for v in plosses) and plosses[-1] < plosses[0],
+          f"LM packed loss not finite and falling: {plosses}")
+    pmed = statistics.median(ptimes[1:])
+    emit("lm_packed_train", steps=LM_PACKED_STEPS, launches=plaunches,
+         losses=plosses, valid_targets=int(m["count"]),
+         step_ms_median=pmed * 1e3,
+         segments_per_row=float(psegs.amax(1).float().mean()))
+    emit("lm_packed_step_profile", **profile_step(torch, lambda: step_fn(
+        st, ptok, psegs, step_generator(42, st.global_step)), pmed * 1e3,
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
+    del model, st
+    torch.cuda.empty_cache()
+    return {k: v / TRAIN_STEPS for k, v in launches.items()}, \
+        LM_BATCH * LM_T / p50
+
+
+def run_cli(args, timeout=600) -> str:
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0, f"{' '.join(args[:3])} exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def phase_lm_trainer(torch) -> None:
+    """The training CLI on the LM: one synthetic_lm epoch (1,024 train
+    and 256 test sequences) and --eval-only of its best.pth, which must
+    read the epoch's test accuracy; one packed text_lm epoch on the
+    corpus; then the generate CLI on that run."""
+    import re
+
+    runs = {}
+    for tag, data in (
+            ("synthetic_lm", ("--dataset", "synthetic_lm",
+                              "--synthetic-size", "1024")),
+            ("packed_text_lm", ("--dataset", "text_lm", "--pack-docs",
+                                "--text-file", str(lm_corpus())))):
+        ckdir = LM_DIR / f"smoke_lm_{tag}"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        flags = ("tpunet_torch.train", "--preset", "single", *LM_FLAGS,
+                 *data, "--batch-size", str(LM_BATCH), "--checkpoint-dir",
+                 str(ckdir))
+        t0 = time.perf_counter()
+        out = run_cli([*flags, "--epochs", "1"])
+        wall = time.perf_counter() - t0
+        check(re.search(r"^Epoch 1/1 Time: ", out, re.M) is not None,
+              f"{tag}: no epoch line in {out[-1000:]}")
+        rec = json.loads((ckdir / "metrics.jsonl").read_text()
+                         .splitlines()[-1])
+        check(all(math.isfinite(rec[k]) for k in ("train_loss", "test_loss"))
+              and rec["tokens_per_sec"] > 0, f"{tag}: epoch record {rec}")
+        check((ckdir / "best.pth").exists() and (ckdir / "state.pt").exists(),
+              f"{tag}: files {sorted(p.name for p in ckdir.iterdir())}")
+        found = None
+        if tag == "synthetic_lm":
+            out = run_cli([*flags, "--eval-only"])
+            found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out)
+            check(found is not None and abs(float(found.group(2))
+                                            - rec["test_accuracy"]) < 5e-5,
+                  f"--eval-only read {found and found.group(0)}, the epoch "
+                  f"{rec['test_accuracy']}")
+        runs[tag] = dict(epoch_record=rec, wall_s=wall,
+                         eval_only_line=found and found.group(0))
+    text = run_cli(["tpunet_torch.infer.generate", "--checkpoint-dir",
+                    str(LM_DIR / "smoke_lm_packed_text_lm"),
+                    *LM_FLAGS[2:8], "--max-seq-len", str(LM_T), "--prompt",
+                    "The ",
+                    "--tokens", "64"])
+    # Greedy bytes of a briefly trained model may be spaces: the check is
+    # that the prompt came back with a continuation, whatever it is.
+    check(text.startswith("The ") and len(text.rstrip("\n")) > len("The "),
+          f"generate printed {text!r}")
+    emit("lm_trainer", runs=runs, generated=text[:200])
+
+
+def phase_lm_generate(torch) -> dict:
+    """Greedy KV-cache generation at B 8 (128-token prompts from
+    synthetic_lm, 256 new): decode tokens/s, no flash launch a decode
+    step; bf16 teacher-forced decode logits against the no-cache forward
+    (the flash forward, 12 launches) at every position; in float32 the
+    cache and no-cache greedy tokens equal."""
+    from tpunet_torch.data.lm import synthetic_lm
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.models.vit import KVCache
+
+    prompt = torch.from_numpy(synthetic_lm(
+        LM_GEN_BATCH, 1, seq_len=LM_PROMPT, vocab=LM_VOCAB, seed=3)[0]).cuda()
+    gen = torch.Generator().manual_seed(SEED + 700)
+    state = create_model(lm_config("float32", 0.0), device="cpu",
+                         generator=gen).state_dict()
+    total = LM_PROMPT + LM_NEW
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        model = create_model(lm_config(dtype, 0.0), device="cuda")
+        model.load_state_dict(state)
+        with torch.inference_mode():
+            generate(model, prompt[:, :8], 8)                  # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            buf = generate(model, prompt, LM_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            decode_launches = launch_counts()
+            check(all(v == 0 for v in decode_launches.values()),
+                  f"LM decode launched {decode_launches}")
+            reset_launch_counts()
+            full = model(buf)[:, :total - 1]
+            fwd = launch_counts()["flash_attention_forward"]
+            check(fwd == LM_LAYERS, f"LM no-cache forward: {fwd} flash "
+                  f"launches (want {LM_LAYERS})")
+            cache = model.init_cache(LM_GEN_BATCH, total)
+            steps = []
+            for i in range(total - 1):
+                lg, cache = model(buf[:, i:i + 1], pos_offset=i, cache=cache)
+                steps.append(lg)
+            dec = torch.cat(steps, 1)
+            if dtype == "bfloat16":
+                # One decode step (the last position again) under the
+                # profiler: its kernels, device time and idle share.
+                i = total - 2
+                emit("lm_decode_step_profile", **profile_step(
+                    torch, lambda: model(buf[:, i:i + 1], pos_offset=i,
+                                         cache=KVCache(cache.k, cache.v, i)),
+                    wall / (total - 1) * 1e3, ()))
+        err = (dec - full).abs()
+        row = dict(decode_s=wall, decode_steps=total - 1,
+                   ms_per_step=wall / (total - 1) * 1e3,
+                   new_tokens_per_s=LM_GEN_BATCH * LM_NEW / wall,
+                   logits_max_abs_err=err.max().item(),
+                   logits_max_abs=full.abs().max().item(),
+                   logits_err_of_max=(err.max() / full.abs().max()).item(),
+                   argmax_agreement=(dec.argmax(-1) == full.argmax(-1)
+                                     ).float().mean().item(),
+                   decode_flash_launches=decode_launches,
+                   no_cache_forward_flash_launches=fwd)
+        if dtype == "float32":
+            with torch.inference_mode():
+                nocache = generate(model, prompt, LM_NEW, use_cache=False)
+            row["greedy_cache_equals_no_cache"] = bool(torch.equal(buf,
+                                                                   nocache))
+            check(row["greedy_cache_equals_no_cache"], "LM f32 greedy tokens "
+                  "differ between the cache and no-cache paths")
+            check(row["logits_err_of_max"] <= 1e-4, f"LM f32 decode logits "
+                  f"{row['logits_err_of_max']:.3g} of the largest from the "
+                  "flash forward's")
+        else:
+            check(row["logits_err_of_max"] <= LM_DECODE_BF16_TOL,
+                  f"LM bf16 decode logits {row['logits_err_of_max']:.3g} of "
+                  f"the largest from the flash forward's > "
+                  f"{LM_DECODE_BF16_TOL}")
+        res[dtype] = row
+        del model
+        torch.cuda.empty_cache()
+    emit("lm_generate", batch=LM_GEN_BATCH, prompt=LM_PROMPT, new=LM_NEW,
+         **res)
+    return res["bfloat16"]
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2109,6 +2596,21 @@ def kernel_entry(name, source, replaces, launches, rows) -> dict:
             "library_ms": per_step(rows, "library_ms")}
 
 
+def lm_entry(rows, launches_per_step) -> dict:
+    """A flash kernel's LM fields of the kernel line: its launches a step
+    of the LM's training main path, and per LM step (12 layers) at each
+    shape its time, plain version's, SDPA's and bound."""
+    out = {"launches_per_step": launches_per_step}
+    for shape, r in rows.items():
+        bytes_ms, ops_ms = per_step([r], "bytes_ms"), per_step([r], "ops_ms")
+        out[shape] = {"ms": per_step([r], "kernel_ms"),
+                      "plain_ms": per_step([r], "plain_ms"),
+                      "library_ms": per_step([r], "library_ms"),
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": r["bound_by"]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2134,6 +2636,11 @@ def main() -> int:
         from tpunet_torch.config import ModelConfig
         phase_trainer(torch, ModelConfig(name="vit_base"),
                       ("--model", "vit_base"), "vit_trainer")
+        torch.cuda.empty_cache()
+        lm_rows = phase_lm_kernels(torch)
+        lm_launches, lm_tokens_per_s = phase_lm_train(torch)
+        phase_lm_trainer(torch)
+        lm_gen = phase_lm_generate(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2164,17 +2671,26 @@ def main() -> int:
     ]
     # Rows 5-7 per ViT-B/16 training step: 12 layers at batch 128, bf16;
     # launches from the ViT training main path.
+    # Each also carries its LM rows: launches a step of the LM's
+    # training main path, and per LM step (12 layers at B 16, T 1024,
+    # causal; packed: the corpus's segments) its times and bound.
     for name, line in (("flash_attention_forward", 115),
                        ("flash_attention_dq", 393),
                        ("flash_attention_dkv", 437)):
-        kernels.append(kernel_entry(name, "tpunet_torch/csrc/flash.cu",
-                                    f"tpunet/ops/flash.py:{line}",
-                                    vit_launches[name], flash_rows[name]))
+        entry = kernel_entry(name, "tpunet_torch/csrc/flash.cu",
+                             f"tpunet/ops/flash.py:{line}",
+                             vit_launches[name], flash_rows[name])
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   lm_rows[name]["causal"]["max_abs_err"])
+        entry["lm"] = lm_entry(lm_rows[name], lm_launches[name])
+        kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0,
          serve_depthwise_launches=serve_launches,
          train_images_per_sec_per_chip=images_per_s,
          vit_serve_flash_launches_per_forward=vit_serve_launches,
-         vit_train_images_per_sec_per_chip=vit_images_per_s)
+         vit_train_images_per_sec_per_chip=vit_images_per_s,
+         lm_train_tokens_per_sec_per_chip=lm_tokens_per_s,
+         lm_decode_new_tokens_per_s=lm_gen["new_tokens_per_s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

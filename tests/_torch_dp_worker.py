@@ -1,10 +1,12 @@
 """One rank of the port's data-parallel CPU tests (tests/test_torch_dp.py).
 
-    python tests/_torch_dp_worker.py DIR WORLD RANK
+    python tests/_torch_dp_worker.py DIR WORLD RANK [lm]
 
 joins a gloo process group of WORLD ranks through a file store in DIR,
 runs every case below on this rank's rows of the inputs that the test
-wrote into DIR, and saves what it computed to ``DIR/w{WORLD}_rank{RANK}.pt``:
+wrote into DIR, and saves what it computed to ``DIR/w{WORLD}_rank{RANK}.pt``
+(with ``lm``, only the ``lm`` case, to ``DIR/lm_w{WORLD}_rank{RANK}.pt``;
+tests/test_torch_lm_train.py):
 
 - ``bn``: one train-mode MobileNetV2 forward/backward (width 0.5, 32 px,
   dropout 0, float32) with ``fused_ir`` on and off, the gradients reduced
@@ -14,7 +16,10 @@ wrote into DIR, and saves what it computed to ``DIR/w{WORLD}_rank{RANK}.pt``:
   gradients, running statistics and metric sums;
 - ``trainer``: ``python -m tpunet_torch.train --preset distributed`` for
   one epoch (this rank's Trainer history and parameters), then, in a new
-  group, ``--eval-only`` of its checkpoint (rank 0 prints the line).
+  group, ``--eval-only`` of its checkpoint (rank 0 prints the line);
+- ``lm``: one packed ``fit_lm_batch`` of a tiny LM (SGD, lr 0) at
+  gradient accumulation 1 and 2 on this rank's token rows and segment
+  ids: the reduced gradients and this rank's metric sums.
 
 Imports no JAX and nothing of the tpunet package.
 """
@@ -36,11 +41,14 @@ from tpunet_torch.models import create_model  # noqa: E402
 from tpunet_torch.parallel import dist  # noqa: E402
 from tpunet_torch.train import __main__ as cli  # noqa: E402
 from tpunet_torch.train.state import TrainState, make_optimizer  # noqa: E402
-from tpunet_torch.train.steps import fit_batch, reduce_gradients  # noqa: E402
+from tpunet_torch.train.steps import (fit_batch, fit_lm_batch,  # noqa: E402
+                                      reduce_gradients)
 
 WIDTH = 0.5
 VIT = dict(name="vit", vit_patch=4, vit_hidden=32, vit_depth=2, vit_heads=2,
            dtype="float32", dropout_rate=0.0)
+LM = dict(name="lm", vit_hidden=32, vit_depth=2, vit_heads=2, vocab_size=64,
+          max_seq_len=80, dtype="float32", dropout_rate=0.0)
 # The CLI run of the trainer case: 48 synthetic images at 32 px, 16 a
 # global step, 3 steps; 12 test images, one padded eval batch of 16.
 # Seed 1: an init whose first-step gradients at 1 and 2 ranks agree far
@@ -131,8 +139,34 @@ def case_trainer(d, world, rank):
     return out
 
 
+def case_lm(d, world, rank):
+    inputs = np.load(os.path.join(d, "lm_inputs.npz"))
+    tokens = _rows(torch.from_numpy(inputs["tokens"]), world, rank)
+    segs = _rows(torch.from_numpy(inputs["segs"]), world, rank)
+    out = {}
+    for accum in (1, 2):
+        model = create_model(ModelConfig(**LM), device="cpu")
+        model.load_state_dict(torch.load(os.path.join(d, "lm.pt")))
+        cfg = OptimConfig(name="sgd", learning_rate=0.0, grad_accum=accum)
+        state = TrainState(model, make_optimizer(model.parameters(), cfg),
+                           lambda t: 0.0)
+        m = fit_lm_batch(state, tokens, segs, torch.Generator(), cfg,
+                         packed=True)
+        out[accum] = dict(grads=_grads(model),
+                          metrics={k: v.item() for k, v in m.items()})
+    return out
+
+
 def main() -> int:
     d, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    if sys.argv[4:] == ["lm"]:
+        dist.initialize_distributed(
+            init_method="file://" + os.path.join(d, f"store_lm_w{world}"),
+            world_size=world, rank=rank, device="cpu")
+        out = case_lm(d, world, rank)
+        dist.destroy()
+        torch.save(out, os.path.join(d, f"lm_w{world}_rank{rank}.pt"))
+        return 0
     dist.initialize_distributed(
         init_method="file://" + os.path.join(d, f"store_w{world}"),
         world_size=world, rank=rank, device="cpu")

@@ -109,3 +109,85 @@ def port_model(params, stats, *, use_pallas_depthwise: bool = False,
 def nchw(x: np.ndarray) -> torch.Tensor:
     """NHWC numpy images -> NCHW torch view (channels_last memory)."""
     return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+# -- the LM (tests/test_torch_lm*.py) --------------------------------------
+
+LM = dict(name="lm", vit_hidden=32, vit_depth=2, vit_heads=2, vocab_size=64,
+          max_seq_len=80, dtype="float32", dropout_rate=0.0)
+
+
+def lm_params(seed: int = 0, **overrides):
+    """A tiny float32 tpunet LM's params as writable numpy (tpunet's
+    init), with every LayerNorm scale drawn from U(0.5, 1.5), every bias
+    from N(0, 0.1) and the token table from N(0, 0.5) by a numpy
+    generator: Flax's unit/zero LayerNorms, zero biases and N(0, 0.02)
+    table give logits near 0, where any comparison passes."""
+    cfg = dict(LM, **overrides)
+    model = jax_create_model(JaxModelConfig(attention="dense", **cfg))
+    v = jax.jit(lambda key: init_variables(model, key, seq_len=16))(
+        jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def redraw(tree):
+        out = {}
+        for k, node in tree.items():
+            if hasattr(node, "items"):
+                out[k] = redraw(node)
+                continue
+            a = np.array(node, np.float32)
+            if k == "scale":
+                a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+            elif k == "bias":
+                a = rng.normal(0.0, 0.1, a.shape).astype(np.float32)
+            elif k == "embedding":
+                a = rng.normal(0.0, 0.5, a.shape).astype(np.float32)
+            out[k] = a
+        return out
+
+    return redraw(v["params"])
+
+
+def jax_lm(attention: str = "dense", **overrides):
+    """tpunet's LM of :data:`LM` with the ``dense`` core, or its flash
+    kernel in interpret mode at blocks of 16 (``flash``); causal."""
+    import functools
+
+    from tpunet.models.lm import TransformerLM as JaxLM
+    from tpunet.ops.flash import flash_attention as jax_flash
+
+    cfg = dict(LM, **overrides)
+    if attention == "dense":
+        return jax_create_model(JaxModelConfig(attention="dense", **cfg))
+    return JaxLM(vocab_size=cfg["vocab_size"], hidden=cfg["vit_hidden"],
+                 depth=cfg["vit_depth"], heads=cfg["vit_heads"],
+                 max_len=cfg["max_seq_len"],
+                 attn_fn=functools.partial(jax_flash, block_q=16,
+                                           block_k=16, interpret=True,
+                                           causal=True),
+                 dtype=jnp.float32, param_dtype=jnp.float32)
+
+
+def port_lm(params, attention: str = "auto", **overrides):
+    """The port's float32 CPU LM holding tpunet's ``params``."""
+    from tpunet_torch.models.convert import lm_state_dict_from_jax
+
+    model = create_model(ModelConfig(attention=attention,
+                                     **dict(LM, **overrides)), device="cpu")
+    load_state_dict(model, lm_state_dict_from_jax(params))
+    return model
+
+
+def packed_segments(rng: np.random.Generator, b: int, t: int) -> np.ndarray:
+    """[b, t] int32 segment ids of packed rows: documents 1..k of random
+    lengths from position 0, then a tail of padding (0)."""
+    segs = np.zeros((b, t), np.int32)
+    for r in range(b):
+        pos, seg = 0, 0
+        end = int(rng.integers(t // 2, t + 1))
+        while pos < end:
+            n = int(rng.integers(1, 20))
+            seg += 1
+            segs[r, pos:min(pos + n, end)] = seg
+            pos += n
+    return segs

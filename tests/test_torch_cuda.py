@@ -714,3 +714,101 @@ def test_vit_on_card_launches_the_flash_kernels(cuda):
     gmax = max(g.abs().max().item() for g in want.values())
     for k in want:
         assert (got[k] - want[k]).abs().max().item() <= 1e-4 * gmax, k
+
+
+# The LM's shapes (tpunet_torch.models.lm at ViT-B/16's widths): T 1024,
+# 12 heads of 64, causal; plain rows, and packed rows whose segment ids
+# run 1..k from position 0 with a padding tail of id 0, as q and k/v
+# segments of the same row.
+LM_FLASH = [(2, 1024, 12, 64, False), (2, 1024, 12, 64, True)]
+
+
+def _packed(b, t, gen):
+    segs = torch.zeros(b, t, dtype=torch.int32)
+    for r in range(b):
+        lengths = torch.randint(1, 200, (t,), generator=gen).cumsum(0)
+        end = t - int(torch.randint(0, t // 8, (1,), generator=gen))
+        pos = torch.arange(t)
+        segs[r] = torch.where(pos < end, 1 + torch.searchsorted(
+            lengths, pos, right=True), 0).to(torch.int32)
+    return segs.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", LM_FLASH, ids=["causal", "packed"])
+def test_flash_kernels_at_the_lms_shapes(cuda, case, dtype):
+    """Forward (out, lse), dQ and dK/dV at the LM's shapes against the
+    plain versions, with the tolerances of the tests above."""
+    from tpunet_torch.ops import flash
+    b, t, h, d, packed = case
+    gen = torch.Generator().manual_seed(20)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen).to("cuda", dtype)
+                   for _ in range(4))
+    seg = None
+    if packed:
+        s = _packed(b, t, gen)
+        seg = (s, s)
+    out, lse = flash.flash_attention_forward(q, k, v, causal=True,
+                                             segment_ids=seg, with_lse=True)
+    pout, plse = flash.flash_attention_forward_reference(
+        q, k, v, causal=True, segment_ids=seg)
+    vmax = v.float().abs().max()
+    bf = dtype == torch.bfloat16
+    tol = 1e-5 * vmax + ((_bf16_ulp(pout.float()) + 2.0**-8 * vmax)
+                         if bf else 0)
+    assert _within(out, pout, tol)
+    assert bool(((lse - plse).abs() <= 1e-5 * (1 + plse.abs())).all())
+    delta = (pout.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(causal=True, segment_ids=seg)
+    got = (flash.flash_attention_dq(q, k, v, do, plse, delta, **kw),
+           *flash.flash_attention_dkv(q, k, v, do, plse, delta, **kw))
+    want = (flash.flash_attention_dq_reference(q, k, v, do, plse, delta, **kw),
+            *flash.flash_attention_dkv_reference(q, k, v, do, plse, delta,
+                                                 **kw))
+    mags = _bwd_magnitudes(q, k, v, do, plse, delta, None, True,
+                           d ** -0.5, seg)
+    torch.cuda.synchronize()
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        tol = 1e-5 * m + ((_bf16_ulp(w.float()) + 2.0**-8 * m) if bf else 0)
+        assert _within(g, w, tol), (name, (g.float() - w.float()
+                                           ).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_decode_against_the_flash_forward(cuda, dtype):
+    """A tiny LM on the card: the no-cache forward launches the flash
+    forward once a layer, a decode step none; teacher-forced decode
+    logits against the no-cache forward's at every position (float32:
+    1e-4 of the largest logit; bf16: 2^-5 of it, the decode attend's
+    float32 p against the kernel's bf16 p), and in float32 the cache and
+    no-cache greedy tokens are equal."""
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.ops import flash
+    cfg = ModelConfig(name="lm", vit_hidden=128, vit_depth=2, vit_heads=2,
+                      vocab_size=256, max_seq_len=96, dtype=dtype,
+                      dropout_rate=0.0)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.embed.weight.normal_(0.0, 0.5, generator=torch.Generator(
+            "cuda").manual_seed(4))
+    x = torch.randint(0, 256, (2, 80),
+                      generator=torch.Generator().manual_seed(5)).cuda()
+    fwd = flash.flash_attention_forward
+    with torch.inference_mode():
+        before = fwd.launches
+        full = model(x)
+        assert fwd.launches == before + 2
+        cache = model.init_cache(2, 80)
+        steps = []
+        for i in range(80):
+            lg, cache = model(x[:, i:i + 1], pos_offset=i, cache=cache)
+            steps.append(lg)
+        assert fwd.launches == before + 2
+    dec = torch.cat(steps, 1)
+    scale = full.abs().max().item()
+    tol = (1e-4 if dtype == "float32" else 2.0**-5) * scale
+    assert (dec - full).abs().max().item() <= tol
+    if dtype == "float32":
+        prompt = x[:, :8]
+        assert torch.equal(generate(model, prompt, 40),
+                           generate(model, prompt, 40, use_cache=False))

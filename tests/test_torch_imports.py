@@ -37,7 +37,9 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
     for mod in ("tpunet_torch.serve.classify", "tpunet_torch.ops.fused_ir",
                 "tpunet_torch.train.loop", "tpunet_torch.train.__main__",
                 "tpunet_torch.data.augment", "tpunet_torch.ckpt",
-                "tpunet_torch.parallel", "tpunet_torch.parallel.dist"):
+                "tpunet_torch.parallel", "tpunet_torch.parallel.dist",
+                "tpunet_torch.models.lm", "tpunet_torch.data.lm",
+                "tpunet_torch.infer.generate"):
         assert mod in res["mods"]
     assert res["bad"] == []
 

@@ -182,7 +182,7 @@ def test_train_mode_and_unported_models_raise():
                 generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(name="lm")          # the ViT is ported in slice 3
+        ModelConfig(name="lm_pp")       # the pipelined LM: item 8
     with pytest.raises(ValueError):
         ModelConfig(name="resnet50")
     assert dataclasses.asdict(ModelConfig()) == {

@@ -209,10 +209,11 @@ def test_predictor_probs_match_tpunet(jax_vit):
     (lambda: ModelConfig(name="vit", attention="ring"), "item 8"),
     (lambda: ModelConfig(name="vit", attention="ulysses"), "item 8"),
     (lambda: ModelConfig(name="vit", attention_core="flash"), "item 8"),
-    (lambda: ModelConfig(name="lm"), "item 4b"),
+    (lambda: ModelConfig(name="lm", vocab_ce="sharded"), "item 8"),
+    (lambda: ModelConfig(name="lm_pp"), "item 8"),
     (lambda: ModelConfig(name="vit_pp"), "item 8")],
     ids=["moe", "moe_top_k", "remat", "ring", "ulysses", "core", "lm",
-         "vit_pp"])
+         "lm_pp", "vit_pp"])
 def test_config_refusals_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A {item}"):

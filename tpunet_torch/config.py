@@ -30,11 +30,12 @@ CIFAR10_CLASSES: Tuple[str, ...] = (
 # Model names of the JAX package that the port does not build yet, and
 # the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "lm": "Queue A item 4b (the LM on the flash kernels)",
     "vit_pp": "Queue A item 8 (parallelism beyond DP)",
     "lm_pp": "Queue A item 8 (parallelism beyond DP)",
 }
 VIT_NAMES = ("vit", "vit_tiny", "vit_small", "vit_base")
+IMAGE_DATASETS = ("cifar10", "synthetic")
+TOKEN_DATASETS = ("synthetic_lm", "text_lm")
 ATTENTIONS = ("auto", "dense", "blockwise", "flash", "ring", "ulysses")
 
 
@@ -54,7 +55,7 @@ class DataConfig:
     """Data pipeline config: the reference's transforms and loaders."""
 
     data_dir: str = "data"
-    dataset: str = "cifar10"          # "cifar10" | "synthetic"
+    dataset: str = "cifar10"  # cifar10 | synthetic | synthetic_lm | text_lm
     download: bool = True
     image_size: int = 224
     batch_size: int = 128             # GLOBAL batch
@@ -73,6 +74,15 @@ class DataConfig:
     cutmix_alpha: float = 0.0
     synthetic_train_size: int = 50_000
     synthetic_test_size: int = 10_000
+    # Token datasets (model "lm"): "synthetic_lm" is seeded bigram data
+    # of this sequence length and vocab; "text_lm" chunks the raw bytes
+    # of ``text_path`` (byte-level, vocab 256), and with ``pack_docs``
+    # packs its newline-delimited documents into ``seq_len`` rows with
+    # per-token segment ids. vocab_size must equal the model's.
+    seq_len: int = 128
+    vocab_size: int = 256
+    text_path: str = ""
+    pack_docs: bool = False
     # The train remainder is dropped, and the test set is evaluated
     # exactly (the last batch padded with masked examples).
     drop_remainder: bool = True
@@ -83,10 +93,16 @@ class DataConfig:
     native_loader: bool = True
 
     def __post_init__(self):
-        if self.dataset not in ("cifar10", "synthetic"):
-            raise ValueError(f"unknown dataset {self.dataset!r}; the port "
-                             "reads cifar10 | synthetic (token datasets "
-                             "come with ROADMAP Queue A item 4b)")
+        if self.dataset not in IMAGE_DATASETS + TOKEN_DATASETS:
+            raise ValueError(f"unknown dataset {self.dataset!r}; expected "
+                             f"one of {IMAGE_DATASETS + TOKEN_DATASETS}")
+        if self.pack_docs and self.dataset != "text_lm":
+            raise ValueError(f"--pack-docs packs text_lm documents; "
+                             f"dataset is {self.dataset!r} (its labels are "
+                             "not segment ids)")
+        if self.dataset == "text_lm" and self.vocab_size < 256:
+            raise ValueError(f"text_lm is byte-level: vocab_size must be "
+                             f">= 256, got {self.vocab_size}")
         if not self.drop_remainder:
             raise ValueError("drop_remainder=False is not a mode of the "
                              "JAX pipeline either: the train remainder is "
@@ -106,8 +122,10 @@ class DataConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Model config: MobileNetV2 (torchvision's model with a 10-class
-    head) or the ViT family (``vit`` from the ``vit_*`` fields, or the
-    ``vit_tiny``/``vit_small``/``vit_base`` presets).
+    head), the ViT family (``vit`` from the ``vit_*`` fields, or the
+    ``vit_tiny``/``vit_small``/``vit_base`` presets) or the decoder-only
+    LM (``lm``: the ``vit_hidden``/``vit_depth``/``vit_heads`` blocks
+    over ``vocab_size`` tokens and ``max_seq_len`` learned positions).
 
     MobileNetV2 only: ``use_pallas_depthwise`` keeps the JAX package's
     name: it routes the 17 depthwise convs through the hand-written
@@ -122,7 +140,8 @@ class ModelConfig:
     ViT: ``attention`` picks the core, ``auto`` and ``flash`` the flash
     kernels (``tpunet_torch.ops.flash``), ``dense`` or ``blockwise`` the
     plain versions; ``attention_block`` is the blockwise chunk and the
-    flash call's TPU block size. The sequence-parallel cores, MoE and
+    flash call's TPU block size (the LM's core is causal). The
+    sequence-parallel cores, MoE, the vocab-sharded cross-entropy and
     remat wait for their ROADMAP items and raise when set.
     """
 
@@ -152,14 +171,30 @@ class ModelConfig:
     moe_aux_weight: float = 0.01
     moe_dispatch: str = "auto"
     remat: bool = False
+    vocab_size: int = 256
+    max_seq_len: int = 1024
+    vocab_ce: str = "auto"
 
     def __post_init__(self):
         if self.name in _NOT_PORTED:
             raise NotImplementedError(
                 f"model {self.name!r} is not ported to tpunet_torch yet; "
                 f"it comes with ROADMAP {_NOT_PORTED[self.name]}")
-        if self.name != "mobilenet_v2" and self.name not in VIT_NAMES:
+        if self.name not in ("mobilenet_v2", "lm") + VIT_NAMES:
             raise ValueError(f"unknown model {self.name!r}")
+        if self.vocab_ce not in ("auto", "full", "sharded"):
+            raise ValueError(f"unknown vocab_ce {self.vocab_ce!r}; expected "
+                             "auto|full|sharded")
+        if self.vocab_ce == "sharded":
+            # "auto" resolves to "full" without a mesh 'model' axis, and
+            # the port has none.
+            raise NotImplementedError(
+                "vocab_ce='sharded' (the vocab-parallel cross-entropy over "
+                "a mesh 'model' axis) is not ported to tpunet_torch yet; it "
+                "comes with ROADMAP Queue A item 8")
+        if self.vocab_size < 1 or self.max_seq_len < 1:
+            raise ValueError(f"vocab_size {self.vocab_size} and max_seq_len "
+                             f"{self.max_seq_len} must be >= 1")
         if not self.fused_bn:
             raise ValueError("fused_bn=False (nn.BatchNorm + clamp) computes "
                              "the same function; the port runs only the "
@@ -258,6 +293,29 @@ class TrainConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+
+    def __post_init__(self):
+        # tpunet's cross-checks (tpunet/train/loop.py:55-66, 159-176).
+        is_lm = self.model.name == "lm"
+        if is_lm != (self.data.dataset in TOKEN_DATASETS):
+            raise ValueError(
+                f"model {self.model.name!r} and dataset "
+                f"{self.data.dataset!r} are different families (the 'lm' "
+                "model needs token data, e.g. --dataset synthetic_lm)")
+        if is_lm and self.model.vocab_size != self.data.vocab_size:
+            raise ValueError(
+                f"model vocab {self.model.vocab_size} != data vocab "
+                f"{self.data.vocab_size}; out-of-range tokens would index "
+                "past the embedding")
+        if self.data.pack_docs and self.model.attention not in (
+                "dense", "flash", "auto"):
+            raise ValueError(
+                f"--pack-docs needs a segment-capable attention core "
+                f"(dense/flash/auto), got {self.model.attention!r}")
+
+    @property
+    def is_lm(self) -> bool:
+        return self.model.name == "lm"
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -4,8 +4,8 @@ The dataset is read from the standard ``cifar-10-batches-py`` pickle
 layout (what torchvision's download produces) and kept in host memory
 (50k x 32x32x3 uint8 = 150 MB). A deterministic synthetic dataset with
 CIFAR-10's shapes stands in when the real data is absent; for one seed
-it is bit-equal to tpunet's. The JAX package's token datasets come with
-ROADMAP Queue A item 4b.
+it is bit-equal to tpunet's. ``get_dataset`` also serves the token
+datasets of ``tpunet_torch.data.lm``.
 """
 
 from __future__ import annotations
@@ -86,6 +86,9 @@ def synthetic_cifar10(n_train: int = 50_000, n_test: int = 10_000,
 
 
 def get_dataset(cfg: DataConfig) -> Arrays:
+    if cfg.dataset in ("synthetic_lm", "text_lm"):
+        from tpunet_torch.data.lm import get_lm_dataset
+        return get_lm_dataset(cfg)
     if cfg.dataset == "synthetic":
         return synthetic_cifar10(n_train=cfg.synthetic_train_size,
                                  n_test=cfg.synthetic_test_size)

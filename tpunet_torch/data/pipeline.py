@@ -5,7 +5,9 @@ Each host holds the full dataset in RAM and slices its contiguous shard
 of a deterministic global permutation seeded by (seed, epoch), so the
 index order is bit-equal to tpunet's for every (seed, epoch). The train
 remainder is dropped; evaluation pads the final batch with masked
-examples so test metrics are exact.
+examples so test metrics are exact. Rows are images (uint8) or token
+rows (int32 [T]); labels are per-example scalars or, for packed token
+rows, per-token segment ids [T], and padding keeps their trailing shape.
 """
 
 from __future__ import annotations
@@ -93,6 +95,8 @@ def eval_batches(
         x = np.zeros((local,) + images.shape[1:], dtype=images.dtype)
         y = np.zeros((local,) + labels.shape[1:], dtype=labels.dtype)
         m = np.zeros((local,), dtype=np.float32)
+        # labels may be per-example scalars or per-token rows (packed LM
+        # segment ids): padded with whatever trailing shape they have.
         if count:
             x[:count] = images[start:stop]
             y[:count] = labels[start:stop]

@@ -1,13 +1,14 @@
 """Model registry of the port: ``create_model(cfg, device, generator, image_size)``.
 
 Dispatches on ``ModelConfig.name`` as ``tpunet/models/__init__.py``
-does: MobileNetV2, and the ViT family (``vit`` from the ``vit_*``
-fields, or the ``vit_tiny``/``vit_small``/``vit_base`` presets); the
-config refuses the names that are not ported. Weights are drawn from an
+does: MobileNetV2, the ViT family (``vit`` from the ``vit_*`` fields, or
+the ``vit_tiny``/``vit_small``/``vit_base`` presets) and the LM
+(``lm``); the config refuses the names that are not ported. Weights are drawn from an
 explicit ``torch.Generator`` on the CPU and then moved, so one seed
 gives the same weights on every device. MobileNetV2 follows
 torchvision's initialisation (kaiming-normal fan_out convs, N(0, 0.01)
-classifier, unit/zero BN); the ViT follows Flax's (``init_vit``).
+classifier, unit/zero BN); the ViT and the LM follow Flax's
+(``init_vit``, ``init_lm``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from tpunet_torch.config import ModelConfig
+from tpunet_torch.models.lm import create_lm
 from tpunet_torch.models.mobilenetv2 import Conv, Linear, MobileNetV2
 from tpunet_torch.models.vit import create_vit
 
@@ -40,7 +42,7 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
     """Build the model of ``cfg`` on ``device`` in eval mode, with weights
     drawn from ``generator`` (a CPU generator seeded with 0 when None).
     ``image_size`` sizes the ViT's position embedding; MobileNetV2 takes
-    any size."""
+    any size, and the LM reads ``max_seq_len``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if cfg.name == "mobilenet_v2":
@@ -51,6 +53,8 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
                             fused_ir=cfg.fused_ir,
                             dtype=getattr(torch, cfg.dtype))
         init_weights(model, generator)
+    elif cfg.name == "lm":
+        model = create_lm(cfg, generator)
     else:
         model = create_vit(cfg, image_size, generator)
     return model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).eval()

@@ -10,8 +10,11 @@ Port of the parts of ``tpunet/models/convert.py`` the port needs:
   port's ViT state dict (the patch kernel HWIO -> OIHW, Dense kernels
   transposed to ``weight`` [out, in], LayerNorm ``scale`` -> ``weight``;
   the qkv columns keep their (3, heads, head_dim) order);
+- :func:`lm_state_dict_from_jax`: a Flax LM ``params`` tree -> the
+  port's LM state dict (``embed.embedding`` -> ``embed.weight``, the
+  blocks as the ViT's, no classifier: the head is tied);
 - :func:`load_state_dict` / :func:`load_state_dict_file` load such a
-  dict into either model (bare, or under ``state_dict``/``model``/
+  dict into any of the models (bare, or under ``state_dict``/``model``/
   ``params``; ``module.`` prefixes stripped) and, like
   ``convert_torch_state_dict``, leave the head at its fresh init when
   the checkpoint's class count differs.
@@ -103,6 +106,14 @@ def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                                               np.float32).transpose(3, 2, 0, 1)),
           "patch_embed.bias": _t(pe["bias"]),
           "pos_embed": _t(params["pos_embed"])}
+    _blocks(sd, params)
+    _ln(sd, "ln", params["ln"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+def _blocks(sd: Dict[str, torch.Tensor], params: Mapping) -> None:
+    """The encoder blocks ``block{i:02d}`` -> ``blocks.{i}``."""
     i = 0
     while f"block{i:02d}" in params:
         blk, key = params[f"block{i:02d}"], f"blocks.{i}"
@@ -117,8 +128,21 @@ def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         _dense(sd, f"{key}.mlp.fc1", blk["mlp"]["fc1"])
         _dense(sd, f"{key}.mlp.fc2", blk["mlp"]["fc2"])
         i += 1
+
+
+def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax LM ``params`` tree (numpy-convertible leaves) -> the port's
+    LM state dict, CPU float32 tensors: the token table, the position
+    table, the blocks as :func:`vit_state_dict_from_jax` maps them, the
+    final LayerNorm; the head is the embedding."""
+    if "blocks_qkv_k" in params:
+        raise NotImplementedError(
+            "lm_pp (pipeline-stacked) checkpoints are not ported to "
+            "tpunet_torch yet; they come with ROADMAP Queue A item 8")
+    sd = {"embed.weight": _t(params["embed"]["embedding"]),
+          "pos_embed": _t(params["pos_embed"])}
+    _blocks(sd, params)
     _ln(sd, "ln", params["ln"])
-    _dense(sd, "classifier", params["classifier"])
     return sd
 
 
@@ -139,7 +163,7 @@ def load_state_dict(model: torch.nn.Module, obj: Mapping) -> bool:
     (``num_batches_tracked`` may be absent)."""
     sd = _unwrap(obj)
     head = model.HEAD_KEYS
-    head_ok = tuple(sd[head[0]].shape) == tuple(
+    head_ok = not head or tuple(sd[head[0]].shape) == tuple(
         model.get_parameter(head[0]).shape)
     if not head_ok:
         sd = {k: v for k, v in sd.items() if k not in head}

@@ -34,16 +34,20 @@ already differ between the CPU and the card); at dropout 0 they compute
 the same step. In eval mode the weights cast to
 ``dtype`` are computed once and reused until a parameter changes.
 
-Not ported: the decode path and its KV caches (``decode``, ``PagedKV``:
-ROADMAP Queue A items 4b and 5), MoE blocks and the sequence-parallel
-cores (item 8), block remat (item 2b); the config refuses them.
+The blocks' arithmetic lives in :class:`Encoder`, which the LM
+(``tpunet_torch.models.lm``) shares, with tpunet's module-clock decode
+step (:func:`decode_attend` against a :class:`KVCache`). Not ported: the
+serving engine's per-row positions, ``active`` gates and ``PagedKV``
+(ROADMAP Queue A item 5), MoE blocks and the sequence-parallel cores
+(item 8), block remat (item 2b); the config refuses them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,37 +120,69 @@ class PatchEmbed(nn.Module):
         self.bias = nn.Parameter(torch.zeros(hidden))
 
 
-class ViT(nn.Module):
-    """ViT backbone + linear head for ``image_size`` square images."""
+@dataclasses.dataclass(frozen=True)
+class KVCache:
+    """The decode cache of a decoder stack, passed in and returned: per
+    layer the cached keys and values [B, total, H, D] in the activation
+    dtype, and ``index``, the position the next token is written at
+    (tpunet's ``cached_k``/``cached_v``/``cache_index``). A decode step
+    writes its token's K/V into the tensors in place and returns the
+    cache advanced by one; the cache it was given shares those tensors
+    and is stale afterwards."""
 
-    HEAD_KEYS = ("classifier.weight", "classifier.bias")
+    k: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+    index: int = 0
 
-    def __init__(self, num_classes: int = 10, image_size: int = 224,
-                 patch_size: int = 16, hidden: int = 192, depth: int = 6,
-                 heads: int = 3, mlp_ratio: float = 4.0,
-                 dropout_rate: float = 0.0,
-                 attn_fn: AttnFn = dense_attention,
-                 dtype: torch.dtype = torch.bfloat16):
+    @classmethod
+    def zeros(cls, depth: int, batch: int, total: int, heads: int,
+              head_dim: int, dtype: torch.dtype, device) -> "KVCache":
+        def make():
+            return tuple(torch.zeros(batch, total, heads, head_dim,
+                                     dtype=dtype, device=device)
+                         for _ in range(depth))
+        return cls(make(), make(), 0)
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cached_k: torch.Tensor, cached_v: torch.Tensor,
+                  index: int) -> torch.Tensor:
+    """One token's attention against the cache, tpunet's module-clock
+    ``_decode_attend`` (``tpunet/models/vit.py:159-214``): k and v
+    [B, 1, H, D] are written at ``index`` of the cache (in place), then
+    q attends to positions 0..index. Scores in float32 from the
+    activation-dtype q and cached K, times D^-1/2; softmax in float32;
+    p kept in float32 against V; the result cast to q's dtype. The
+    positions past ``index`` that tpunet masks to -1e30 (probability
+    exactly 0) are left out of the sums."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode processes one token per call, got "
+                         f"{q.shape[1]}")
+    if index >= cached_k.shape[1]:
+        raise ValueError(f"decode position {index} is past the cache's "
+                         f"{cached_k.shape[1]} positions")
+    cached_k[:, index] = k[:, 0]
+    cached_v[:, index] = v[:, 0]
+    kf = cached_k[:, :index + 1].float()
+    vf = cached_v[:, :index + 1].float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[-1] ** -0.5
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+class Encoder(nn.Module):
+    """The machinery the ViT and the LM share: the pre-LN blocks'
+    arithmetic in the activation dtype over float32 parameters, the
+    step's dropout, and the injected attention core. A subclass
+    registers ``blocks`` (a ModuleList of :class:`EncoderBlock`)."""
+
+    def __init__(self, heads: int, dropout_rate: float, attn_fn: AttnFn,
+                 dtype: torch.dtype):
         super().__init__()
-        if image_size % patch_size:
-            raise ValueError(f"image {image_size} not divisible by patch "
-                             f"{patch_size}")
-        if hidden % heads:
-            raise ValueError(f"hidden dim {hidden} not divisible by {heads} "
-                             "heads")
-        self.num_classes = num_classes
-        self.patch_size = patch_size
         self.heads = heads
         self.dropout_rate = dropout_rate
         self.attn_fn = attn_fn
         self.dtype = dtype
-        tokens = (image_size // patch_size) ** 2
-        self.patch_embed = PatchEmbed(hidden, patch_size)
-        self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden))
-        self.blocks = nn.ModuleList(
-            EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
-        self.ln = LayerNorm(hidden)
-        self.classifier = Dense(hidden, num_classes)
         # id(parameter) -> (source state, parameter, cast copy); eval only.
         self._consts: Dict[int, tuple] = {}
 
@@ -196,16 +232,72 @@ class ViT(nn.Module):
             return x * mask / keep
         return drop
 
-    def _attention(self, attn: Attention, x: torch.Tensor, train: bool):
+    def _attention(self, attn: Attention, x: torch.Tensor, train: bool,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   kv: Optional[tuple] = None):
+        """Self-attention of ``x`` [B,T,C]: the core over q, k, v views
+        of the fused projection, with ``segment_ids`` [B,T] as both the
+        query and the key segments (tpunet's ``segment_ids=(seg, seg)``);
+        or, with ``kv`` = (cached K, cached V, index), one decode step
+        against the cache, which skips the core."""
         b, t, c = x.shape
         qkv = self._linear(attn.qkv, x, train)
         q, k, v = qkv.view(b, t, 3, self.heads, c // self.heads).unbind(2)
-        y = self.attn_fn(q, k, v).reshape(b, t, c)
-        return self._linear(attn.out, y, train)
+        if kv is not None:
+            y = decode_attend(q, k, v, *kv)
+        elif segment_ids is not None:
+            y = self.attn_fn(q, k, v, segment_ids=(segment_ids, segment_ids))
+        else:
+            y = self.attn_fn(q, k, v)
+        return self._linear(attn.out, y.reshape(b, t, c), train)
 
     def _mlp(self, mlp: MlpBlock, x: torch.Tensor, train: bool):
         y = F.gelu(self._linear(mlp.fc1, x, train), approximate="tanh")
         return self._linear(mlp.fc2, y, train)
+
+    def _encode(self, x: torch.Tensor, train: bool, drop,
+                segment_ids: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None) -> torch.Tensor:
+        """The blocks over ``x``: x + drop(Attn(LN(x))); x +
+        drop(Mlp(LN(x))), against ``cache`` when one is given."""
+        for i, blk in enumerate(self.blocks):
+            kv = None if cache is None else (cache.k[i], cache.v[i],
+                                             cache.index)
+            x = x + drop(self._attention(blk.attn,
+                                         self._norm(blk.ln1, x, train),
+                                         train, segment_ids, kv))
+            x = x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
+                                   train))
+        return x
+
+
+class ViT(Encoder):
+    """ViT backbone + linear head for ``image_size`` square images."""
+
+    HEAD_KEYS = ("classifier.weight", "classifier.bias")
+
+    def __init__(self, num_classes: int = 10, image_size: int = 224,
+                 patch_size: int = 16, hidden: int = 192, depth: int = 6,
+                 heads: int = 3, mlp_ratio: float = 4.0,
+                 dropout_rate: float = 0.0,
+                 attn_fn: AttnFn = dense_attention,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(heads, dropout_rate, attn_fn, dtype)
+        if image_size % patch_size:
+            raise ValueError(f"image {image_size} not divisible by patch "
+                             f"{patch_size}")
+        if hidden % heads:
+            raise ValueError(f"hidden dim {hidden} not divisible by {heads} "
+                             "heads")
+        self.num_classes = num_classes
+        self.patch_size = patch_size
+        tokens = (image_size // patch_size) ** 2
+        self.patch_embed = PatchEmbed(hidden, patch_size)
+        self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
+        self.ln = LayerNorm(hidden)
+        self.classifier = Dense(hidden, num_classes)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -225,30 +317,27 @@ class ViT(nn.Module):
                      self._cast(pe.bias, train))
         x = x + self._cast(self.pos_embed, train)
         drop = self._dropout(train, generator, x.device)
-        x = drop(x)
-        for blk in self.blocks:
-            x = x + drop(self._attention(blk.attn,
-                                         self._norm(blk.ln1, x, train), train))
-            x = x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
-                                   train))
+        x = self._encode(drop(x), train, drop)
         x = self._norm(self.ln, x, train).mean(dim=1)  # mean pool over tokens
         return self._linear(self.classifier, x, train).float()
 
 
-def make_attn_fn(cfg) -> AttnFn:
-    """The configured attention core: ``auto`` and ``flash`` give the
-    flash kernels (``attention_block`` is their TPU block size, not read
-    by the CUDA kernels), ``dense`` the plain softmax, ``blockwise`` the
-    chunked online softmax over ``attention_block`` keys."""
+def make_attn_fn(cfg, causal: bool = False) -> AttnFn:
+    """The configured attention core, ``causal`` for the LM: ``auto``
+    and ``flash`` give the flash kernels (``attention_block`` is their
+    TPU block size, not read by the CUDA kernels), ``dense`` the plain
+    softmax, ``blockwise`` the chunked online softmax over
+    ``attention_block`` keys."""
     if cfg.attention in ("auto", "flash"):
         return functools.partial(flash_attention,
                                  block_q=cfg.attention_block,
-                                 block_k=cfg.attention_block)
+                                 block_k=cfg.attention_block, causal=causal)
     if cfg.attention == "dense":
-        return dense_attention
+        return functools.partial(dense_attention, causal=causal)
     if cfg.attention == "blockwise":
         return functools.partial(blockwise_attention,
-                                 block_size=cfg.attention_block)
+                                 block_size=cfg.attention_block,
+                                 causal=causal)
     if cfg.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention={cfg.attention!r} (sequence parallelism over a mesh) "

@@ -5,6 +5,9 @@
     python -m tpunet_torch.train --preset serial --dataset synthetic \\
         --image-size 32 --width-mult 0.5 --dtype float32 --device cpu
     python -m tpunet_torch.train --model vit_base                 # ViT-B/16
+    python -m tpunet_torch.train --model lm --dataset synthetic_lm  # the LM
+    python -m tpunet_torch.train --model lm --dataset text_lm \
+        --text-file corpus.txt --pack-docs                    # packed docs
     torchrun --standalone --nproc-per-node N -m tpunet_torch.train \
         --preset distributed                                  # N ranks
 
@@ -58,7 +61,22 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="microbatches accumulated per optimizer step "
                         "(strided rows of the batch)")
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--dataset", default=None, choices=["cifar10", "synthetic"])
+    p.add_argument("--dataset", default=None,
+                   choices=["cifar10", "synthetic", "synthetic_lm",
+                            "text_lm"])
+    p.add_argument("--text-file", default=None,
+                   help="byte-level corpus file for --dataset text_lm")
+    p.add_argument("--pack-docs", action="store_true",
+                   help="text_lm: pack newline-delimited documents into "
+                        "seq_len rows with segment-masked attention and "
+                        "loss (no cross-document attention/prediction)")
+    p.add_argument("--seq-len", type=int, default=None,
+                   help="sequence length for token datasets (model lm)")
+    p.add_argument("--max-seq-len", type=int, default=None,
+                   help="LM position-table size (defaults to at least "
+                        "--seq-len)")
+    p.add_argument("--vocab-size", type=int, default=None,
+                   help="vocab for the lm model + synthetic_lm data")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--synthetic-size", type=int, default=None,
                    help="train-set size when --dataset synthetic (test: "
@@ -133,6 +151,12 @@ def _config(args: argparse.Namespace):
         data = dataclasses.replace(
             data, synthetic_train_size=args.synthetic_size,
             synthetic_test_size=max(1, args.synthetic_size // 4))
+    if args.text_file is not None:
+        data = dataclasses.replace(data, text_path=args.text_file)
+    if args.pack_docs:
+        data = dataclasses.replace(data, pack_docs=True)
+    if args.seq_len is not None:
+        data = dataclasses.replace(data, seq_len=args.seq_len)
     fields = {}
     for dest, obj_field in (("model", "name"),
                             ("pallas_depthwise", "use_pallas_depthwise"),
@@ -146,6 +170,14 @@ def _config(args: argparse.Namespace):
         val = getattr(args, dest)
         if val is not None:
             fields[obj_field] = val
+    if args.max_seq_len is not None:
+        fields["max_seq_len"] = args.max_seq_len
+    # tpunet grows the position table to cover the requested length.
+    fields["max_seq_len"] = max(fields.get("max_seq_len", model.max_seq_len),
+                                data.seq_len)
+    if args.vocab_size is not None:
+        data = dataclasses.replace(data, vocab_size=args.vocab_size)
+        fields["vocab_size"] = args.vocab_size
     model = dataclasses.replace(model, **fields)
     for dest, obj_field in (("lr", "learning_rate"),
                             ("lr_schedule", "schedule"),

@@ -7,8 +7,12 @@ the summary lines. Here the step is the port's train step on one device
 (``cuda`` unless the caller asks for ``cpu``), the metrics are exact
 sums read once per epoch, the best weights are a ``.pth`` in the port's
 layout and the full state allows ``--resume``; all of it for any model
-of ``ModelConfig``, with or without BN. Each epoch appends one
-plain record to ``<checkpoint-dir>/metrics.jsonl``
+of ``ModelConfig``, with or without BN. The LM (``lm``) trains on token
+rows with its own steps (next-token prediction, packed documents when
+``pack_docs``), and its metric unit is the token: its accuracy is
+next-token accuracy, and its epoch record carries ``tokens_per_sec``
+where the image models' carries ``examples_per_sec``. Each epoch
+appends one plain record to ``<checkpoint-dir>/metrics.jsonl``
 (``docs/metrics_schema.md``).
 
 Under a process group (``tpunet_torch.parallel``) the Trainer is one
@@ -46,7 +50,8 @@ from tpunet_torch.parallel.dist import (is_initialized, local_device,
                                         sync_hosts)
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
-from tpunet_torch.train.steps import make_eval_step, make_train_step
+from tpunet_torch.train.steps import (make_eval_step, make_lm_eval_step,
+                                      make_lm_train_step, make_train_step)
 from tpunet_torch.utils.logging import (MetricsLogger, epoch_line,
                                         is_coordinator, log0, summary_lines)
 from tpunet_torch.utils.prng import step_generator
@@ -95,8 +100,17 @@ class Trainer:
         self.state = TrainState(model, make_optimizer(model.parameters(),
                                                       cfg.optim),
                                 self._schedule, clip_norm=cfg.optim.clip_norm)
-        self.train_step = make_train_step(cfg.data, cfg.optim)
-        self.eval_step = make_eval_step(cfg.data)
+        if cfg.is_lm:
+            self.train_step = make_lm_train_step(cfg.optim,
+                                                 cfg.data.pack_docs)
+            self.eval_step = make_lm_eval_step(cfg.data.pack_docs)
+            # Token rows and segment ids go to the device as int32; the
+            # image labels as int64 (cross_entropy's class index type).
+            self._label_dtype = None
+        else:
+            self.train_step = make_train_step(cfg.data, cfg.optim)
+            self.eval_step = make_eval_step(cfg.data)
+            self._label_dtype = torch.int64
         self.ckpt = Checkpointer(cfg.checkpoint)
         self.start_epoch = 1
         self.best_acc = 0.0
@@ -150,7 +164,7 @@ class Trainer:
                                     process_count=self.ranks):
             gen = step_generator(cfg.seed, self.state.global_step)
             m = self.train_step(self.state, self._to_device(bx),
-                                self._to_device(by, torch.int64), gen)
+                                self._to_device(by, self._label_dtype), gen)
             acc = m if acc is None else M.accumulate(acc, m)
             if every and self.state.global_step % every == 0:
                 sm = M.summarize(m)
@@ -169,7 +183,7 @@ class Trainer:
                 global_batch=cfg.data.effective_eval_batch_size,
                 process_index=self.rank, process_count=self.ranks):
             m = self.eval_step(self.state.model, self._to_device(bx),
-                               self._to_device(by, torch.int64),
+                               self._to_device(by, self._label_dtype),
                                self._to_device(bm))
             acc = m if acc is None else M.accumulate(acc, m)
         return M.summarize(acc if acc is not None
@@ -219,7 +233,10 @@ class Trainer:
                 **identity,
                 "epoch": epoch, "seconds": secs,
                 "step": self.state.global_step,
-                "examples_per_sec": round(train_m["count"] / secs, 2),
+                # Throughput over the epoch (eval included) in the
+                # family's unit: next-token predictions for the LM.
+                ("tokens_per_sec" if cfg.is_lm else "examples_per_sec"):
+                    round(train_m["count"] / secs, 2),
                 "train_loss": train_m["loss"],
                 "train_accuracy": train_m["accuracy"],
                 "test_loss": test_m["loss"],

@@ -1,4 +1,4 @@
-"""Train and eval steps, port of ``tpunet/train/steps.py`` (image models).
+"""Train and eval steps, port of ``tpunet/train/steps.py``.
 
 One train step: on-device augmentation -> train-mode forward -> mean
 cross-entropy (optionally label-smoothed) -> backward -> optimizer
@@ -15,6 +15,16 @@ batch, so a rank's microbatch i is its shard of the global strided
 microbatch i; after the last micro every gradient is summed over the
 ranks in one flat buffer and divided by their number, then clipped
 (``clip_norm``), then applied.
+
+The LM's steps (:func:`make_lm_train_step`, :func:`make_lm_eval_step`)
+predict the input shifted by one and count next-token predictions. With
+packed documents the labels are [B, T] segment ids: the core masks
+attention to same-segment pairs and the loss drops targets that cross a
+document boundary or land on padding; the CE is summed over the valid
+targets and divided by the global batch's valid count (tpunet's
+``count_fn`` contract), so microbatch gradients are summed, not
+averaged, and each rank scales its sum by the world size, which
+``reduce_gradients`` divides out.
 """
 
 from __future__ import annotations
@@ -94,6 +104,102 @@ def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig) -> Callable:
                          generator, optim_cfg)
 
     return train_step
+
+
+def _packed_target_weights(segs: torch.Tensor) -> torch.Tensor:
+    """[B, T-1] float32 weights of next-token prediction under packing: a
+    target is valid iff it continues the same document (segment id
+    unchanged) and is not padding (id 0)."""
+    return ((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] != 0)).float()
+
+
+def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
+                smoothing: float, **kw):
+    """Per-target CE [B, T-1] and whether the argmax hits, of the logits
+    at positions 0..T-2 against the tokens at 1..T-1."""
+    logits = model(tokens, segment_ids=segs, **kw)[:, :-1]
+    tgt = tokens[:, 1:].long()
+    ce = _ce_loss(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
+                  smoothing).view_as(tgt)
+    return ce, logits.detach().argmax(-1) == tgt
+
+
+def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
+                 labels: torch.Tensor, generator: torch.Generator,
+                 optim_cfg: OptimConfig, packed: bool = False) -> M.Metrics:
+    """The LM's :func:`fit_batch`: forward/backward over
+    ``optim_cfg.grad_accum`` strided microbatches of the token rows
+    [B, T] (this rank's), the gradients reduced over the ranks, one
+    update; returns this rank's metric sums. ``packed``: ``labels``
+    are the rows' segment ids; each microbatch's CE sum is divided by
+    the global valid-target count (summed over the ranks first) and
+    multiplied by the world size."""
+    accum, n = optim_cfg.grad_accum, tokens.shape[0]
+    if n % accum:
+        raise ValueError(f"batch of {n} rows does not split into "
+                         f"{accum} microbatches")
+    smoothing = optim_cfg.label_smoothing
+    state.optimizer.zero_grad(set_to_none=True)
+    if packed:
+        total = all_reduce(_packed_target_weights(labels).sum())
+        scale = process_count() / total.clamp_min(1.0)
+    loss_sum = correct = count = 0
+    for i in range(accum):
+        x = tokens[i::accum]
+        segs = labels[i::accum] if packed else None
+        ce, hit = _next_token(state.model, x, segs, smoothing, train=True,
+                              generator=generator)
+        if packed:
+            wt = _packed_target_weights(segs)
+            ce_sum = (ce * wt).sum()
+            (ce_sum * scale).backward()
+            loss_sum = loss_sum + ce_sum.detach()
+            correct = correct + (hit * wt).sum()
+            count = count + wt.sum()
+        else:
+            loss = ce.mean()
+            (loss / accum).backward()
+            loss_sum = loss_sum + loss.detach() * ce.numel()
+            correct = correct + hit.sum()
+            count = count + ce.numel()
+    reduce_gradients(state.model.parameters())
+    state.apply_gradients()
+    return M.from_batch(loss_sum, correct, count, tokens.device)
+
+
+def make_lm_train_step(optim_cfg: OptimConfig, packed: bool = False
+                       ) -> Callable:
+    """train_step(state, tokens [B,T] int, labels, generator) -> metrics
+    for the LM: ``labels`` are [B, T] segment ids when ``packed``, else
+    unread."""
+
+    def train_step(state: TrainState, tokens: torch.Tensor,
+                   labels: torch.Tensor, generator: torch.Generator
+                   ) -> M.Metrics:
+        return fit_lm_batch(state, tokens, labels, generator, optim_cfg,
+                            packed)
+
+    return train_step
+
+
+def make_lm_eval_step(packed: bool = False) -> Callable:
+    """eval_step(model, tokens, labels, mask) -> metrics of next-token
+    prediction; ``mask`` [B] zeroes padded rows, and ``packed`` composes
+    it with the per-token packing weights of the segment ids in
+    ``labels``."""
+
+    def eval_step(model: torch.nn.Module, tokens: torch.Tensor,
+                  labels: torch.Tensor, mask: torch.Tensor) -> M.Metrics:
+        with torch.no_grad():
+            losses, hit = _next_token(model, tokens,
+                                      labels if packed else None, 0.0)
+            wt = mask[:, None]
+            if packed:
+                wt = wt * _packed_target_weights(labels)
+            count = wt.sum() if packed else wt.sum() * losses.shape[1]
+            return M.from_batch((losses * wt).sum(), (hit * wt).sum(), count)
+
+    return eval_step
 
 
 def make_eval_step(data_cfg: DataConfig) -> Callable:
