@@ -93,7 +93,29 @@ Phases, each of which must pass:
      prompts, 256 new) with no flash launch, its logits teacher-forced
      against the no-cache forward's (12 flash launches), and in f32 the
      cache and no-cache tokens equal;
- 13. print the kernel list and the card's name and power limit.
+ 13. serve_engine: the LM serving engine (``tpunet_torch.serve``) at
+     phase 12's widths in bf16 behind its HTTP server with the
+     ServeConfig defaults (8 slots, prefill buckets 32/128/512, paged KV
+     of 16-token pages, the prefix cache, device sampling): 8
+     closed-loop clients send 48 /v1/generate requests (prompts of
+     24-480 seeded tokens, half behind one shared 256-token prefix, 128
+     new tokens each, half greedy, half sampled at temperature 0.8,
+     top-k 40, top-p 0.95, a quarter streamed) while 2 clients cycle
+     phase 4's images through /v1/classify (MobileNetV2 1.0, the hand
+     depthwise): every request 200 with 128 tokens, 17 depthwise
+     launches a classify forward, no flash launch, the classify
+     probabilities within 2^-7 of the largest logit of
+     Predictor.predict_probs'; tokens/s, requests/s, TTFT and per-token
+     percentiles, prefill against prompt tokens, classify rate and
+     latency; one sampled request alone and co-batched with 7 others,
+     the same tokens; a profiled decode iteration of 8 slots (its host
+     bookkeeping around the step); in float32 the engine's greedy tokens
+     equal to generate's in the dense, paged, prefix-hit and preempting
+     pools; and ``python -m tpunet_torch.serve`` as a subprocess, which
+     answers, finishes an in-flight stream through SIGTERM while new
+     requests get 503 with Retry-After, exits 0 and leaves obs_serve
+     records;
+ 14. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -2569,6 +2591,537 @@ def phase_lm_generate(torch) -> dict:
     return res["bfloat16"]
 
 
+SERVE_REQUESTS = 48      # /v1/generate requests of the serve_engine phase
+SERVE_CLIENTS = 8        # closed-loop generate clients (= the engine's slots)
+SERVE_CLASSIFY_CLIENTS = 2
+SERVE_NEW = 128          # new tokens a request
+SERVE_PREFIX = 256       # the prefix half of the prompts share
+SERVE_PROMPT = (24, 480)  # prompt lengths, inclusive
+SERVE_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
+SERVE_PARITY_NEW = 64    # new tokens of the float32 parity runs
+SERVE_PARITY_SUFFIX = 64  # their prompts: the shared prefix + 64 tokens
+SERVE_DIR = LM_DIR / "smoke_serve"
+
+
+def http_call(base, path, body=None, timeout=300.0):
+    """(status, parsed JSON body, headers) of one request; a POST when
+    ``body`` is given."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def http_generate(base, body, timeout=300.0) -> dict:
+    """One /v1/generate exchange, sync or streamed (``body['stream']``),
+    as {status, tokens, finish_reason, s}: a stream's tokens are its token
+    lines (their indices must run 0, 1, ...), its finish reason and count
+    its done frame's; a stream that breaks that is status -1."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    if not body.get("stream"):
+        code, out, _ = http_call(base, "/v1/generate", body, timeout)
+        return dict(status=code, tokens=out.get("tokens"),
+                    finish_reason=out.get("finish_reason"),
+                    s=time.perf_counter() - t0)
+    req = urllib.request.Request(base + "/v1/generate",
+                                 json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        code = r.status
+        lines = [json.loads(line) for line in r if line.strip()]
+    toks = [ev["token"] for ev in lines if "token" in ev]
+    done = lines[-1] if lines and lines[-1].get("done") else {}
+    ok = done.get("n_tokens") == len(toks) and [
+        ev["i"] for ev in lines if "token" in ev] == list(range(len(toks)))
+    return dict(status=code if ok else -1, tokens=toks,
+                finish_reason=done.get("finish_reason"),
+                s=time.perf_counter() - t0)
+
+
+def serve_prompts():
+    """The phase's 48 requests: prompts of 24-480 tokens cut from seeded
+    synthetic_lm rows, the even ones starting with one shared 256-token
+    prefix; of every 4 requests the first two greedy and the last two
+    sampled (each with its own seed); every fourth streamed. Also
+    returns the rows and the prefix."""
+    import numpy as np
+
+    from tpunet_torch.data.lm import synthetic_lm
+
+    rows = synthetic_lm(SERVE_REQUESTS + 10, 1, seq_len=SERVE_PROMPT[1],
+                        vocab=LM_VOCAB, seed=11)[0]
+    prefix = rows[-1, :SERVE_PREFIX]
+    rng = np.random.default_rng(SEED + 11)
+    bodies = []
+    for i in range(SERVE_REQUESTS):
+        if i % 2 == 0:
+            n = int(rng.integers(SERVE_PREFIX + 1, SERVE_PROMPT[1] + 1))
+            toks = np.concatenate([prefix, rows[i, :n - SERVE_PREFIX]])
+        else:
+            n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+            toks = rows[i, :n]
+        body = {"tokens": toks.tolist(), "max_new_tokens": SERVE_NEW,
+                "stream": i % 4 == 3}
+        if i % 4 >= 2:
+            body.update(SERVE_SAMPLING, seed=1000 + i)
+        bodies.append(body)
+    return bodies, rows, prefix
+
+
+def serve_traffic(base, bodies, images, names):
+    """SERVE_CLIENTS closed-loop clients send ``bodies`` (client k the
+    k-th, (k+8)-th, ...), while SERVE_CLASSIFY_CLIENTS clients cycle
+    ``images`` (when given) through /v1/classify until the generate
+    clients are done.
+    Returns (generate wall s, generate answers by request, classify
+    answers as (image index, latency s, probs in ``names`` order),
+    classify wall s, errors)."""
+    import base64
+
+    import numpy as np
+
+    gen = [None] * len(bodies)
+    cls = [[] for _ in range(SERVE_CLASSIFY_CLIENTS)]
+    errors = []
+    done = threading.Event()
+
+    def generate_client(k):
+        try:
+            for i in range(k, len(bodies), SERVE_CLIENTS):
+                gen[i] = http_generate(base, bodies[i])
+        except (OSError, ValueError) as e:
+            errors.append(f"generate client {k}: {type(e).__name__}: {e}")
+
+    def classify_client(k):
+        i = k
+        try:
+            while not done.is_set():
+                img = images[i % len(images)]
+                t = time.perf_counter()
+                code, out, _ = http_call(base, "/v1/classify", {
+                    "image_b64": base64.b64encode(img.tobytes()).decode(),
+                    "shape": list(img.shape), "topk": 3})
+                if code != 200:
+                    errors.append(f"classify {i}: {code} {out}")
+                    return
+                cls[k].append((i % len(images), time.perf_counter() - t,
+                               np.array([out["probs"][n] for n in names])))
+                i += SERVE_CLASSIFY_CLIENTS
+        except (OSError, ValueError) as e:
+            errors.append(f"classify client {k}: {type(e).__name__}: {e}")
+
+    gthreads = [threading.Thread(target=generate_client, args=(k,))
+                for k in range(SERVE_CLIENTS)]
+    cthreads = [threading.Thread(target=classify_client, args=(k,))
+                for k in range(SERVE_CLASSIFY_CLIENTS if images else 0)]
+    t0 = time.perf_counter()
+    for t in gthreads + cthreads:
+        t.start()
+    for t in gthreads:
+        t.join(timeout=900.0)
+    wall = time.perf_counter() - t0
+    done.set()
+    for t in cthreads:
+        t.join(timeout=120.0)
+    cls_wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in gthreads + cthreads):
+        errors.append("clients did not finish")
+    return wall, gen, [a for per in cls for a in per], cls_wall, errors
+
+
+def serve_parity(torch, model32, prompts, want) -> dict:
+    """The float32 engine's greedy tokens for ``prompts`` against
+    ``want`` (models.lm.generate's) in four runs: the dense pool; the
+    paged pool; paged with prefix hits (one prompt first, then the seven
+    that share its 256-token prefix); paged with the pool cut so that a
+    slot is preempted and resumed."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.serve import Engine
+
+    pages = len(prompts[0]) // 16       # each prompt's pages
+    runs = {"dense": dict(paged_kv=False),
+            "paged": dict(prefix_cache=False),
+            "paged_prefix_hits": {},
+            "paged_preempt": dict(prefix_cache=False,
+                                  kv_pages=2 * pages + 4)}
+    out = {}
+    for name, kw in runs.items():
+        eng = Engine(model32, ServeConfig(emit_every_s=0.0, **kw)).start()
+        t0 = time.perf_counter()
+        try:
+            reqs = []
+            if name == "paged_prefix_hits":
+                reqs.append(eng.submit(prompts[0],
+                                       max_new_tokens=SERVE_PARITY_NEW))
+                reqs[0].result(timeout=300)
+            reqs += [eng.submit(p, max_new_tokens=SERVE_PARITY_NEW)
+                     for p in prompts[len(reqs):]]
+            got = [r.result(timeout=300) for r in reqs]
+        finally:
+            eng.stop()
+        snap = eng.registry.snapshot()
+        equal = got == want
+        out[name] = dict(
+            tokens_equal_generate=equal, s=time.perf_counter() - t0,
+            prefix_hits=snap.get("serve_prefix_hits_total", 0),
+            prefill_tokens=snap.get("serve_prefill_tokens_total", 0),
+            preemptions=snap.get("serve_kv_preemptions_total", 0))
+        check(equal, f"f32 engine ({name}) greedy tokens differ from "
+              "generate's: " + str([i for i, (g, w) in enumerate(
+                  zip(got, want)) if g != w]))
+    check(out["paged_prefix_hits"]["prefix_hits"] >= len(prompts) - 1,
+          f"prefix-hit run: {out['paged_prefix_hits']}")
+    check(out["paged_preempt"]["preemptions"] >= 1,
+          f"pool-cut run preempted nothing: {out['paged_preempt']}")
+    return out
+
+
+def serve_decode_profile(torch, model, prompts) -> dict:
+    """One decode iteration of an engine with 8 active slots, driven on
+    this thread (the engine not started): wall ms of the iteration and of
+    its device step (the host's bookkeeping around the step is the
+    difference), then one iteration under the profiler."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.serve import Engine
+
+    eng = Engine(model, ServeConfig(emit_every_s=0.0))
+    for p in prompts:
+        eng.submit(p, max_new_tokens=4 * SERVE_NEW)
+    eng._admit()
+    check(eng.active_slots() == len(prompts),
+          f"{eng.active_slots()} slots active")
+    step_s = []
+    real_step = eng._step
+
+    def timed_step(*a):
+        t = time.perf_counter()
+        out = real_step(*a)
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    eng._step = timed_step
+    for _ in range(5):
+        eng._decode_iteration()
+    step_s.clear()
+    laps = []
+    for _ in range(40):
+        t = time.perf_counter()
+        eng._decode_iteration()
+        laps.append(time.perf_counter() - t)
+    iter_ms = statistics.median(laps) * 1e3
+    step_ms = statistics.median(step_s) * 1e3
+    prof = profile_step(torch, eng._decode_iteration, iter_ms, ())
+    eng.stop()
+    return dict(iteration_ms=iter_ms, step_ms=step_ms,
+                host_bookkeeping_ms=iter_ms - step_ms,
+                kernels=prof.get("device_kernels"),
+                device_ms=prof.get("device_ms"),
+                device_idle_share=prof.get("device_idle_share"),
+                top_kernels=prof.get("top_kernels", [])[:6])
+
+
+def serve_cli_drain(torch) -> dict:
+    """``python -m tpunet_torch.serve`` as a subprocess (the default
+    LM's widths, random weights: ``--checkpoint-dir ""``): one request;
+    then SIGTERM with a stream in flight, which must finish whole while a
+    new request gets 503 with Retry-After; exit 0 and obs_serve records
+    in metrics.jsonl, the last one final."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mdir = SERVE_DIR / "cli"
+    shutil.rmtree(mdir, ignore_errors=True)
+    log = open(SERVE_DIR / "cli.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpunet_torch.serve", "--checkpoint-dir", "",
+         "--metrics-dir", str(mdir), "--port", str(port),
+         "--emit-every-s", "1", "--drain-timeout-s", "60"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    res = {}
+    try:
+        deadline = time.perf_counter() + 180
+        while time.perf_counter() < deadline:
+            check(proc.poll() is None, f"serve CLI exited {proc.returncode}")
+            try:
+                if http_call(base, "/healthz", timeout=2)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        first = http_generate(base, {"tokens": [5, 9, 2],
+                                     "max_new_tokens": 16})
+        check(first["status"] == 200 and len(first["tokens"]) == 16,
+              f"serve CLI request: {first}")
+        stream = {}
+        t = threading.Thread(target=lambda: stream.update(http_generate(
+            base, {"tokens": [7, 1, 4], "max_new_tokens": 1000,
+                   "stream": True})))
+        t.start()
+        time.sleep(0.5)                 # the stream is decoding
+        proc.send_signal(signal.SIGTERM)
+        got_503 = None
+        deadline = time.perf_counter() + 60
+        while got_503 is None and time.perf_counter() < deadline:
+            try:
+                code, out, hdr = http_call(base, "/v1/generate",
+                                           {"tokens": [1], "max_new_tokens": 2},
+                                           timeout=30)
+            except OSError:
+                break                   # listener closed: drain finished
+            if code == 503:
+                got_503 = (out, hdr.get("Retry-After"))
+            else:
+                time.sleep(0.01)
+        t.join(timeout=120)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    recs = [json.loads(line) for line in
+            (mdir / "metrics.jsonl").read_text().splitlines()]
+    serve_recs = [r for r in recs if r.get("kind") == "obs_serve"]
+    res = dict(exit_code=rc, stream_tokens=len(stream.get("tokens") or ()),
+               stream_finish=stream.get("finish_reason"),
+               draining_503=got_503, obs_serve_records=len(serve_recs),
+               last_record_final=bool(serve_recs
+                                      and serve_recs[-1].get("final")))
+    check(rc == 0, f"serve CLI exited {rc} after SIGTERM")
+    check(stream.get("status") == 200 and res["stream_tokens"] == 1000
+          and res["stream_finish"] == "length",
+          f"in-flight stream through the drain: {res}")
+    check(got_503 is not None and got_503[0].get("error") == "draining"
+          and got_503[1] is not None and int(got_503[1]) >= 1,
+          f"no 503 with Retry-After while draining: {res}")
+    check(res["obs_serve_records"] >= 1 and res["last_record_final"],
+          f"metrics.jsonl obs_serve records: {res}")
+    return res
+
+
+def serve_sampled_cobatch(base, rows) -> dict:
+    """One sampled request alone, then co-batched with 7 others (a prompt
+    under one page, so no prefix-cache hit changes its computation): the
+    same tokens."""
+    solo = {"tokens": rows[-3, :12].tolist(), "max_new_tokens": 64,
+            "seed": 4242, **SERVE_SAMPLING}
+    alone = http_generate(base, solo)
+    others = [{"tokens": rows[-4 - k, :10 + 3 * k].tolist(),
+               "max_new_tokens": 64,
+               **({"seed": 7 + k, **SERVE_SAMPLING} if k % 2 else {})}
+              for k in range(7)]
+    together = [None] * 8
+
+    def client(i, body):
+        together[i] = http_generate(base, body)
+
+    threads = [threading.Thread(target=client, args=(i, b))
+               for i, b in enumerate([solo] + others)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(alone["status"] == 200 and together[0] is not None
+          and together[0]["status"] == 200
+          and alone["tokens"] == together[0]["tokens"],
+          f"sampled request alone {alone['tokens'][:8]} co-batched "
+          f"{together[0] and together[0]['tokens'][:8]}")
+    return dict(tokens_equal=True, tokens=len(alone["tokens"]),
+                greedy_partners=sum(1 for b in others if "seed" not in b))
+
+
+def serve_pass(torch, model, bodies, rows, pred=None, images=(),
+               then=None):
+    """A fresh engine and server (the ServeConfig defaults, the
+    classifier ``pred`` mounted when given), warmed up on each prefill
+    bucket; then ``serve_traffic`` with every launch count at 0, and
+    ``then(base)`` while the server is still up. Every request must end
+    200 with its full budget. Returns (the generate metrics, the classify
+    answers, the launch counts, the registry snapshots before and
+    after)."""
+    import numpy as np
+
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.serve import ClassifyBatcher, Engine, ServeServer
+
+    cfg = ServeConfig(emit_every_s=0.0)
+    engine = Engine(model, cfg)
+    reg = engine.registry
+    batcher = None if pred is None else ClassifyBatcher(
+        pred, batch_max=cfg.classify_batch_max,
+        window_ms=cfg.classify_window_ms, registry=reg)
+    server = ServeServer(engine, classify_batcher=batcher, port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        # Warm-up, not counted: each prefill bucket, decode, classify.
+        for n in (8, 100, 400):
+            warm = http_generate(base, {"tokens": rows[-2, :n].tolist(),
+                                        "max_new_tokens": 4})
+            check(warm["status"] == 200, f"warm-up request: {warm}")
+        if batcher is not None:
+            batcher.submit(images[0], timeout=120.0)
+        torch.cuda.synchronize()
+        before = reg.snapshot()
+        reg.reset_window()
+        reset_launch_counts()
+        wall, answers, cls, cls_wall, errors = serve_traffic(
+            base, bodies, images, pred.class_names if pred else ())
+        launches = launch_counts()
+        snap = reg.snapshot()
+        check(not errors, f"serve traffic failed: {errors[:3]}")
+        bad = [(i, a and a["status"], a and a["finish_reason"])
+               for i, a in enumerate(answers)
+               if a is None or a["status"] != 200
+               or len(a["tokens"] or ()) != SERVE_NEW
+               or a["finish_reason"] != "length"]
+        check(not bad, f"requests without 200 and {SERVE_NEW} tokens: "
+              f"{bad[:4]}")
+        flash = {k: v for k, v in launches.items() if k.startswith("flash")}
+        check(sum(flash.values()) == 0, f"flash launches while serving: "
+              f"{flash}")
+        gen_tokens = sum(len(a["tokens"]) for a in answers)
+
+        def delta(key):
+            return snap.get(key, 0) - before.get(key, 0)
+
+        metrics = dict(
+            requests=len(answers), clients=SERVE_CLIENTS,
+            classify_clients=SERVE_CLASSIFY_CLIENTS if images else 0,
+            wall_s=wall, generated_tokens=gen_tokens,
+            generated_tokens_per_s=gen_tokens / wall,
+            requests_per_s=len(answers) / wall,
+            ttft_p50_ms=snap["serve_ttft_s_p50"] * 1e3,
+            ttft_p99_ms=snap["serve_ttft_s_p99"] * 1e3,
+            token_p50_ms=snap["serve_token_s_p50"] * 1e3,
+            token_p99_ms=snap["serve_token_s_p99"] * 1e3,
+            e2e_p50_ms=snap["serve_e2e_s_p50"] * 1e3,
+            prompt_tokens=sum(len(b["tokens"]) for b in bodies),
+            prefill_tokens=delta("serve_prefill_tokens_total"),
+            prefix_hits=delta("serve_prefix_hits_total"),
+            prefix_cow=delta("serve_prefix_cow_total"),
+            decode_steps=delta("serve_decode_steps_total"),
+            prefills=delta("serve_prefills_total"),
+            preemptions=delta("serve_kv_preemptions_total"),
+            flash_launches=flash)
+        if images:
+            cls_ms = np.array([s for _, s, _ in cls]) * 1e3
+            metrics.update(
+                classify_requests=len(cls),
+                classify_requests_per_s=len(cls) / cls_wall,
+                classify_p50_ms=float(np.percentile(cls_ms, 50)),
+                classify_p99_ms=float(np.percentile(cls_ms, 99)),
+                classify_batches=delta("serve_classify_batches_total"))
+        if then is not None:
+            metrics["then"] = then(base)
+    finally:
+        server.drain(timeout=120.0)
+    return metrics, cls, launches
+
+
+def phase_serve_engine(torch) -> dict:
+    """The LM serving engine behind its HTTP server on the card: 8
+    closed-loop clients send 48 /v1/generate requests at the LM phases'
+    full width (bf16, the ServeConfig defaults: 8 slots, buckets
+    32/128/512, paged KV of 16-token pages, the prefix cache, device
+    sampling), first alone (then one sampled request alone and
+    co-batched), then while 2 clients cycle phase 4's images through
+    /v1/classify (MobileNetV2 1.0 at 224 px, the hand depthwise), each
+    on a fresh server. Then a profiled decode iteration, the float32
+    engine's greedy tokens against generate's (dense, paged, prefix
+    hits, preemption), and the CLI's SIGTERM drain."""
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig
+    from tpunet_torch.infer.predict import Predictor, preprocess
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.lm import generate
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator().manual_seed(SEED + 900)
+    state = create_model(lm_config("float32", 0.0), device="cpu",
+                         generator=gen).state_dict()
+    model = create_model(lm_config("bfloat16", 0.0), device="cuda")
+    model.load_state_dict(state)
+    bodies, rows, prefix = serve_prompts()
+
+    alone, _, _ = serve_pass(torch, model, bodies, rows,
+                             then=lambda base: serve_sampled_cobatch(
+                                 base, rows))
+    emit("serve_engine_generate_only", **alone)
+
+    # The classifier of phase_main_path: its weights and BN statistics,
+    # its 48 images.
+    cgen = torch.Generator().manual_seed(SEED)
+    ref32 = create_model(ModelConfig(dtype="float32", use_pallas_depthwise=True),
+                         device="cpu", generator=cgen)
+    randomize_bn(torch, ref32, cgen)
+    pred = Predictor(ModelConfig(use_pallas_depthwise=True), DataConfig(),
+                     state_dict=ref32.state_dict(), device="cuda")
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 256, (*REQUEST_SIZES[i % 3], 3), np.uint8)
+              for i in range(N_IMAGES)]
+    traffic, cls, launches = serve_pass(torch, model, bodies, rows, pred,
+                                        images)
+    batches = traffic["classify_batches"]
+    check(len(cls) >= 8 and launches["depthwise_conv3x3"] == 17 * batches,
+          f"{launches['depthwise_conv3x3']} depthwise launches for "
+          f"{batches} classify forwards (want 17 each), {len(cls)} answers")
+    # /v1/classify against Predictor.predict_probs: phase 4's gate is 2
+    # bf16 ulps of the largest logit; a softmax moves a probability by at
+    # most half the largest logit move, so 2^-7 * max|logit|.
+    errs = []
+    with torch.inference_mode():
+        for idx in sorted({i for i, _, _ in cls}):
+            ref = pred.predict_probs(images[idx])
+            x = preprocess(images[idx], pred.data_cfg, "cuda")[None]
+            gate = 2.0**-7 * pred.model(x.permute(0, 3, 1, 2)).abs().max().item()
+            err = max(float(np.abs(p - ref).max())
+                      for i, _, p in cls if i == idx)
+            errs.append((err, gate, idx))
+    worst = max(errs, key=lambda e: e[0] / e[1])
+    check(worst[0] <= worst[1], f"classify image {worst[2]}: probs "
+          f"{worst[0]} from predict_probs > {worst[1]}")
+    traffic.update(
+        depthwise_launches=launches["depthwise_conv3x3"],
+        depthwise_launches_per_batch=launches["depthwise_conv3x3"] / batches,
+        classify_probs_max_err=max(e for e, _, _ in errs),
+        classify_probs_gate_min=min(g for _, g, _ in errs))
+    emit("serve_engine", **traffic)
+    del pred
+
+    prompts8 = [np.concatenate([prefix, rows[40 + i, :SERVE_PARITY_SUFFIX]])
+                for i in range(8)]
+    decode = serve_decode_profile(torch, model, prompts8)
+    emit("serve_decode_profile", **decode)
+    del model
+    torch.cuda.empty_cache()
+    model32 = create_model(lm_config("float32", 0.0), device="cuda")
+    model32.load_state_dict(state)
+    with torch.inference_mode():
+        buf = generate(model32, torch.from_numpy(np.stack(prompts8)).cuda(),
+                       SERVE_PARITY_NEW)
+    want = buf[:, len(prompts8[0]):].tolist()
+    parity = serve_parity(torch, model32, prompts8, want)
+    emit("serve_parity_f32", **parity)
+    del model32
+    torch.cuda.empty_cache()
+    cli = serve_cli_drain(torch)
+    emit("serve_cli", **cli)
+    return dict(traffic, decode=decode)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2641,6 +3194,7 @@ def main() -> int:
         lm_launches, lm_tokens_per_s = phase_lm_train(torch)
         phase_lm_trainer(torch)
         lm_gen = phase_lm_generate(torch)
+        serve = phase_serve_engine(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2651,10 +3205,18 @@ def main() -> int:
                      layers=MAIN_SHAPES[(r["shape"][1], r["shape"][3],
                                          r["shape"][4])])
                 for r in fwd_rows if "b128" in r]
+    dw_entry = kernel_entry("depthwise_conv3x3",
+                            "tpunet_torch/csrc/depthwise.cu",
+                            "tpunet/ops/depthwise.py:74",
+                            launches["depthwise_conv3x3"], fwd_b128)
+    # Its launches on the serve_engine path: /v1/classify under the
+    # engine's decode load, 17 a batched forward.
+    dw_entry["serve_engine"] = {
+        "launches": serve["depthwise_launches"],
+        "classify_forwards": serve["classify_batches"],
+        "launches_per_forward": serve["depthwise_launches_per_batch"]}
     kernels = [
-        kernel_entry("depthwise_conv3x3", "tpunet_torch/csrc/depthwise.cu",
-                     "tpunet/ops/depthwise.py:74",
-                     launches["depthwise_conv3x3"], fwd_b128),
+        dw_entry,
         kernel_entry("depthwise_conv3x3_backward",
                      "tpunet_torch/csrc/depthwise.cu",
                      "tpunet/ops/depthwise.py:237",
@@ -2690,7 +3252,9 @@ def main() -> int:
          vit_serve_flash_launches_per_forward=vit_serve_launches,
          vit_train_images_per_sec_per_chip=vit_images_per_s,
          lm_train_tokens_per_sec_per_chip=lm_tokens_per_s,
-         lm_decode_new_tokens_per_s=lm_gen["new_tokens_per_s"])
+         lm_decode_new_tokens_per_s=lm_gen["new_tokens_per_s"],
+         serve_generated_tokens_per_s=serve["generated_tokens_per_s"],
+         serve_ttft_p50_ms=serve["ttft_p50_ms"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -812,3 +812,46 @@ def test_lm_decode_against_the_flash_forward(cuda, dtype):
         prompt = x[:, :8]
         assert torch.equal(generate(model, prompt, 40),
                            generate(model, prompt, 40, use_cache=False))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_serve_engine_greedy_equals_generate(cuda, paged):
+    """The float32 serving engine on the card at a small width: 6
+    requests through 3 slots (mid-flight admission, slot reuse, the
+    paged pool with the prefix cache or the dense pool; a pool cut to
+    force a preemption when paged) return generate's greedy tokens, and
+    no flash kernel launches (every engine call is a decode step)."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.ops import flash
+    from tpunet_torch.serve import Engine
+    cfg = ModelConfig(name="lm", vit_hidden=128, vit_depth=2, vit_heads=2,
+                      vocab_size=256, max_seq_len=96, dtype="float32",
+                      dropout_rate=0.0)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.embed.weight.normal_(0.0, 0.5, generator=torch.Generator(
+            "cuda").manual_seed(4))
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, 16)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, k)])
+               if i % 2 else rng.integers(0, 256, 4 + k)
+               for i, k in enumerate((3, 9, 1, 14, 6, 11))]
+    want = [generate(model, torch.tensor(p)[None], 20)[0, len(p):].tolist()
+            for p in prompts]
+    kw = dict(kv_pages=12, kv_page_tokens=8) if paged else dict(
+        paged_kv=False)
+    eng = Engine(model, ServeConfig(slots=3, prefill_buckets=(16, 32),
+                                    emit_every_s=0.0, **kw)).start()
+    before = flash.flash_attention_forward.launches
+    try:
+        reqs = [eng.submit(p, max_new_tokens=20) for p in prompts]
+        got = [r.result(timeout=120) for r in reqs]
+    finally:
+        eng.stop()
+    assert got == want
+    assert flash.flash_attention_forward.launches == before
+    snap = eng.registry.snapshot()
+    if paged:
+        assert snap["serve_prefix_hits_total"] >= 1
+        assert snap["serve_kv_preemptions_total"] >= 1

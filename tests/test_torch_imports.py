@@ -39,7 +39,18 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.data.augment", "tpunet_torch.ckpt",
                 "tpunet_torch.parallel", "tpunet_torch.parallel.dist",
                 "tpunet_torch.models.lm", "tpunet_torch.data.lm",
-                "tpunet_torch.infer.generate"):
+                "tpunet_torch.infer.generate", "tpunet_torch.serve.engine",
+                "tpunet_torch.serve.frontend", "tpunet_torch.serve.__main__",
+                "tpunet_torch.serve.sampling", "tpunet_torch.serve.scheduler",
+                "tpunet_torch.serve.httpjson",
+                "tpunet_torch.serve.prefixcache.cache",
+                "tpunet_torch.serve.prefixcache.keys",
+                "tpunet_torch.obs.registry", "tpunet_torch.obs.tracing",
+                "tpunet_torch.obs.spans", "tpunet_torch.obs.flightrec.ring",
+                "tpunet_torch.obs.flightrec.threads",
+                "tpunet_torch.obs.flightrec.report",
+                "tpunet_torch.obs.flightrec.crash",
+                "tpunet_torch.obs.flightrec.watch"):
         assert mod in res["mods"]
     assert res["bad"] == []
 

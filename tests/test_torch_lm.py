@@ -37,6 +37,7 @@ from tpunet_torch.models import create_model, num_params
 from tpunet_torch.models.convert import (lm_state_dict_from_jax,
                                          load_state_dict)
 from tpunet_torch.models.lm import filter_logits, generate
+from tpunet_torch.models.vit import PagedKV
 
 from _torch_port import LM, jax_lm, lm_params, packed_segments, port_lm
 
@@ -94,10 +95,24 @@ def test_positions_offset_and_refusals(params):
         full = port(torch.cat([x, x], 1))
         with pytest.raises(ValueError, match="outside the table"):
             port(x, pos_offset=LM["max_seq_len"] - 4)
+        # Per-row positions and active gates are ported (the serving
+        # engine's hooks, tests/test_torch_serve_attend.py); int8 KV pages
+        # are what item 5 still owes.
         with pytest.raises(NotImplementedError, match="item 5"):
-            port(x, pos_offset=torch.zeros(1, dtype=torch.long))
+            port(x, pos_offset=torch.zeros(1, dtype=torch.long),
+                 cache=port.init_cache(1, 16),
+                 paged_kv=PagedKV(pages=3, page_tokens=8, dtype="int8"),
+                 page_table=torch.zeros(1, 2, dtype=torch.int32))
         with pytest.raises(NotImplementedError, match="item 5"):
+            port(x, pos_offset=torch.zeros(1, dtype=torch.long),
+                 cache=port.init_cache(1, 16),
+                 decode_active=torch.ones(1, dtype=torch.bool),
+                 paged_kv=PagedKV(pages=3, page_tokens=8, dtype="int8"),
+                 page_table=torch.zeros(1, 2, dtype=torch.int32))
+        with pytest.raises(ValueError, match="need per-row pos_offset"):
             port(x, decode_active=torch.ones(1, dtype=torch.bool))
+        with pytest.raises(ValueError, match="needs a cache"):
+            port(x, pos_offset=torch.zeros(1, dtype=torch.long))
         with pytest.raises(NotImplementedError, match="item 8"):
             port(x, return_hidden=True)
     want = np.asarray(jax_lm().apply({"params": params}, jnp.asarray(

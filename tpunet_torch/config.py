@@ -273,12 +273,167 @@ class CheckpointConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The classifier micro-batching fields of ``tpunet.config.ServeConfig``:
-    hold a request at most ``classify_window_ms`` to coalesce up to
-    ``classify_batch_max`` images into one batched forward."""
+    """The production inference server (``tpunet_torch/serve/``), a copy
+    of ``tpunet.config.ServeConfig`` with its defaults to the letter: a
+    fixed pool of KV slots decoded together by one masked step
+    (continuous batching), a bounded admission queue with backpressure,
+    and a stdlib HTTP frontend. The comments below are tpunet's. Fields
+    of the features not ported yet are refused away from their defaults,
+    each with its ROADMAP item: int8 KV pages, the prefix spill store,
+    speculative decoding, the AOT warm start and serve-tier chaos."""
 
+    host: str = "127.0.0.1"
+    port: int = 8000
+    # KV-slot pool size = max in-flight decodes = the jitted step's
+    # batch dimension. Compiled once; sizing it is the HBM/latency
+    # trade (docs/serving.md capacity guidance).
+    slots: int = 8
+    # Bounded admission: requests beyond this many waiting are REJECTED
+    # (429 queue-full) instead of growing latency unboundedly.
+    queue_max: int = 64
+    # Prefill programs are compiled per padded prompt-length bucket —
+    # the compile count is len(buckets), not one per prompt length.
+    # Prompts longer than the largest bucket are rejected.
+    prefill_buckets: Tuple[int, ...] = (32, 128, 512)
+    # Paged KV cache (default ON; --no-paged-kv restores the dense
+    # [slots, max_seq_len] pool): per layer, K/V live in a SHARED pool
+    # of fixed-size pages addressed through per-slot page tables, so a
+    # slot pins HBM proportional to its prompt+generated length — the
+    # concurrent-slot multiplier at fixed HBM (docs/serving.md "Paged
+    # KV cache & device-side sampling").
+    paged_kv: bool = True
+    # Usable data pages in the pool (0 = auto: slots *
+    # ceil(max_seq_len / kv_page_tokens), i.e. dense-equivalent
+    # capacity). Size it DOWN to oversubscribe slots against typical
+    # request lengths; exhaustion defers admissions and, when nothing
+    # can advance, preempts the youngest slot back to the queue with
+    # its progress kept.
+    kv_pages: int = 0
+    # Tokens per KV page: the allocation granule. Smaller pages track
+    # request length tighter (less tail waste) at more gather/table
+    # overhead per step.
+    kv_page_tokens: int = 16
+    # KV page payload dtype: "auto" stores at the model compute dtype;
+    # "bf16" halves float32 payloads; "int8" quantizes each written
+    # token row against its own absmax (float32 scale stored with the
+    # page, dequantized on gather; eval-parity-gated in
+    # tests/test_serve_paged.py). Requires paged_kv.
+    kv_dtype: str = "auto"
+    # Device-side batched sampling (default ON; --no-device-sampling
+    # restores the host loop): temperature/top-k/top-p and the
+    # categorical draw run as one [slots]-wide jitted step fused onto
+    # decode (per-slot PRNG keys folded per step) — only sampled
+    # tokens cross the host boundary. Greedy output is token-identical
+    # either way (parity-tested).
+    device_sampling: bool = True
+    # Prefix KV cache (default ON with paged_kv; --no-prefix-cache
+    # disables): finished prefill pages stay in the pool as immutable,
+    # content-addressed, refcounted objects keyed by token-prefix
+    # digest at page granularity. Admission pins the longest cached
+    # page-aligned prefix into the new slot's table and re-prefills
+    # only the suffix (COW at the divergence page); LRU-evicted under
+    # pool pressure — docs/serving.md "Prefix KV cache".
+    prefix_cache: bool = True
+    # Pool pages the prefix cache may hold (pinned + idle); 0 = auto
+    # (half the usable pool). Bounding it below the pool keeps paying
+    # slots from ever being starved by cached pages.
+    prefix_cache_pages: int = 0
+    # Shared-filesystem prefix spill/warm-start (--prefix-store DIR):
+    # freshly-cached pages publish to DIR (content-digest tmp+rename,
+    # flock first-writer-wins — the AOT store's commit discipline via
+    # tpunet/utils/fsatomic.py), and a respawned or scaled-up replica
+    # adopts the fleet's prefix set at boot so its first shared-prefix
+    # request prefills only the suffix. Entries are scoped by model
+    # config + kv levers + runtime, so a lever change is a clean miss.
+    # Empty = per-replica cache only.
+    prefix_store: str = ""
+    # Per-request caps: default/max new tokens, and a wall-clock
+    # deadline after which a request is cancelled and its slot freed
+    # (0 = no deadline).
+    default_max_new_tokens: int = 128
+    max_new_tokens_cap: int = 1024
+    default_deadline_s: float = 0.0
+    # Classifier micro-batching: hold a /v1/classify request at most
+    # this long to coalesce a batch, up to classify_batch_max images
+    # per jitted batched forward.
     classify_batch_max: int = 8
     classify_window_ms: float = 2.0
+    # Emit an ``obs_serve`` record (SLO counters/gauges/histograms)
+    # every this many seconds; 0 disables periodic emission (records
+    # still flush once on drain).
+    emit_every_s: float = 10.0
+    # Graceful-drain budget on SIGTERM: stop admitting, finish
+    # in-flight work for up to this long, then cancel survivors.
+    drain_timeout_s: float = 30.0
+    # Replica identity on obs_serve records (fleet SLO rollups route
+    # by it). Empty = "serve-<host>-<pid>".
+    run_id: str = ""
+    # AOT warm-start (--aot-cache DIR, tpunet/utils/cache.py
+    # AotProgramStore): serialize the fully-compiled decode +
+    # bucketed-prefill executables under DIR at first boot and
+    # deserialize them on every later boot — no tracing, no lowering,
+    # no XLA — so a respawned replica serves its first token in
+    # seconds instead of recompiling (the router tier's autoscaling
+    # depends on it; docs/serving.md "AOT warm-start"). Empty = off
+    # (the persistent compilation cache still applies). Single-device
+    # replicas only; ignored with --mesh-model > 1.
+    aot_cache: str = ""
+    # Serve-tier fault injection (--chaos, tpunet/serve/chaos.py):
+    # deterministic SIGKILL/stall/probe-drop/slow-stream faults
+    # addressed by generated-token count or prefill ordinal —
+    # docs/serving.md "Mid-stream failover & serve-tier chaos". Empty
+    # = no injector installed.
+    chaos: str = ""
+    # Standalone-serve request tracing (--trace-sample, docs/serving.md
+    # "Request tracing"): head-sample this fraction of requests that
+    # arrive WITHOUT trace headers, minting a trace_id locally. Under
+    # a router the router decides (its headers win); a client-supplied
+    # ``X-Trace-Id`` is always sampled. 0 = only header-carried traces.
+    trace_sample: float = 0.0
+    # Speculative decoding (--spec-decode, docs/serving.md
+    # "Speculative decoding"): a small drafter model proposes spec_k
+    # tokens per active slot against its OWN paged KV pool, then the
+    # main model verifies every slot's drafts in ONE [slots, K+1]-wide
+    # jitted forward over the existing pool — up to K+1 verified
+    # tokens per slot per verify. Every emitted token comes from the
+    # VERIFY distribution, so greedy output is bitwise-identical to
+    # spec-off and sampled output stays deterministic per (seed, step)
+    # (failover/replay safe). Rejection rewinds the slot's page-table
+    # cursor to the last accepted position and recycles the tail
+    # pages. Requires paged_kv AND device_sampling.
+    spec_decode: bool = False
+    # Draft tokens proposed per verify cycle (the K in draft-then-
+    # verify). Higher K amortizes the verify gather over more tokens
+    # but wastes drafter work when acceptance is low — docs/serving.md
+    # "Speculative decoding" has the tuning math.
+    spec_k: int = 4
+    # Drafter width multiplier on the serving model's vit_hidden
+    # (rounded to stay divisible by vit_heads). 1.0 shares the main
+    # model's parameters (self-speculation — useful for parity tests,
+    # never a throughput win); < 1.0 builds a second, narrower model
+    # instance whose parameters come from --spec-draft-checkpoint or
+    # a deterministic init.
+    spec_draft_width_mult: float = 0.5
+    # Drafter parameters (.npz from tpunet/serve/spec.py
+    # ``save_drafter_params``; empty = deterministic random init,
+    # which accepts ~nothing — fit or distill a drafter against real
+    # traffic, e.g. ``spec.fit_drafter`` as bench_serve.py --spec
+    # does).
+    spec_draft_checkpoint: str = ""
+
+    def __post_init__(self):
+        if self.kv_dtype == "int8":
+            raise NotImplementedError(
+                "ServeConfig.kv_dtype='int8' (int8 KV pages) is not ported "
+                "to tpunet_torch yet; it comes with ROADMAP Queue A item 5")
+        _refuse_unported(self, {
+            "prefix_store": "Queue A item 5 (the prefix spill store)",
+            "spec_decode": "Queue A item 5 (speculative decoding)",
+            "spec_k": "Queue A item 5 (speculative decoding)",
+            "spec_draft_width_mult": "Queue A item 5 (speculative decoding)",
+            "spec_draft_checkpoint": "Queue A item 5 (speculative decoding)",
+            "aot_cache": "Queue A item 5 (the AOT warm start)",
+            "chaos": "Queue A item 5 (serve-tier chaos)"})
 
 
 @dataclass(frozen=True)

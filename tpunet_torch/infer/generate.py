@@ -34,16 +34,19 @@ _ITEM8 = "comes with ROADMAP Queue A item 8 (parallelism beyond DP, MoE)"
 def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
             device: str = "cuda") -> TransformerLM:
     """The LM of ``model_cfg`` on ``device`` with the weights of
-    ``<checkpoint_dir>/best.pth``."""
+    ``<checkpoint_dir>/best.pth``; an empty ``checkpoint_dir`` serves the
+    seeded random init (``create_model``'s generator seeded with 0), as
+    tpunet's ``load_lm`` serves its ``PRNGKey(0)`` init."""
     if model_cfg.name != "lm":
         raise ValueError(f"generation needs the 'lm' model, got "
                          f"{model_cfg.name!r}")
-    path = os.path.join(checkpoint_dir, BEST)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no best checkpoint under "
-                                f"{checkpoint_dir!r}")
     model = create_model(model_cfg, device=device)
-    load_state_dict_file(path, model)
+    if checkpoint_dir:
+        path = os.path.join(checkpoint_dir, BEST)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no best checkpoint under "
+                                    f"{checkpoint_dir!r}")
+        load_state_dict_file(path, model)
     return model
 
 

@@ -18,7 +18,14 @@ tree across.
   kernels on the card, their plain versions on the CPU);
 - ``cache`` (a :class:`KVCache` from :meth:`TransformerLM.init_cache`)
   runs one decode step of one token at ``pos_offset`` against the cache,
-  skipping the core, and returns ``(logits, cache advanced by one)``.
+  skipping the core, and returns ``(logits, cache advanced by one)``;
+- ``pos_offset`` a [B] tensor with a ``cache`` (the serving engine's
+  call, tpunet's per-row hooks): row b's T tokens sit at ``pos_offset[b]
+  + i`` (positions gathered from the table, clipped to it as tpunet
+  clips the padded tail of a bucketed prefill), ``decode_active`` [B]
+  gates each row's cache writes, and ``paged_kv`` with ``page_table``
+  address a shared page pool (:meth:`TransformerLM.init_paged_cache`).
+  Returns ``(logits, cache)``: the engine owns the clock.
 
 :func:`filter_logits` and :func:`generate` are tpunet's sampling filter
 and its generation loop: the KV-cache path (prompt and new tokens one
@@ -27,10 +34,9 @@ fixed-size buffer (the flash forward, one launch a layer a token).
 Sampling draws with ``torch.multinomial`` from an explicit generator,
 one draw a new token: JAX's key stream cannot be matched, so a sampled
 stream is deterministic per seed within the port, and a greedy stream
-equals tpunet's. Not ported: the serving engine's per-row positions,
-``decode_active`` and paged KV (ROADMAP Queue A item 5), the hidden
-states for the vocab-sharded cross-entropy, MoE blocks and ``lm_pp``
-(item 8), block remat (item 2b).
+equals tpunet's. Not ported: int8 KV pages (ROADMAP Queue A item 5), the
+hidden states for the vocab-sharded cross-entropy, MoE blocks and
+``lm_pp`` (item 8), block remat (item 2b).
 """
 
 from __future__ import annotations
@@ -42,12 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpunet_torch.models.vit import (AttnFn, Dense, Encoder, EncoderBlock,
-                                     KVCache, LayerNorm, _lecun_normal_,
-                                     make_attn_fn)
+                                     KVCache, LayerNorm, PagedKV, ServeStep,
+                                     _lecun_normal_, make_attn_fn)
 from tpunet_torch.ops.attention import dense_attention
-
-_SERVE_ITEM = ("the serving engine's per-row positions, active gates and "
-               "paged KV come with ROADMAP Queue A item 5")
 
 
 class Embed(nn.Module):
@@ -90,47 +93,79 @@ class TransformerLM(Encoder):
                              hidden // self.heads, self.dtype,
                              self.pos_embed.device)
 
+    def init_paged_cache(self, paged_kv: PagedKV) -> KVCache:
+        """An empty shared page pool of ``paged_kv``'s geometry, per layer
+        [pages * page_tokens, heads, head_dim], on the parameters'
+        device."""
+        hidden = self.pos_embed.shape[-1]
+        return KVCache.paged(len(self.blocks), paged_kv, self.heads,
+                             hidden // self.heads, self.dtype,
+                             self.pos_embed.device)
+
     def forward(self, tokens: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                pos_offset: int = 0,
+                pos_offset=0,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
-                return_hidden: bool = False, decode_active=None,
-                paged_kv=None, page_table=None):
+                return_hidden: bool = False,
+                decode_active: Optional[torch.Tensor] = None,
+                paged_kv: Optional[PagedKV] = None,
+                page_table: Optional[torch.Tensor] = None):
         """Logits [B, T, vocab] float32, or ``(logits, cache)`` with a
         ``cache``. ``pos_offset`` is the absolute position of
-        ``tokens[:, 0]``, a scalar."""
-        if torch.is_tensor(pos_offset) and pos_offset.dim() == 1:
-            raise NotImplementedError(f"per-row pos_offset: {_SERVE_ITEM}")
-        if (decode_active is not None or paged_kv is not None
-                or page_table is not None):
-            raise NotImplementedError(f"decode_active/paged_kv: "
-                                      f"{_SERVE_ITEM}")
+        ``tokens[:, 0]``: a scalar, or with a ``cache`` a [B] tensor
+        (each row its own position; ``decode_active``, ``paged_kv`` and
+        ``page_table`` go with it)."""
         if return_hidden:
             raise NotImplementedError(
                 "return_hidden (the vocab-sharded cross-entropy's hook) is "
                 "not ported to tpunet_torch yet; it comes with ROADMAP "
                 "Queue A item 8")
         b, t = tokens.shape
-        pos_offset = int(pos_offset)
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
-        if pos_offset < 0 or pos_offset + t > self.max_len:
-            raise ValueError(f"positions {pos_offset}..{pos_offset + t - 1} "
-                             f"outside the table of {self.max_len}")
         if cache is not None and segment_ids is not None:
             raise ValueError("a decode step takes no segment_ids")
+        per_row = torch.is_tensor(pos_offset) and pos_offset.dim() == 1
+        step = None
+        pos = self._cast(self.pos_embed, train)
+        if per_row:
+            if cache is None:
+                raise ValueError("per-row pos_offset is a decode step: it "
+                                 "needs a cache")
+            if (paged_kv is None) != (page_table is None):
+                raise ValueError("paged_kv and page_table go together")
+            # Each row's slice of the position table; the clip covers the
+            # padded tail of a bucketed prefill (whose K/V no query sees).
+            idx = (pos_offset.to(torch.long)[:, None]
+                   + torch.arange(t, device=tokens.device)[None, :])
+            pos = pos[0][idx.clamp(0, self.max_len - 1)]
+            step = ServeStep(pos_offset, decode_active, paged_kv,
+                             page_table)
+        else:
+            if (decode_active is not None or paged_kv is not None
+                    or page_table is not None):
+                raise ValueError("decode_active, paged_kv and page_table "
+                                 "need per-row pos_offset")
+            pos_offset = int(pos_offset)
+            if pos_offset < 0 or pos_offset + t > self.max_len:
+                raise ValueError(f"positions {pos_offset}.."
+                                 f"{pos_offset + t - 1} outside the table of "
+                                 f"{self.max_len}")
+            pos = pos[:, pos_offset:pos_offset + t]
         x = F.embedding(tokens.long(), self.embed.weight).to(self.dtype)
-        x = x + self._cast(self.pos_embed, train)[:, pos_offset:pos_offset + t]
+        x = x + pos
         drop = self._dropout(train, generator, x.device)
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32)
-        x = self._encode(drop(x), train, drop, segment_ids, cache)
+        x = self._encode(drop(x), train, drop, segment_ids, cache, step)
         x = self._norm(self.ln, x, train)
         # Tied head in float32 (tpunet's ``embed.attend`` on float32).
         logits = torch.matmul(x.float(), self.embed.weight.t())
         if cache is None:
             return logits
+        if per_row:
+            return logits, cache
         return logits, KVCache(cache.k, cache.v, cache.index + t)
 
 

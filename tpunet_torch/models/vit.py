@@ -35,11 +35,16 @@ the same step. In eval mode the weights cast to
 ``dtype`` are computed once and reused until a parameter changes.
 
 The blocks' arithmetic lives in :class:`Encoder`, which the LM
-(``tpunet_torch.models.lm``) shares, with tpunet's module-clock decode
-step (:func:`decode_attend` against a :class:`KVCache`). Not ported: the
-serving engine's per-row positions, ``active`` gates and ``PagedKV``
-(ROADMAP Queue A item 5), MoE blocks and the sequence-parallel cores
-(item 8), block remat (item 2b); the config refuses them.
+(``tpunet_torch.models.lm``) shares, with tpunet's decode paths, which
+skip the attention core: the module-clock step of ``generate``
+(:func:`decode_attend` at one shared index) and the serving engine's
+(:class:`ServeStep`): per-row positions with T >= 1 queries a row (a
+chunked causal prefill) and an ``active`` gate, against a dense
+:class:`KVCache` (:func:`decode_attend`) or a shared page pool
+(:class:`PagedKV`, :func:`paged_decode_attend`). Every cache is per-layer
+tensors written in place. Not ported: int8 KV pages (ROADMAP Queue A
+item 5), MoE blocks and the sequence-parallel cores (item 8), block remat
+(item 2b); the config refuses them.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpunet_torch.ops.attention import blockwise_attention, dense_attention
+from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
+                                        dense_attention)
 from tpunet_torch.ops.flash import flash_attention
 from tpunet_torch.parallel.dist import process_index
 
@@ -122,13 +128,14 @@ class PatchEmbed(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class KVCache:
-    """The decode cache of a decoder stack, passed in and returned: per
-    layer the cached keys and values [B, total, H, D] in the activation
-    dtype, and ``index``, the position the next token is written at
-    (tpunet's ``cached_k``/``cached_v``/``cache_index``). A decode step
-    writes its token's K/V into the tensors in place and returns the
-    cache advanced by one; the cache it was given shares those tensors
-    and is stale afterwards."""
+    """The decode cache of a decoder stack: per layer the cached keys and
+    values in the activation dtype (or the page dtype), and ``index``,
+    the position the next token is written at on the module clock
+    (tpunet's ``cached_k``/``cached_v``/``cache_index``). Dense, each is
+    [B, total, H, D]; paged, each is a flat pool [pages * page_tokens,
+    H, D]. A decode step writes its K/V into the tensors in place; a
+    module-clock step returns the cache advanced by one, and the cache it
+    was given shares those tensors and is stale afterwards."""
 
     k: Tuple[torch.Tensor, ...]
     v: Tuple[torch.Tensor, ...]
@@ -143,31 +150,194 @@ class KVCache:
                          for _ in range(depth))
         return cls(make(), make(), 0)
 
+    @classmethod
+    def paged(cls, depth: int, paged_kv: "PagedKV", heads: int,
+              head_dim: int, dtype: torch.dtype, device) -> "KVCache":
+        """An empty page pool of ``paged_kv``'s geometry, pages stored in
+        ``paged_kv.store_dtype(dtype)``."""
+        rows = paged_kv.pages * paged_kv.page_tokens
+        store = paged_kv.store_dtype(dtype)
+
+        def make():
+            return tuple(torch.zeros(rows, heads, head_dim, dtype=store,
+                                     device=device) for _ in range(depth))
+        return cls(make(), make(), 0)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedKV:
+    """Paged KV geometry, tpunet's ``PagedKV`` (``tpunet/models/vit.py``):
+    K/V live in a shared pool of ``pages`` pages of ``page_tokens``
+    tokens each (page 0 included, the reserved garbage page: inactive
+    rows and the padded tail of a bucketed prefill write there, and the
+    engine never hands it out), addressed through a per-row page table.
+    ``dtype`` is the page payload: ``auto`` stores at the compute dtype,
+    ``bfloat16``/``bf16`` halves float32 payloads; ``int8`` (per-row
+    scales) is ROADMAP Queue A item 5."""
+
+    pages: int            # total pages INCLUDING the reserved page 0
+    page_tokens: int      # tokens per page
+    dtype: str = "auto"   # auto | bfloat16 | bf16
+
+    def __post_init__(self):
+        if self.dtype == "int8":
+            raise NotImplementedError(
+                "int8 KV pages (per-row scales, the eval-parity gate) are "
+                "not ported to tpunet_torch yet; they come with ROADMAP "
+                "Queue A item 5")
+        if self.dtype not in ("auto", "bfloat16", "bf16"):
+            raise ValueError(f"unknown kv dtype {self.dtype!r}")
+
+    def store_dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
+        return compute_dtype if self.dtype == "auto" else torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeStep:
+    """The serving engine's decode call (tpunet's ``positions``/``active``
+    /``paged_kv``/``page_table`` hooks): row b's T queries sit at
+    ``positions[b] + i`` and write their K/V there; ``active`` [B] bool
+    gates the writes (an inactive row's cache stays bit-frozen);
+    ``page_table`` [B, pages a row] int32 maps positions to pool pages
+    when ``paged_kv`` is set. The engine owns the clock: the cache's
+    ``index`` is neither read nor advanced. Every row attends the whole
+    cache (its keys past the row's queries masked), as tpunet does: the
+    attend's shapes never depend on the batch partners, so neither do a
+    row's results."""
+
+    positions: torch.Tensor
+    active: Optional[torch.Tensor] = None
+    paged_kv: Optional[PagedKV] = None
+    page_table: Optional[torch.Tensor] = None
+
+
+def _masked_attend(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                   qpos: torch.Tensor) -> torch.Tensor:
+    """q [B,T,H,D] against keys kf, vf [B,K,H,D] (q's dtype), query i of
+    row b at ``qpos[b, i]`` seeing keys ``j <= qpos``: scores in float32
+    times D^-1/2, masked to -1e30, softmax in float32, p kept in float32
+    against V, the result cast to q's dtype (tpunet's inline attend)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float())
+    s = s * q.shape[-1] ** -0.5
+    keys = torch.arange(kf.shape[1], device=q.device)
+    valid = keys[None, None, :] <= qpos[:, :, None]                # [B,T,K]
+    s = s.masked_fill(~valid[:, None], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf.float()).to(q.dtype)
+
 
 def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   cached_k: torch.Tensor, cached_v: torch.Tensor,
-                  index: int) -> torch.Tensor:
-    """One token's attention against the cache, tpunet's module-clock
-    ``_decode_attend`` (``tpunet/models/vit.py:159-214``): k and v
-    [B, 1, H, D] are written at ``index`` of the cache (in place), then
-    q attends to positions 0..index. Scores in float32 from the
-    activation-dtype q and cached K, times D^-1/2; softmax in float32;
-    p kept in float32 against V; the result cast to q's dtype. The
-    positions past ``index`` that tpunet masks to -1e30 (probability
-    exactly 0) are left out of the sums."""
-    if q.shape[1] != 1:
-        raise ValueError(f"decode processes one token per call, got "
-                         f"{q.shape[1]}")
-    if index >= cached_k.shape[1]:
-        raise ValueError(f"decode position {index} is past the cache's "
-                         f"{cached_k.shape[1]} positions")
-    cached_k[:, index] = k[:, 0]
-    cached_v[:, index] = v[:, 0]
-    kf = cached_k[:, :index + 1].float()
-    vf = cached_v[:, :index + 1].float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[-1] ** -0.5
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+                  positions, active: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Attention of new tokens against a dense cache [B, total, H, D],
+    tpunet's ``_decode_attend`` (``tpunet/models/vit.py:159-214``).
+
+    ``positions`` an int: the module clock of ``generate``; one token
+    [B, 1, H, D] is written at that index (in place), then q attends to
+    positions 0..index (the masked positions past it, probability exactly
+    0 in tpunet, are left out of the sums).
+
+    ``positions`` a [B] tensor: the serving engine's rows; row b's T
+    tokens are written at ``positions[b] .. positions[b] + T - 1``, the
+    start clamped to ``total - T`` as XLA clamps a ``dynamic_update_slice``
+    (the engine never reaches the clamp), only where ``active`` (inactive
+    rows write their own cached rows back, so they stay bit-frozen); then
+    query i attends to keys ``j <= positions[b] + i``."""
+    b, t, h, d = k.shape
+    total = cached_k.shape[1]
+    if not torch.is_tensor(positions):
+        index = int(positions)
+        if t != 1:
+            raise ValueError(f"decode processes one token per call, got {t}")
+        if index >= total:
+            raise ValueError(f"decode position {index} is past the cache's "
+                             f"{total} positions")
+        cached_k[:, index] = k[:, 0]
+        cached_v[:, index] = v[:, 0]
+        kf = cached_k[:, :index + 1].float()
+        vf = cached_v[:, :index + 1].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * d ** -0.5
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    if t > total:
+        raise ValueError(f"{t} tokens a row exceed the cache's {total} "
+                         "positions")
+    arange_t = torch.arange(t, device=k.device)
+    start = positions.to(torch.long).clamp(0, total - t)
+    flat = (torch.arange(b, device=k.device)[:, None] * total
+            + start[:, None] + arange_t[None, :]).reshape(-1)       # [B*T]
+    ck = cached_k.view(b * total, h, d)
+    cv = cached_v.view(b * total, h, d)
+    k_rows = k.reshape(b * t, h, d)
+    v_rows = v.reshape(b * t, h, d)
+    if active is not None:
+        keep = active.repeat_interleave(t)[:, None, None]
+        k_rows = torch.where(keep, k_rows, ck.index_select(0, flat))
+        v_rows = torch.where(keep, v_rows, cv.index_select(0, flat))
+    ck.index_copy_(0, flat, k_rows.to(ck.dtype))
+    cv.index_copy_(0, flat, v_rows.to(cv.dtype))
+    qpos = positions.to(torch.long)[:, None] + arange_t[None, :]     # [B,T]
+    return _masked_attend(q, cached_k, cached_v, qpos)
+
+
+def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cached_k: torch.Tensor, cached_v: torch.Tensor,
+                        positions: torch.Tensor, page_table: torch.Tensor,
+                        page_tokens: int,
+                        active: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Attention of new tokens against a shared page pool, tpunet's
+    ``_paged_decode_attend`` (``tpunet/models/vit.py:216-320``).
+
+    The pool per layer is flat, [pages * page_tokens, H, D]; row b's
+    position p lives at flat row ``page_table[b, p // page_tokens] *
+    page_tokens + p % page_tokens``. The T new K/V rows a row are written
+    in one ``index_copy_`` (page slot clipped to the table, as tpunet
+    clips it; inactive rows redirected into the garbage page 0, whose
+    duplicate writes land in any order, as nothing reads page 0
+    unmasked). Then each row's pages are gathered back into position order
+    and attended with the dense masked math, query i of row b seeing keys
+    ``j <= positions[b] + i``. The writes touch only positions >=
+    ``positions[b]``, so pages below it (the prefix cache's shared pages)
+    are never written."""
+    b, t, h, d = k.shape
+    pt = int(page_tokens)
+    slots = page_table.shape[1]
+    table = page_table.to(torch.long)
+    pos_t = (positions.to(torch.long)[:, None]
+             + torch.arange(t, device=k.device)[None, :])             # [B,T]
+    page_slot = (pos_t // pt).clamp(0, slots - 1)
+    flat = torch.gather(table, 1, page_slot) * pt + pos_t % pt
+    if active is not None:
+        flat = torch.where(active[:, None], flat, torch.zeros_like(flat))
+    flat = flat.reshape(-1)
+    cached_k.index_copy_(0, flat, k.reshape(b * t, h, d).to(cached_k.dtype))
+    cached_v.index_copy_(0, flat, v.reshape(b * t, h, d).to(cached_v.dtype))
+    rows = (table[:, :, None] * pt
+            + torch.arange(pt, device=k.device)[None, None, :]).reshape(-1)
+    kf = cached_k.index_select(0, rows).view(b, slots * pt, h, d).to(q.dtype)
+    vf = cached_v.index_select(0, rows).view(b, slots * pt, h, d).to(q.dtype)
+    return _masked_attend(q, kf, vf, pos_t)
+
+
+def _layer_attend(cache: KVCache, i: int,
+                  step: Optional[ServeStep]) -> AttnFn:
+    """Layer ``i``'s decode attend against ``cache``."""
+    ck, cv = cache.k[i], cache.v[i]
+    if step is None:
+        return functools.partial(decode_attend, cached_k=ck, cached_v=cv,
+                                 positions=cache.index)
+    if step.paged_kv is not None:
+        return functools.partial(
+            paged_decode_attend, cached_k=ck, cached_v=cv,
+            positions=step.positions, page_table=step.page_table,
+            page_tokens=step.paged_kv.page_tokens, active=step.active)
+    return functools.partial(decode_attend, cached_k=ck, cached_v=cv,
+                             positions=step.positions, active=step.active)
 
 
 class Encoder(nn.Module):
@@ -234,17 +404,17 @@ class Encoder(nn.Module):
 
     def _attention(self, attn: Attention, x: torch.Tensor, train: bool,
                    segment_ids: Optional[torch.Tensor] = None,
-                   kv: Optional[tuple] = None):
+                   attend: Optional[AttnFn] = None):
         """Self-attention of ``x`` [B,T,C]: the core over q, k, v views
         of the fused projection, with ``segment_ids`` [B,T] as both the
         query and the key segments (tpunet's ``segment_ids=(seg, seg)``);
-        or, with ``kv`` = (cached K, cached V, index), one decode step
-        against the cache, which skips the core."""
+        or, with ``attend`` (q, k, v) -> y, a decode step against the
+        layer's cache, which skips the core."""
         b, t, c = x.shape
         qkv = self._linear(attn.qkv, x, train)
         q, k, v = qkv.view(b, t, 3, self.heads, c // self.heads).unbind(2)
-        if kv is not None:
-            y = decode_attend(q, k, v, *kv)
+        if attend is not None:
+            y = attend(q, k, v)
         elif segment_ids is not None:
             y = self.attn_fn(q, k, v, segment_ids=(segment_ids, segment_ids))
         else:
@@ -257,15 +427,16 @@ class Encoder(nn.Module):
 
     def _encode(self, x: torch.Tensor, train: bool, drop,
                 segment_ids: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None,
+                step: Optional[ServeStep] = None) -> torch.Tensor:
         """The blocks over ``x``: x + drop(Attn(LN(x))); x +
-        drop(Mlp(LN(x))), against ``cache`` when one is given."""
+        drop(Mlp(LN(x))), against ``cache`` when one is given: on its
+        module clock, or per row as ``step`` says."""
         for i, blk in enumerate(self.blocks):
-            kv = None if cache is None else (cache.k[i], cache.v[i],
-                                             cache.index)
+            attend = None if cache is None else _layer_attend(cache, i, step)
             x = x + drop(self._attention(blk.attn,
                                          self._norm(blk.ln1, x, train),
-                                         train, segment_ids, kv))
+                                         train, segment_ids, attend))
             x = x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
                                    train))
         return x

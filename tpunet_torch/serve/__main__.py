@@ -1,0 +1,326 @@
+"""CLI entry point: ``python -m tpunet_torch.serve --checkpoint-dir ...``,
+port of ``python -m tpunet.serve``.
+
+Loads the LM's best checkpoint through ``infer.generate.load_lm`` (an
+empty ``--checkpoint-dir`` serves the seeded random init), optionally a
+classifier checkpoint for the micro-batched ``/v1/classify`` path, wires
+the obs registry into ``metrics.jsonl`` and the flight recorder, and
+serves until SIGTERM/SIGINT, which drains gracefully (stop admitting,
+finish in-flight, flush telemetry) rather than dropping connections.
+Flags and exit-2 usage errors are tpunet's, plus ``--device`` (``cuda``
+by default; ``cpu`` is the only way to serve on the CPU). The flags of
+what is not ported yet exit 2 naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import sys
+import threading
+
+_PROG = "python -m tpunet_torch.serve"
+_ITEM7 = "comes with ROADMAP Queue A item 7 (observability exporters)"
+_ITEM8 = "comes with ROADMAP Queue A item 8 (parallelism beyond DP, MoE)"
+
+
+def parse_prefill_buckets(spec, max_seq_len: int):
+    """Validate ``--prefill-buckets``: comma-separated positive ints,
+    none beyond ``--max-seq-len``. A bad entry is a LOUD exit-2 usage
+    error, never a silently changed bucket set."""
+    entries = [e.strip() for e in str(spec).split(",") if e.strip()]
+    if not entries:
+        raise _usage(f"--prefill-buckets {spec!r} names no buckets; "
+                     "give at least one padded prompt length, e.g. "
+                     "--prefill-buckets 64,256,1024")
+    buckets = []
+    for raw in entries:
+        try:
+            bucket = int(raw)
+        except ValueError:
+            raise _usage(
+                f"--prefill-buckets entry {raw!r} is not an integer "
+                f"(got {spec!r}; expected comma-separated prompt-"
+                "length buckets like 64,256,1024)")
+        if bucket < 1:
+            raise _usage(f"--prefill-buckets entry {bucket} must be "
+                         ">= 1")
+        if bucket > max_seq_len:
+            raise _usage(
+                f"--prefill-buckets entry {bucket} exceeds "
+                f"--max-seq-len {max_seq_len}: the KV pool cannot "
+                "hold a prompt that long — raise --max-seq-len or "
+                "drop the bucket")
+        buckets.append(bucket)
+    return tuple(buckets)
+
+
+def _usage(msg: str) -> SystemExit:
+    print(f"{_PROG}: error: {msg}", file=sys.stderr, flush=True)
+    return SystemExit(2)
+
+
+def build_argparser():
+    import argparse
+
+    from tpunet_torch.config import ServeConfig
+
+    d = ServeConfig()
+    p = argparse.ArgumentParser(
+        prog=_PROG, description="tpunet_torch production inference server")
+    p.add_argument("--checkpoint-dir", default="checkpoints",
+                   help="LM best-checkpoint directory (infer.generate "
+                        "load_lm path; empty = the seeded random init)")
+    p.add_argument("--host", default=d.host)
+    p.add_argument("--port", type=int, default=d.port)
+    p.add_argument("--slots", type=int, default=d.slots,
+                   help="KV-slot pool size = max in-flight decodes")
+    p.add_argument("--queue-max", type=int, default=d.queue_max,
+                   help="bounded admission queue; beyond it requests "
+                        "are rejected 429 (backpressure)")
+    p.add_argument("--prefill-buckets", default=",".join(
+        str(b) for b in d.prefill_buckets),
+        help="comma-separated padded prompt-length buckets (one prefill "
+             "shape each)")
+    p.add_argument("--paged-kv", default=d.paged_kv,
+                   action=argparse.BooleanOptionalAction,
+                   help="paged KV cache (default on): K/V in a shared "
+                        "page pool with per-slot page tables, so a slot "
+                        "costs prompt-proportional memory; --no-paged-kv "
+                        "restores the dense [slots, max_seq_len] pool")
+    p.add_argument("--kv-pages", type=int, default=d.kv_pages,
+                   help="usable KV pages in the shared pool (0 = "
+                        "dense-equivalent capacity: slots x "
+                        "ceil(max-seq-len / kv-page-tokens))")
+    p.add_argument("--kv-page-tokens", type=int,
+                   default=d.kv_page_tokens,
+                   help="tokens per KV page (allocation granule)")
+    p.add_argument("--kv-dtype", default=d.kv_dtype,
+                   choices=["auto", "bf16", "int8"],
+                   help="KV page payload dtype: auto = compute dtype; "
+                        "bf16 halves float32 payloads; int8 is not "
+                        "ported yet (ROADMAP Queue A item 5)")
+    p.add_argument("--prefix-cache", default=d.prefix_cache,
+                   action=argparse.BooleanOptionalAction,
+                   help="prefix KV cache (default on, paged only): "
+                        "finished prefill pages stay in the pool as "
+                        "refcounted content-addressed objects; a new "
+                        "request pins its longest cached page-aligned "
+                        "prefix and prefills only the suffix")
+    p.add_argument("--prefix-cache-pages", type=int,
+                   default=d.prefix_cache_pages,
+                   help="pool pages the prefix cache may hold (0 = "
+                        "half the usable pool)")
+    p.add_argument("--prefix-store", default=d.prefix_store,
+                   metavar="DIR",
+                   help="shared-filesystem prefix spill (not ported "
+                        "yet: ROADMAP Queue A item 5)")
+    p.add_argument("--spec-decode", default=d.spec_decode,
+                   action=argparse.BooleanOptionalAction,
+                   help="speculative decoding (not ported yet: ROADMAP "
+                        "Queue A item 5)")
+    p.add_argument("--spec-k", type=int, default=d.spec_k)
+    p.add_argument("--spec-draft-width-mult", type=float,
+                   default=d.spec_draft_width_mult)
+    p.add_argument("--spec-draft-checkpoint",
+                   default=d.spec_draft_checkpoint, metavar="NPZ")
+    p.add_argument("--device-sampling", default=d.device_sampling,
+                   action=argparse.BooleanOptionalAction,
+                   help="batched temperature/top-k/top-p sampling on "
+                        "the device (default on); --no-device-sampling "
+                        "restores the host-side per-slot sampler")
+    p.add_argument("--max-new-tokens", type=int,
+                   default=d.default_max_new_tokens,
+                   help="default per-request generation budget")
+    p.add_argument("--max-new-tokens-cap", type=int,
+                   default=d.max_new_tokens_cap,
+                   help="hard per-request generation ceiling: larger "
+                        "asks are clamped to it at admission")
+    p.add_argument("--deadline-s", type=float,
+                   default=d.default_deadline_s,
+                   help="default per-request wall-clock deadline "
+                        "(0 = none)")
+    p.add_argument("--classify-batch-max", type=int,
+                   default=d.classify_batch_max)
+    p.add_argument("--classify-window-ms", type=float,
+                   default=d.classify_window_ms)
+    p.add_argument("--emit-every-s", type=float, default=d.emit_every_s,
+                   help="obs_serve record cadence into metrics.jsonl")
+    p.add_argument("--drain-timeout-s", type=float,
+                   default=d.drain_timeout_s)
+    p.add_argument("--metrics-dir", default="",
+                   help="directory for metrics.jsonl and the flight "
+                        "recorder (default: the checkpoint dir)")
+    p.add_argument("--statsd", default="", metavar="HOST:PORT",
+                   help="not ported yet (ROADMAP Queue A item 7)")
+    p.add_argument("--obs-http", default="", metavar="URL",
+                   help="not ported yet (ROADMAP Queue A item 7)")
+    p.add_argument("--obs-webhook", default="", metavar="URL",
+                   help="not ported yet (ROADMAP Queue A item 7)")
+    p.add_argument("--run-id", default=d.run_id,
+                   help="replica identity stamped on obs_serve records "
+                        "(default serve-<host>-<pid>)")
+    p.add_argument("--chaos", default=d.chaos, metavar="SPEC",
+                   help="serve-tier fault injection (not ported yet: "
+                        "ROADMAP Queue A item 5)")
+    p.add_argument("--trace-sample", type=float,
+                   default=d.trace_sample, metavar="RATE",
+                   help="standalone request-tracing head-sample rate in "
+                        "[0,1] for requests WITHOUT router trace headers; "
+                        "a client-supplied X-Trace-Id is always sampled")
+    p.add_argument("--aot-cache", default=d.aot_cache, metavar="DIR",
+                   help="AOT warm start (not ported yet: ROADMAP Queue A "
+                        "item 5)")
+    # LM architecture (must match the trained checkpoint) — mirrors
+    # tpunet_torch.infer.generate's flags.
+    p.add_argument("--model", choices=("lm", "lm_pp"), default="lm")
+    p.add_argument("--vit-hidden", type=int, default=192)
+    p.add_argument("--vit-depth", type=int, default=6)
+    p.add_argument("--vit-heads", type=int, default=3)
+    p.add_argument("--vocab-size", type=int, default=256)
+    p.add_argument("--max-seq-len", type=int, default=1024)
+    p.add_argument("--moe-experts", type=int, default=0)
+    p.add_argument("--moe-every", type=int, default=2)
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25)
+    p.add_argument("--mesh-model", type=int, default=0,
+                   help="tensor-parallel serving (not ported yet: "
+                        "ROADMAP Queue A item 8)")
+    p.add_argument("--train-pipe", type=int, default=0)
+    p.add_argument("--pp-virtual", type=int, default=2)
+    # Optional classifier endpoint.
+    p.add_argument("--classifier-checkpoint-dir", default="",
+                   help="also serve /v1/classify from this MobileNetV2/"
+                        "ViT best checkpoint (micro-batched)")
+    p.add_argument("--classifier-model", default="mobilenet_v2")
+    p.add_argument("--classifier-image-size", type=int, default=224)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def build_server(args):
+    """Construct (but do not start) the ServeServer from parsed args —
+    shared by main() and tests. Usage errors exit 2 before the model
+    loads."""
+    buckets = parse_prefill_buckets(args.prefill_buckets,
+                                    args.max_seq_len)
+    for flag, value, item in (("--statsd", args.statsd, _ITEM7),
+                              ("--obs-http", args.obs_http, _ITEM7),
+                              ("--obs-webhook", args.obs_webhook, _ITEM7),
+                              ("--mesh-model", args.mesh_model > 1, _ITEM8),
+                              ("--model lm_pp", args.model == "lm_pp"
+                               or args.train_pipe, _ITEM8),
+                              ("--moe-experts", args.moe_experts, _ITEM8)):
+        if value:
+            raise _usage(f"{flag} is not ported to tpunet_torch yet; it "
+                         f"{item}")
+
+    from tpunet_torch.ckpt import BEST
+    from tpunet_torch.config import DataConfig, ModelConfig, ServeConfig
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.infer.predict import Predictor
+    from tpunet_torch.obs import flightrec
+    from tpunet_torch.obs.registry import JsonlSink
+    from tpunet_torch.serve.classify import ClassifyBatcher
+    from tpunet_torch.serve.engine import Engine
+    from tpunet_torch.serve.frontend import ServeServer
+    from tpunet_torch.utils.logging import MetricsLogger
+
+    try:
+        cfg = ServeConfig(
+            host=args.host, port=args.port, slots=args.slots,
+            queue_max=args.queue_max, prefill_buckets=buckets,
+            paged_kv=args.paged_kv, kv_pages=args.kv_pages,
+            kv_page_tokens=args.kv_page_tokens, kv_dtype=args.kv_dtype,
+            device_sampling=args.device_sampling,
+            prefix_cache=args.prefix_cache,
+            prefix_cache_pages=args.prefix_cache_pages,
+            prefix_store=args.prefix_store,
+            default_max_new_tokens=args.max_new_tokens,
+            max_new_tokens_cap=args.max_new_tokens_cap,
+            default_deadline_s=args.deadline_s,
+            classify_batch_max=args.classify_batch_max,
+            classify_window_ms=args.classify_window_ms,
+            emit_every_s=args.emit_every_s,
+            drain_timeout_s=args.drain_timeout_s,
+            run_id=args.run_id, aot_cache=args.aot_cache,
+            chaos=args.chaos, trace_sample=args.trace_sample,
+            spec_decode=args.spec_decode, spec_k=args.spec_k,
+            spec_draft_width_mult=args.spec_draft_width_mult,
+            spec_draft_checkpoint=args.spec_draft_checkpoint)
+        model_cfg = ModelConfig(
+            name="lm", vit_hidden=args.vit_hidden,
+            vit_depth=args.vit_depth, vit_heads=args.vit_heads,
+            vocab_size=args.vocab_size, max_seq_len=args.max_seq_len,
+            dropout_rate=0.0, moe_every=args.moe_every,
+            moe_top_k=args.moe_top_k,
+            moe_capacity_factor=args.moe_capacity_factor)
+    except NotImplementedError as e:
+        raise _usage(str(e))
+    model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
+                    device=args.device)
+    engine = Engine(model, cfg)
+    registry = engine.registry
+
+    metrics_logger = None
+    metrics_dir = args.metrics_dir or args.checkpoint_dir
+    # Black-box flight recorder for the serving process: event ring +
+    # crash handlers + watcher into <metrics-dir>/flightrec, so a dead
+    # replica leaves a crash_report.json next to its metrics.
+    recorder = None
+    if metrics_dir:
+        recorder = flightrec.install(metrics_dir, run_id=args.run_id)
+        metrics_logger = MetricsLogger(metrics_dir, resume=True)
+        registry.add_sink(JsonlSink(metrics_logger))
+
+    batcher = None
+    if args.classifier_checkpoint_dir:
+        pred = Predictor(
+            model_cfg=ModelConfig(name=args.classifier_model,
+                                  dropout_rate=0.0),
+            data_cfg=DataConfig(image_size=args.classifier_image_size),
+            checkpoint=os.path.join(args.classifier_checkpoint_dir, BEST),
+            device=args.device)
+        batcher = ClassifyBatcher(pred,
+                                  batch_max=cfg.classify_batch_max,
+                                  window_ms=cfg.classify_window_ms,
+                                  registry=registry)
+    return ServeServer(engine, classify_batcher=batcher,
+                       host=cfg.host, port=cfg.port,
+                       metrics_logger=metrics_logger, run_id=cfg.run_id,
+                       flight_recorder=recorder)
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    server = build_server(args)
+    server.start()
+    print(f"tpunet_torch.serve listening on "
+          f"http://{args.host}:{server.port} "
+          f"(slots={server.engine.slots}, "
+          f"buckets={server.engine.buckets}, device={args.device})",
+          flush=True)
+
+    stop = threading.Event()
+
+    def _term(signum, frame):
+        print(f"signal {signum}: draining "
+              f"(timeout {args.drain_timeout_s}s)...", flush=True)
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _term)
+    signal.signal(signal.SIGINT, _term)
+    while not stop.is_set():
+        stop.wait(0.5)
+        if not server.engine.healthy:
+            print(f"engine unhealthy: {server.engine.error}; "
+                  "draining", file=sys.stderr, flush=True)
+            stop.set()
+    clean = server.drain(args.drain_timeout_s)
+    print(f"drained ({'clean' if clean else 'forced'})", flush=True)
+    return 0 if server.engine.error is None else 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

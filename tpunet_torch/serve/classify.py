@@ -7,11 +7,9 @@ shape whatever the arrival pattern. Preprocessing (the Predictor's
 exact resize + normalize) is issued by the calling thread on the
 predictor's device, as ``Predictor.predict_probs`` does it and as the
 JAX batcher resizes on its default device; the single worker thread
-runs the batched forward.
-
-The JAX batcher also registers its worker with the flight recorder's
-stall heartbeat; that waits for the port's observability slice (ROADMAP
-Queue A item 7).
+runs the batched forward, registered with the flight recorder's
+host-thread registry: a batched forward wedged on the device past 120 s
+reads as stalled, an idle queue wait does not.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ import numpy as np
 import torch
 
 from tpunet_torch.infer.predict import preprocess, to_uint8
+from tpunet_torch.obs import flightrec
 from tpunet_torch.obs.registry import Registry
 
 
@@ -56,6 +55,8 @@ class ClassifyBatcher:
         self._q: "queue.Queue[_Pending]" = queue.Queue()
         self._stop = threading.Event()
         self._size = predictor.data_cfg.image_size
+        self._thread_handle = flightrec.register_thread(
+            "serve-classify", stall_after_s=120.0)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="tpunet-serve-classify")
         self._thread.start()
@@ -96,6 +97,7 @@ class ClassifyBatcher:
                 except queue.Empty:
                     break
             t0 = time.perf_counter()
+            self._thread_handle.beat("busy")
             try:
                 x = torch.zeros((self.batch_max, self._size, self._size, 3),
                                 device=self.predictor.device)
@@ -110,6 +112,7 @@ class ClassifyBatcher:
                 for item in batch:
                     item.error = f"{type(e).__name__}: {e}"
                     item.event.set()
+            self._thread_handle.beat("idle")
             reg.counter("serve_classify_requests_total").inc(len(batch))
             reg.counter("serve_classify_batches_total").inc()
             reg.histogram("serve_classify_batch_size").observe(len(batch))

@@ -1,0 +1,339 @@
+"""Admission queue and request lifecycle for the serving engine.
+
+A copy of ``tpunet/serve/scheduler.py`` (framework-free): requests,
+finish reasons and the queue's errors are the JAX package's.
+
+The queue is the backpressure point: admission is FIFO and BOUNDED —
+when ``queue_max`` requests are already waiting, ``submit`` raises
+``QueueFullError`` immediately (the frontend maps it to 429) instead of
+letting queue latency grow without bound. Everything past admission is
+cooperative: a request carries a cancel flag and an absolute deadline,
+both checked by the engine at iteration boundaries (a cancelled or
+expired request frees its KV slot within one decode iteration, it is
+never interrupted mid-step).
+
+``GenerateRequest`` doubles as the response channel: the engine pushes
+token events into a per-request queue (the streaming frontend drains it
+as ndjson), and ``result()`` blocks until the request finishes for the
+non-streaming path.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import queue
+import threading
+import time
+from typing import List, Optional
+
+
+class QueueFullError(Exception):
+    """Admission bound hit: reject-with-429, never queue-and-degrade."""
+
+
+class DrainingError(Exception):
+    """Server is draining: no new admissions."""
+
+
+_ids = itertools.count(1)
+
+# Sentinel finish reasons (mirrored into the HTTP response and the
+# serve_finished_<reason> counters).
+FINISH_LENGTH = "length"          # max_new_tokens generated
+FINISH_STOP = "stop"              # stop_token sampled
+FINISH_DEADLINE = "deadline"      # wall-clock deadline hit
+FINISH_CANCELLED = "cancelled"    # client cancelled / disconnected
+FINISH_ERROR = "error"            # engine failure
+FINISH_DRAIN = "drain"            # cancelled by shutdown drain timeout
+
+
+class GenerateRequest:
+    """One in-flight generation: prompt tokens in, token events out.
+
+    ``deadline_s`` is wall-clock seconds from submission (0 = none);
+    sampling parameters follow models.lm.generate semantics
+    (temperature 0 = greedy; top_k/top_p filter sampling only).
+    """
+
+    def __init__(self, prompt, *, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: int = 0,
+                 deadline_s: float = 0.0,
+                 stop_token: Optional[int] = None,
+                 resume_tokens=None, trace_id: str = "",
+                 trace_hop: int = 0):
+        import numpy as np
+        self.id = next(_ids)
+        # Trace context (tpunet/obs/tracing.py): ``self.id`` is
+        # per-PROCESS; the (trace_id, trace_hop) pair the router
+        # stamped on the hop's headers is what names this span across
+        # the fleet. Empty trace_id = unsampled; every trace call
+        # site short-circuits on it.
+        self.trace_id = str(trace_id)
+        self.trace_hop = int(trace_hop)
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if self.prompt.size == 0:
+            raise ValueError("prompt must contain at least one token")
+        self.max_new_tokens = int(max_new_tokens)
+        if self.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        # What the CLIENT asked for, before any admission clamp (cap /
+        # KV length). ``max_new_tokens`` becomes the EFFECTIVE budget;
+        # the frontend reports both so a silently-shortened response
+        # is attributable to the clamp, not a bug.
+        self.requested_max_new_tokens = self.max_new_tokens
+        # Times this request was preempted out of its slot (paged-KV
+        # pool exhaustion) and re-queued for resume-prefill.
+        self.preemptions = 0
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        # Both sampler backends need this range: numpy's Generator
+        # rejects negatives (an engine-thread raise marks the whole
+        # engine dead) and the device path folds the seed into an
+        # int32 lane (values past bit 31 would silently collide).
+        if not 0 <= self.seed < 2 ** 31:
+            raise ValueError(
+                f"seed must be in [0, 2**31), got {seed}")
+        self.stop_token = stop_token
+        self.submitted_t = time.perf_counter()
+        self.deadline_t = (self.submitted_t + deadline_s
+                           if deadline_s > 0 else None)
+        self.first_token_t: Optional[float] = None
+        self.done_t: Optional[float] = None
+        # Phase stamps for the TTFT decomposition (queue vs prefill
+        # vs first-decode) the ``obs_trace`` record and bench_serve
+        # report. Set by the engine at admission / prefill; cheap
+        # enough to stamp unconditionally (sampled or not).
+        self.prefill_start_t: Optional[float] = None
+        self.prefill_done_t: Optional[float] = None
+        self.prefill_bucket: Optional[int] = None
+        # Wall-clock spent preempted out of a slot (paged-KV pool
+        # pressure): accumulated preempt -> resume-prefill.
+        self.preempt_wall_s = 0.0
+        self._preempt_t: Optional[float] = None
+        # Cross-replica resume (router mid-stream failover,
+        # docs/serving.md "Mid-stream failover & serve-tier chaos"):
+        # tokens another replica already generated AND streamed to the
+        # client. They seed ``self.tokens`` — the engine re-prefills
+        # prompt+generated and the per-(seed, step) sampling keys
+        # continue the exact stream — but are NEVER re-emitted as
+        # events: the client already has them. ``resume_offset`` is
+        # where this replica's token indices start.
+        self.tokens: List[int] = ([int(t) for t in resume_tokens]
+                                  if resume_tokens is not None else [])
+        self.resume_offset = len(self.tokens)
+        if self.resume_offset and self.max_new_tokens \
+                < self.resume_offset:
+            raise ValueError(
+                f"resume_tokens carries {self.resume_offset} tokens "
+                f"but max_new_tokens is {max_new_tokens}")
+        self.finish_reason: Optional[str] = None
+        self.error: Optional[str] = None
+        self._events: "queue.Queue" = queue.Queue()
+        self._done = threading.Event()
+        self._cancelled = threading.Event()
+        self._rng = None  # lazily-built numpy Generator (sampled reqs)
+
+    # -- engine side ----------------------------------------------------
+
+    def rng(self):
+        if self._rng is None:
+            import numpy as np
+            self._rng = np.random.default_rng(self.seed)
+        return self._rng
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        return (self.deadline_t is not None
+                and (now or time.perf_counter()) >= self.deadline_t)
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled.is_set()
+
+    def push_token(self, token: int) -> None:
+        # The ONLY producer of ('token', t) events — everything
+        # downstream (streaming frontend, router relay, failover
+        # journal) sees exactly this sequence. Speculative decoding
+        # preserves that contract structurally: the engine pushes only
+        # VERIFIED tokens (draft proposals never reach a request), so
+        # a journal replayed after a mid-verify replica death resumes
+        # from a prefix of the canonical stream, never from drafts.
+        now = time.perf_counter()
+        if self.first_token_t is None:
+            self.first_token_t = now
+        self.tokens.append(int(token))
+        self._events.put(("token", int(token)))
+
+    def finish(self, reason: str, error: Optional[str] = None) -> None:
+        if self._done.is_set():
+            return
+        self.finish_reason = reason
+        self.error = error
+        self.done_t = time.perf_counter()
+        self._events.put(("done", reason))
+        self._done.set()
+
+    # -- client side ----------------------------------------------------
+
+    def cancel(self) -> None:
+        """Cooperative: the engine frees the slot at its next iteration
+        boundary (and ``finish``es the request there)."""
+        self._cancelled.set()
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def events(self, timeout: Optional[float] = None):
+        """Yield ('token', id) events as they arrive, ending with
+        ('done', reason). ``timeout`` bounds the wait for EACH event;
+        expiry raises TimeoutError (a wedged engine must not hang a
+        streaming client forever — callers cancel on it)."""
+        while True:
+            try:
+                kind, val = self._events.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"request {self.id}: no event for {timeout}s")
+            yield kind, val
+            if kind == "done":
+                return
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until finished; returns the generated tokens."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"request {self.id} not done "
+                               f"after {timeout}s")
+        return list(self.tokens)
+
+    # -- metrics --------------------------------------------------------
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_t is None:
+            return None
+        return self.first_token_t - self.submitted_t
+
+    @property
+    def e2e_s(self) -> Optional[float]:
+        if self.done_t is None:
+            return None
+        return self.done_t - self.submitted_t
+
+    # TTFT decomposition: queue_s + prefill_s + first_decode_s ~=
+    # ttft_s (the residual is host scheduling slack). Each is None
+    # until its closing stamp exists.
+
+    @property
+    def queue_s(self) -> Optional[float]:
+        if self.prefill_start_t is None:
+            return None
+        return self.prefill_start_t - self.submitted_t
+
+    @property
+    def prefill_s(self) -> Optional[float]:
+        if self.prefill_start_t is None \
+                or self.prefill_done_t is None:
+            return None
+        return self.prefill_done_t - self.prefill_start_t
+
+    @property
+    def first_decode_s(self) -> Optional[float]:
+        if self.prefill_done_t is None or self.first_token_t is None:
+            return None
+        return self.first_token_t - self.prefill_done_t
+
+
+class RequestQueue:
+    """Bounded FIFO admission queue shared by frontend and engine.
+
+    ``on_finish(req, reason)`` is invoked for every request the QUEUE
+    finishes (cancelled/expired while waiting, failed by ``fail_all``)
+    so the engine's finish accounting covers requests that never
+    reached a slot — without it, dashboards show phantom forever-in-
+    flight requests."""
+
+    def __init__(self, queue_max: int, on_finish=None):
+        if queue_max < 1:
+            raise ValueError(f"queue_max must be >= 1, got {queue_max}")
+        self.queue_max = queue_max
+        self._on_finish = on_finish
+        self._lock = threading.Lock()
+        self._waiting: "collections.deque[GenerateRequest]" = \
+            collections.deque()
+        self._closed = False
+
+    def _finish(self, req: GenerateRequest, reason: str,
+                error: Optional[str] = None) -> None:
+        req.finish(reason, error=error)
+        if self._on_finish is not None:
+            self._on_finish(req, reason)
+
+    def submit(self, req: GenerateRequest) -> None:
+        with self._lock:
+            if self._closed:
+                raise DrainingError("server is draining")
+            if len(self._waiting) >= self.queue_max:
+                raise QueueFullError(
+                    f"admission queue full ({self.queue_max} waiting)")
+            self._waiting.append(req)
+
+    def requeue_front(self, reqs) -> None:
+        """Put already-admitted requests BACK at the head of the queue
+        (paged-KV preemption, or an admission wave that ran out of
+        pages mid-batch). Deliberately ignores ``closed`` and the
+        bound: these requests were already admitted once — bouncing
+        them now would turn a transient pool-pressure event into a
+        client-visible failure."""
+        with self._lock:
+            for req in reversed(list(reqs)):
+                self._waiting.appendleft(req)
+
+    def pop_ready(self, n: int) -> List[GenerateRequest]:
+        """Pop up to ``n`` admissible requests FIFO. Requests that were
+        cancelled or expired while waiting are finished here (their
+        deadline applies to queue time too) and don't consume a slot."""
+        out: List[GenerateRequest] = []
+        now = time.perf_counter()
+        dropped = []
+        with self._lock:
+            while self._waiting and len(out) < n:
+                req = self._waiting.popleft()
+                if req.cancelled:
+                    dropped.append((req, FINISH_CANCELLED))
+                elif req.expired(now):
+                    dropped.append((req, FINISH_DEADLINE))
+                else:
+                    out.append(req)
+        for req, reason in dropped:      # outside the lock
+            self._finish(req, reason)
+        return out
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._waiting)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> List[GenerateRequest]:
+        """Stop admitting (drain). Returns the requests still waiting —
+        the engine keeps consuming them; the drain timeout decides
+        whether they run or get cancelled."""
+        with self._lock:
+            self._closed = True
+            return list(self._waiting)
+
+    def fail_all(self, error: str) -> None:
+        """Engine died: every waiting request fails fast."""
+        with self._lock:
+            waiting, self._waiting = list(self._waiting), \
+                collections.deque()
+            self._closed = True
+        for req in waiting:
+            self._finish(req, FINISH_ERROR, error=error)
