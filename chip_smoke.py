@@ -33,10 +33,26 @@ Phases, each of which must pass:
      versions on the card; then, with every launch count set to 0, 30
      steps on one repeated batch, whose loss must stay finite and fall,
      counting 17 + 17 + 33 + 33 launches a step; step time, images/s
-     and the card's idle share over one step (torch.profiler);
+     and the card's idle share over one step (torch.profiler); then one
+     step at batch 512, whose 112 px fused-IR layers have 100,352 row
+     tiles (past grid y's 65,535): a finite loss, the same launches,
+     its peak memory within the card's;
   6. run the Trainer for one epoch (1,024 synthetic images, batch 128)
      with eval, reload the best .pth and evaluate it again, then
-     ``python -m tpunet_torch.train --eval-only`` on it;
+     ``python -m tpunet_torch.train --eval-only`` on it; its obs_epoch
+     record: 8 steps and 8 step-time samples, finite percentiles, only
+     fields docs/metrics_schema.md documents, MFU in (0, 1) equal to
+     examples/s x train_flops_per_unit / 989e12, the card's memory
+     (0 < in use <= peak <= limit) and the mem_peak_bytes_in_use gauge;
+     the same epoch with --no-obs and, through the CLI in this process,
+     with a profile window over steps [2, 4), --statsd and --obs-http to
+     listeners here and --obs-rule 'mfu > 0': as many
+     torch.cuda.synchronize calls from tpunet_torch with obs on as with
+     --no-obs, 2 more with the window; one trace with exactly 2 train
+     step regions and the depthwise and fused-IR kernels; the statsd
+     mfu line, the obs_epoch line over HTTP and the rule's obs_alert
+     after the obs_epoch record; tpunet_torch.obs.summary over the
+     records; its laps beside phase 5's synchronised step;
   7. dp_step: data parallelism with 2 ranks sharing the card (gloo; NCCL
      refuses two ranks on one device), each a subprocess of this script
      (``--dp-worker step``) on 64 rows of phase 5's seeded batch of 128
@@ -73,7 +89,8 @@ Phases, each of which must pass:
      kernels against the plain versions; 30 steps with 12 + 12 + 12
      flash launches each, step time, images/s, peak memory and a
      profiled step; a Trainer epoch with --model vit_base and
-     --eval-only on its best.pth;
+     --eval-only on its best.pth, with phase 6's obs checks (no
+     exporters; the window's trace shows the three flash kernels);
  12. the LM (``--model lm`` at ViT-B/16's widths: hidden 768, depth 12,
      12 heads of 64, vocab 256, T 1024, batch 16, bf16 over f32, random
      weights from a seed): ``lm_kernels`` holds the three flash kernels
@@ -87,7 +104,8 @@ Phases, each of which must pass:
      largest), 30 bf16 steps on synthetic_lm (12 + 12 + 12 flash
      launches a step, a falling loss, step time, tokens/s, peak memory,
      a profiled step), 5 packed steps (the same launches, a falling
-     loss); ``lm_trainer``: the CLI for one synthetic_lm epoch and
+     loss); ``lm_trainer``: the CLI for one synthetic_lm epoch (in
+     this process, with phase 6's obs checks, no exporters) and
      ``--eval-only``, one packed text_lm epoch, and the generate CLI on
      it; ``lm_generate``: greedy KV-cache decoding at B 8 (128-token
      prompts, 256 new) with no flash launch, its logits teacher-forced
@@ -211,6 +229,12 @@ FUSED_TC_KERNELS = ("fused_ir_fwd_mma", "fused_ir_bwd_one_pass",
 FUSED_BF16_KERNELS = FUSED_TC_KERNELS + ("fused_ir_bwd_t<true>",
                                          "fused_ir_bwd_t<false>")
 
+# The profile window of the window epochs: steps [2, 4) of the epoch.
+OBS_WINDOW = ("--profile-start-step", "2", "--profile-num-steps", "2")
+# The hand kernels a window's trace must show, by kernel_label.
+MNV2_WINDOW_KERNELS = ("depthwise3x3_fwd", "depthwise3x3_bwd", "fused_ir_")
+FLASH_WINDOW_KERNELS = ("flash_fwd_mma", "flash_bwd_dq_mma",
+                        "flash_bwd_dkv_mma")
 
 class PhaseError(Exception):
     pass
@@ -1285,17 +1309,81 @@ def phase_train(torch):
                                              step_ms=p50 * 1e3)
 
 
+TRAIN_B512 = 512   # a batch whose 112 px rows pass grid y's 65,535 tiles
+
+
+def phase_train_b512(torch) -> dict:
+    """One MobileNetV2 train step at batch 512 (width 1.0, 224 px, bf16
+    over f32, the hand kernels): its 112 px fused-IR layers have
+    512 x 112 x 112 / 64 = 100,352 row tiles. The loss must be finite,
+    the step must launch 17 + 17 + 33 + 33 kernels, and its peak memory
+    must fit the card; the peak is printed."""
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    data, optim = DataConfig(dataset="synthetic"), OptimConfig()
+    images, labels = synthetic_cifar10(n_train=TRAIN_B512, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    model = create_model(ModelConfig(use_pallas_depthwise=True,
+                                     fused_ir=True),
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(42))
+    state = TrainState(model, make_optimizer(model.parameters(), optim),
+                       lr_schedule(optim, 1, 20))
+    step_fn = make_train_step(data, optim)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    m = step_fn(state, xb, yb, step_generator(42, 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    loss = float(m["loss_sum"]) / TRAIN_B512
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    del model, state, m, xb, yb
+    torch.cuda.empty_cache()
+    out = dict(batch=TRAIN_B512, loss=loss, step_wall_s=wall,
+               launches=launches, peak_memory_bytes=peak,
+               card_memory_bytes=total, fused_ir_row_tiles_112px=-(
+                   -TRAIN_B512 * 112 * 112 // 64))
+    emit("train_b512", **out)
+    check(math.isfinite(loss), f"batch-512 loss {loss}")
+    want = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
+            "fused_ir_forward": 33, "fused_ir_backward": 33}
+    check(all(launches[k] == v for k, v in want.items()),
+          f"batch-512 step launches {launches}")
+    check(peak <= total, f"batch-512 peak {peak} bytes > the card's {total}")
+    return out
+
+
 def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
-                  tag="trainer"):
-    """Trainer.train() for one epoch at full width, the best .pth loaded
-    back and evaluated, then --eval-only through the CLI."""
+                  tag="trainer", sync_step_ms=None,
+                  window_kernels=MNV2_WINDOW_KERNELS, exporters=False):
+    """Trainer.train() for one epoch at full width with obs on (the
+    default), the best .pth loaded back and evaluated, then --eval-only
+    through the CLI; its obs_epoch record checked (check_obs_epoch).
+    Then the same epoch with --no-obs and with a 2-step profile window:
+    the syncs of the three (check_syncs), the window's trace
+    (check_window). With ``exporters`` the window epoch runs through the
+    CLI in this process with --statsd, --obs-http (to listeners here) and
+    --obs-rule 'mfu > 0' (check_exports)."""
     import dataclasses
     import re
 
     from tpunet_torch.config import (CheckpointConfig, DataConfig,
-                                     ModelConfig, TrainConfig)
+                                     ModelConfig, ObsConfig, TrainConfig)
     from tpunet_torch.models import create_model
     from tpunet_torch.models.convert import load_state_dict_file
+    from tpunet_torch.train import __main__ as cli
     from tpunet_torch.train.loop import Trainer
 
     if model_cfg is None:
@@ -1308,7 +1396,15 @@ def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
                         synthetic_test_size=256, batch_size=TRAIN_BATCH),
         model=model_cfg, checkpoint=CheckpointConfig(directory=str(ckdir)))
     t0 = time.perf_counter()
-    history = Trainer(cfg, device="cuda").train()
+    # Each run's memory figures are its own: the allocator's peak since
+    # the reset.
+    torch.cuda.reset_peak_memory_stats()
+    with SyncCounter(torch) as on_sync:
+        trainer = Trainer(cfg, device="cuda")
+        try:
+            history = trainer.train()
+        finally:
+            trainer.close()
     wall = time.perf_counter() - t0
     check(len(history) == 1, f"{len(history)} epoch records")
     rec = history[0]
@@ -1318,11 +1414,16 @@ def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
     check(best.exists() and (ckdir / "state.pt").exists()
           and (ckdir / "metrics.jsonl").exists(), f"files in {ckdir}: "
           f"{sorted(p.name for p in ckdir.iterdir())}")
+    records = read_records(ckdir)
+    obs = check_obs_epoch(torch, tag, trainer, records)
+    del trainer
     again = Trainer(dataclasses.replace(cfg, eval_only=True), device="cuda")
     model = create_model(cfg.model, device="cuda")
     load_state_dict_file(str(best), model)
     again.state.model.load_state_dict(model.state_dict())
     acc = again.evaluate()["accuracy"]
+    again.close()
+    del again, model
     check(acc == rec["test_accuracy"], f"best.pth evaluates to {acc}, the "
           f"epoch measured {rec['test_accuracy']}")
     out = subprocess.run(
@@ -1337,9 +1438,304 @@ def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
     cli_acc = float(found.group(2))
     check(abs(cli_acc - rec["test_accuracy"]) < 5e-5,
           f"--eval-only accuracy {cli_acc} vs {rec['test_accuracy']}")
+
+    # The same epoch with --no-obs, then with the profile window.
+    off_dir, win_dir = ckdir.with_name(ckdir.name + "_no_obs"), \
+        ckdir.with_name(ckdir.name + "_window")
+    for d in (off_dir, win_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    with SyncCounter(torch) as off_sync:
+        off = Trainer(dataclasses.replace(
+            cfg, checkpoint=CheckpointConfig(directory=str(off_dir)),
+            obs=ObsConfig(enabled=False)), device="cuda")
+        try:
+            off.train()
+        finally:
+            off.close()
+    del off
+    off_records = read_records(off_dir)
+    check(len(off_records) == 1 and "kind" not in off_records[0],
+          f"{tag}: the --no-obs run wrote {off_records}")
+    sent = None
+    torch.cuda.reset_peak_memory_stats()
+    with SyncCounter(torch) as win_sync:
+        if exporters:
+            with ExportListeners() as listeners:
+                win = cli.run(["--preset", "single", "--dataset",
+                               "synthetic", "--synthetic-size", "1024",
+                               "--epochs", "1", *cli_flags,
+                               "--checkpoint-dir", str(win_dir),
+                               *OBS_WINDOW, *listeners.flags,
+                               "--obs-rule", "mfu > 0"])
+            sent = check_exports(tag, listeners, read_records(win_dir))
+        else:
+            win = Trainer(dataclasses.replace(
+                cfg, checkpoint=CheckpointConfig(directory=str(win_dir)),
+                obs=ObsConfig(profile_start_step=int(OBS_WINDOW[1]),
+                              profile_num_steps=int(OBS_WINDOW[3]))),
+                device="cuda")
+            try:
+                win.train()
+            finally:
+                win.close()
+    win_records = read_records(win_dir)
+    win_obs = check_obs_epoch(torch, f"{tag} window", win, win_records)
+    del win
+    window = check_window(tag, win_dir, window_kernels)
+    syncs = check_syncs(tag, on_sync, off_sync, win_sync)
     emit(tag, epoch_record=rec, wall_s=wall, best_pth_accuracy=acc,
          eval_only_line=found.group(0))
+    rate = f"{obs['unit']}_per_sec"
+    emit(f"{tag}_obs", obs_epoch=obs, sync_step_ms_p50=sync_step_ms,
+         step_lap_p50_ms=obs["step_time_p50_ms"],
+         obs_epoch_per_sec={"obs_on": obs["units_per_sec"],
+                            "window": win_obs["units_per_sec"]},
+         epoch_record_per_sec={"obs_on": rec[rate],
+                               "no_obs": plain_records(off_dir)[0][rate],
+                               "window": plain_records(win_dir)[0][rate]},
+         syncs=syncs, window=window,
+         exports=sent, summary=summarize_run(records))
+    torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The trainer's observability (tpunet_torch/obs)
+# ---------------------------------------------------------------------------
+
+
+
+class SyncCounter:
+    """Counts ``torch.cuda.synchronize`` calls while installed: all of
+    them (``calls``), and those made from tpunet_torch's own code
+    (``port``; torch.profiler's stop also synchronizes, inside torch)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.port = torch, 0, 0
+
+    def __enter__(self):
+        real = self.real = self.torch.cuda.synchronize
+
+        def counted(*args, **kw):
+            self.calls += 1
+            caller = sys._getframe(1).f_globals.get("__name__", "")
+            self.port += caller.startswith("tpunet_torch")
+            return real(*args, **kw)
+
+        self.torch.cuda.synchronize = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize = self.real
+
+
+def read_records(ckdir) -> list:
+    """The records of ``<ckdir>/metrics.jsonl``."""
+    lines = (Path(ckdir) / "metrics.jsonl").read_text().splitlines()
+    return [json.loads(line) for line in lines if line.strip()]
+
+
+def plain_records(ckdir) -> list:
+    """The plain epoch records (no ``kind``) of a run."""
+    return [r for r in read_records(ckdir) if "kind" not in r]
+
+
+def obs_epoch_fields() -> set:
+    """The fields docs/metrics_schema.md documents for ``obs_epoch``, with
+    the identity fields every record carries (the schema checker's
+    ``parse_schema``, which needs no JAX)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        from check_metrics_schema import parse_schema
+    finally:
+        sys.path.pop(0)
+    _, fields, global_fields = parse_schema()
+    return fields["obs_epoch"] | global_fields | {"kind"}
+
+
+def check_obs_epoch(torch, tag, trainer, records) -> dict:
+    """The run's one ``obs_epoch`` record: its steps and step-time
+    sample, finite percentiles, documented fields only, MFU against the
+    formula, the card's memory, and the trainer's gauges."""
+    from tpunet_torch.models import num_params
+    from tpunet_torch.obs.perf import train_flops_per_unit
+
+    obs = [r for r in records if r.get("kind") == "obs_epoch"]
+    check(len(obs) == 1, f"{tag}: {len(obs)} obs_epoch records")
+    rec = obs[0]
+    unit = "tokens" if trainer.cfg.is_lm else "examples"
+    rate = rec[f"{unit}_per_sec"]
+    check(rec["unit"] == unit and rec["steps"] == trainer.spe
+          and len(rec.get("step_time_sample", ())) == trainer.spe,
+          f"{tag}: obs_epoch steps {rec['steps']}, "
+          f"{len(rec.get('step_time_sample', ()))} samples; the epoch has "
+          f"{trainer.spe} {unit} steps")
+    check(all(math.isfinite(rec[f"step_time_{q}_s"])
+              for q in ("p50", "p90", "p99")), f"{tag}: percentiles {rec}")
+    extra = sorted(set(rec) - obs_epoch_fields())
+    check(not extra, f"{tag}: obs_epoch fields docs/metrics_schema.md does "
+          f"not document: {extra}")
+    flops = train_flops_per_unit(trainer.cfg.model, trainer.cfg.data,
+                                 num_params(trainer.state.model))
+    # MFU against its formula over one card (world 1): the gauge within
+    # 1e-3 relative; the record, rounded to 4 decimals, within the larger
+    # of 1e-3 relative and its rounding.
+    want = rate * flops / (BF16_FLOP_PER_S * 1)
+    reg = trainer.obs.registry
+    gauge = reg.gauge("mfu").value
+    mfu = rec.get("mfu")
+    check(mfu is not None and 0 < mfu < 1
+          and abs(mfu - want) <= max(1e-3 * want, 5e-5)
+          and gauge is not None and abs(gauge - want) <= 1e-3 * want,
+          f"{tag}: mfu {mfu} (gauge {gauge}); {rate} {unit}/s x {flops} "
+          f"FLOP / 989e12 = {want}")
+    mem = rec["device_memory"]
+    check(len(mem) == 1 and 0 < mem[0].get("bytes_in_use", 0)
+          <= mem[0].get("peak_bytes_in_use", 0)
+          <= mem[0].get("bytes_limit", 0)
+          and reg.gauge("mem_peak_bytes_in_use").value
+          == mem[0]["peak_bytes_in_use"],
+          f"{tag}: device_memory {mem}, mem_peak_bytes_in_use gauge "
+          f"{reg.gauge('mem_peak_bytes_in_use').value}")
+    return dict(step_time_p50_ms=rec["step_time_p50_s"] * 1e3,
+                step_time_p99_ms=rec["step_time_p99_s"] * 1e3,
+                units_per_sec=rate, unit=unit, mfu=mfu, mfu_gauge=gauge,
+                mfu_formula=want, flops_per_unit=flops,
+                peak_bytes_in_use=mem[0]["peak_bytes_in_use"],
+                bytes_limit=mem[0]["bytes_limit"],
+                stall_frac=rec["stall_frac"],
+                train_seconds=rec["train_seconds"])
+
+
+def check_window(tag, ckdir, kernels) -> dict:
+    """A window epoch's trace: one file, exactly 2 ``train`` step
+    regions, and the path's hand kernels among its kernels."""
+    traces = sorted((Path(ckdir).resolve() / "profile").glob(
+        "*.pt.trace.json"))
+    check(len(traces) == 1, f"{tag}: traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    steps = [e for e in events if e.get("name") == "train"
+             and e.get("cat") == "user_annotation"]
+    check(len(steps) == 2, f"{tag}: the window holds {len(steps)} train "
+          "step regions (want 2)")
+    labels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            label = kernel_label(e["name"])
+            labels[label] = labels.get(label, 0) + 1
+    found = {k: sum(n for label, n in labels.items() if k in label)
+             for k in kernels}
+    check(all(found.values()), f"{tag}: hand kernels in the window's trace "
+          f"{found}")
+    return dict(trace=str(traces[0].relative_to(ROOT)),
+                trace_bytes=traces[0].stat().st_size,
+                train_regions=len(steps), kernels=sum(labels.values()),
+                hand_kernels=found)
+
+
+def check_syncs(tag, on, off, window) -> dict:
+    """An obs-on epoch issues as many port syncs as a --no-obs one; a
+    window epoch 2 more (its two edge fences)."""
+    counts = {"obs_on": on.port, "no_obs": off.port, "window": window.port,
+              "all_calls": {"obs_on": on.calls, "no_obs": off.calls,
+                            "window": window.calls}}
+    check(on.port == off.port and window.port == on.port + 2,
+          f"{tag}: torch.cuda.synchronize calls from tpunet_torch {counts}")
+    return counts
+
+
+def summarize_run(records) -> dict:
+    """tpunet_torch.obs.summary.summarize over a run's records (this host
+    has no JAX, so tpunet.obs cannot import here): its step-time
+    figures."""
+    from tpunet_torch.obs.summary import summarize
+
+    s = summarize(records)
+    return dict(totals=s["totals"], step_time_p50_s=[
+        r.get("step_time_p50_s") for r in s["obs_epochs"]])
+
+
+class ExportListeners:
+    """A UDP socket (statsd) and an HTTP listener (line-JSON) on
+    127.0.0.1, each collecting what it receives on a thread."""
+
+    def __enter__(self):
+        import socket
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.udp_lines, self.http_lines = [], []
+        self.udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.udp.bind(("127.0.0.1", 0))
+        self.udp.settimeout(0.2)
+        self._stop = threading.Event()
+        sink = self.http_lines
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                sink.extend(self.rfile.read(n).decode().splitlines())
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._threads = [threading.Thread(target=self._recv, daemon=True),
+                         threading.Thread(target=self.httpd.serve_forever,
+                                          daemon=True)]
+        for th in self._threads:
+            th.start()
+        return self
+
+    def _recv(self):
+        while not self._stop.is_set():
+            try:
+                data = self.udp.recv(65536)
+            except OSError:
+                continue
+            self.udp_lines.extend(data.decode().splitlines())
+
+    @property
+    def flags(self):
+        return ("--statsd", f"127.0.0.1:{self.udp.getsockname()[1]}",
+                "--obs-http", f"http://127.0.0.1:{self.httpd.server_port}/")
+
+    def __exit__(self, *exc):
+        time.sleep(0.5)       # datagrams in flight on the loopback
+        self._stop.set()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        for th in self._threads:
+            th.join(timeout=5)
+        self.udp.close()
+
+
+def check_exports(tag, listeners, records) -> dict:
+    """The statsd line of the epoch's MFU, the obs_epoch line over HTTP,
+    and the ``mfu > 0`` rule's alert after the obs_epoch record."""
+    mfu_lines = [line for line in listeners.udp_lines
+                 if re.match(r"tpunet\.obs_epoch\.mfu:[-+.e0-9]+\|g(\||$)",
+                             line)]
+    http_kinds = [json.loads(line).get("kind")
+                  for line in listeners.http_lines if line.strip()]
+    kinds = [(r.get("kind"), r.get("reason")) for r in records]
+    epoch_at = kinds.index(("obs_epoch", None)) \
+        if ("obs_epoch", None) in kinds else None
+    alert_at = [i for i, k in enumerate(kinds)
+                if k == ("obs_alert", "gauge_predicate")]
+    check(bool(mfu_lines), f"{tag}: no tpunet.obs_epoch.mfu gauge line in "
+          f"{len(listeners.udp_lines)} statsd lines")
+    check("obs_epoch" in http_kinds, f"{tag}: HTTP kinds {http_kinds}")
+    check(epoch_at is not None and any(i > epoch_at for i in alert_at),
+          f"{tag}: no gauge_predicate obs_alert after the obs_epoch record "
+          f"in {kinds}")
+    return dict(statsd_lines=len(listeners.udp_lines),
+                statsd_mfu_line=mfu_lines[0], http_lines=len(http_kinds),
+                http_kinds=sorted(set(http_kinds) - {None}),
+                rule_alerts=len(alert_at))
+
 
 # ---------------------------------------------------------------------------
 # Data parallelism
@@ -1623,10 +2019,10 @@ def phase_dp_trainer(torch, single_epoch, single_step_ms) -> None:
     wall = time.perf_counter() - t0
     check("Processes: 1 (nccl), global batch 128" in out,
           f"the distributed CLI did not report NCCL at world 1: {out[:2000]}")
-    lines = (ckdir / "metrics.jsonl").read_text().splitlines()
-    check(len(lines) == 1 and (ckdir / "best.pth").exists(),
+    plain = plain_records(ckdir)
+    check(len(plain) == 1 and (ckdir / "best.pth").exists(),
           f"files in {ckdir}: {sorted(p.name for p in ckdir.iterdir())}")
-    rec = json.loads(lines[0])
+    rec = plain[0]
     keys = ("train_loss", "train_accuracy", "test_loss", "test_accuracy")
     diff = {k: rec[k] - single_epoch[k] for k in keys}
     bit_equal = all(rec[k] == single_epoch[k] for k in keys)
@@ -2455,14 +2851,31 @@ def run_cli(args, timeout=600) -> str:
     return out.stdout
 
 
-def phase_lm_trainer(torch) -> None:
+def run_cli_here(torch, args) -> tuple:
+    """``python -m tpunet_torch.train`` with ``args`` in this process
+    (its entry point, ``__main__.run``): (the closed Trainer, its
+    stdout), so that its syncs can be counted and its gauges read."""
+    import contextlib
+    import io
+
+    from tpunet_torch.train import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = cli.run(list(args))
+    return trainer, buf.getvalue()
+
+
+def phase_lm_trainer(torch, sync_step_ms=None) -> None:
     """The training CLI on the LM: one synthetic_lm epoch (1,024 train
-    and 256 test sequences) and --eval-only of its best.pth, which must
-    read the epoch's test accuracy; one packed text_lm epoch on the
+    and 256 test sequences, in this process, obs on: check_obs_epoch)
+    and --eval-only of its best.pth, which must read the epoch's test
+    accuracy; the same epoch with --no-obs and with a 2-step profile
+    window (check_syncs, check_window); one packed text_lm epoch on the
     corpus; then the generate CLI on that run."""
     import re
 
-    runs = {}
+    runs, obs = {}, {}
     for tag, data in (
             ("synthetic_lm", ("--dataset", "synthetic_lm",
                               "--synthetic-size", "1024")),
@@ -2474,24 +2887,64 @@ def phase_lm_trainer(torch) -> None:
                  *data, "--batch-size", str(LM_BATCH), "--checkpoint-dir",
                  str(ckdir))
         t0 = time.perf_counter()
-        out = run_cli([*flags, "--epochs", "1"])
+        if tag == "synthetic_lm":
+            torch.cuda.reset_peak_memory_stats()
+            with SyncCounter(torch) as on_sync:
+                trainer, out = run_cli_here(torch, [*flags[1:], "--epochs",
+                                                    "1"])
+        else:
+            out = run_cli([*flags, "--epochs", "1"])
         wall = time.perf_counter() - t0
         check(re.search(r"^Epoch 1/1 Time: ", out, re.M) is not None,
               f"{tag}: no epoch line in {out[-1000:]}")
-        rec = json.loads((ckdir / "metrics.jsonl").read_text()
-                         .splitlines()[-1])
+        records = read_records(ckdir)
+        rec = [r for r in records if "kind" not in r][-1]
         check(all(math.isfinite(rec[k]) for k in ("train_loss", "test_loss"))
               and rec["tokens_per_sec"] > 0, f"{tag}: epoch record {rec}")
         check((ckdir / "best.pth").exists() and (ckdir / "state.pt").exists(),
               f"{tag}: files {sorted(p.name for p in ckdir.iterdir())}")
         found = None
         if tag == "synthetic_lm":
+            obs = check_obs_epoch(torch, "lm_trainer", trainer, records)
+            del trainer
+            summary = summarize_run(records)
             out = run_cli([*flags, "--eval-only"])
             found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out)
             check(found is not None and abs(float(found.group(2))
                                             - rec["test_accuracy"]) < 5e-5,
                   f"--eval-only read {found and found.group(0)}, the epoch "
                   f"{rec['test_accuracy']}")
+            per_sec = {"obs_on": rec["tokens_per_sec"]}
+            counters = {}
+            for variant, extra in (("no_obs", ("--no-obs",)),
+                                   ("window", OBS_WINDOW)):
+                vdir = ckdir.with_name(ckdir.name + "_" + variant)
+                shutil.rmtree(vdir, ignore_errors=True)
+                torch.cuda.reset_peak_memory_stats()
+                with SyncCounter(torch) as counters[variant]:
+                    vt, _ = run_cli_here(torch, [
+                        *flags[1:-1], str(vdir), "--epochs", "1", *extra])
+                vrec = read_records(vdir)
+                per_sec[variant] = vrec[0]["tokens_per_sec"]
+                if variant == "no_obs":
+                    check(len(vrec) == 1 and "kind" not in vrec[0],
+                          f"lm_trainer: the --no-obs run wrote {vrec}")
+                else:
+                    win_obs = check_obs_epoch(torch, "lm_trainer window", vt,
+                                              vrec)
+                    window = check_window("lm_trainer", vdir,
+                                          FLASH_WINDOW_KERNELS)
+                del vt
+            syncs = check_syncs("lm_trainer", on_sync, counters["no_obs"],
+                                counters["window"])
+            torch.cuda.empty_cache()
+            emit("lm_trainer_obs", obs_epoch=obs,
+                 sync_step_ms_p50=sync_step_ms,
+                 step_lap_p50_ms=obs["step_time_p50_ms"],
+                 obs_epoch_per_sec={"obs_on": obs["units_per_sec"],
+                                    "window": win_obs["units_per_sec"]},
+                 epoch_record_per_sec=per_sec, syncs=syncs, window=window,
+                 summary=summary)
         runs[tag] = dict(epoch_record=rec, wall_s=wall,
                          eval_only_line=found and found.group(0))
     text = run_cli(["tpunet_torch.infer.generate", "--checkpoint-dir",
@@ -3176,7 +3629,9 @@ def main() -> int:
         train_rows = phase_train_kernels(torch)
         serve_launches = phase_main_path(torch)
         launches, images_per_s, dp_ref = phase_train(torch)
-        epoch = phase_trainer(torch)
+        phase_train_b512(torch)
+        epoch = phase_trainer(torch, sync_step_ms=dp_ref["step_ms"],
+                              exporters=True)
         torch.cuda.empty_cache()
         phase_dp_step(torch, dp_ref)
         phase_dp_trainer(torch, epoch, dp_ref["step_ms"])
@@ -3188,11 +3643,14 @@ def main() -> int:
         vit_launches, vit_images_per_s = phase_vit_train(torch, state)
         from tpunet_torch.config import ModelConfig
         phase_trainer(torch, ModelConfig(name="vit_base"),
-                      ("--model", "vit_base"), "vit_trainer")
+                      ("--model", "vit_base"), "vit_trainer",
+                      sync_step_ms=TRAIN_BATCH / vit_images_per_s * 1e3,
+                      window_kernels=FLASH_WINDOW_KERNELS)
         torch.cuda.empty_cache()
         lm_rows = phase_lm_kernels(torch)
         lm_launches, lm_tokens_per_s = phase_lm_train(torch)
-        phase_lm_trainer(torch)
+        phase_lm_trainer(torch,
+                         sync_step_ms=LM_BATCH * LM_T / lm_tokens_per_s * 1e3)
         lm_gen = phase_lm_generate(torch)
         serve = phase_serve_engine(torch)
     except PhaseError as e:

@@ -17,9 +17,7 @@ a loss differs by more than 1e-2 relative or an accuracy by more than
 and Adam's first updates turn gradients that are rounding noise into
 full steps. Full width, 224 px, bf16 and the hand-written kernels by
 default, at 32 images a rank: the one-rank run holds the whole global
-batch on one card, and the fused-IR backward's grid takes at most
-65,535 blocks of 64 rows, 334 images at 224 px (128 at 4 ranks is the
-``single`` preset's batch).
+batch on one card (128 at 4 ranks is the ``single`` preset's batch).
 """
 
 from __future__ import annotations
@@ -58,10 +56,13 @@ def epoch(nproc: int, batch: int, directory: Path, flags) -> dict:
     if run.returncode != 0:
         raise SystemExit(f"{nproc} ranks exited {run.returncode}:\n"
                          f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
-    lines = (directory / "metrics.jsonl").read_text().splitlines()
+    # The plain epoch records; the obs records share the file.
+    lines = [line for line in
+             (directory / "metrics.jsonl").read_text().splitlines()
+             if line.strip() and '"kind"' not in line]
     if len(lines) != 1:
         raise SystemExit(f"{directory}/metrics.jsonl has {len(lines)} "
-                         "records, want 1 (rank 0 alone writes)")
+                         "epoch records, want 1 (rank 0 alone writes)")
     return dict(json.loads(lines[0]), stdout_head=run.stdout[:300])
 
 

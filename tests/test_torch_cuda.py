@@ -339,6 +339,41 @@ def _check_fused_bf16(x, w, g, y, chan, act):
     return yk, s, dx, dw
 
 
+# Batch 512's 112 px rows: 100,352 row tiles, past grid y's 65,535. The
+# 112 px expand (one pass, bf16), the 112 px project in float32 (SIMT dx
+# over two row ranges) and a bf16 32 -> 192 (two kernels, dx over two
+# row ranges).
+BIG_M = 512 * 112 * 112
+
+
+@pytest.mark.parametrize("ci,co,dtype,design", [
+    (16, 96, torch.bfloat16, "one_pass"), (32, 16, torch.float32, "simt"),
+    (32, 192, torch.bfloat16, "two_kernel")], ids=str)
+def test_fused_ir_backward_past_the_grid_row_limit(cuda, ci, co, dtype,
+                                                   design):
+    """The backward at m = 512 x 112 x 112 against its plain version, at
+    the tolerances of test_fused_ir_backward_kernel_vs_plain."""
+    plan = fused_ir.backward_plan(BIG_M, ci, co, dtype,
+                                  torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+    assert plan.design == design
+    x, w = _fused_inputs(BIG_M, ci, co, dtype, 13)
+    g, y, chan = _fused_grad_inputs(BIG_M, co, 14)
+    g, y = g.to(dtype), y.to(dtype)
+    before = fused_ir.fused_ir_backward.launches
+    dx, dw = fused_ir.fused_ir_backward(x, g, y, w, chan, True)
+    assert fused_ir.fused_ir_backward.launches == before + 1
+    pdx, pdw = fused_ir.fused_ir_backward_reference(x, g, y, w, chan, True)
+    t = fused_ir.grad_conv_out(g, y, chan, True).abs()
+    torch.cuda.synchronize()
+    tol = 1e-5 * (t @ w.float().abs().t())
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(pdx.float())
+    assert bool(((dx.float() - pdx.float()).abs() <= tol).all())
+    assert bool(((dw - pdw).abs() <= 1e-5 * (x.float().abs().t() @ t)
+                 + 1e-30).all())
+
+
 @pytest.mark.parametrize("act", [True, False])
 @pytest.mark.parametrize("shape", TC_FUSED, ids=str)
 def test_fused_ir_tensor_core_kernels_vs_plain(cuda, shape, act):

@@ -158,7 +158,11 @@ MNV2_FUSED = [(112, 16, 96), (56, 24, 144), (28, 32, 192), (14, 64, 384),
 PLAN_SHAPES = ([(b * h * h, ci, co) for b in (8, 128)
                 for h, ci, co in MNV2_FUSED]
                + [(1000, 13, 24), (777, 96, 10), (63, 13, 24), (25, 8, 10),
-                  (1, 16, 16), (128, 16, 24), (1000, 144, 24)])
+                  (1, 16, 16), (128, 16, 24), (1000, 144, 24)]
+               # Batch 512's 112 px layers: 100,352 row tiles, past grid
+               # y's 65,535.
+               + [(512 * 112 * 112, ci, co)
+                  for h, ci, co in MNV2_FUSED if h == 112])
 SMS = 132   # the H100's SMs
 
 
@@ -222,8 +226,10 @@ def test_backward_plan_covers_dx_and_dw_once(shape, dtype):
     assert p.scratch_bytes == p.partials * ci * co * 4
     assert p.partials == 1 or \
         p.scratch_bytes <= m * (ci + co) * elem // 4
-    assert tiles <= 65535 and 1 <= p.partials <= 65535
+    assert 1 <= p.partials <= 65535
     if p.design == "one_pass":
+        # Persistent blocks over any number of tiles: dx in one launch.
+        assert p.dx_rows == m
         assert p.blocks == p.partials <= tiles and p.span == p.tile_rows
         rows = _cover(m, [t * p.tile_rows for b in range(p.blocks)
                           for t in range(b, tiles, p.blocks)], p.tile_rows)
@@ -241,7 +247,12 @@ def test_backward_plan_covers_dx_and_dw_once(shape, dtype):
         assert p.smem_bytes == pfi.one_pass_smem(ci, co) <= pfi._MAX_SMEM
         assert p.t_rows == p.t_bytes == 0
     else:
-        # dx: every row tile by every strip of 64 Ci columns.
+        # dx: every row tile by every strip of 64 Ci columns, launched
+        # over row ranges of at most 65535 tiles (grid y).
+        assert p.dx_rows % p.tile_rows == 0
+        assert 1 <= p.dx_rows // p.tile_rows <= 65535
+        launches = _cover(m, range(0, m, p.dx_rows), p.dx_rows)
+        assert (launches == 1).all()
         assert p.strip == 64 and p.smem_bytes == 0
         cols = _cover(ci, range(0, ci, p.strip), p.strip)
         assert (cols == 1).all()

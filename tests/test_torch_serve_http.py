@@ -332,10 +332,7 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
         assert e.value.code == 2
     base = ["--checkpoint-dir", "", "--device", "cpu", "--max-seq-len", "64",
             "--prefill-buckets", "16"]
-    for extra, item in ((["--statsd", "h:1"], "item 7"),
-                        (["--obs-http", "u"], "item 7"),
-                        (["--obs-webhook", "u"], "item 7"),
-                        (["--mesh-model", "2"], "item 8"),
+    for extra, item in ((["--mesh-model", "2"], "item 8"),
                         (["--model", "lm_pp"], "item 8"),
                         (["--moe-experts", "4"], "item 8"),
                         (["--kv-dtype", "int8"], "item 5"),
@@ -347,6 +344,22 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
             build_server(build_argparser().parse_args(base + extra))
         assert e.value.code == 2
         assert item in capsys.readouterr().err
+    # The exporters are ported: --statsd builds a statsd exporter on the
+    # registry, and a malformed --obs-http or --obs-webhook URL fails at
+    # setup, as tpunet's serve CLI does.
+    tiny = base + ["--vit-hidden", "32", "--vit-depth", "2",
+                   "--vit-heads", "2"]
+    srv = build_server(build_argparser().parse_args(
+        tiny + ["--statsd", "127.0.0.1:1"])).start()
+    try:
+        assert [e.name for e in srv._exporters] == ["statsd"]
+        assert srv._exporters[0] in srv.registry._sinks
+    finally:
+        srv.drain(timeout=5.0)
+    for extra, match in ((["--obs-http", "u"], "--obs-http"),
+                         (["--obs-webhook", "u"], "webhook")):
+        with pytest.raises(ValueError, match=match):
+            build_server(build_argparser().parse_args(tiny + extra))
 
 
 def test_two_port_replicas_behind_the_reference_router(lm):

@@ -242,8 +242,8 @@ def test_cli_epoch_best_pth_and_eval_only(tmp_path, capsys):
     assert _cli(tmp_path, "--epochs", "1") == 0
     out = capsys.readouterr().out
     assert re.search(r"^Epoch 1/1 Time: .* Test Acc: [\d.]+$", out, re.M)
-    record = json.loads((tmp_path / "metrics.jsonl").read_text()
-                        .splitlines()[-1])
+    record = [json.loads(line) for line in (tmp_path / "metrics.jsonl")
+              .read_text().splitlines() if '"kind"' not in line][-1]
     cfg, _ = cli.config_from_args(["--preset", "serial", *CLI_VIT,
                                    "--image-size", str(SIZE)])
     model = create_model(cfg.model, device="cpu", image_size=SIZE)

@@ -14,17 +14,26 @@ writes and then every rank passes a barrier, so a file is complete
 before any rank goes on; every rank reads the same file when it
 restores (tpunet restores on every process). The JAX package's Orbax
 layout and its asynchronous saves do not carry over.
+
+With an ``Observability`` (``obs=``), a save runs under the spans
+``tpunet/ckpt_dispatch`` (the copy to host memory) and
+``tpunet/ckpt_wait`` (the write and the barrier), as tpunet's do; each
+``state.pt`` save counts into ``ckpt_saves``, and the host time every
+save holds the loop counts into ``ckpt_wait_s`` (a synchronous save
+holds it for all of its write), so ``obs_epoch`` carries both.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
+import time
 from typing import Any, Dict, Optional
 
 import torch
 
 from tpunet_torch.config import CheckpointConfig
+from tpunet_torch.obs.spans import NULL_SPAN
 from tpunet_torch.parallel.dist import sync_hosts
 from tpunet_torch.utils.logging import is_coordinator
 
@@ -43,24 +52,37 @@ def _cpu(obj: Any) -> Any:
 
 
 class Checkpointer:
-    def __init__(self, cfg: CheckpointConfig):
+    def __init__(self, cfg: CheckpointConfig, obs=None):
         self.directory = cfg.directory
+        self._obs = obs
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
+    def _span(self, name: str):
+        return NULL_SPAN if self._obs is None else self._obs.span(name)
+
     def _save(self, obj: Any, name: str) -> str:
-        if is_coordinator():
-            os.makedirs(self.directory, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
-            os.close(fd)
-            try:
-                torch.save(_cpu(obj), tmp)
-                os.replace(tmp, self._path(name))
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        sync_hosts(f"saved-{name}")
+        coordinator = is_coordinator()
+        with self._span("tpunet/ckpt_dispatch"):
+            snap = _cpu(obj) if coordinator else None
+        t0 = time.perf_counter()
+        with self._span("tpunet/ckpt_wait"):
+            if coordinator:
+                os.makedirs(self.directory, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(dir=self.directory,
+                                           suffix=".part")
+                os.close(fd)
+                try:
+                    torch.save(snap, tmp)
+                    os.replace(tmp, self._path(name))
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+            sync_hosts(f"saved-{name}")
+        if self._obs is not None:
+            self._obs.registry.counter("ckpt_wait_s").inc(
+                time.perf_counter() - t0)
         return self._path(name)
 
     def save_best(self, model: torch.nn.Module) -> str:
@@ -69,6 +91,8 @@ class Checkpointer:
 
     def save_state(self, payload: Dict[str, Any]) -> str:
         """Write ``state.pt``."""
+        if self._obs is not None:
+            self._obs.registry.counter("ckpt_saves").inc()
         return self._save(payload, STATE)
 
     def best_path(self) -> Optional[str]:

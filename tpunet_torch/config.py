@@ -437,6 +437,124 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ExportConfig:
+    """Live telemetry export (tpunet_torch/obs/export/): push finished obs
+    records to off-host endpoints through a bounded queue drained by a
+    background thread — a dead endpoint can never stall a step; full
+    queues drop and count (``export_*_dropped``). Coordinator-only,
+    like the metrics.jsonl writes."""
+
+    statsd: str = ""                  # "HOST:PORT" UDP statsd endpoint
+    statsd_prefix: str = "tpunet"
+    http: str = ""                    # line-JSON POST URL
+    # Alert webhook (tpunet_torch/obs/export/webhook.py): POST one templated
+    # JSON payload per obs_alert / obs_crash / obs_regression record
+    # (--obs-webhook URL). Retries with backoff; exhausted pages land
+    # in the dead-letter list and the webhook_dead_letter counter.
+    webhook: str = ""
+    webhook_max_retries: int = 3
+    webhook_backoff_s: float = 0.25
+    # Bounded export queue: put_nowait from the step path; overflow
+    # drops (counted) rather than blocking.
+    queue_size: int = 1024
+    # close() flush budget and the per-request HTTP socket timeout.
+    flush_timeout_s: float = 5.0
+    http_timeout_s: float = 1.0
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Step-level observability (tpunet_torch/obs/): per-step timing
+    histograms, throughput/MFU and input-stall accounting, epoch-
+    boundary device-memory gauges and multi-host heartbeat, all
+    emitted as ``obs_epoch`` records into ``metrics.jsonl``.
+
+    The default path is deliberately sync-free: every number is a
+    host-side ``perf_counter`` lap or an epoch-boundary runtime query,
+    so enabling it adds no device round-trips to the step loop."""
+
+    enabled: bool = True
+    # Emit an ``obs_step`` record every N steps (0 = per-epoch records
+    # only). Host-side values only — no device sync either way.
+    step_records_every: int = 0
+    # Windowed profiling: capture a torch.profiler trace for exactly
+    # [profile_start_step, profile_start_step + profile_num_steps).
+    # num_steps == 0 traces from start_step to the end of the run
+    # (with both at 0 and --profile-dir set: the old whole-run trace);
+    # either knob without --profile-dir writes under
+    # <checkpoint-dir>/profile.
+    profile_start_step: int = 0
+    profile_num_steps: int = 0
+    # Histogram memory bound: windows beyond this many observations
+    # switch from exact percentiles to seeded reservoir sampling
+    # (count/mean stay exact; the summary carries ``approx: 1``).
+    histogram_max_samples: int = 65536
+    # --obs-hbm-attrib: once, at the first step, AOT-compile the train
+    # step and decompose its cost-analysis HBM bytes by op category
+    # into the hbm_bytes_per_image_* gauge family
+    # (tpunet/obs/hlo_bytes.py). Off by default: the extra lowering is
+    # one redundant compile (cheap under the persistent cache, not
+    # free).
+    hbm_attrib: bool = False
+    # -- run-health watchdog (tpunet_torch/obs/health.py) -----------
+    # A step slower than stall_factor x the rolling median (and at
+    # least stall_min_s) emits a step_stall obs_alert. 0 disables.
+    stall_factor: float = 10.0
+    stall_min_s: float = 1.0
+    # A host-available loss above loss_spike_factor x its warmed-up
+    # EMA emits a loss_spike alert (non-finite always alerts). 0
+    # disables spike detection.
+    loss_spike_factor: float = 5.0
+    # No heartbeat for this long emits stale_heartbeat; 0 (default)
+    # disables — epoch length varies too much for a universal budget.
+    heartbeat_timeout_s: float = 0.0
+    # Same-reason alerts within this many steps are suppressed
+    # (counted in obs_alerts_suppressed) so a stall pages once.
+    alert_cooldown_steps: int = 50
+    # Fatal alerts raise RunUnhealthyError instead of just recording:
+    # the --halt-on-unhealthy knob, for runs nobody is watching.
+    halt_on_unhealthy: bool = False
+    # Run identity (docs/metrics_schema.md "Run identity"): every
+    # emitted record is stamped run_id/process_index/host so a fleet
+    # aggregator can route streams. Empty = generate (and persist
+    # under <checkpoint-dir>/run_id; --resume reuses it, so a
+    # preemption restore continues the same stream).
+    run_id: str = ""
+    # Operator GaugePredicate alert rules over exported gauges,
+    # evaluated each epoch against registry.snapshot(): "NAME > N",
+    # "NAME < N", or "NAME + N/s" (growth rate). Fired rules emit
+    # gauge_predicate obs_alerts (--obs-rule, repeatable).
+    gauge_rules: Tuple[str, ...] = ()
+    # Proactive checkpoint-and-evict (--evict-on-straggler,
+    # docs/elasticity.md): a straggler-shaped watchdog alert on THIS
+    # replica (step_stall / thread_stalled) triggers the agreed stop
+    # with an evict marker — the pod checkpoints now and re-meshes
+    # without the slow host instead of letting it stall every step.
+    # Off by default; meaningful under the elastic agent.
+    evict_on_straggler: bool = False
+    # -- flight recorder (tpunet_torch/obs/flightrec/) --------------
+    # Always-on black box: a crash-durable mmap ring of recent
+    # structured events, faulthandler + native SIGSEGV/SIGABRT/SIGBUS
+    # hooks, the host-thread registry, and a post-mortem watcher that
+    # materializes <checkpoint-dir>/flightrec/crash_report.json when
+    # the process dies uncleanly. Near-zero cost (~1-2 us per event,
+    # no syscalls on the step path); --no-flightrec disables.
+    flightrec: bool = True
+    # Event-ring capacity (slots; the file is ~120 bytes per slot).
+    flightrec_events: int = 1024
+    export: ExportConfig = field(default_factory=ExportConfig)
+
+    def __post_init__(self):
+        if self.hbm_attrib:
+            raise NotImplementedError(
+                "ObsConfig.hbm_attrib (--obs-hbm-attrib) is scoped out of "
+                "tpunet_torch: it parses XLA HLO and xprof output and has "
+                "no torch counterpart")
+        _refuse_unported(self, {
+            "evict_on_straggler": "Queue A item 9 (the elastic agent)"})
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Top-level training config."""
 
@@ -444,10 +562,12 @@ class TrainConfig:
     seed: int = 42                    # reference torch.manual_seed(42)
     eval_only: bool = False
     log_every_steps: int = 0          # 0 -> per-epoch only, like the reference
+    profile_dir: str = ""             # non-empty -> torch.profiler traces
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def __post_init__(self):
         # tpunet's cross-checks (tpunet/train/loop.py:55-66, 159-176).

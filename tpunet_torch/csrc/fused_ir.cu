@@ -1125,11 +1125,20 @@ extern "C" int tpunet_fused_ir_bwd(const void* x, const void* g,
                                    const void* chan, void* dx, void* dwp,
                                    void* tbuf, int64_t m, int ci, int co,
                                    int act, int design, int p, int64_t span,
-                                   int rows_t, int dtype, void* stream) {
+                                   int rows_t, int64_t dx_rows, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = (m + kRows - 1) / kRows;
-  if (m < 1 || ci < 1 || co < 1 || p < 1 || span < 1 || tiles > 65535)
+  if (m < 1 || ci < 1 || co < 1 || p < 1 || span < 1)
     return int(cudaErrorInvalidValue);
+  // The tile-indexed dx kernels take row tiles on grid y (at most 65535
+  // a launch): they run over row ranges of dx_rows rows, a whole number
+  // of tiles, each launch on pointers offset to its range. The one-pass
+  // kernel's persistent blocks walk any number of tiles.
+  const bool dx_ok = design == 1 || (dx_rows >= kRows &&
+                                     dx_rows % kRows == 0 &&
+                                     dx_rows / kRows <= 65535);
+  if (!dx_ok) return int(cudaErrorInvalidValue);
   const int cip = round16(ci), cop = round16(co);
   const int vec = ci % 8 == 0 && co % 8 == 0 && aligned16(x) &&
                   aligned16(g) && aligned16(y) && aligned16(w);
@@ -1142,10 +1151,13 @@ extern "C" int tpunet_fused_ir_bwd(const void* x, const void* g,
   if (design == 0 && dtype == 0 && (m + span - 1) / span == p && p <= 65535) {
     const float* gt = static_cast<const float*>(g);
     const float* yt = static_cast<const float*>(y);
-    const dim3 grid_dx((ci + BN - 1) / BN, unsigned(tiles));
-    fused_ir_bwd_dx<<<grid_dx, kThreads, 0, s>>>(
-        gt, yt, static_cast<const float*>(w), ct, static_cast<float*>(dx), m,
-        ci, co, act);
+    for (int64_t r0 = 0; r0 < m; r0 += dx_rows) {
+      const int64_t rows = m - r0 < dx_rows ? m - r0 : dx_rows;
+      const dim3 grid_dx((ci + BN - 1) / BN, unsigned((rows + BM - 1) / BM));
+      fused_ir_bwd_dx<<<grid_dx, kThreads, 0, s>>>(
+          gt + r0 * co, yt + r0 * co, static_cast<const float*>(w), ct,
+          static_cast<float*>(dx) + r0 * ci, rows, ci, co, act);
+    }
     const dim3 grid_dw((co + BN - 1) / BN, (ci + BM - 1) / BM, p);
     fused_ir_bwd_dw<<<grid_dw, kThreads, 0, s>>>(
         static_cast<const float*>(x), gt, yt, ct, static_cast<float*>(dwp), m,
@@ -1180,25 +1192,30 @@ extern "C" int tpunet_fused_ir_bwd(const void* x, const void* g,
       tvec = ci % 8 == 0 && co % 8 == 0 && aligned16(x) && aligned16(w) &&
              aligned16(th) && aligned16(tl);
     }
-    const dim3 grid_dx((cip + kTile - 1) / kTile, unsigned(tiles));
     const dim3 grid_dw((co + kTile - 1) / kTile, (ci + kTile - 1) / kTile, p);
-    if (build) {
-      err = launch_smem(fused_ir_bwd_dx_mma<true>, grid_dx, dx_smem(true), s,
-                        ta, tb, wb, ct, static_cast<bf16*>(dx), m, ci, co, act,
-                        tvec);
-      if (err == cudaSuccess)
-        err = launch_smem(fused_ir_bwd_dw_mma<true>, grid_dw, dw_smem(true), s,
-                          xb, ta, tb, ct, static_cast<float*>(dwp), m, ci, co,
-                          act, span, tvec);
-    } else {
-      err = launch_smem(fused_ir_bwd_dx_mma<false>, grid_dx, dx_smem(false), s,
-                        ta, tb, wb, ct, static_cast<bf16*>(dx), m, ci, co, act,
-                        tvec);
-      if (err == cudaSuccess)
-        err = launch_smem(fused_ir_bwd_dw_mma<false>, grid_dw, dw_smem(false),
-                          s, xb, ta, tb, ct, static_cast<float*>(dwp), m, ci,
-                          co, act, span, tvec);
+    // Offsets of whole tiles keep the 16-byte alignment tvec checked.
+    for (int64_t r0 = 0; r0 < m && err == cudaSuccess; r0 += dx_rows) {
+      const int64_t rows = m - r0 < dx_rows ? m - r0 : dx_rows;
+      const dim3 grid_dx((cip + kTile - 1) / kTile,
+                         unsigned((rows + kRows - 1) / kRows));
+      err = build ? launch_smem(fused_ir_bwd_dx_mma<true>, grid_dx,
+                                dx_smem(true), s, ta + r0 * co, tb + r0 * co,
+                                wb, ct, static_cast<bf16*>(dx) + r0 * ci,
+                                rows, ci, co, act, tvec)
+                  : launch_smem(fused_ir_bwd_dx_mma<false>, grid_dx,
+                                dx_smem(false), s, ta + r0 * co, tb + r0 * co,
+                                wb, ct, static_cast<bf16*>(dx) + r0 * ci,
+                                rows, ci, co, act, tvec);
     }
+    if (err == cudaSuccess)
+      err = build ? launch_smem(fused_ir_bwd_dw_mma<true>, grid_dw,
+                                dw_smem(true), s, xb, ta, tb, ct,
+                                static_cast<float*>(dwp), m, ci, co, act, span,
+                                tvec)
+                  : launch_smem(fused_ir_bwd_dw_mma<false>, grid_dw,
+                                dw_smem(false), s, xb, ta, tb, ct,
+                                static_cast<float*>(dwp), m, ci, co, act, span,
+                                tvec);
   } else {
     return int(cudaErrorInvalidValue);
   }

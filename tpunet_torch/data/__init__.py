@@ -8,4 +8,4 @@ from tpunet_torch.data.lm import (get_lm_dataset, synthetic_lm,  # noqa: F401
                                   text_lm, text_lm_packed)
 from tpunet_torch.data.pipeline import (eval_batches,  # noqa: F401
                                         host_index_sequence, steps_per_epoch,
-                                        train_batches)
+                                        timed_batches, train_batches)

@@ -8,13 +8,42 @@ remainder is dropped; evaluation pads the final batch with masked
 examples so test metrics are exact. Rows are images (uint8) or token
 rows (int32 [T]); labels are per-example scalars or, for packed token
 rows, per-token segment ids [T], and padding keeps their trailing shape.
+``timed_batches`` (a copy too) reports the host time each fetch blocks.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import time
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
+
+
+def timed_batches(batches: Iterable, on_wait: Callable[[float], None],
+                  wait_ctx: Optional[Callable] = None) -> Iterator:
+    """Wrap a batch iterator, reporting host time blocked per fetch.
+
+    ``on_wait(seconds)`` receives the ``perf_counter`` lap spent inside
+    each ``next()`` — with the numpy iterators that is fancy-indexing
+    cost — i.e. the input-stall side of the stall-vs-compute split the
+    obs epoch record reports. ``wait_ctx()`` (optional) supplies a context
+    manager entered around the fetch, so the wait shows up as a
+    labeled span in profiler traces. Works with any iterable; the
+    trainer points it at train_batches.
+    """
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            if wait_ctx is not None:
+                with wait_ctx():
+                    batch = next(it)
+            else:
+                batch = next(it)
+        except StopIteration:
+            return
+        on_wait(time.perf_counter() - t0)
+        yield batch
 
 
 def _epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:

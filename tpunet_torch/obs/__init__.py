@@ -1,6 +1,408 @@
-"""Observability of the serving path: the metrics registry (``registry``),
-the flight recorder (``flightrec``), request tracing (``tracing``) and
-profiler spans (``spans``). The first three are copies of the JAX
-package's framework-free modules; the rest of ``tpunet/obs`` (health,
-MFU, memory gauges, the windowed profiler, exporters) is ROADMAP Queue A
-item 7."""
+"""Step-level observability subsystem, the port's counterpart of
+``tpunet/obs/``.
+
+One ``Observability`` object per run orchestrates the pieces:
+
+- ``registry``   — counters / gauges / histograms (p50/p90/p99) with
+  pluggable sinks: the run's ``metrics.jsonl`` (``JsonlSink``) and an
+  in-memory sink for tests (``MemorySink``).
+- ``spans``      — ``torch.profiler.record_function`` regions (and NVTX
+  ranges) labeling step / data-wait / eval / checkpoint phases, plus
+  ``WindowedProfiler`` (trace exactly steps
+  ``[profile_start_step, profile_start_step + profile_num_steps)``).
+- ``perf``       — analytic model FLOPs -> MFU, the card's peak lookup.
+- ``memory``     — the CUDA caching allocator's memory gauges and the
+  coordinator-side multi-process heartbeat, sampled at epoch
+  boundaries.
+- ``export``     — live off-host telemetry (StatsD/UDP, line-JSON
+  HTTP, alert webhooks) behind a bounded queue + drain thread: a dead
+  endpoint costs the step path one ``put_nowait``, never a stall;
+  overflow drops are counted, never silent.
+- ``health``     — run-health watchdog over the same record stream:
+  step stalls, NaN/spiking loss, stale heartbeats, stalled host
+  threads, operator gauge rules -> ``obs_alert`` records, optionally
+  aborting the run (``--halt-on-unhealthy``).
+- ``flightrec``  — black-box flight recorder (default ON): crash-
+  durable mmap event ring, faulthandler, the host-thread registry, and
+  a watcher process that assembles ``flightrec/crash_report.json``
+  when the run dies.
+- ``summary``    — the summarizer ``scripts/obs_report.py`` uses, here
+  with no JAX installed.
+
+``registry``, ``health``, ``identity``, ``export``, ``flightrec``,
+``summary`` and ``history.fingerprint`` are copies of the JAX
+package's framework-free modules; ``spans``, ``perf`` and ``memory``
+ask torch where tpunet asks JAX.
+
+Clock discipline: all timing is ``time.perf_counter`` (monotonic);
+CUDA launches are asynchronous, so per-step wall time is the host-side
+lap around the step's launches — once the launch queue saturates, laps
+converge to true device step time — and ``torch.cuda.synchronize``
+fences run at *window edges only* (profile window start/stop), never
+on interior steps. Cost model: the default config (enabled, no
+per-step records, no profiling) adds host-side spans and perf_counter
+laps per step but NO device syncs and no record formatting;
+``--no-obs`` reduces the step loop to a single predicate branch
+(though a configured profile window still instruments, since tracing
+needs the step hooks).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import torch
+
+from tpunet_torch.obs import memory as obs_memory
+from tpunet_torch.obs import perf
+from tpunet_torch.obs.health import RunUnhealthyError, Watchdog
+from tpunet_torch.obs.registry import (Counter, Gauge, Histogram, JsonlSink,
+                                       MemorySink, Registry)
+from tpunet_torch.obs.spans import (NULL_SPAN, WindowedProfiler, span,
+                                    step_span)
+from tpunet_torch.parallel import dist
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "JsonlSink", "MemorySink",
+    "NULL_SPAN", "Observability", "Registry", "RunUnhealthyError",
+    "Watchdog", "WindowedProfiler", "perf", "span", "step_span",
+]
+
+
+class _RecordedSpan:
+    """A trace span that also drops begin/end events into the flight
+    recorder's ring — the crash tail's "which phase were we in".
+    One object + two ring writes per span (~2-3 us); only built when
+    a recorder is armed."""
+
+    __slots__ = ("_inner", "_name", "_rec")
+
+    def __init__(self, inner, name: str, rec):
+        self._inner = inner
+        self._name = name
+        self._rec = rec
+
+    def __enter__(self):
+        self._rec.record("span", self._name)
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc):
+        self._rec.record("span_end", self._name)
+        return self._inner.__exit__(*exc)
+
+
+class Observability:
+    """Run-scoped observability facade the trainer threads through.
+
+    ``enabled`` gates all accounting and record emission;
+    ``hot`` additionally covers a live profile window, so the loop
+    instruments steps whenever either wants them. Everything here is
+    host-side; the only device syncs this class ever issues are the
+    profile-window edge fences (via the ``sync`` callable the loop
+    provides).
+    """
+
+    def __init__(self, cfg, *, profile_dir: str = "",
+                 checkpoint_dir: str = "", unit: str = "examples",
+                 resume: bool = False, device="cpu"):
+        if cfg.step_records_every < 0:
+            raise ValueError(f"obs.step_records_every must be >= 0, "
+                             f"got {cfg.step_records_every}")
+        if getattr(cfg, "flightrec", False) \
+                and getattr(cfg, "flightrec_events", 1) < 1:
+            raise ValueError(
+                f"obs.flightrec_events must be >= 1 when the flight "
+                f"recorder is enabled, got {cfg.flightrec_events} "
+                "(use --no-flightrec to disable the recorder)")
+        self.enabled = bool(cfg.enabled)
+        # The trainer's device: the memory sampler's and MFU's card.
+        self.device = torch.device(device)
+        self.unit = unit
+        self.step_records_every = cfg.step_records_every
+        self.registry = Registry()
+        self._hist_max = getattr(cfg, "histogram_max_samples",
+                                 Histogram.DEFAULT_MAX_SAMPLES)
+        if self.enabled:
+            # Identity stamp on every emitted record: the join keys
+            # (run_id / process_index / host) that make this run's
+            # stream mergeable by a fleet aggregator (tpunet/obs/agg/
+            # reads the port's records too).
+            # run_id persists next to the checkpoints, so a preemption
+            # restore (resume=True) continues the SAME stream.
+            from tpunet_torch.obs.identity import run_identity
+            pidx = dist.process_index()
+            self.registry.set_identity(**run_identity(
+                run_id=getattr(cfg, "run_id", ""),
+                directory=checkpoint_dir, resume=resume,
+                process_index=pidx, persist=(pidx == 0)))
+        # Black-box flight recorder (tpunet_torch/obs/flightrec/): event
+        # ring + crash handlers + host-thread registry, default ON.
+        # Prior-crash detection runs FIRST: if the previous
+        # incarnation of this run dir died and left a crash report,
+        # it is archived now and emitted as ONE obs_crash record at
+        # the first epoch (once the jsonl sink is attached).
+        self.flightrec = None
+        self._pending_crash = None
+        if self.enabled and getattr(cfg, "flightrec", False):
+            from tpunet_torch.obs import flightrec
+            rep, report_path = flightrec.prior_crash_report(
+                checkpoint_dir, pidx)
+            if rep is not None:
+                self._pending_crash = flightrec.crash_record(
+                    rep, report_path)
+            self.flightrec = flightrec.install(
+                checkpoint_dir, process_index=pidx,
+                n_events=getattr(cfg, "flightrec_events", 1024),
+                run_id=str(self.registry.identity().get("run_id", "")))
+            try:
+                self.flightrec.set_device_memory(
+                    obs_memory.sample_memory_gauges(self.registry,
+                                                    self.device))
+            except Exception:
+                pass
+        # Run-health watchdog: consumes the same host-side laps/losses
+        # this facade already sees, emits obs_alert records through
+        # the registry (so they reach metrics.jsonl and every live
+        # exporter), and raises RunUnhealthyError when
+        # --halt-on-unhealthy is set. None when obs is disabled.
+        self.watchdog = None
+        if self.enabled:
+            self.watchdog = Watchdog(
+                cfg, self.registry,
+                expected_processes=dist.process_count())
+            # Emit-only wedge detector (no-op unless a heartbeat
+            # budget is configured): pages through the live exporters
+            # even when the training thread is stuck inside a step.
+            self.watchdog.start_monitor()
+        # Live exporters (statsd / line-JSON HTTP): non-blocking
+        # bounded-queue sinks, coordinator-only; empty list unless
+        # endpoints are configured. Flushed in close().
+        self._exporters = []
+        if self.enabled and getattr(cfg, "export", None) is not None:
+            from tpunet_torch.obs.export import build_exporters
+            self._exporters = build_exporters(cfg.export, self.registry)
+            for exporter in self._exporters:
+                self.registry.add_sink(exporter)
+        if ((cfg.profile_num_steps or cfg.profile_start_step)
+                and not profile_dir):
+            # A window knob without --profile-dir lands next to the
+            # checkpoints rather than silently doing nothing: the knob
+            # people reach for mid-incident should not demand a second
+            # knob. (--profile-start-step alone traces from that step
+            # to the end of the run.)
+            profile_dir = os.path.join(checkpoint_dir or ".", "profile")
+        self.profiler = WindowedProfiler(
+            profile_dir, cfg.profile_start_step, cfg.profile_num_steps,
+            cuda=self.device.type == "cuda", rank=dist.process_index())
+        self._run_start = time.perf_counter()
+        self._flops_per_unit = 0.0
+        self._last_wait = 0.0
+
+    # -- setup ----------------------------------------------------------
+
+    @property
+    def hot(self) -> bool:
+        """True when the step loop should instrument (accounting on,
+        or a profile window still pending/open). The loop hoists this
+        to a local per epoch, so the disabled path pays one branch per
+        step."""
+        return self.enabled or self.profiler.active
+
+    def add_sink(self, sink) -> None:
+        self.registry.add_sink(sink)
+
+    def set_flops_per_unit(self, flops: float) -> None:
+        self._flops_per_unit = float(flops)
+
+    # -- spans ----------------------------------------------------------
+
+    def span(self, name: str):
+        if not self.hot:
+            return NULL_SPAN
+        if self.flightrec is not None:
+            # Span begin/end also lands in the flight-recorder ring:
+            # on a crash, the tail says which phase the run died in.
+            return _RecordedSpan(span(name), name, self.flightrec)
+        return span(name)
+
+    def step_span(self, step: int):
+        if not self.hot:
+            return NULL_SPAN
+        if self.flightrec is not None:
+            return _RecordedSpan(step_span(step), f"step {step}",
+                                 self.flightrec)
+        return step_span(step)
+
+    # -- per-step hooks (called only when ``hot``) ----------------------
+
+    def before_step(self, step: int, sync=None) -> None:
+        """Profile-window edge check; ``sync`` (``torch.cuda.synchronize``
+        on the trainer's card) runs only when a window opens or closes at
+        this step."""
+        if self.profiler.active:
+            self.profiler.on_step(step, sync)
+
+    def observe_step(self, step: int, seconds: float) -> None:
+        """One finished step's host lap (dispatch-side wall time).
+        Feeds the watchdog's stall detector, which may raise
+        ``RunUnhealthyError`` under ``--halt-on-unhealthy``."""
+        if not self.enabled:
+            return
+        self.registry.histogram(
+            "step_time_s", max_samples=self._hist_max).observe(seconds)
+        every = self.step_records_every
+        if every and step % every == 0:
+            self.registry.emit("obs_step", {
+                "step": step,
+                "step_time_s": round(seconds, 6),
+                "data_wait_s": round(self._last_wait, 6),
+            })
+        if self.watchdog is not None:
+            self.watchdog.observe_step(step, seconds)
+
+    def observe_loss(self, step: int, loss: float) -> None:
+        """A loss value that is ALREADY a host float (the step-log
+        line or the epoch summary) — the watchdog's NaN/spike checks
+        never force a device sync of their own."""
+        if self.watchdog is not None:
+            self.watchdog.observe_loss(step, loss)
+
+    def observe_data_wait(self, seconds: float) -> None:
+        """Host time spent blocked on the input pipeline for one batch
+        (the stall side of the stall-vs-compute split). The epoch's
+        stall total is the data_wait_s histogram's window sum."""
+        if not self.enabled:
+            return
+        self._last_wait = seconds
+        self.registry.histogram(
+            "data_wait_s", max_samples=self._hist_max).observe(seconds)
+
+    # -- epoch window ----------------------------------------------------
+
+    def begin_epoch(self, epoch: int) -> None:
+        if not self.enabled:
+            return
+        if self._pending_crash is not None:
+            # The previous incarnation of this run dir crashed and the
+            # watcher left a report: emit it exactly once, now that
+            # the trainer has attached the jsonl sink — the record
+            # reaches metrics.jsonl, live exporters, and (through
+            # them) the fleet aggregator's crash alert.
+            record, self._pending_crash = self._pending_crash, None
+            self.registry.counter("obs_crashes").inc()
+            self.registry.emit("obs_crash", record)
+        if self.flightrec is not None:
+            self.flightrec.record("epoch", f"begin {epoch}")
+        self.registry.reset_window()
+
+    def end_epoch(self, *, epoch: int, step: int, units: float,
+                  train_seconds: float, eval_seconds: float = 0.0,
+                  partial: bool = False) -> Optional[dict]:
+        """Close the epoch window: percentiles, throughput, stall
+        fraction, MFU, memory gauges, heartbeat — one ``obs_epoch``
+        record to every sink. Returns the record (None when
+        disabled)."""
+        if not self.enabled:
+            return None
+        reg = self.registry
+        steps = reg.histogram("step_time_s").summary()
+        step_total = reg.histogram("step_time_s").total
+        wait_total = reg.histogram("data_wait_s").total
+        busy = step_total + wait_total
+        throughput = units / train_seconds if train_seconds > 0 else 0.0
+        mem = obs_memory.sample_memory_gauges(reg, self.device)
+        live = obs_memory.heartbeat(
+            reg, time.perf_counter() - self._run_start)
+        # Host-thread registry -> thread_* gauges (exporters and
+        # --obs-rule predicates see them), and the flight recorder's
+        # last-known device-memory / thread snapshots refresh so a
+        # crash report carries this epoch's state, not the install's.
+        from tpunet_torch.obs.flightrec.threads import THREADS
+        THREADS.export_gauges(reg)
+        if self.flightrec is not None:
+            self.flightrec.set_device_memory(mem)
+            self.flightrec.refresh_threads()
+        if self.watchdog is not None:
+            self.watchdog.check_threads(step)
+        if self.watchdog is not None:
+            # Feed the liveness result BEFORE emitting the epoch
+            # record: a missing_processes alert then precedes the
+            # epoch row it explains in metrics.jsonl.
+            self.watchdog.observe_heartbeat(live, step=step)
+        # Bounded sample of the window's step-time distribution rides
+        # in the record: cross-stream percentile MERGES need sample
+        # points, not precomputed percentiles (a fleet p99 cannot be
+        # reconstructed from per-stream p99s) — see
+        # tpunet/obs/agg/merge.py for the error bound this carries.
+        sample = [round(v, 6) for v in
+                  reg.histogram("step_time_s").export_sample()]
+        record = {
+            "epoch": epoch,
+            "step": step,
+            "train_seconds": round(train_seconds, 4),
+            "eval_seconds": round(eval_seconds, 4),
+            "unit": self.unit,
+            f"{self.unit}_per_sec": round(throughput, 2),
+            "steps": int(steps.get("count", 0)),
+            "step_time_mean_s": steps.get("mean"),
+            "step_time_p50_s": steps.get("p50"),
+            "step_time_p90_s": steps.get("p90"),
+            "step_time_p99_s": steps.get("p99"),
+            **({"step_time_approx": 1} if steps.get("approx") else {}),
+            **({"step_time_sample": sample} if sample else {}),
+            "input_stall_s": round(wait_total, 4),
+            "stall_frac": round(wait_total / busy, 4) if busy > 0 else 0.0,
+            "device_memory": mem,
+            "live_processes": live,
+        }
+        util = perf.mfu(throughput, self._flops_per_unit,
+                        device=self.device)
+        if util is not None:
+            record["mfu"] = round(util, 4)
+            # Mirror into a gauge so operator rules ("mfu < 0.3") and
+            # exporters can see it — record fields are not snapshot
+            # keys.
+            reg.gauge("mfu").set(util)
+        ckpt_saves = reg.counter("ckpt_saves").value
+        if ckpt_saves:
+            record["ckpt_saves"] = int(ckpt_saves)
+            record["ckpt_wait_s"] = round(
+                reg.counter("ckpt_wait_s").value, 4)
+        if partial:
+            record["partial"] = True
+        reg.emit("obs_epoch", record)
+        if self.watchdog is not None and self.watchdog.gauge_predicates:
+            # Operator gauge rules (--obs-rule) see the same flat
+            # snapshot the exporters ship, evaluated once per epoch
+            # AFTER the record lands — alert-explains-record ordering.
+            self.watchdog.check_gauges(step, reg.snapshot())
+        return record
+
+    # -- lifecycle -------------------------------------------------------
+
+    def close(self, sync=None) -> None:
+        """Flush a still-open profile window and drain the export
+        queues (end of run / error path). Exporter close is bounded by
+        the configured flush timeout, so a dead endpoint cannot wedge
+        shutdown."""
+        try:
+            self.profiler.close(sync)
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.stop_monitor()
+            for exporter in self._exporters:
+                try:
+                    exporter.close()
+                except Exception:
+                    pass
+            self._exporters = []
+            if self.flightrec is not None:
+                # Clean shutdown: the watcher must not assemble a
+                # crash report for this incarnation. Only closes the
+                # global recorder if it is still ours (a newer
+                # Observability may have re-armed it).
+                from tpunet_torch.obs import flightrec
+                flightrec.close(self.flightrec)
+                self.flightrec = None

@@ -222,7 +222,11 @@ class BackwardPlan:
     - "simt" (float32): as "two_kernel", on the SIMT kernels.
 
     ``scratch_bytes``: the dw partials; ``smem_bytes``: dynamic shared
-    memory of a one-pass block (0 for the others)."""
+    memory of a one-pass block (0 for the others). ``dx_rows``: the rows
+    one dx launch takes; the tile-indexed designs put row tiles on grid
+    y, so they launch dx over ranges of at most 65535 tiles, and the
+    one-pass design (persistent blocks over any number of tiles) takes
+    all ``m`` in one launch."""
     design: str
     tile_rows: int
     strip: int
@@ -233,6 +237,7 @@ class BackwardPlan:
     smem_bytes: int
     t_rows: int
     t_bytes: int
+    dx_rows: int
 
 
 _BWD_DESIGNS = {"simt": 0, "one_pass": 1, "two_kernel": 2, "t_first": 3}
@@ -327,7 +332,7 @@ def backward_plan(m: int, ci: int, co: int, dtype: torch.dtype, sms: int
         smem = one_pass_smem(ci, co)
         blocks = max(1, min(tiles, cap, _per_sm(smem) * sms))
         return BackwardPlan("one_pass", _ROWS, cip, blocks, blocks, _ROWS,
-                            blocks * ci * co * 4, smem, 0, 0)
+                            blocks * ci * co * 4, smem, 0, 0, m)
     if dtype == torch.bfloat16:
         step, per_sm = _DW_ROWS, 4
         design = ("two_kernel" if _ceil(ci, _WIDE_TILE) <= 2 else "t_first")
@@ -343,7 +348,8 @@ def backward_plan(m: int, ci: int, co: int, dtype: torch.dtype, sms: int
         t_rows = max(1, min(m, 2048 * sms // (co // 8 if co % 8 == 0 else co)))
         t_bytes = 2 * m * co * 2
     return BackwardPlan(design, _ROWS, _WIDE_TILE, dw_tiles * p, p, span,
-                        p * ci * co * 4, 0, t_rows, t_bytes)
+                        p * ci * co * 4, 0, t_rows, t_bytes,
+                        min(tiles, _GRID_Y) * _ROWS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -354,7 +360,8 @@ def _kernels():
                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64]
                     + [ctypes.c_int] * 5 + [ctypes.c_int64]
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                    + [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+                    + [ctypes.c_void_p])
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -423,8 +430,9 @@ def fused_ir_backward(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
     if x.device.type == "cpu":
         return fused_ir_backward_reference(x, g, y, w, chan, act)
     ci = x.shape[1]
-    if x.numel() >= 2**31 or g.numel() >= 2**31 or _ceil(m, _ROWS) > _GRID_Y:
-        raise ValueError("fused_ir_backward: too many rows for the grid")
+    if x.numel() >= 2**31 or g.numel() >= 2**31:
+        raise ValueError("fused_ir_backward: 2^31 elements or more")
+    # Each design bounds its own launches by its grid (BackwardPlan).
     plan = backward_plan(m, ci, co, x.dtype, _sm_count(x.device.index or 0))
     dx = torch.empty_like(x)
     dwp = torch.empty((plan.partials, ci, co), dtype=torch.float32,
@@ -438,7 +446,7 @@ def fused_ir_backward(x: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
                             None if tbuf is None else tbuf.data_ptr(),
                             m, ci, co, int(act), _BWD_DESIGNS[plan.design],
                             plan.partials, plan.span, plan.t_rows,
-                            _DTYPE_CODES[x.dtype], _stream(x))
+                            plan.dx_rows, _DTYPE_CODES[x.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"fused_ir_backward: kernel launch failed with "
                            f"CUDA error {err}")

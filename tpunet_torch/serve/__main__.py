@@ -5,8 +5,9 @@ Loads the LM's best checkpoint through ``infer.generate.load_lm`` (an
 empty ``--checkpoint-dir`` serves the seeded random init), optionally a
 classifier checkpoint for the micro-batched ``/v1/classify`` path, wires
 the obs registry into ``metrics.jsonl`` and the flight recorder, and
-serves until SIGTERM/SIGINT, which drains gracefully (stop admitting,
-finish in-flight, flush telemetry) rather than dropping connections.
+and any configured live exporters, and serves until SIGTERM/SIGINT,
+which drains gracefully (stop admitting, finish in-flight, flush
+telemetry) rather than dropping connections.
 Flags and exit-2 usage errors are tpunet's, plus ``--device`` (``cuda``
 by default; ``cpu`` is the only way to serve on the CPU). The flags of
 what is not ported yet exit 2 naming their ROADMAP item.
@@ -20,7 +21,6 @@ import sys
 import threading
 
 _PROG = "python -m tpunet_torch.serve"
-_ITEM7 = "comes with ROADMAP Queue A item 7 (observability exporters)"
 _ITEM8 = "comes with ROADMAP Queue A item 8 (parallelism beyond DP, MoE)"
 
 
@@ -152,11 +152,13 @@ def build_argparser():
                    help="directory for metrics.jsonl and the flight "
                         "recorder (default: the checkpoint dir)")
     p.add_argument("--statsd", default="", metavar="HOST:PORT",
-                   help="not ported yet (ROADMAP Queue A item 7)")
+                   help="stream obs_serve records as statsd/UDP gauges")
     p.add_argument("--obs-http", default="", metavar="URL",
-                   help="not ported yet (ROADMAP Queue A item 7)")
+                   help="POST obs_serve records as line-JSON")
     p.add_argument("--obs-webhook", default="", metavar="URL",
-                   help="not ported yet (ROADMAP Queue A item 7)")
+                   help="POST one templated JSON payload per alert "
+                        "record (obs_alert/obs_crash) — wire format "
+                        "in docs/metrics_schema.md")
     p.add_argument("--run-id", default=d.run_id,
                    help="replica identity stamped on obs_serve records "
                         "(default serve-<host>-<pid>)")
@@ -205,10 +207,7 @@ def build_server(args):
     loads."""
     buckets = parse_prefill_buckets(args.prefill_buckets,
                                     args.max_seq_len)
-    for flag, value, item in (("--statsd", args.statsd, _ITEM7),
-                              ("--obs-http", args.obs_http, _ITEM7),
-                              ("--obs-webhook", args.obs_webhook, _ITEM7),
-                              ("--mesh-model", args.mesh_model > 1, _ITEM8),
+    for flag, value, item in (("--mesh-model", args.mesh_model > 1, _ITEM8),
                               ("--model lm_pp", args.model == "lm_pp"
                                or args.train_pipe, _ITEM8),
                               ("--moe-experts", args.moe_experts, _ITEM8)):
@@ -217,10 +216,12 @@ def build_server(args):
                          f"{item}")
 
     from tpunet_torch.ckpt import BEST
-    from tpunet_torch.config import DataConfig, ModelConfig, ServeConfig
+    from tpunet_torch.config import (DataConfig, ExportConfig, ModelConfig,
+                                     ServeConfig)
     from tpunet_torch.infer.generate import load_lm
     from tpunet_torch.infer.predict import Predictor
     from tpunet_torch.obs import flightrec
+    from tpunet_torch.obs.export import build_exporters
     from tpunet_torch.obs.registry import JsonlSink
     from tpunet_torch.serve.classify import ClassifyBatcher
     from tpunet_torch.serve.engine import Engine
@@ -273,6 +274,15 @@ def build_server(args):
         recorder = flightrec.install(metrics_dir, run_id=args.run_id)
         metrics_logger = MetricsLogger(metrics_dir, resume=True)
         registry.add_sink(JsonlSink(metrics_logger))
+    exporters = []
+    if args.statsd or args.obs_http or args.obs_webhook:
+        # Bad endpoint syntax raises here, at setup.
+        exporters = build_exporters(
+            ExportConfig(statsd=args.statsd, http=args.obs_http,
+                         webhook=args.obs_webhook),
+            registry)
+        for exporter in exporters:
+            registry.add_sink(exporter)
 
     batcher = None
     if args.classifier_checkpoint_dir:
@@ -288,7 +298,8 @@ def build_server(args):
                                   registry=registry)
     return ServeServer(engine, classify_batcher=batcher,
                        host=cfg.host, port=cfg.port,
-                       metrics_logger=metrics_logger, run_id=cfg.run_id,
+                       metrics_logger=metrics_logger, exporters=exporters,
+                       run_id=cfg.run_id,
                        flight_recorder=recorder)
 
 

@@ -25,8 +25,8 @@ Endpoints:
 Backpressure maps to status codes: 429 queue-full, 503 draining/dead,
 413 prompt-too-long. The server drains gracefully: ``drain()`` stops
 admissions, lets in-flight requests finish (bounded), flushes the
-metrics log, then stops the listener. Live exporters and serve-tier
-chaos are not ported (ROADMAP Queue A items 7 and 5).
+exporters and the metrics log, then stops the listener. Serve-tier
+chaos is not ported (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class ServeServer:
 
     def __init__(self, engine: Engine, *, classify_batcher=None,
                  host: str = "127.0.0.1", port: int = 8000,
-                 metrics_logger=None, run_id: str = "",
+                 metrics_logger=None, exporters=(), run_id: str = "",
                  flight_recorder=None):
         self.engine = engine
         self.classify = classify_batcher
@@ -79,6 +79,7 @@ class ServeServer:
                 process_index=0, host=socket.gethostname())
         self.vocab_size = int(engine.model.vocab_size)
         self._metrics_logger = metrics_logger
+        self._exporters = list(exporters)
         # Flight recorder owned by this server's process (installed by
         # the serve entry when a metrics dir exists); drain marks the
         # clean shutdown so the watcher never fabricates a crash.
@@ -111,6 +112,11 @@ class ServeServer:
         self._drained = True
         flightrec.record("serve", "frontend drain")
         ok = self.engine.drain(timeout)
+        for exporter in self._exporters:
+            try:
+                exporter.close()
+            except Exception:  # noqa: BLE001 — a dead endpoint must
+                pass           # not block shutdown
         self.httpd.shutdown()
         self.httpd.server_close()
         if self.classify is not None:

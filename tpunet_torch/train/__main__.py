@@ -118,6 +118,106 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--log-every-steps", type=int, default=None,
                    help="a step/loss/lr line every N steps (0 = per epoch "
                         "only, like the reference)")
+    # Observability (tpunet_torch/obs/): tpunet's flags, names and help.
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace output directory; combine "
+                        "with --profile-start-step/--profile-num-steps "
+                        "to capture a step window instead of the run")
+    p.add_argument("--profile-start-step", type=int, default=None,
+                   help="global step at which the profiler trace "
+                        "starts (alone: traces to the end of the run, "
+                        "under <checkpoint-dir>/profile unless "
+                        "--profile-dir is set)")
+    p.add_argument("--profile-num-steps", type=int, default=None,
+                   help="steps to trace from --profile-start-step "
+                        "(0 = until the end of the run); without "
+                        "--profile-dir the trace lands under "
+                        "<checkpoint-dir>/profile")
+    p.add_argument("--no-obs", action="store_true",
+                   help="disable the observability subsystem (no "
+                        "obs_* records, spans, or step timing)")
+    p.add_argument("--obs-step-every", type=int, default=None,
+                   help="emit a per-step obs_step record every N "
+                        "steps (0 = per-epoch obs records only)")
+    p.add_argument("--flightrec", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="black-box flight recorder (default on): "
+                        "crash-durable event ring + crash handlers "
+                        "that leave <checkpoint-dir>/flightrec/"
+                        "crash_report.json (ring tail, per-thread "
+                        "stacks) when the "
+                        "process dies; render with "
+                        "scripts/obs_crash_report.py")
+    p.add_argument("--flightrec-events", type=int, default=None,
+                   help="flight-recorder event-ring capacity (slots)")
+    p.add_argument("--obs-hbm-attrib", action="store_true",
+                   help="decompose the compiled train step's HBM "
+                        "bytes by op category into the "
+                        "hbm_bytes_per_image_* gauges once at the "
+                        "first step (one extra AOT lowering)")
+    p.add_argument("--statsd", default=None, metavar="HOST:PORT",
+                   help="stream obs records as statsd/UDP gauges to "
+                        "this endpoint (non-blocking: bounded queue + "
+                        "background sender; drops are counted)")
+    p.add_argument("--obs-http", default=None, metavar="URL",
+                   help="POST obs records as line-JSON to this URL "
+                        "(same non-blocking queue; pair with "
+                        "'scripts/obs_dashboard.py --listen PORT')")
+    p.add_argument("--obs-webhook", default=None, metavar="URL",
+                   help="POST one templated JSON payload per alert "
+                        "record (obs_alert/obs_crash/obs_regression) "
+                        "to this URL — retried with backoff, "
+                        "dead-lettered after webhook_max_retries "
+                        "(wire format in docs/metrics_schema.md)")
+    p.add_argument("--obs-queue-size", type=int, default=None,
+                   help="bounded export queue depth (overflow drops "
+                        "records and counts them, never blocks a step)")
+    p.add_argument("--obs-hist-samples", type=int, default=None,
+                   help="histogram reservoir bound "
+                        "(histogram_max_samples): windows beyond this "
+                        "many observations switch from exact "
+                        "percentiles to seeded reservoir sampling")
+    p.add_argument("--alert-cooldown-steps", type=int, default=None,
+                   help="suppress same-reason obs_alerts within this "
+                        "many steps (counted in obs_alerts_suppressed) "
+                        "so a stall pages once")
+    p.add_argument("--evict-on-straggler", action="store_true",
+                   help="straggler-shaped watchdog alerts (step_stall"
+                        "/thread_stalled) on this replica trigger "
+                        "checkpoint-now-then-evict through the agreed "
+                        "stop — the elastic agent re-meshes the pod "
+                        "without the slow host (docs/elasticity.md)")
+    p.add_argument("--halt-on-unhealthy", action="store_true",
+                   help="abort the run (RunUnhealthyError) on a fatal "
+                        "obs_alert: step stall, NaN/spiking loss, or "
+                        "missing processes — after the alert record "
+                        "is written")
+    p.add_argument("--stall-factor", type=float, default=None,
+                   help="step_stall alert threshold: a step slower "
+                        "than FACTOR x the rolling median (and at "
+                        "least --stall-min-s); 0 disables")
+    p.add_argument("--stall-min-s", type=float, default=None,
+                   help="absolute floor (seconds) a step must exceed "
+                        "to count as stalled")
+    p.add_argument("--loss-spike-factor", type=float, default=None,
+                   help="loss_spike alert threshold: loss above "
+                        "FACTOR x its EMA; 0 disables")
+    p.add_argument("--heartbeat-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="stale_heartbeat alert when no epoch "
+                        "heartbeat lands for this long (0 = off)")
+    p.add_argument("--run-id", default=None,
+                   help="explicit run identity stamped on every obs "
+                        "record (default: generated and persisted "
+                        "under <checkpoint-dir>/run_id; --resume "
+                        "reuses it)")
+    p.add_argument("--obs-rule", action="append", default=None,
+                   metavar="RULE",
+                   help="GaugePredicate alert rule over any registry "
+                        "snapshot key, e.g. 'mfu < 0.3', "
+                        "'step_time_s_p99 > 2', "
+                        "'mem_peak_bytes_in_use + 1e6/s' (growth per "
+                        "second); repeatable, checked each epoch")
     return p
 
 
@@ -201,7 +301,64 @@ def _config(args: argparse.Namespace):
             cfg = cfg.replace(**{dest: val})
     if args.eval_only:
         cfg = cfg.replace(eval_only=True)
+    cfg = cfg.replace(obs=_obs_config(cfg.obs, args))
+    if args.profile_dir is not None:
+        cfg = cfg.replace(profile_dir=args.profile_dir)
     return cfg
+
+
+def _obs_config(obs, args: argparse.Namespace):
+    """tpunet's mapping of the obs flags onto ``ObsConfig``
+    (``tpunet/config.py:config_from_args``)."""
+    if args.no_obs:
+        obs = dataclasses.replace(obs, enabled=False)
+    if args.obs_step_every is not None:
+        obs = dataclasses.replace(obs, step_records_every=args.obs_step_every)
+    if args.obs_hbm_attrib:
+        obs = dataclasses.replace(obs, hbm_attrib=True)
+    if args.flightrec is not None:
+        obs = dataclasses.replace(obs, flightrec=args.flightrec)
+    if args.flightrec_events is not None:
+        obs = dataclasses.replace(obs,
+                                  flightrec_events=args.flightrec_events)
+    if args.profile_start_step is not None:
+        obs = dataclasses.replace(obs,
+                                  profile_start_step=args.profile_start_step)
+    if args.profile_num_steps is not None:
+        obs = dataclasses.replace(obs,
+                                  profile_num_steps=args.profile_num_steps)
+    export = obs.export
+    if args.statsd is not None:
+        export = dataclasses.replace(export, statsd=args.statsd)
+    if args.obs_http is not None:
+        export = dataclasses.replace(export, http=args.obs_http)
+    if args.obs_webhook is not None:
+        export = dataclasses.replace(export, webhook=args.obs_webhook)
+    if args.obs_queue_size is not None:
+        export = dataclasses.replace(export,
+                                     queue_size=args.obs_queue_size)
+    if export is not obs.export:
+        obs = dataclasses.replace(obs, export=export)
+    if args.halt_on_unhealthy:
+        obs = dataclasses.replace(obs, halt_on_unhealthy=True)
+    if args.evict_on_straggler:
+        obs = dataclasses.replace(obs, evict_on_straggler=True)
+    if args.run_id is not None:
+        obs = dataclasses.replace(obs, run_id=args.run_id)
+    if args.obs_rule:
+        obs = dataclasses.replace(obs, gauge_rules=tuple(args.obs_rule))
+    for obs_field, arg in (("stall_factor", args.stall_factor),
+                           ("stall_min_s", args.stall_min_s),
+                           ("loss_spike_factor", args.loss_spike_factor),
+                           ("heartbeat_timeout_s",
+                            args.heartbeat_timeout),
+                           ("histogram_max_samples",
+                            args.obs_hist_samples),
+                           ("alert_cooldown_steps",
+                            args.alert_cooldown_steps)):
+        if arg is not None:
+            obs = dataclasses.replace(obs, **{obs_field: arg})
+    return obs
 
 
 def run(argv=None):
@@ -237,17 +394,31 @@ def _run(cfg, device: str):
     from tpunet_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, device=device)
-    if cfg.eval_only:
-        m = trainer.evaluate_checkpoint()
-        log0(f"Eval: Test Loss: {m['loss']:.4f} "
-             f"Test Acc: {m['accuracy']:.4f}")
-    else:
-        trainer.train()
+    try:
+        if cfg.eval_only:
+            m = trainer.evaluate_checkpoint()
+            log0(f"Eval: Test Loss: {m['loss']:.4f} "
+                 f"Test Acc: {m['accuracy']:.4f}")
+        else:
+            trainer.train()
+    finally:
+        # On the error paths too: close() writes a still-open profile
+        # window's trace and drains the exporters.
+        trainer.close()
     return trainer
 
 
 def main(argv=None) -> int:
-    run(argv)
+    from tpunet_torch.obs.health import RunUnhealthyError
+
+    try:
+        run(argv)
+    except RunUnhealthyError as e:
+        # --halt-on-unhealthy tripped: the obs_alert record is already
+        # in metrics.jsonl (and the live exporters) — exit nonzero
+        # without a traceback, like a failed health check should.
+        log0(f"ABORT: {e}")
+        return 2
     return 0
 
 
