@@ -133,7 +133,30 @@ Phases, each of which must pass:
      answers, finishes an in-flight stream through SIGTERM while new
      requests get 503 with Retry-After, exits 0 and leaves obs_serve
      records;
- 14. print the kernel list and the card's name and power limit.
+ 14. serve_item5: the rest of the serving engine at phase 12's widths.
+     int8 KV pages: quantize_kv_rows on the card equal to the CPU's
+     (codes, bit-equal scales) on 4,096 seeded bf16 rows of [12, 64]
+     with an all-zero and an outlier row; the int8 paged attend (8
+     slots, T 1 and 5) within 1e-5 of the float32 attend on the card
+     over K/V gathered and dequantised on the host from the same pool; kv_bytes_per_token
+     below 0.6 of bf16's; readings: the share of greedy tokens int8 and
+     bf16 pools give alike, and the pages each holds in the same memory.
+     Speculative decoding at K 4, in float32: greedy tokens equal to
+     generate's on the float32 parity prompts with self-speculation and
+     a seeded half-width drafter, a sampled stream equal to spec-off's,
+     accepted + rejected = drafted, no page leaked; readings: the
+     acceptance rates, drafter_pool_bytes, and in bf16 the traffic of
+     phase 13 (8 clients, 48 requests) with self-speculation, and its
+     first 24 requests with a half-width drafter fitted by fit_drafter to
+     the traffic's prompts (300 steps, timed), beside phase 13's spec-off
+     pass. The prefix
+     store: two engines in turn on one store directory, the bf16 pool
+     then the int8 pool: the second warm-loads the first's pages,
+     prefills only the prompt past their page-aligned prefix, and gives
+     the first engine's tokens. Chaos: ``python -m tpunet_torch.serve
+     --chaos kill@tokens=5`` as a subprocess streams exactly 5 tokens
+     and dies by SIGKILL. No kernel launches on this path;
+ 15. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -3054,6 +3077,14 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
 SERVE_PARITY_NEW = 64    # new tokens of the float32 parity runs
 SERVE_PARITY_SUFFIX = 64  # their prompts: the shared prefix + 64 tokens
 SERVE_DIR = LM_DIR / "smoke_serve"
+SPEC_K = 4               # draft tokens a verify in serve_item5
+SPEC_FIT_STEPS = 300     # fit_drafter steps of its half-width drafter
+SPEC_FIT_PROMPT = 24     # the fit's prompts: the traffic's first tokens
+SPEC_FIT_NEW = 64        # the teacher's greedy tokens a fit prompt
+SPEC_FITTED_REQUESTS = 24  # the fitted drafter's pass: the first 24 (its
+#                            low acceptance makes it the phase's slowest)
+CHAOS_KILL_TOKENS = 5
+STORE_SUFFIX = 5         # tokens past the page-aligned shared prefix
 
 
 def http_call(base, path, body=None, timeout=300.0):
@@ -3396,21 +3427,21 @@ def serve_sampled_cobatch(base, rows) -> dict:
 
 
 def serve_pass(torch, model, bodies, rows, pred=None, images=(),
-               then=None):
-    """A fresh engine and server (the ServeConfig defaults, the
-    classifier ``pred`` mounted when given), warmed up on each prefill
-    bucket; then ``serve_traffic`` with every launch count at 0, and
-    ``then(base)`` while the server is still up. Every request must end
-    200 with its full budget. Returns (the generate metrics, the classify
-    answers, the launch counts, the registry snapshots before and
-    after)."""
+               then=None, cfg_kw=None, drafter_params=None):
+    """A fresh engine and server (the ServeConfig defaults with
+    ``cfg_kw``, the drafter's ``drafter_params``, the classifier ``pred``
+    mounted when given), warmed up on each prefill bucket; then
+    ``serve_traffic`` with every launch count at 0, and ``then(base)``
+    while the server is still up. Every request must end 200 with its
+    full budget. Returns (the generate metrics, the classify answers, the
+    launch counts)."""
     import numpy as np
 
     from tpunet_torch.config import ServeConfig
     from tpunet_torch.serve import ClassifyBatcher, Engine, ServeServer
 
-    cfg = ServeConfig(emit_every_s=0.0)
-    engine = Engine(model, cfg)
+    cfg = ServeConfig(emit_every_s=0.0, **(cfg_kw or {}))
+    engine = Engine(model, cfg, drafter_params=drafter_params)
     reg = engine.registry
     batcher = None if pred is None else ClassifyBatcher(
         pred, batch_max=cfg.classify_batch_max,
@@ -3468,6 +3499,16 @@ def serve_pass(torch, model, bodies, rows, pred=None, images=(),
             prefills=delta("serve_prefills_total"),
             preemptions=delta("serve_kv_preemptions_total"),
             flash_launches=flash)
+        if cfg.spec_decode:
+            drafted = delta("serve_spec_draft_tokens_total")
+            metrics.update(
+                spec_draft_tokens=drafted,
+                spec_accepted_tokens=delta(
+                    "serve_spec_accepted_tokens_total"),
+                spec_verify_steps=delta("serve_spec_verify_steps_total"),
+                spec_acceptance_rate=delta(
+                    "serve_spec_accepted_tokens_total") / max(drafted, 1),
+                drafter_pool_bytes=engine.drafter_pool_bytes())
         if images:
             cls_ms = np.array([s for _, s, _ in cls]) * 1e3
             metrics.update(
@@ -3572,7 +3613,373 @@ def phase_serve_engine(torch) -> dict:
     torch.cuda.empty_cache()
     cli = serve_cli_drain(torch)
     emit("serve_cli", **cli)
-    return dict(traffic, decode=decode)
+    return dict(traffic, decode=decode, alone=alone)
+
+
+def item5_int8_gates(torch) -> dict:
+    """int8 KV pages on the card: the quantizer against the CPU's, and
+    the int8 paged attend against the float32 attend (on the card) over
+    the same pool's K/V gathered and dequantised on the host, so that
+    the two differ only in the int8 write, gather and dequantisation."""
+    from tpunet_torch.models.vit import (_masked_attend, paged_decode_attend,
+                                         quantize_kv_rows)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 1200)
+    x = torch.randn(4096, LM_HEADS, LM_HIDDEN // LM_HEADS,
+                    generator=g).to(torch.bfloat16)
+    x[7] = 0                          # all-zero row: scale 1
+    x[99, 1, 5] = 300.0               # outlier row
+    want_q, want_s = quantize_kv_rows(x)
+    got_q, got_s = quantize_kv_rows(x.cuda())
+    codes_equal = torch.equal(got_q.cpu(), want_q)
+    scales_equal = torch.equal(got_s.cpu(), want_s)
+    check(codes_equal and scales_equal,
+          f"int8 quantizer on the card: codes equal {codes_equal}, scales "
+          f"bit-equal {scales_equal}")
+    slots, pt, h, d = 8, 16, LM_HEADS, LM_HIDDEN // LM_HEADS
+    per_row = LM_T // pt
+    rows = (slots * per_row + 1) * pt
+    attend = {}
+    for t in (1, SPEC_K + 1):
+        table = (torch.randperm(slots * per_row, generator=g) + 1).view(
+            slots, per_row).int()
+        pos = torch.randint(0, LM_T - t + 1, (slots,), generator=g)
+        active = torch.ones(slots, dtype=torch.bool)
+        active[5] = False
+        ck, cv = (torch.randint(-127, 128, (rows, h, d), generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        sk, sv = (torch.rand(rows, generator=g) * 0.05 + 1e-3
+                  for _ in range(2))
+        q, k, v = (torch.randn(slots, t, h, d, generator=g)
+                   for _ in range(3))
+        dev = [a.cuda() for a in (q, k, v, ck, cv, pos, table, active, sk,
+                                  sv)]
+        got = paged_decode_attend(*dev[:7], pt, active=dev[7],
+                                  scale_k=dev[8], scale_v=dev[9])
+        ck, cv, sk, sv = (a.cpu() for a in (dev[3], dev[4], dev[8], dev[9]))
+        flat = (table.long()[:, :, None] * pt
+                + torch.arange(pt)[None, None, :]).reshape(-1)
+        kf = (ck[flat].float() * sk[flat, None, None]).view(slots, -1, h, d)
+        vf = (cv[flat].float() * sv[flat, None, None]).view(slots, -1, h, d)
+        want = _masked_attend(dev[0], kf.cuda(), vf.cuda(),
+                              (pos[:, None] + torch.arange(t)).cuda())
+        err = (got - want).abs().max().item()
+        attend[f"t{t}"] = err
+        check(err <= 1e-5, f"int8 paged attend (T {t}) {err} from the "
+              "float32 attend over the host-dequantised pool")
+    return dict(quantizer_rows=x.shape[0], codes_equal=codes_equal,
+                scales_bit_equal=scales_equal, attend_max_abs_err=attend,
+                attend_tol=1e-5)
+
+
+def first_mismatch(torch, model32, prompts, got, want):
+    """The first request and position where ``got`` leaves ``want``, and
+    the top-2 gap of the float32 forward's logits there."""
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        j = next((j for j, (a, b) in enumerate(zip(g_, w_)) if a != b), None)
+        if j is None:
+            continue
+        seq = torch.tensor(list(prompts[i]) + w_[:j], device="cuda")[None]
+        with torch.inference_mode():
+            top2 = model32(seq)[0, -1].topk(2).values
+        return dict(request=i, position=j,
+                    top2_gap=float(top2[0] - top2[1]))
+    return None
+
+
+def run_engine(model, prompts, cfg_kw, submit_kw):
+    """A started engine of the ServeConfig defaults and ``cfg_kw``:
+    ``prompts`` submitted together, with ``submit_kw`` (a dict, or one a
+    prompt); returns (the engine, its token lists, its free list's size
+    at start)."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.serve import Engine
+
+    eng = Engine(model, ServeConfig(emit_every_s=0.0, **cfg_kw))
+    free0 = len(eng._free_pages)
+    if isinstance(submit_kw, dict):
+        submit_kw = [submit_kw] * len(prompts)
+    eng.start()
+    try:
+        reqs = [eng.submit(p, **kw) for p, kw in zip(prompts, submit_kw)]
+        got = [r.result(timeout=300) for r in reqs]
+    finally:
+        eng.stop()
+    return eng, got, free0
+
+
+def item5_spec_f32(torch, model32, prompts, want) -> dict:
+    """Speculative decoding in float32 at K 4: greedy tokens equal to
+    generate's with self-speculation and with a seeded half-width
+    drafter; a sampled stream equal to spec-off's; counters that balance
+    and a pool that gets every page back."""
+    out = {}
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+    for name, wm in (("self", 1.0), ("seeded_half", 0.5)):
+        t0 = time.perf_counter()
+        eng, got, free0 = run_engine(model32, prompts,
+                                     dict(spec, spec_draft_width_mult=wm),
+                                     dict(max_new_tokens=SERVE_PARITY_NEW))
+        snap = eng.registry.snapshot()
+        drafted = snap["serve_spec_draft_tokens_total"]
+        acc = snap["serve_spec_accepted_tokens_total"]
+        rej = snap["serve_spec_rejected_tokens_total"]
+        cached = eng._prefix.pages_cached if eng._prefix else 0
+        out[name] = dict(
+            tokens_equal_generate=got == want, s=time.perf_counter() - t0,
+            draft_tokens=drafted, accepted=acc, rejected=rej,
+            verify_steps=snap["serve_spec_verify_steps_total"],
+            acceptance_rate=acc / max(drafted, 1),
+            drafter_pool_bytes=eng.drafter_pool_bytes(),
+            kv_pool_bytes=eng.kv_pool_bytes(),
+            free_at_start=free0, free_at_end=len(eng._free_pages),
+            prefix_cached=cached)
+        check(got == want, f"f32 spec ({name}) greedy tokens differ from "
+              f"generate's: {first_mismatch(torch, model32, prompts, got, want)}")
+        check(drafted > 0 and acc + rej == drafted,
+              f"spec ({name}) counters: {out[name]}")
+        check(len(eng._free_pages) + cached == free0,
+              f"spec ({name}) leaked pages: {out[name]}")
+    sampled = [dict(max_new_tokens=SERVE_PARITY_NEW, seed=2000 + i,
+                    **SERVE_SAMPLING) for i in range(len(prompts))]
+    _, base, _ = run_engine(model32, prompts, {}, sampled)
+    _, on, _ = run_engine(model32, prompts,
+                          dict(spec, spec_draft_width_mult=0.5), sampled)
+    check(on == base, "sampled streams with spec on differ from spec "
+          f"off's: requests {[i for i, (a, b) in enumerate(zip(on, base)) if a != b]}")
+    out["sampled_streams_equal"] = len(on)
+    return out
+
+
+def item5_int8_readings(torch, model, prompts) -> dict:
+    """bf16 serving: the share of greedy tokens an int8 pool gives like
+    the bf16 pool on the parity prompts, the bytes a cached token costs
+    in each (gate: int8 below 0.6 of bf16), and the pages each holds in
+    the bf16 pool's memory."""
+    toks, bpt, pool = {}, {}, {}
+    for kv in ("auto", "int8"):
+        eng, toks[kv], _ = run_engine(model, prompts, dict(kv_dtype=kv),
+                                      dict(max_new_tokens=SERVE_PARITY_NEW))
+        bpt[kv] = eng.kv_bytes_per_token()
+        pool[kv] = eng.kv_pool_bytes()
+    same = sum(a == b for ga, gb in zip(toks["auto"], toks["int8"])
+               for a, b in zip(ga, gb))
+    total = sum(len(g) for g in toks["auto"])
+    first = [next((j for j, (a, b) in enumerate(zip(ga, gb)) if a != b),
+                  None) for ga, gb in zip(toks["auto"], toks["int8"])]
+    ratio = bpt["int8"] / bpt["auto"]
+    check(ratio < 0.6, f"int8 kv_bytes_per_token {bpt['int8']} is "
+          f"{ratio:.3f} of bf16's {bpt['auto']}")
+    pt = 16                              # the default kv_page_tokens
+    return dict(greedy_tokens_alike_share=same / total,
+                first_divergence=first, bytes_per_token_bf16=bpt["auto"],
+                bytes_per_token_int8=bpt["int8"], int8_over_bf16=ratio,
+                pool_bytes=pool,
+                pages_in_bf16_pool_bytes={
+                    kv: int(pool["auto"] // (b * pt))
+                    for kv, b in bpt.items()})
+
+
+def item5_spec_bf16(torch, model, bodies, rows, alone) -> dict:
+    """Phase 13's traffic (8 clients, 48 requests, bf16) with self-
+    speculation, and its first SPEC_FITTED_REQUESTS requests with a
+    half-width drafter fitted by fit_drafter to the traffic's prompts
+    (their first SPEC_FIT_PROMPT tokens), beside phase 13's spec-off
+    pass. Readings only."""
+    import numpy as np
+
+    from tpunet_torch.models.lm import init_lm
+    from tpunet_torch.serve.spec import fit_drafter
+
+    keys = ("requests", "generated_tokens_per_s", "token_p50_ms",
+            "ttft_p50_ms", "e2e_p50_ms", "wall_s", "decode_steps")
+    out = {"off": {k: alone[k] for k in keys}}
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+    self_pass, _, _ = serve_pass(torch, model, bodies, rows,
+                                 cfg_kw=dict(spec, spec_draft_width_mult=1.0))
+    drafter = model.clone(hidden=LM_HIDDEN // 2)
+    init_lm(drafter, torch.Generator().manual_seed(0))
+    drafter = drafter.cuda()
+    prompts = np.stack([b["tokens"][:SPEC_FIT_PROMPT] for b in bodies])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = fit_drafter(model, drafter, prompts, gen_tokens=SPEC_FIT_NEW,
+                         steps=SPEC_FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del drafter
+    fitted, _, _ = serve_pass(torch, model, bodies[:SPEC_FITTED_REQUESTS],
+                              rows,
+                              cfg_kw=dict(spec, spec_draft_width_mult=0.5),
+                              drafter_params=params)
+    spec_keys = keys + ("spec_acceptance_rate", "spec_verify_steps",
+                        "drafter_pool_bytes")
+    out["self"] = {k: self_pass[k] for k in spec_keys}
+    out["fitted_half"] = {k: fitted[k] for k in spec_keys}
+    out["fit"] = dict(steps=SPEC_FIT_STEPS, prompts=list(prompts.shape),
+                      gen_tokens=SPEC_FIT_NEW, wall_s=fit_s)
+    return out
+
+
+def item5_prefix_store(torch, model, prefix, rows) -> dict:
+    """Two engines in turn on one store directory, the bf16 pool then
+    the int8 pool: the first serves a prompt (the shared prefix, a
+    suffix, STORE_SUFFIX tokens past a page boundary) twice, cold and
+    through its own prefix cache, spilling its pages; the second starts
+    on the store, warm-loads them, prefills only the STORE_SUFFIX
+    tokens and gives the tokens of the first's cached run (the same
+    pages, the same computation)."""
+    import numpy as np
+
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.serve import Engine
+    from tpunet_torch.serve.prefixcache import build_prefix_store
+
+    prompt = np.concatenate([prefix, rows[-5, :64 + STORE_SUFFIX]])
+    out = {}
+    for kv in ("auto", "int8"):
+        d = SERVE_DIR / f"prefix_store_{kv}"
+        shutil.rmtree(d, ignore_errors=True)
+        cfg = ServeConfig(emit_every_s=0.0, kv_dtype=kv)
+        store = build_prefix_store(str(d), lm_config("bfloat16", 0.0), cfg,
+                                   device="cuda")
+        first = Engine(model, cfg, prefix_store=store).start()
+        try:
+            cold = first.submit(prompt, max_new_tokens=SERVE_PARITY_NEW
+                                ).result(timeout=300)
+            hit = first.submit(prompt, max_new_tokens=SERVE_PARITY_NEW
+                               ).result(timeout=300)
+        finally:
+            first.stop()
+        second = Engine(model, cfg, prefix_store=store).start()
+        try:
+            warm = second.submit(prompt, max_new_tokens=SERVE_PARITY_NEW
+                                 ).result(timeout=300)
+        finally:
+            second.stop()
+        s1, s2 = first.registry.snapshot(), second.registry.snapshot()
+        out[kv] = dict(
+            prompt_tokens=len(prompt),
+            spills=s1["serve_prefix_spills_total"],
+            warm_loads=s2["serve_prefix_warm_loads_total"],
+            prefill_tokens=s2["serve_prefill_tokens_total"],
+            tokens_equal_first=warm == hit, cold_equals_hit=cold == hit,
+            files=len(list(d.glob("*.pfx"))))
+        check(out[kv]["warm_loads"] >= 1, f"store ({kv}): {out[kv]}")
+        check(out[kv]["prefill_tokens"] == STORE_SUFFIX,
+              f"store ({kv}): the warm engine prefilled "
+              f"{out[kv]['prefill_tokens']} tokens, want {STORE_SUFFIX}")
+        check(warm == hit, f"store ({kv}): warm tokens {warm[:8]} differ "
+              f"from the first engine's {hit[:8]}")
+    return out
+
+
+def serve_cli_chaos(torch) -> dict:
+    """``python -m tpunet_torch.serve --chaos kill@tokens=N`` (the default
+    LM's widths, random weights) as a subprocess: a streamed
+    /v1/generate receives exactly N token lines and no done frame, then
+    the process dies by SIGKILL."""
+    import signal
+    import socket
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mdir = SERVE_DIR / "chaos"
+    shutil.rmtree(mdir, ignore_errors=True)
+    log = open(SERVE_DIR / "chaos.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpunet_torch.serve", "--checkpoint-dir", "",
+         "--metrics-dir", str(mdir), "--port", str(port), "--chaos",
+         f"kill@tokens={CHAOS_KILL_TOKENS}"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    lines = []
+    try:
+        deadline = time.perf_counter() + 180
+        while time.perf_counter() < deadline:
+            check(proc.poll() is None, f"chaos CLI exited {proc.returncode}")
+            try:
+                if http_call(base, "/healthz", timeout=2)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        req = urllib.request.Request(
+            base + "/v1/generate",
+            json.dumps({"tokens": [5, 9, 2], "max_new_tokens": 64,
+                        "stream": True}).encode(),
+            {"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                for line in r:
+                    if line.strip():
+                        lines.append(json.loads(line))
+        except (OSError, ValueError):
+            pass                        # the connection dropped
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    res = dict(kill_at=CHAOS_KILL_TOKENS,
+               streamed_tokens=sum(1 for ev in lines if "token" in ev),
+               done_frame=any(ev.get("done") for ev in lines),
+               exit_code=rc)
+    check([ev.get("i") for ev in lines] == list(range(CHAOS_KILL_TOKENS)),
+          f"chaos stream: {res}")
+    check(rc == -signal.SIGKILL, f"chaos CLI exit {rc}, want -9: {res}")
+    return res
+
+
+def phase_serve_item5(torch, serve) -> dict:
+    """serve_item5 (docstring, phase 14): int8 pages, speculative
+    decoding, the prefix store and chaos on the LM of phase 13. Its
+    counts go to 0 before and are read after: the path launches no
+    kernel."""
+    import numpy as np
+
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.lm import generate
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 900)
+    state = create_model(lm_config("float32", 0.0), device="cpu",
+                         generator=gen).state_dict()
+    bodies, rows, prefix = serve_prompts()
+    prompts8 = [np.concatenate([prefix, rows[40 + i, :SERVE_PARITY_SUFFIX]])
+                for i in range(8)]
+    reset_launch_counts()
+    int8 = item5_int8_gates(torch)
+    emit("serve_item5_int8_gates", **int8)
+    model32 = create_model(lm_config("float32", 0.0), device="cuda")
+    model32.load_state_dict(state)
+    with torch.inference_mode():
+        buf = generate(model32, torch.from_numpy(np.stack(prompts8)).cuda(),
+                       SERVE_PARITY_NEW)
+    want = buf[:, len(prompts8[0]):].tolist()
+    spec32 = item5_spec_f32(torch, model32, prompts8, want)
+    emit("serve_item5_spec_f32", **spec32)
+    del model32
+    torch.cuda.empty_cache()
+    model = create_model(lm_config("bfloat16", 0.0), device="cuda")
+    model.load_state_dict(state)
+    readings = item5_int8_readings(torch, model, prompts8)
+    emit("serve_item5_int8", **readings)
+    store = item5_prefix_store(torch, model, prefix, rows)
+    emit("serve_item5_prefix_store", **store)
+    launches = launch_counts()
+    check(sum(launches.values()) == 0,
+          f"kernel launches on the serve_item5 path: {launches}")
+    spec16 = item5_spec_bf16(torch, model, bodies, rows, serve["alone"])
+    emit("serve_item5_spec_bf16", **spec16)
+    del model
+    torch.cuda.empty_cache()
+    chaos = serve_cli_chaos(torch)
+    emit("serve_item5_chaos", **chaos)
+    return dict(launches=launches, s=time.perf_counter() - t0)
 
 
 def card_line() -> str:
@@ -3653,6 +4060,7 @@ def main() -> int:
                          sync_step_ms=LM_BATCH * LM_T / lm_tokens_per_s * 1e3)
         lm_gen = phase_lm_generate(torch)
         serve = phase_serve_engine(torch)
+        item5 = phase_serve_item5(torch, serve)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3712,7 +4120,8 @@ def main() -> int:
          lm_train_tokens_per_sec_per_chip=lm_tokens_per_s,
          lm_decode_new_tokens_per_s=lm_gen["new_tokens_per_s"],
          serve_generated_tokens_per_s=serve["generated_tokens_per_s"],
-         serve_ttft_p50_ms=serve["ttft_p50_ms"])
+         serve_ttft_p50_ms=serve["ttft_p50_ms"],
+         serve_item5_s=item5["s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

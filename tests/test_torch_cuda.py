@@ -890,3 +890,60 @@ def test_serve_engine_greedy_equals_generate(cuda, paged):
     if paged:
         assert snap["serve_prefix_hits_total"] >= 1
         assert snap["serve_kv_preemptions_total"] >= 1
+
+
+def test_quantize_kv_rows_on_the_card_equals_the_cpu(cuda):
+    """The int8 KV quantizer on the card gives the CPU's codes and
+    bit-equal scales (a true division, rounding half to even on both),
+    for bf16 and float32 rows with an all-zero row, an outlier row and
+    exact .5 ties."""
+    from tpunet_torch.models.vit import quantize_kv_rows
+    g = torch.Generator().manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(4096, 12, 64, generator=g).to(dtype)
+        x[3] = 0
+        x[9, 0, 0] = 300.0
+        x[11] = 0
+        x[11, 0, :32] = torch.arange(-15.5, 16.5)
+        x[11, 1, 0] = 127.0
+        want_q, want_s = quantize_kv_rows(x)
+        got_q, got_s = quantize_kv_rows(x.cuda())
+        assert torch.equal(got_q.cpu(), want_q)
+        assert torch.equal(got_s.cpu(), want_s)
+
+
+@pytest.mark.parametrize("wm", [1.0, 0.5])
+def test_serve_spec_greedy_equals_spec_off(cuda, wm):
+    """Speculative decoding on the card at a small width, float32: with
+    self-speculation and a seeded half-width drafter the greedy tokens
+    are generate's, the counters balance, and no page leaks."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.serve import Engine
+    cfg = ModelConfig(name="lm", vit_hidden=128, vit_depth=2, vit_heads=2,
+                      vocab_size=256, max_seq_len=96, dtype="float32",
+                      dropout_rate=0.0)
+    model = create_model(cfg, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.embed.weight.normal_(0.0, 0.5, generator=torch.Generator(
+            "cuda").manual_seed(4))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, 4 + k) for k in (3, 9, 1, 14, 6, 11)]
+    want = [generate(model, torch.tensor(p)[None], 20)[0, len(p):].tolist()
+            for p in prompts]
+    eng = Engine(model, ServeConfig(
+        slots=3, prefill_buckets=(16, 32), emit_every_s=0.0, kv_pages=24,
+        kv_page_tokens=8, spec_decode=True, spec_k=4,
+        spec_draft_width_mult=wm)).start()
+    try:
+        reqs = [eng.submit(p, max_new_tokens=20) for p in prompts]
+        got = [r.result(timeout=120) for r in reqs]
+    finally:
+        eng.stop()
+    assert got == want
+    snap = eng.registry.snapshot()
+    assert snap["serve_spec_accepted_tokens_total"] \
+        + snap["serve_spec_rejected_tokens_total"] \
+        == snap["serve_spec_draft_tokens_total"] > 0
+    cached = eng._prefix.pages_cached if eng._prefix else 0
+    assert len(eng._free_pages) + cached == eng.kv_pages_usable

@@ -96,19 +96,22 @@ def test_positions_offset_and_refusals(params):
         with pytest.raises(ValueError, match="outside the table"):
             port(x, pos_offset=LM["max_seq_len"] - 4)
         # Per-row positions and active gates are ported (the serving
-        # engine's hooks, tests/test_torch_serve_attend.py); int8 KV pages
-        # are what item 5 still owes.
-        with pytest.raises(NotImplementedError, match="item 5"):
-            port(x, pos_offset=torch.zeros(1, dtype=torch.long),
-                 cache=port.init_cache(1, 16),
-                 paged_kv=PagedKV(pages=3, page_tokens=8, dtype="int8"),
-                 page_table=torch.zeros(1, 2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            port(x, pos_offset=torch.zeros(1, dtype=torch.long),
-                 cache=port.init_cache(1, 16),
-                 decode_active=torch.ones(1, dtype=torch.bool),
-                 paged_kv=PagedKV(pages=3, page_tokens=8, dtype="int8"),
-                 page_table=torch.zeros(1, 2, dtype=torch.int32))
+        # engine's hooks, tests/test_torch_serve_attend.py), and so are
+        # int8 KV pages: the prompt through an int8 pool gives the
+        # forward's logits within int8's error (codes of 1/127 of each
+        # row's absmax), in the pool its codes and their scales.
+        int8 = PagedKV(pages=3, page_tokens=8, dtype="int8")
+        table = torch.tensor([[1, 2]], dtype=torch.int32)
+        for active in (None, torch.ones(1, dtype=torch.bool)):
+            pool = port.init_paged_cache(int8)
+            got, _ = port(x, pos_offset=torch.zeros(1, dtype=torch.long),
+                          cache=pool, decode_active=active, paged_kv=int8,
+                          page_table=table)
+            err = (got - full[:, :8]).abs().max().item()
+            assert 0 < err < 0.02 * full.abs().max().item(), err
+            assert pool.k[0].dtype == torch.int8
+            assert pool.k[0][8:16].abs().amax((1, 2)).eq(127).all()
+            assert (pool.sk[0][8:16] > 0).all() and (pool.sk[0][16:] == 0).all()
         with pytest.raises(ValueError, match="need per-row pos_offset"):
             port(x, decode_active=torch.ones(1, dtype=torch.bool))
         with pytest.raises(ValueError, match="needs a cache"):

@@ -197,5 +197,13 @@ def test_paged_and_dense_agree_and_module_clock_is_unchanged(models):
         cache = pm.init_cache(2, TOTAL)
         _, cache = pm(toks[:, :1], pos_offset=0, cache=cache)
         assert cache.index == 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PagedKV(pages=3, page_tokens=PT, dtype="int8")
+    # int8 pages are ported (tests/test_torch_serve_int8.py holds them to
+    # tpunet's): int8 codes with a float32 scale a flat row, per layer.
+    int8 = PagedKV(pages=3, page_tokens=PT, dtype="int8")
+    assert int8.quantized and int8.store_dtype(torch.float32) == torch.int8
+    pool = pm.init_paged_cache(int8)
+    assert [t.dtype for t in pool.leaves()] == \
+        [torch.int8] * 2 * DEPTH + [torch.float32] * 2 * DEPTH
+    assert pool.sk[0].shape == (3 * PT,)
+    with pytest.raises(ValueError, match="unknown kv dtype"):
+        PagedKV(pages=3, page_tokens=PT, dtype="int4")

@@ -500,8 +500,9 @@ def test_queued_cancel_and_deadline_are_accounted(lm):
 
 def test_engine_failure_fails_requests_and_health(lm):
     """A raising device step (no fallback) ends the engine: in-flight and
-    queued requests fail fast with the error, health flips, and new
-    submits are refused."""
+    queued requests fail fast with the error, health flips, new submits
+    are refused, and the dead loop's thread handle is idle (not a stall
+    for the process's watchdogs)."""
     eng = make_engine(lm, slots=1, default_max_new_tokens=40)
 
     def boom(*a):
@@ -521,6 +522,7 @@ def test_engine_failure_fails_requests_and_health(lm):
     while eng.healthy and time.perf_counter() < deadline:
         time.sleep(0.01)
     assert not eng.healthy and "device fell over" in (eng.error or "")
+    assert eng._thread_handle.state == "idle"
     with pytest.raises(DrainingError):
         eng.submit(prompts(1)[0])
 
@@ -532,10 +534,15 @@ def test_kv_gauges_and_refused_features(lm):
     assert snap["serve_kv_pages_used"] == 0
     # 2 layers x K and V x 2 heads x 16 x 4 bytes a cached position
     assert snap["serve_kv_bytes_per_token"] == 2 * 2 * 2 * 16 * 4
-    for kw, item in ((dict(kv_dtype="int8"), "item 5"),
-                     (dict(spec_decode=True), "item 5"),
-                     (dict(aot_cache="x"), "item 5"),
-                     (dict(prefix_store="x"), "item 5"),
-                     (dict(chaos="kill@tokens=1"), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeConfig(**kw)
+    # Queue A item 5's levers are ported: int8 pages with their scales,
+    # the drafter and its pool, the chaos injector; the AOT warm start is
+    # refused with the reason it is out of scope.
+    int8 = make_engine(lm, kv_pages=10, kv_page_tokens=8, kv_dtype="int8")
+    assert int8.registry.snapshot()["serve_kv_bytes_per_token"] == \
+        2 * 2 * (2 * 16 + 4)
+    spec = make_engine(lm, spec_decode=True, spec_draft_width_mult=1.0)
+    assert spec._drafter is lm[1]
+    assert spec.drafter_pool_bytes() == spec.kv_pool_bytes()
+    assert make_engine(lm, chaos="kill@tokens=1").chaos is not None
+    with pytest.raises(NotImplementedError, match="out of scope"):
+        ServeConfig(aot_cache="x")

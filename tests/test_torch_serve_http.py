@@ -335,20 +335,34 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
     for extra, item in ((["--mesh-model", "2"], "item 8"),
                         (["--model", "lm_pp"], "item 8"),
                         (["--moe-experts", "4"], "item 8"),
-                        (["--kv-dtype", "int8"], "item 5"),
-                        (["--spec-decode"], "item 5"),
-                        (["--aot-cache", "d"], "item 5"),
-                        (["--prefix-store", "d"], "item 5"),
-                        (["--chaos", "kill@tokens=1"], "item 5")):
+                        (["--aot-cache", "d"], "out of scope"),
+                        (["--chaos", "boom@tokens=1"], "unknown kind")):
         with pytest.raises(SystemExit) as e:
             build_server(build_argparser().parse_args(base + extra))
         assert e.value.code == 2
         assert item in capsys.readouterr().err
+    tiny = base + ["--vit-hidden", "32", "--vit-depth", "2",
+                   "--vit-heads", "2"]
+    # Queue A item 5's flags are live: each builds its engine.
+    store = ROOT / "build" / "tpunet_torch" / "test_cli_prefix_store"
+    for extra, check in (
+            (["--kv-dtype", "int8"],
+             lambda eng: eng._paged_kv.quantized),
+            (["--spec-decode", "--spec-k", "3"],
+             lambda eng: eng.spec_k == 3 and eng._drafter is not None),
+            (["--prefix-store", str(store)],
+             lambda eng: eng._prefix_store.directory == str(store)),
+            (["--chaos", "kill@tokens=1"],
+             lambda eng: eng.chaos.render() == "kill@tokens=1")):
+        srv = build_server(build_argparser().parse_args(
+            tiny + extra + ["--port", "0"])).start()
+        try:
+            assert check(srv.engine), extra
+        finally:
+            srv.drain(timeout=5.0)
     # The exporters are ported: --statsd builds a statsd exporter on the
     # registry, and a malformed --obs-http or --obs-webhook URL fails at
     # setup, as tpunet's serve CLI does.
-    tiny = base + ["--vit-hidden", "32", "--vit-depth", "2",
-                   "--vit-heads", "2"]
     srv = build_server(build_argparser().parse_args(
         tiny + ["--statsd", "127.0.0.1:1"])).start()
     try:

@@ -50,6 +50,20 @@ def _refuse_unported(obj, items) -> None:
                 f"ported to tpunet_torch yet; it comes with ROADMAP {item}")
 
 
+# Why ``--aot-cache`` / ``ServeConfig.aot_cache`` is refused for good (it
+# is not a port still to come): the serve CLI, the config and the ROADMAP
+# give this reason.
+AOT_CACHE_SCOPED_OUT = (
+    "--aot-cache (ServeConfig.aot_cache) is out of scope for tpunet_torch: "
+    "tpunet's warm start persists compiled XLA executables so that a "
+    "restarted replica skips compiling, but eager PyTorch compiles no "
+    "per-shape program; the port's only compile step, the nvcc build of "
+    "its hand kernels, is already cached under build/tpunet_torch/ at "
+    "first use; CUDA graphs cannot be serialised to disk, and capturing "
+    "the decode step in a graph is a performance lever (ROADMAP Queue "
+    "B' H1), not a port of this feature")
+
+
 @dataclass(frozen=True)
 class DataConfig:
     """Data pipeline config: the reference's transforms and loaders."""
@@ -368,15 +382,9 @@ class ServeConfig:
     # Replica identity on obs_serve records (fleet SLO rollups route
     # by it). Empty = "serve-<host>-<pid>".
     run_id: str = ""
-    # AOT warm-start (--aot-cache DIR, tpunet/utils/cache.py
-    # AotProgramStore): serialize the fully-compiled decode +
-    # bucketed-prefill executables under DIR at first boot and
-    # deserialize them on every later boot — no tracing, no lowering,
-    # no XLA — so a respawned replica serves its first token in
-    # seconds instead of recompiling (the router tier's autoscaling
-    # depends on it; docs/serving.md "AOT warm-start"). Empty = off
-    # (the persistent compilation cache still applies). Single-device
-    # replicas only; ignored with --mesh-model > 1.
+    # AOT warm-start (--aot-cache DIR): tpunet's persistence of compiled
+    # XLA executables. Out of scope here, and refused with the reason in
+    # AOT_CACHE_SCOPED_OUT.
     aot_cache: str = ""
     # Serve-tier fault injection (--chaos, tpunet/serve/chaos.py):
     # deterministic SIGKILL/stall/probe-drop/slow-stream faults
@@ -422,18 +430,11 @@ class ServeConfig:
     spec_draft_checkpoint: str = ""
 
     def __post_init__(self):
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(
-                "ServeConfig.kv_dtype='int8' (int8 KV pages) is not ported "
-                "to tpunet_torch yet; it comes with ROADMAP Queue A item 5")
-        _refuse_unported(self, {
-            "prefix_store": "Queue A item 5 (the prefix spill store)",
-            "spec_decode": "Queue A item 5 (speculative decoding)",
-            "spec_k": "Queue A item 5 (speculative decoding)",
-            "spec_draft_width_mult": "Queue A item 5 (speculative decoding)",
-            "spec_draft_checkpoint": "Queue A item 5 (speculative decoding)",
-            "aot_cache": "Queue A item 5 (the AOT warm start)",
-            "chaos": "Queue A item 5 (serve-tier chaos)"})
+        # The engine checks the item-5 levers against each other (int8
+        # and spec need the paged pool, spec needs device sampling), as
+        # tpunet's does; only the AOT warm start stays out.
+        if self.aot_cache:
+            raise NotImplementedError(AOT_CACHE_SCOPED_OUT)
 
 
 @dataclass(frozen=True)

@@ -12,7 +12,9 @@ Port of the parts of ``tpunet/models/convert.py`` the port needs:
   the qkv columns keep their (3, heads, head_dim) order);
 - :func:`lm_state_dict_from_jax`: a Flax LM ``params`` tree -> the
   port's LM state dict (``embed.embedding`` -> ``embed.weight``, the
-  blocks as the ViT's, no classifier: the head is tied);
+  blocks as the ViT's, no classifier: the head is tied), and
+  :func:`lm_params_to_jax`, its inverse (the serving drafter's npz is
+  written in tpunet's layout, ``tpunet_torch/serve/spec.py``);
 - :func:`load_state_dict` / :func:`load_state_dict_file` load such a
   dict into any of the models (bare, or under ``state_dict``/``model``/
   ``params``; ``module.`` prefixes stripped) and, like
@@ -144,6 +146,37 @@ def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     _blocks(sd, params)
     _ln(sd, "ln", params["ln"])
     return sd
+
+
+def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's LM state dict -> tpunet's Flax LM ``params`` tree of
+    float32 numpy arrays, the inverse of :func:`lm_state_dict_from_jax`
+    (``weight`` [out, in] -> ``kernel`` [in, out], LayerNorm ``weight``
+    -> ``scale``)."""
+    def a(key):
+        return state_dict[key].detach().cpu().float().numpy()
+
+    def dense(key):
+        return {"kernel": np.ascontiguousarray(a(f"{key}.weight").T),
+                "bias": a(f"{key}.bias")}
+
+    def ln(key):
+        return {"scale": a(f"{key}.weight"), "bias": a(f"{key}.bias")}
+
+    params = {"embed": {"embedding": a("embed.weight")},
+              "pos_embed": a("pos_embed"), "ln": ln("ln")}
+    i = 0
+    while f"blocks.{i}.ln1.weight" in state_dict:
+        key = f"blocks.{i}"
+        params[f"block{i:02d}"] = {
+            "ln1": ln(f"{key}.ln1"),
+            "attn": {"qkv": dense(f"{key}.attn.qkv"),
+                     "out": dense(f"{key}.attn.out")},
+            "ln2": ln(f"{key}.ln2"),
+            "mlp": {"fc1": dense(f"{key}.mlp.fc1"),
+                    "fc2": dense(f"{key}.mlp.fc2")}}
+        i += 1
+    return params
 
 
 def _unwrap(obj: Mapping) -> Dict[str, torch.Tensor]:

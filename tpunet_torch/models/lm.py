@@ -34,9 +34,9 @@ fixed-size buffer (the flash forward, one launch a layer a token).
 Sampling draws with ``torch.multinomial`` from an explicit generator,
 one draw a new token: JAX's key stream cannot be matched, so a sampled
 stream is deterministic per seed within the port, and a greedy stream
-equals tpunet's. Not ported: int8 KV pages (ROADMAP Queue A item 5), the
-hidden states for the vocab-sharded cross-entropy, MoE blocks and
-``lm_pp`` (item 8), block remat (item 2b).
+equals tpunet's. Not ported: the hidden states for the vocab-sharded
+cross-entropy, MoE blocks and ``lm_pp`` (ROADMAP Queue A item 8), block
+remat (item 2b).
 """
 
 from __future__ import annotations
@@ -78,12 +78,27 @@ class TransformerLM(Encoder):
             raise ValueError(f"hidden dim {hidden} not divisible by {heads} "
                              "heads")
         self.vocab_size = vocab_size
+        self.hidden = hidden
+        self.mlp_ratio = mlp_ratio
         self.max_len = max_len
         self.embed = Embed(vocab_size, hidden)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, hidden))
         self.blocks = nn.ModuleList(
             EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
         self.ln = LayerNorm(hidden)
+
+    def clone(self, **overrides) -> "TransformerLM":
+        """A model of this one's configuration with ``overrides`` (keyword
+        arguments of the constructor, Flax's ``Module.clone``), on the
+        CPU; its parameters are uninitialised: load them or
+        :func:`init_lm` them, then move it."""
+        kw = dict(vocab_size=self.vocab_size, hidden=self.hidden,
+                  depth=len(self.blocks), heads=self.heads,
+                  mlp_ratio=self.mlp_ratio, max_len=self.max_len,
+                  dropout_rate=self.dropout_rate, attn_fn=self.attn_fn,
+                  dtype=self.dtype)
+        kw.update(overrides)
+        return TransformerLM(**kw)
 
     def init_cache(self, batch: int, total: int) -> KVCache:
         """An empty decode cache for ``batch`` rows of ``total`` positions,
@@ -95,8 +110,8 @@ class TransformerLM(Encoder):
 
     def init_paged_cache(self, paged_kv: PagedKV) -> KVCache:
         """An empty shared page pool of ``paged_kv``'s geometry, per layer
-        [pages * page_tokens, heads, head_dim], on the parameters'
-        device."""
+        [pages * page_tokens, heads, head_dim] (and the float32 row scales
+        of int8 pages), on the parameters' device."""
         hidden = self.pos_embed.shape[-1]
         return KVCache.paged(len(self.blocks), paged_kv, self.heads,
                              hidden // self.heads, self.dtype,

@@ -41,10 +41,12 @@ skip the attention core: the module-clock step of ``generate``
 (:class:`ServeStep`): per-row positions with T >= 1 queries a row (a
 chunked causal prefill) and an ``active`` gate, against a dense
 :class:`KVCache` (:func:`decode_attend`) or a shared page pool
-(:class:`PagedKV`, :func:`paged_decode_attend`). Every cache is per-layer
-tensors written in place. Not ported: int8 KV pages (ROADMAP Queue A
-item 5), MoE blocks and the sequence-parallel cores (item 8), block remat
-(item 2b); the config refuses them.
+(:class:`PagedKV`, :func:`paged_decode_attend`), whose pages hold the
+compute dtype, bf16, or int8 codes with a float32 scale a token row
+(:func:`quantize_kv_rows`, dequantised on the gather). Every cache is
+per-layer tensors written in place. Not ported: MoE blocks and the
+sequence-parallel cores (ROADMAP Queue A item 8), block remat (item 2b);
+the config refuses them.
 """
 
 from __future__ import annotations
@@ -133,13 +135,17 @@ class KVCache:
     the position the next token is written at on the module clock
     (tpunet's ``cached_k``/``cached_v``/``cache_index``). Dense, each is
     [B, total, H, D]; paged, each is a flat pool [pages * page_tokens,
-    H, D]. A decode step writes its K/V into the tensors in place; a
-    module-clock step returns the cache advanced by one, and the cache it
-    was given shares those tensors and is stale afterwards."""
+    H, D], and int8 pages add ``sk``/``sv``, per layer the float32 scale
+    of each flat row [pages * page_tokens] (tpunet's ``scale_k``/
+    ``scale_v``). A decode step writes its K/V into the tensors in place;
+    a module-clock step returns the cache advanced by one, and the cache
+    it was given shares those tensors and is stale afterwards."""
 
     k: Tuple[torch.Tensor, ...]
     v: Tuple[torch.Tensor, ...]
     index: int = 0
+    sk: Tuple[torch.Tensor, ...] = ()
+    sv: Tuple[torch.Tensor, ...] = ()
 
     @classmethod
     def zeros(cls, depth: int, batch: int, total: int, heads: int,
@@ -158,13 +164,21 @@ class KVCache:
         rows = paged_kv.pages * paged_kv.page_tokens
         store = paged_kv.store_dtype(dtype)
 
-        def make():
-            return tuple(torch.zeros(rows, heads, head_dim, dtype=store,
+        def make(*shape, dtype=store):
+            return tuple(torch.zeros(rows, *shape, dtype=dtype,
                                      device=device) for _ in range(depth))
-        return cls(make(), make(), 0)
+        scales = ((make(dtype=torch.float32), make(dtype=torch.float32))
+                  if paged_kv.quantized else ((), ()))
+        return cls(make(heads, head_dim), make(heads, head_dim), 0, *scales)
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor of the cache in a fixed order: the keys, the
+        values, then the scales of int8 pages, each by layer. A paged
+        cache's leaves are all indexed by flat row on dim 0."""
+        return self.k + self.v + self.sk + self.sv
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        return sum(t.numel() * t.element_size() for t in self.leaves())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,24 +189,46 @@ class PagedKV:
     rows and the padded tail of a bucketed prefill write there, and the
     engine never hands it out), addressed through a per-row page table.
     ``dtype`` is the page payload: ``auto`` stores at the compute dtype,
-    ``bfloat16``/``bf16`` halves float32 payloads; ``int8`` (per-row
-    scales) is ROADMAP Queue A item 5."""
+    ``bfloat16``/``bf16`` halves float32 payloads, ``int8`` quantizes each
+    written token row against its own absmax with the float32 scale
+    stored beside the page (a scale a page row: one a page could not
+    absorb incremental writes without rescaling the page) and
+    dequantizes on the gather."""
 
     pages: int            # total pages INCLUDING the reserved page 0
     page_tokens: int      # tokens per page
-    dtype: str = "auto"   # auto | bfloat16 | bf16
+    dtype: str = "auto"   # auto | bfloat16 | bf16 | int8
 
     def __post_init__(self):
-        if self.dtype == "int8":
-            raise NotImplementedError(
-                "int8 KV pages (per-row scales, the eval-parity gate) are "
-                "not ported to tpunet_torch yet; they come with ROADMAP "
-                "Queue A item 5")
-        if self.dtype not in ("auto", "bfloat16", "bf16"):
+        if self.dtype not in ("auto", "bfloat16", "bf16", "int8"):
             raise ValueError(f"unknown kv dtype {self.dtype!r}")
 
     def store_dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
-        return compute_dtype if self.dtype == "auto" else torch.bfloat16
+        if self.dtype == "auto":
+            return compute_dtype
+        return torch.int8 if self.quantized else torch.bfloat16
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype == "int8"
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of ``x`` [N, H, D] a token row, tpunet's
+    ``_quantize_kv_rows`` (``tpunet/models/vit.py:87-96``): each row over
+    its own absmax across (H, D) in float32, so one outlier token cannot
+    crush every other row's resolution. The scale is ``amax / 127`` (1
+    for an all-zero row); the codes are ``x / scale`` rounded half to
+    even and clamped to +-127. Both divisions are true divisions on both
+    devices: CUDA divides by a CPU scalar as a multiply by its reciprocal,
+    which rounds differently, so 127 is a tensor on ``x``'s device.
+    Returns (int8 codes [N, H, D], float32 scales [N])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 2))
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.round(xf / scale[:, None, None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,7 +324,9 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cached_k: torch.Tensor, cached_v: torch.Tensor,
                         positions: torch.Tensor, page_table: torch.Tensor,
                         page_tokens: int,
-                        active: Optional[torch.Tensor] = None
+                        active: Optional[torch.Tensor] = None,
+                        scale_k: Optional[torch.Tensor] = None,
+                        scale_v: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Attention of new tokens against a shared page pool, tpunet's
     ``_paged_decode_attend`` (``tpunet/models/vit.py:216-320``).
@@ -303,7 +341,13 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and attended with the dense masked math, query i of row b seeing keys
     ``j <= positions[b] + i``. The writes touch only positions >=
     ``positions[b]``, so pages below it (the prefix cache's shared pages)
-    are never written."""
+    are never written.
+
+    int8 pages (``scale_k``/``scale_v`` given, each [pages * page_tokens]
+    float32): the new rows are quantized (:func:`quantize_kv_rows`) and
+    their scales written by the same indices; the gather dequantizes,
+    codes times scale in float32, then casts to q's dtype, as tpunet
+    does."""
     b, t, h, d = k.shape
     pt = int(page_tokens)
     slots = page_table.shape[1]
@@ -315,12 +359,26 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if active is not None:
         flat = torch.where(active[:, None], flat, torch.zeros_like(flat))
     flat = flat.reshape(-1)
-    cached_k.index_copy_(0, flat, k.reshape(b * t, h, d).to(cached_k.dtype))
-    cached_v.index_copy_(0, flat, v.reshape(b * t, h, d).to(cached_v.dtype))
+    k_rows, v_rows = k.reshape(b * t, h, d), v.reshape(b * t, h, d)
     rows = (table[:, :, None] * pt
             + torch.arange(pt, device=k.device)[None, None, :]).reshape(-1)
-    kf = cached_k.index_select(0, rows).view(b, slots * pt, h, d).to(q.dtype)
-    vf = cached_v.index_select(0, rows).view(b, slots * pt, h, d).to(q.dtype)
+    if scale_k is None:
+        cached_k.index_copy_(0, flat, k_rows.to(cached_k.dtype))
+        cached_v.index_copy_(0, flat, v_rows.to(cached_v.dtype))
+        kf = cached_k.index_select(0, rows)
+        vf = cached_v.index_select(0, rows)
+    else:
+        for pool, scales, x in ((cached_k, scale_k, k_rows),
+                                (cached_v, scale_v, v_rows)):
+            codes, s = quantize_kv_rows(x)
+            pool.index_copy_(0, flat, codes)
+            scales.index_copy_(0, flat, s)
+        kf = (cached_k.index_select(0, rows).float()
+              * scale_k.index_select(0, rows)[:, None, None])
+        vf = (cached_v.index_select(0, rows).float()
+              * scale_v.index_select(0, rows)[:, None, None])
+    kf = kf.view(b, slots * pt, h, d).to(q.dtype)
+    vf = vf.view(b, slots * pt, h, d).to(q.dtype)
     return _masked_attend(q, kf, vf, pos_t)
 
 
@@ -332,10 +390,14 @@ def _layer_attend(cache: KVCache, i: int,
         return functools.partial(decode_attend, cached_k=ck, cached_v=cv,
                                  positions=cache.index)
     if step.paged_kv is not None:
+        scales = {}
+        if step.paged_kv.quantized:
+            scales = dict(scale_k=cache.sk[i], scale_v=cache.sv[i])
         return functools.partial(
             paged_decode_attend, cached_k=ck, cached_v=cv,
             positions=step.positions, page_table=step.page_table,
-            page_tokens=step.paged_kv.page_tokens, active=step.active)
+            page_tokens=step.paged_kv.page_tokens, active=step.active,
+            **scales)
     return functools.partial(decode_attend, cached_k=ck, cached_v=cv,
                              positions=step.positions, active=step.active)
 

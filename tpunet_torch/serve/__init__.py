@@ -2,8 +2,11 @@
 of ``tpunet/serve``:
 
 - ``engine``    — continuous batching over a pool of KV-cache slots
-  (paged by default, with the prefix cache), bucketed chunked prefill,
-  per-slot positions and active masks, device-side sampling;
+  (paged by default, with the prefix cache and its spill store; int8
+  pages), bucketed chunked prefill, per-slot positions and active masks,
+  device-side sampling, speculative decoding;
+- ``spec``      — the drafter's width, acceptance rule, npz and fit;
+- ``chaos``     — serve-tier fault injection (``--chaos``);
 - ``scheduler`` — bounded FIFO admission with backpressure, deadlines
   and cooperative cancellation;
 - ``classify``  — the micro-batched classifier path;

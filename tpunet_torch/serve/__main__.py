@@ -3,14 +3,16 @@ port of ``python -m tpunet.serve``.
 
 Loads the LM's best checkpoint through ``infer.generate.load_lm`` (an
 empty ``--checkpoint-dir`` serves the seeded random init), optionally a
-classifier checkpoint for the micro-batched ``/v1/classify`` path, wires
-the obs registry into ``metrics.jsonl`` and the flight recorder, and
-and any configured live exporters, and serves until SIGTERM/SIGINT,
-which drains gracefully (stop admitting, finish in-flight, flush
-telemetry) rather than dropping connections.
-Flags and exit-2 usage errors are tpunet's, plus ``--device`` (``cuda``
-by default; ``cpu`` is the only way to serve on the CPU). The flags of
-what is not ported yet exit 2 naming their ROADMAP item.
+classifier checkpoint for the micro-batched ``/v1/classify`` path and a
+shared prefix store (``--prefix-store``), wires the obs registry into
+``metrics.jsonl``, the flight recorder and any configured live
+exporters, and serves until SIGTERM/SIGINT, which drains gracefully
+(stop admitting, finish in-flight, flush telemetry) rather than dropping
+connections. Flags and exit-2 usage errors are tpunet's, plus
+``--device`` (``cuda`` by default; ``cpu`` is the only way to serve on
+the CPU). The flags of what is not ported yet exit 2 naming their
+ROADMAP item; ``--aot-cache`` exits 2 with the reason it is out of
+scope.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def _usage(msg: str) -> SystemExit:
 def build_argparser():
     import argparse
 
-    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.config import AOT_CACHE_SCOPED_OUT, ServeConfig
 
     d = ServeConfig()
     p = argparse.ArgumentParser(
@@ -98,8 +100,10 @@ def build_argparser():
     p.add_argument("--kv-dtype", default=d.kv_dtype,
                    choices=["auto", "bf16", "int8"],
                    help="KV page payload dtype: auto = compute dtype; "
-                        "bf16 halves float32 payloads; int8 is not "
-                        "ported yet (ROADMAP Queue A item 5)")
+                        "bf16 halves float32 payloads; int8 "
+                        "quantizes per written token row (float32 "
+                        "scale stored with the page) — halves page "
+                        "cost again")
     p.add_argument("--prefix-cache", default=d.prefix_cache,
                    action=argparse.BooleanOptionalAction,
                    help="prefix KV cache (default on, paged only): "
@@ -113,17 +117,38 @@ def build_argparser():
                         "half the usable pool)")
     p.add_argument("--prefix-store", default=d.prefix_store,
                    metavar="DIR",
-                   help="shared-filesystem prefix spill (not ported "
-                        "yet: ROADMAP Queue A item 5)")
+                   help="shared-filesystem prefix spill/warm-start: "
+                        "cached pages publish under DIR (first-writer-"
+                        "wins) and a fresh replica adopts the fleet's "
+                        "prefix set when it starts; entries scoped by "
+                        "model config + kv levers + torch/CUDA/card, so "
+                        "a lever change is a clean miss")
     p.add_argument("--spec-decode", default=d.spec_decode,
                    action=argparse.BooleanOptionalAction,
-                   help="speculative decoding (not ported yet: ROADMAP "
-                        "Queue A item 5)")
-    p.add_argument("--spec-k", type=int, default=d.spec_k)
+                   help="speculative decoding (default off, needs "
+                        "paged KV + device sampling): a drafter "
+                        "proposes --spec-k tokens per slot against its "
+                        "own paged pool, ONE wide verify over the main "
+                        "pool scores them, rejection rewinds the "
+                        "page-table cursor — the output is the spec-off "
+                        "output at any acceptance rate")
+    p.add_argument("--spec-k", type=int, default=d.spec_k,
+                   help="draft tokens per verify cycle (a slot emits "
+                        "1..K+1 verified tokens per cycle)")
     p.add_argument("--spec-draft-width-mult", type=float,
-                   default=d.spec_draft_width_mult)
+                   default=d.spec_draft_width_mult,
+                   help="drafter width as a fraction of the serving "
+                        "model's hidden dim (floored to a multiple of "
+                        "the head count; 1.0 = self-speculation for "
+                        "parity testing)")
     p.add_argument("--spec-draft-checkpoint",
-                   default=d.spec_draft_checkpoint, metavar="NPZ")
+                   default=d.spec_draft_checkpoint, metavar="NPZ",
+                   help="fitted drafter weights (a spec.save_drafter_"
+                        "params npz of tpunet or tpunet_torch); empty = "
+                        "deterministic random init, which is correct "
+                        "but drafts nothing useful — fit one against "
+                        "real traffic with tpunet_torch.serve.spec."
+                        "fit_drafter")
     p.add_argument("--device-sampling", default=d.device_sampling,
                    action=argparse.BooleanOptionalAction,
                    help="batched temperature/top-k/top-p sampling on "
@@ -163,16 +188,18 @@ def build_argparser():
                    help="replica identity stamped on obs_serve records "
                         "(default serve-<host>-<pid>)")
     p.add_argument("--chaos", default=d.chaos, metavar="SPEC",
-                   help="serve-tier fault injection (not ported yet: "
-                        "ROADMAP Queue A item 5)")
+                   help="serve-tier fault injection (tpunet_torch/serve/"
+                        "chaos.py): kill@tokens=N, kill@prefill[=K], "
+                        "stall@tokens=N:ms=M, drop-probe@prob=P:"
+                        "seed=X, slow-stream@ms=M — deterministic, "
+                        "';'-separated")
     p.add_argument("--trace-sample", type=float,
                    default=d.trace_sample, metavar="RATE",
                    help="standalone request-tracing head-sample rate in "
                         "[0,1] for requests WITHOUT router trace headers; "
                         "a client-supplied X-Trace-Id is always sampled")
     p.add_argument("--aot-cache", default=d.aot_cache, metavar="DIR",
-                   help="AOT warm start (not ported yet: ROADMAP Queue A "
-                        "item 5)")
+                   help="refused: " + AOT_CACHE_SCOPED_OUT)
     # LM architecture (must match the trained checkpoint) — mirrors
     # tpunet_torch.infer.generate's flags.
     p.add_argument("--model", choices=("lm", "lm_pp"), default="lm")
@@ -214,6 +241,14 @@ def build_server(args):
         if value:
             raise _usage(f"{flag} is not ported to tpunet_torch yet; it "
                          f"{item}")
+    if args.chaos:
+        # Like the bucket list: a typo'd chaos spec is a loud exit 2
+        # BEFORE the model loads, not a mid-serve raise.
+        from tpunet_torch.serve.chaos import ServeChaos, ServeChaosError
+        try:
+            ServeChaos.parse(args.chaos)
+        except ServeChaosError as e:
+            raise _usage(str(e))
 
     from tpunet_torch.ckpt import BEST
     from tpunet_torch.config import (DataConfig, ExportConfig, ModelConfig,
@@ -226,6 +261,7 @@ def build_server(args):
     from tpunet_torch.serve.classify import ClassifyBatcher
     from tpunet_torch.serve.engine import Engine
     from tpunet_torch.serve.frontend import ServeServer
+    from tpunet_torch.serve.prefixcache import build_prefix_store
     from tpunet_torch.utils.logging import MetricsLogger
 
     try:
@@ -261,7 +297,11 @@ def build_server(args):
         raise _usage(str(e))
     model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
                     device=args.device)
-    engine = Engine(model, cfg)
+    prefix_store = None
+    if cfg.prefix_store and cfg.prefix_cache and cfg.paged_kv:
+        prefix_store = build_prefix_store(cfg.prefix_store, model_cfg, cfg,
+                                          device=args.device)
+    engine = Engine(model, cfg, prefix_store=prefix_store)
     registry = engine.registry
 
     metrics_logger = None

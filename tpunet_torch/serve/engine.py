@@ -20,6 +20,8 @@ the engine owns on the host. Pages are allocated on advance, freed on
 finish and recycled; when the pool is exhausted the YOUNGEST blocked
 slot is preempted back to the queue (its progress is kept and resumed by
 re-prefilling prompt + generated, so token streams never restart).
+int8 page payloads (``kv_dtype``, a float32 scale a page row) halve the
+bf16 page cost again.
 
 Prefix KV cache (``ServeConfig.prefix_cache``, on by default with
 paging; ``tpunet_torch/serve/prefixcache/``): finished prefill pages
@@ -27,7 +29,17 @@ become immutable, content-addressed, refcounted objects inside the SAME
 pool. Admission pins the longest cached page-aligned prefix into the new
 slot's page table (zero prefill compute for those tokens), re-prefills
 only the suffix, and copies on write at the divergence page when the
-full prefix is cached; release unpins, pool pressure LRU-evicts.
+full prefix is cached; release unpins, pool pressure LRU-evicts. With
+``--prefix-store`` the pages spill to a shared filesystem (fsatomic
+first-writer-wins) and a fresh replica warms from the fleet's prefix set
+when it starts.
+
+Speculative decoding (``ServeConfig.spec_decode``;
+``tpunet_torch/serve/spec.py``): a drafter (the serving model itself at
+width 1.0, else a narrower LM) proposes ``spec_k`` tokens a slot against
+its own page pool, one ``[slots, K+1]`` verify forward over the main
+pool scores them, and every emitted token comes from the verify, so the
+stream is the spec-off stream at any acceptance rate.
 
 Sampling is DEVICE-side by default (``ServeConfig.device_sampling``):
 one ``[slots]``-wide batched temperature/top-k/top-p step
@@ -42,11 +54,12 @@ Obs: SLO counters, gauges and histograms land in a
 ``serve_*`` names (``docs/metrics_schema.md`` ``obs_serve``), prefill
 and decode run under ``tpunet/serve_prefill`` / ``tpunet/serve_decode``
 spans that also land in the flight recorder's ring, and a periodic
-``obs_serve`` record goes to every attached sink.
+``obs_serve`` record goes to every attached sink. Serve-tier fault
+injection (``--chaos``, ``tpunet_torch/serve/chaos.py``) hooks token
+production, prefill dispatch and the engine loop.
 
-Not ported (``ServeConfig`` refuses each with its ROADMAP item): int8
-KV pages, speculative decoding, the AOT warm start, the prefix spill
-store, serve-tier chaos and tensor-parallel serving.
+Not here: the AOT warm start (out of scope, ``config.AOT_CACHE_SCOPED_OUT``)
+and tensor-parallel serving (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -60,14 +73,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpunet_torch.models.convert import load_state_dict
+from tpunet_torch.models.lm import init_lm
 from tpunet_torch.models.vit import PagedKV
 from tpunet_torch.obs import flightrec, tracing
 from tpunet_torch.obs.flightrec.threads import THREADS
 from tpunet_torch.obs.registry import Registry
 from tpunet_torch.obs.spans import span
+from tpunet_torch.serve import chaos as serve_chaos
+from tpunet_torch.serve import spec as serve_spec
 from tpunet_torch.serve.prefixcache import PrefixCache
 from tpunet_torch.serve.prefixcache import keys as pk
-from tpunet_torch.serve.sampling import batched_sample
+from tpunet_torch.serve.sampling import (batched_sample,
+                                         batched_sample_positions)
 from tpunet_torch.serve.scheduler import (FINISH_CANCELLED, FINISH_DEADLINE,
                                           FINISH_DRAIN, FINISH_ERROR,
                                           FINISH_LENGTH, FINISH_STOP,
@@ -128,9 +146,7 @@ def build_serve_record(reg, *, queue_depth: int, active_slots: int,
     """The ``obs_serve`` record body (docs/metrics_schema.md), a copy of
     tpunet's: cumulative counters + window histogram summaries. The
     TTFT/e2e histograms also export their bounded window sample (the
-    fleet aggregator merges replica percentiles from sample points).
-    The speculative-decoding fields are present and 0: the port has no
-    spec decode yet."""
+    fleet aggregator merges replica percentiles from sample points)."""
     record = {
         "uptime_s": round(uptime_s, 3),
         "window_s": round(window_s, 3),
@@ -192,7 +208,8 @@ def build_serve_record(reg, *, queue_depth: int, active_slots: int,
     record["prefix_hit_rate"] = (
         round(record["prefix_hits_total"] / lookups, 4) if lookups
         else 0.0)
-    # Speculative decoding (serve_spec_* instruments; zeros here).
+    # Speculative decoding (serve_spec_* instruments; zeros with spec
+    # off): acceptance rate is the drafter-quality signal.
     for cname, field in (
             ("serve_spec_draft_tokens_total", "spec_draft_tokens_total"),
             ("serve_spec_accepted_tokens_total",
@@ -212,6 +229,23 @@ def build_serve_record(reg, *, queue_depth: int, active_slots: int,
     if final:
         record["final"] = True
     return record
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A pool slice as a host numpy array (bf16 as its int16 bits: numpy
+    has no bf16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_host` for a slice of ``like``'s pool."""
+    t = torch.from_numpy(a)
+    if like.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(like.device)
 
 
 class _Slot:
@@ -238,11 +272,15 @@ class Engine:
 
     ``model`` is a ``tpunet_torch.models.lm.TransformerLM`` (e.g. from
     ``infer.generate.load_lm``); the engine runs where its parameters
-    are. The engine owns a single background thread; ``submit`` is
-    thread-safe and non-blocking (bounded queue).
+    are. ``prefix_store`` is a ``prefixcache.PrefixStore`` (the spill
+    store); ``drafter_params`` a drafter state dict in the port's LM
+    layout (e.g. from ``spec.fit_drafter``), which wins over
+    ``cfg.spec_draft_checkpoint``. The engine owns a single background
+    thread; ``submit`` is thread-safe and non-blocking (bounded queue).
     """
 
-    def __init__(self, model, cfg, *, registry=None):
+    def __init__(self, model, cfg, *, registry=None, prefix_store=None,
+                 drafter_params=None):
         self.model = model
         self.cfg = cfg
         self.device = model.pos_embed.device
@@ -296,6 +334,7 @@ class Engine:
         # bounded below the pool so paying slots always have headroom;
         # requires paging (the dense pool has no page identity).
         self._prefix = None
+        self._prefix_store = None
         if self._paged_kv is not None and cfg.prefix_cache:
             cap = int(cfg.prefix_cache_pages)
             if cap <= 0:
@@ -303,7 +342,31 @@ class Engine:
             if cap > 0:
                 self._prefix = PrefixCache(self.page_tokens, cap,
                                            registry=self.registry)
+                self._prefix_store = prefix_store
+        # -- speculative decoding (tpunet_torch/serve/spec.py) ---------
+        # The drafter proposes spec_k tokens per active slot against its
+        # OWN paged pool, then ONE [slots, K+1] verify over the main pool
+        # scores them. The drafter pool shares THIS page table (same page
+        # ids, same page_tokens), so allocate-on-advance, cursor rewind,
+        # release and preemption keep both pools in lockstep with no
+        # extra allocator state.
+        self.spec_decode = bool(cfg.spec_decode)
+        self.spec_k = int(cfg.spec_k)
+        self._drafter = None
+        self._draft_cache = None
+        self._drafter_paged_kv = None
+        if self.spec_decode:
+            self._drafter = self._build_drafter(drafter_params)
+            self._drafter_paged_kv = PagedKV(
+                pages=self.kv_pages_usable + 1,
+                page_tokens=self.page_tokens, dtype=cfg.kv_dtype)
+            self._draft_cache = self._drafter.init_paged_cache(
+                self._drafter_paged_kv)
         self._admit_seq = 0
+        # Serve-tier fault injector (--chaos): the engine fires the
+        # token/prefill/stall hooks, the HTTP frontend the probe/stream
+        # ones. None when unarmed.
+        self.chaos = serve_chaos.install(cfg.chaos)
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._draining = threading.Event()
@@ -325,7 +388,97 @@ class Engine:
             self._cache = model.init_cache(self.slots, self.max_seq_len)
         self._init_kv_gauges()
 
-    # -- the device step --------------------------------------------------
+    def _build_drafter(self, drafter_params):
+        """The spec drafter, after tpunet's checks of the spec levers: the
+        serving model itself at width 1.0 (self-speculation: it still has
+        its own pool, as it runs ahead of the verified cursor), else the
+        serving model's clone at ``drafter_model_config``'s width, holding
+        ``drafter_params``, the ``spec_draft_checkpoint`` npz, or a seeded
+        init (correct, but it accepts next to nothing: fit a drafter for
+        real traffic)."""
+        cfg = self.cfg
+        if self._paged_kv is None:
+            raise ValueError(
+                "spec_decode requires the paged KV cache (drop "
+                "--no-paged-kv): rejection is a page-table cursor rewind")
+        if not self.device_sampling:
+            raise ValueError(
+                "spec_decode requires device sampling (drop "
+                "--no-device-sampling): acceptance compares the drafter "
+                "against the sampler's per-(seed, step) choices")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {cfg.spec_k}")
+        wm = float(cfg.spec_draft_width_mult)
+        if wm <= 0:
+            raise ValueError(
+                f"spec_draft_width_mult must be > 0, got {wm}")
+        if wm == 1.0:
+            return self.model
+        heads = self.model.heads
+        drafter = self.model.clone(
+            hidden=max(heads, int(self.model.hidden * wm) // heads * heads))
+        if drafter_params is None and cfg.spec_draft_checkpoint:
+            drafter_params = serve_spec.load_drafter_params(
+                cfg.spec_draft_checkpoint, drafter)
+        if drafter_params is None:
+            init_lm(drafter, torch.Generator().manual_seed(0))
+        else:
+            load_state_dict(drafter, drafter_params)
+        return drafter.to(self.device)
+
+    # -- the device calls -------------------------------------------------
+
+    def _upload(self, parts, sample: bool = False):
+        """Host int arrays -> one int64 buffer on the device, split back
+        into one view each, in order (one copy for a call's inputs).
+        Returns (the views, the sampler's inputs): with ``sample``, the
+        device sampler's per-slot (temperature, top_k, top_p, seeds,
+        steps), the ints riding the same buffer and the floats one float32
+        buffer; None without ``sample`` or when no resident row samples
+        (every choice is then the rows' argmax: JAX's
+        ``lax.cond(any(temperature > 0))``, decided on the host)."""
+        draw = None
+        if sample:
+            temp, top_k, top_p, seeds, steps = self._sampling_args()
+            if (temp > 0).any():
+                draw = np.concatenate([temp, top_p])
+                parts = list(parts) + [top_k, seeds, steps]
+        ints = torch.from_numpy(np.concatenate(
+            [np.asarray(x, np.int64).reshape(-1) for x in parts])
+        ).to(self.device)
+        dev = list(torch.split(ints, [np.asarray(x).size for x in parts]))
+        if draw is None:
+            return dev, None
+        n = self.slots
+        fl = torch.from_numpy(draw).to(self.device)
+        top_k_d, seeds_d, steps_d = dev[-3:]
+        return dev[:-3], (fl[:n], top_k_d, fl[n:], seeds_d, steps_d)
+
+    @staticmethod
+    def _choose(logits: torch.Tensor, samp, offset: int = 0):
+        """The chosen tokens of float32 ``logits`` [n, V] (at each slot's
+        step + ``offset``) or [n, T, V] (position j at step + j)."""
+        if samp is None:
+            return logits.argmax(-1)
+        temp, top_k, top_p, seeds, steps = samp
+        if logits.dim() == 3:
+            return batched_sample_positions(logits, temp, top_k, top_p,
+                                            seeds, steps)
+        return batched_sample(logits, temp, top_k, top_p, seeds,
+                              steps + offset)
+
+    def _forward(self, model, cache, paged_kv, toks, positions, active,
+                 table):
+        """One masked call of ``model`` over its pool: ``toks`` [slots, W]
+        at per-row ``positions`` gated by ``active``, K/V written into
+        ``cache`` in place. Returns the logits [slots, W, V] float32."""
+        kw = {}
+        if paged_kv is not None:
+            kw = dict(paged_kv=paged_kv,
+                      page_table=table.view(self.slots, -1))
+        logits, _ = model(toks.view(self.slots, -1), pos_offset=positions,
+                          cache=cache, decode_active=active.bool(), **kw)
+        return logits
 
     @torch.inference_mode()
     def _masked_step(self, toks: np.ndarray, positions: np.ndarray,
@@ -334,40 +487,61 @@ class Engine:
         ``positions`` gated by ``active``, K/V written into the cache in
         place. Returns the chosen int tokens [slots] of each row's
         ``last_idx`` column (device sampling), else that column's float32
-        logits [slots, V], on the host. The host inputs cross in one int64
-        buffer (and one float32 buffer of sampling parameters)."""
-        n, w = toks.shape
-        parts = [toks.reshape(-1), positions, active, last_idx]
+        logits [slots, V], on the host."""
+        parts = [toks, positions, active, last_idx]
         if self._paged_kv is not None:
-            parts.append(self._page_table.reshape(-1))
-        # JAX's lax.cond(any(temperature > 0)), decided on the host.
-        sampled = False
-        if self.device_sampling:
-            temp, top_k, top_p, seeds, steps = self._sampling_args()
-            sampled = bool((temp > 0).any())
-            if sampled:
-                parts += [top_k, seeds, steps]
-        ints = torch.from_numpy(np.concatenate(
-            [np.asarray(x, np.int64).reshape(-1) for x in parts])
-        ).to(self.device)
-        dev = list(torch.split(ints, [x.size for x in parts]))
-        tok_d, pos_d, act_d, last_d = dev[:4]
-        kw = {}
-        if self._paged_kv is not None:
-            kw = dict(paged_kv=self._paged_kv,
-                      page_table=dev[4].view(n, self.pages_per_slot))
-        logits, _ = self.model(tok_d.view(n, w), pos_offset=pos_d,
-                               cache=self._cache,
-                               decode_active=act_d.bool(), **kw)
-        rows = logits[torch.arange(n, device=self.device), last_d]
+            parts.append(self._page_table)
+        dev, samp = self._upload(parts, sample=self.device_sampling)
+        table = dev[4] if self._paged_kv is not None else None
+        logits = self._forward(self.model, self._cache, self._paged_kv,
+                               *dev[:3], table)
+        rows = logits[torch.arange(self.slots, device=self.device), dev[3]]
         if not self.device_sampling:
             return rows.cpu().numpy()
-        if not sampled:
-            return rows.argmax(-1).cpu().numpy()
-        top_k_d, seeds_d, steps_d = dev[-3:]
-        fl = torch.from_numpy(np.concatenate([temp, top_p])).to(self.device)
-        return batched_sample(rows, fl[:n], top_k_d, fl[n:], seeds_d,
-                              steps_d).cpu().numpy()
+        return self._choose(rows, samp).cpu().numpy()
+
+    @torch.inference_mode()
+    def _draft_prefill_step(self, toks: np.ndarray, positions: np.ndarray,
+                            active: np.ndarray) -> None:
+        """The drafter's write-only masked call over its own pool (the
+        main page table)."""
+        dev, _ = self._upload([toks, positions, active, self._page_table])
+        self._forward(self._drafter, self._draft_cache,
+                      self._drafter_paged_kv, *dev)
+
+    @torch.inference_mode()
+    def _draft_burst_step(self, first: np.ndarray, positions: np.ndarray,
+                          active: np.ndarray) -> np.ndarray:
+        """K+1 drafter steps: step j consumes token t_j at position pos+j,
+        writes the drafter's K/V there, and chooses d_{j+1} at the SAME
+        (seed, step s0+j) the verify will use — lockstep steps are what
+        make a perfect drafter accept at temperature > 0 too. The K+1'th
+        draft is dropped, but its K/V write keeps the drafter pool gapless
+        after a full acceptance. The tokens stay on the device between
+        steps. Returns the drafts d_1..d_K [slots, K] on the host."""
+        (tok, pos, act, table), samp = self._upload(
+            [first, positions, active, self._page_table], sample=True)
+        drafts = []
+        for j in range(self.spec_k + 1):
+            logits = self._forward(self._drafter, self._draft_cache,
+                                   self._drafter_paged_kv, tok, pos + j,
+                                   act, table)
+            tok = self._choose(logits[:, 0], samp, offset=j)
+            drafts.append(tok)
+        return torch.stack(drafts[:-1], 1).cpu().numpy()
+
+    @torch.inference_mode()
+    def _verify_step(self, toks: np.ndarray, positions: np.ndarray,
+                     active: np.ndarray) -> np.ndarray:
+        """ONE [slots, K+1] forward over the main pool scoring
+        [next_token, d_1..d_K] at positions pos..pos+K: the choice c_j a
+        position, position j at step s0+j. Returns [slots, K+1] on the
+        host."""
+        dev, samp = self._upload([toks, positions, active,
+                                  self._page_table], sample=True)
+        logits = self._forward(self.model, self._cache, self._paged_kv,
+                               *dev)
+        return self._choose(logits, samp).cpu().numpy()
 
     def _sampling_args(self):
         """Per-slot sampling parameters for the device sampler:
@@ -395,9 +569,16 @@ class Engine:
     # -- pool bookkeeping -----------------------------------------------
 
     def kv_pool_bytes(self) -> int:
-        """Resident bytes of the KV cache (the page pool when paged; the
-        dense [slots, max_seq_len] pool otherwise)."""
+        """Resident bytes of the KV cache (the page pool with the scales
+        of int8 pages when paged; the dense [slots, max_seq_len] pool
+        otherwise)."""
         return self._cache.nbytes()
+
+    def drafter_pool_bytes(self) -> int:
+        """Resident bytes of the drafter's KV pool (0 with spec off),
+        apart from ``kv_pool_bytes``: it is the spec lever's EXTRA memory
+        cost (width 0.5 is about +50% KV bytes)."""
+        return 0 if self._draft_cache is None else self._draft_cache.nbytes()
 
     def kv_bytes_per_token(self) -> float:
         """KV bytes pinned per cacheable token position across the whole
@@ -443,12 +624,16 @@ class Engine:
         self.registry.counter("serve_kv_page_allocs_total").inc(need)
         return pages
 
-    def _ensure_page_capacity(self, slot_i: int, slot: _Slot) -> bool:
+    def _ensure_page_capacity(self, slot_i: int, slot: _Slot,
+                              through_pos: int = -1) -> bool:
         """Allocate-on-advance: make sure the page covering the slot's
         next write position exists (pinned prefix pages count toward
-        coverage; new pages are always PRIVATE). False = pool exhausted
-        even after evicting every evictable prefix page."""
-        need = slot.pos // self.page_tokens + 1
+        coverage; new pages are always PRIVATE). ``through_pos`` extends
+        coverage to a LATER position (a spec burst writes pos..pos+K in
+        one cycle; the rejection rewind recycles the over-allocation).
+        False = pool exhausted even after evicting every evictable prefix
+        page."""
+        need = max(slot.pos, through_pos) // self.page_tokens + 1
         while len(slot.pinned) + len(slot.pages) < need:
             if not self._free_pages and not self._evict_prefix_page():
                 return False
@@ -488,12 +673,78 @@ class Engine:
 
     @torch.inference_mode()
     def _copy_page(self, src: int, dst: int) -> None:
-        """Device-copy one pool page in every layer (COW at the divergence
-        page: the private copy takes the suffix write, the shared source
-        stays immutable)."""
+        """Device-copy one pool page in every layer, its scales too (COW
+        at the divergence page: the private copy takes the suffix write,
+        the shared source stays immutable)."""
         pt = self.page_tokens
-        for t in self._cache.k + self._cache.v:
+        for t in self._cache.leaves():
             t[dst * pt:(dst + 1) * pt] = t[src * pt:(src + 1) * pt]
+
+    def _read_page_rows(self, page: int) -> list:
+        """One page's rows as host numpy arrays in ``KVCache.leaves()``
+        order (the spill payload; bf16 as its int16 bits; the store
+        digest guarantees the reader's pool has the same leaves)."""
+        pt = self.page_tokens
+        return [_host(t[page * pt:(page + 1) * pt])
+                for t in self._cache.leaves()]
+
+    def _spill_prefix_page(self, node, parent_digest: str) -> None:
+        """Write-through one freshly-inserted prefix page to the shared
+        store (fsatomic first-writer-wins: N replicas spilling the
+        fleet-common system prefix commit it once). Best-effort — a
+        read-only disk degrades to a per-replica cache."""
+        if self._prefix_store is None \
+                or self._prefix_store.exists(node.digest):
+            return
+        rows = self._read_page_rows(node.page)
+        if self._prefix_store.save(node.digest, parent_digest,
+                                   node.depth, rows):
+            self.registry.counter("serve_prefix_spills_total").inc()
+
+    @torch.inference_mode()
+    def _warm_start_prefix(self) -> None:
+        """Adopt the fleet's spilled prefix set into this replica's pool
+        (depth order: a page is adopted only under its already-adopted
+        parent, so a capacity- or pool-truncated load still leaves a
+        prefix-closed trie). Bounded by the cache capacity AND the free
+        list — warm pages are all evictable, so they can never crowd out
+        the first real admission. An orphan or a foreign/torn entry is
+        skipped, not fatal."""
+        leaves = self._cache.leaves()
+        want = [((self.page_tokens,) + tuple(t.shape[1:]),
+                 _host(t[:0]).dtype) for t in leaves]
+        pt = self.page_tokens
+        loaded = 0
+        for entry in self._prefix_store.load_all(
+                limit=self._prefix.capacity):
+            digest = entry.get("digest", "")
+            depth = int(entry.get("depth", 0))
+            rows = entry.get("rows")
+            if not digest or self._prefix.get(digest) is not None:
+                continue
+            parent = None
+            if depth > 0:
+                parent = self._prefix.get(entry.get("parent", pk.ROOT))
+                if parent is None or parent.depth != depth - 1:
+                    continue      # orphan: its parent didn't make it
+            if not isinstance(rows, list) or len(rows) != len(leaves) \
+                    or any(not isinstance(r, np.ndarray)
+                           or (r.shape, r.dtype) != w
+                           for r, w in zip(rows, want)):
+                continue          # foreign/torn entry: skip, not crash
+            if self._prefix.pages_cached >= self._prefix.capacity \
+                    or not self._free_pages:
+                break
+            page = self._free_pages.pop()
+            self._kv_pages_touched.add(page)
+            for t, r in zip(leaves, rows):
+                t[page * pt:(page + 1) * pt] = _device(r, t)
+            self._prefix.insert(digest, parent, depth, page)
+            loaded += 1
+        if loaded:
+            self.registry.counter(
+                "serve_prefix_warm_loads_total").inc(loaded)
+            self._update_kv_gauges()
 
     def _adopt_prefix_pages(self, slot_i: int, slot: _Slot,
                             resume: np.ndarray) -> None:
@@ -520,6 +771,8 @@ class Engine:
                         return     # full of pinned pages: stay private
                 node = self._prefix.insert(
                     digest, prev, j, slot.pages.pop(0))
+                self._spill_prefix_page(
+                    node, prev.digest if prev is not None else pk.ROOT)
             self._prefix.pin([node])
             slot.pinned.append(node)
             prev = node
@@ -560,6 +813,12 @@ class Engine:
     # -- public API ------------------------------------------------------
 
     def start(self) -> "Engine":
+        # Prefix warm start BEFORE the engine thread runs: a respawned or
+        # scaled-up replica adopts the fleet's spilled prefix set instead
+        # of cold KV, so its very first shared-prefix request prefills
+        # only the suffix.
+        if self._prefix_store is not None:
+            self._warm_start_prefix()
         # A decode iteration wedged on the device past the budget pages
         # thread_stalled; idle waits (empty pool) do not.
         self._thread_handle = flightrec.register_thread(
@@ -766,6 +1025,10 @@ class Engine:
                     slot.req.finish(FINISH_ERROR, error=self.error)
             self._active = [None] * self.slots
             self.queue.fail_all(self.error)
+            # A dead loop is not a stalled one (/healthz reports it): a
+            # handle left busy would page thread_stalled to any
+            # watchdog in this process for good.
+            handle.beat("idle")
         finally:
             self._drained.set()
 
@@ -776,6 +1039,8 @@ class Engine:
             # Drain timeout expired: the shutdown took the survivors.
             self._kill_survivors(FINISH_DRAIN)
             return False
+        if self.chaos is not None:
+            self.chaos.maybe_stall()    # wedged-replica injection
         self._reap()
         admitted = self._admit()
         stepped = self._decode_iteration()
@@ -946,6 +1211,19 @@ class Engine:
                 (slot_i, req, resume, pages, start, pinned))
         for bucket, group in sorted(by_bucket.items()):
             self._prefill(bucket, group)
+        if self._drafter is not None:
+            # The drafter re-embeds the FULL prompt (prefix hits
+            # included), so the grouping key is the full-length bucket,
+            # not the suffix bucket the main prefill used.
+            draft_groups: dict = {}
+            for slot_i, _, _, resume, _, _, _ in admitted:
+                if self._active[slot_i] is None:
+                    continue     # finished inside its own prefill
+                draft_groups.setdefault(
+                    self.bucket_for(int(resume.size)), []).append(
+                        (slot_i, resume))
+            for bucket, rows in sorted(draft_groups.items()):
+                self._draft_prefill(bucket, rows)
         self._update_kv_gauges()
         self.registry.gauge("serve_active_slots").set(self.active_slots())
         return True
@@ -998,6 +1276,8 @@ class Engine:
             if req.trace_id:
                 tracing.crumb("prefill", req.trace_id, req.trace_hop,
                               rid=req.id, b=bucket)
+        if self.chaos is not None:
+            self.chaos.on_prefill()     # kill@prefill injection point
         with _ring_span("tpunet/serve_prefill"):
             out = self._step(toks, positions, active, last_idx)
         reg = self.registry
@@ -1027,6 +1307,9 @@ class Engine:
                                   req.trace_hop, rid=req.id)
                 reg.histogram("serve_ttft_s").observe(req.ttft_s)
             reg.counter("serve_tokens_total").inc()
+            if self.chaos is not None:
+                self.chaos.on_token()   # kill/stall@tokens (post-push:
+                #                         the token reached the stream)
             self._slot_maybe_finish(slot_i, first)
         reg.counter("serve_prefills_total").inc()
         # Suffix tokens only: with a prefix hit this is the REAL prefill
@@ -1035,6 +1318,29 @@ class Engine:
             sum(int(r.size) - st for _, _, r, _, st, _ in group))
         reg.histogram("serve_prefill_s").observe(
             time.perf_counter() - t0)
+
+    def _draft_prefill(self, bucket: int, rows) -> None:
+        """Prefill the DRAFTER's paged pool for freshly admitted slots:
+        one write-only full-prompt pass a bucket. ``rows`` are
+        ``(slot_i, resume_tokens)``.
+
+        The drafter always embeds the FULL prompt from position 0, even
+        when the main prefill rode a prefix-cache hit. Pinned prefix page
+        ids are shared across slots and the drafter pool mirrors the main
+        page table verbatim, so a drafter write to a shared page id is an
+        idempotent rewrite: every slot pinning that page holds the same
+        token prefix and the drafter is deterministic. Re-deriving
+        instead of caching drafter pages keeps the drafter pool warm with
+        no extra allocator state and no drafter-side COW; the cost is one
+        drafter-width full prefill an admission."""
+        toks = np.zeros((self.slots, bucket), np.int64)
+        active = np.zeros((self.slots,), bool)
+        positions = np.zeros((self.slots,), np.int64)
+        for slot_i, resume in rows:
+            toks[slot_i, :int(resume.size)] = resume
+            active[slot_i] = True
+        with _ring_span("tpunet/serve_spec_prefill"):
+            self._draft_prefill_step(toks, positions, active)
 
     def _slot_maybe_finish(self, slot_i: int, token: int) -> bool:
         """Stop checks after a sampled token; True when the slot was
@@ -1057,6 +1363,8 @@ class Engine:
         here (allocate-on-advance); a slot the pool cannot extend sits
         the iteration out, and when NOTHING can advance the youngest
         blocked slot is preempted back to the queue."""
+        if self._drafter is not None:
+            return self._spec_decode_iteration()
         live = [(i, s) for i, s in enumerate(self._active)
                 if s is not None]
         if not live:
@@ -1081,7 +1389,8 @@ class Engine:
 
     def _decode_width1(self, live) -> None:
         """One [slots, 1] masked decode call for ``live`` slots (page
-        capacity already ensured by the caller)."""
+        capacity already ensured by the caller). Shared by the normal
+        path and the spec path's tail fallback."""
         t0 = time.perf_counter()
         toks = np.zeros((self.slots, 1), np.int64)
         positions = np.zeros((self.slots,), np.int64)
@@ -1110,7 +1419,141 @@ class Engine:
             slot.generated += 1
             slot.req.push_token(nxt)
             reg.counter("serve_tokens_total").inc()
+            if self.chaos is not None:
+                self.chaos.on_token()   # kill/stall@tokens (post-push)
             self._slot_maybe_finish(i, nxt)
+
+    # -- speculative decode path ------------------------------------------
+
+    def _spec_decode_iteration(self) -> bool:
+        """One draft+verify cycle across the pool: burst-eligible slots
+        draft K tokens and verify them in one wide call (1..K+1 verified
+        tokens each); tail slots — too close to max_seq_len for a full
+        burst — take the width-1 call in the same iteration. A slot near
+        its TOKEN budget still bursts: the emit loop stops exactly at
+        max_new_tokens (the overshot verify positions are wasted compute,
+        and the slot releases its pages on finish). POOL PRESSURE can
+        also force a width-1 cycle; such a slot may re-enter the burst
+        later with a drafter-pool gap at the width-1 positions, which
+        costs acceptance (bad drafts), never correctness: every emitted
+        token comes from the verify (or width-1) call, and a rejection
+        still yields one verified token a cycle.
+
+        tpunet slices the page table to per-page window buckets here,
+        to bound its compiled program shapes; the port attends a row's
+        whole table, as its decode step does, so it needs none."""
+        live = [(i, s) for i, s in enumerate(self._active)
+                if s is not None]
+        if not live:
+            return False
+        k = self.spec_k
+        burst, seq_ready, blocked = [], [], []
+        for i, slot in live:
+            eligible = slot.pos + k + 1 <= self.max_seq_len
+            # A burst writes pos..pos+K (both pools; shared table):
+            # ensure coverage through pos+K, or fall back to width-1
+            # coverage before counting the slot as blocked.
+            if eligible and self._ensure_page_capacity(
+                    i, slot, through_pos=slot.pos + k):
+                burst.append((i, slot))
+            elif self._ensure_page_capacity(i, slot):
+                seq_ready.append((i, slot))
+            else:
+                blocked.append((i, slot))
+        if blocked and not burst and not seq_ready:
+            self._preempt_slot(self._choose_preempt_victim(blocked))
+            return True              # freed pages; retry next iteration
+        self._update_kv_gauges()
+        if not burst and not seq_ready:
+            return False
+        if burst:
+            self._spec_burst(burst)
+        if seq_ready:
+            # Their drafter pool now lags the main cursor — benign, as
+            # the docstring argues.
+            self._decode_width1([(i, s) for i, s in seq_ready
+                                 if self._active[i] is s])
+        return True
+
+    def _spec_burst(self, burst) -> None:
+        """Draft K+1, verify K+1, accept, rewind — the spec hot path.
+        Acceptance (``spec.accept_drafts``) keeps the longest prefix where
+        draft d_j matched verify choice c_{j-1}; the slot emits c_0..c_a
+        (ALL from the verify, which is why the stream equals spec-off's),
+        advances its cursor by a+1, and the rejected tail pages go back
+        to the free list. A slot that stops or is preempted resumes from
+        these verified tokens only."""
+        k = self.spec_k
+        reg = self.registry
+        t0 = time.perf_counter()
+        first = np.zeros((self.slots,), np.int64)
+        positions = np.zeros((self.slots,), np.int64)
+        active = np.zeros((self.slots,), bool)
+        for i, slot in burst:
+            first[i] = slot.next_token
+            positions[i] = slot.pos
+            active[i] = True
+        with _ring_span("tpunet/serve_spec_draft"):
+            drafts = self._draft_burst_step(first, positions, active)
+        verify_toks = np.concatenate([first[:, None], drafts], axis=1)
+        with _ring_span("tpunet/serve_spec_verify"):
+            choices = self._verify_step(verify_toks, positions, active)
+        lap = time.perf_counter() - t0
+        reg.counter("serve_decode_steps_total").inc()
+        reg.histogram("serve_decode_iter_s").observe(lap)
+        reg.histogram("serve_token_s").observe(lap)
+        rows = np.asarray([i for i, _ in burst])
+        accepted = serve_spec.accept_drafts(drafts[rows], choices[rows])
+        for (i, slot), a in zip(burst, accepted):
+            a = int(a)
+            reg.counter("serve_spec_draft_tokens_total").inc(k)
+            reg.counter("serve_spec_accepted_tokens_total").inc(a)
+            reg.counter("serve_spec_rejected_tokens_total").inc(k - a)
+            reg.counter("serve_spec_verify_steps_total").inc()
+            finished = False
+            for j in range(a + 1):
+                tok = int(choices[i, j])
+                slot.pos += 1
+                slot.generated += 1
+                slot.next_token = tok
+                slot.req.push_token(tok)
+                reg.counter("serve_tokens_total").inc()
+                if self.chaos is not None:
+                    self.chaos.on_token()   # post-push: only VERIFIED
+                    #                         tokens reach the stream
+                if self._slot_maybe_finish(i, tok):
+                    finished = True
+                    break
+            if not finished:
+                self._rewind_slot_pages(i, slot)
+        drafted = reg.counter("serve_spec_draft_tokens_total").value
+        acc = reg.counter("serve_spec_accepted_tokens_total").value
+        reg.gauge("serve_spec_acceptance_rate").set(
+            round(acc / drafted, 4) if drafted else 0.0)
+        self._update_kv_gauges()
+
+    def _rewind_slot_pages(self, slot_i: int, slot: _Slot) -> None:
+        """Cursor rewind after a (partial) rejection: free the private
+        tail pages beyond the last verified position. The rows holding
+        rejected K/V are simply recycled — the masked write-then-read
+        invariant makes stale rows invisible, so the rewind is host
+        bookkeeping only. It stops at pinned prefix pages: a burst writes
+        only positions >= the prefill suffix start, which live on PRIVATE
+        pages, and only ``slot.pages`` (the private list) is ever freed,
+        so neither a shared prefix page nor the drafter pool's mirror of
+        it (the same page id) is ever rewound."""
+        keep_hi = (slot.pos - 1) // self.page_tokens
+        keep_private = max(0, keep_hi + 1 - len(slot.pinned))
+        tail = slot.pages[keep_private:]
+        if not tail:
+            return
+        del slot.pages[keep_private:]
+        base = len(slot.pinned) + keep_private
+        self._page_table[slot_i, base:base + len(tail)] = 0
+        # reversed(): the page covering the NEXT write position goes back
+        # on top of the LIFO free list, so the very next allocate-on-
+        # advance hands the same page straight back.
+        self._free_pages.extend(reversed(tail))
 
     # -- obs -------------------------------------------------------------
 
@@ -1125,6 +1568,10 @@ class Engine:
             reg, queue_depth=self.queue.depth(),
             active_slots=self.active_slots(), slots=self.slots,
             uptime_s=now - self._started, window_s=window, final=final)
+        if self.chaos is not None:
+            # A record from a chaos-armed replica says so: comparisons
+            # must never mistake injected faults for regressions.
+            record["chaos"] = self.chaos.render()
         # Host-thread gauges ride the serve registry too.
         THREADS.export_gauges(reg)
         reg.emit("obs_serve", record)

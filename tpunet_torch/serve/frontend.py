@@ -26,7 +26,8 @@ Backpressure maps to status codes: 429 queue-full, 503 draining/dead,
 413 prompt-too-long. The server drains gracefully: ``drain()`` stops
 admissions, lets in-flight requests finish (bounded), flushes the
 exporters and the metrics log, then stops the listener. Serve-tier
-chaos is not ported (ROADMAP Queue A item 5).
+chaos (``--chaos``, ``tpunet_torch/serve/chaos.py``) fires its probe hook
+in ``/healthz`` and its stream hook before each relayed ndjson line.
 """
 
 from __future__ import annotations
@@ -85,6 +86,13 @@ class ServeServer:
         # clean shutdown so the watcher never fabricates a crash.
         self._flightrec = flight_recorder
         self._drained = False
+        # Chaos: live stream relays, request id -> [request, token lines
+        # written]. A kill waits for them (``_flush_relays``), so the token
+        # that triggered it reaches its client first.
+        self._relays: dict = {}
+        self._relay_cv = threading.Condition()
+        if engine.chaos is not None:
+            engine.chaos.before_kill = self._flush_relays
         handler = _make_handler(self)
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.httpd.daemon_threads = True
@@ -128,6 +136,24 @@ class ServeServer:
 
     close = drain
 
+    def _relay_note(self, req, written: Optional[int]) -> None:
+        """A chaos-armed stream relay's progress: ``written`` token lines
+        sent for ``req``, or None when its relay ended."""
+        with self._relay_cv:
+            if written is None:
+                self._relays.pop(req.id, None)
+            else:
+                self._relays[req.id] = (req, written)
+            self._relay_cv.notify_all()
+
+    def _flush_relays(self, timeout: float = 5.0) -> None:
+        """Wait (at most ``timeout`` s) until every live stream relay has
+        written every token its request holds."""
+        with self._relay_cv:
+            self._relay_cv.wait_for(lambda: all(
+                n >= len(req.tokens) - req.resume_offset
+                for req, n in self._relays.values()), timeout)
+
 
 def _make_handler(server: ServeServer):
     class Handler(BaseHTTPRequestHandler):
@@ -159,6 +185,13 @@ def _make_handler(server: ServeServer):
         def do_GET(self):  # noqa: N802 (stdlib handler API)
             if self.path == "/healthz":
                 engine = server.engine
+                # Chaos injection: a standing stall wedges the probe (the
+                # router's stall-evict path); drop-probe answers 500 on
+                # the seeded draws.
+                if engine.chaos is not None \
+                        and engine.chaos.on_probe():
+                    self._json(500, {"error": "chaos: probe dropped"})
+                    return
                 run_id = server.registry.identity().get("run_id", "")
                 if engine.error is not None or not engine.healthy:
                     self._json(503, {
@@ -356,9 +389,14 @@ def _make_handler(server: ServeServer):
             # sequence ("i"): a resumed request starts at its resume
             # offset, so the router's failover relay can suppress a
             # duplicate at the kill seam by index instead of guessing.
+            chaos = server.engine.chaos
             idx = req.resume_offset
+            if chaos is not None:
+                server._relay_note(req, 0)
             try:
                 for kind, val in req.events(timeout=600.0):
+                    if chaos is not None:
+                        chaos.on_stream_line()   # slow-stream injection
                     if kind == "token":
                         ev = {"token": val, "i": idx}
                         idx += 1
@@ -366,6 +404,8 @@ def _make_handler(server: ServeServer):
                         if text is not None:
                             ev["text"] = text
                         chunk(ev)
+                        if chaos is not None:
+                            server._relay_note(req, idx - req.resume_offset)
                     else:
                         done = {"done": True, "finish_reason": val,
                                 "n_tokens": len(req.tokens),
@@ -396,6 +436,9 @@ def _make_handler(server: ServeServer):
                 # fault, not the engine's.
                 flightrec.record("req", f"client_gone {req.id}")
                 req.cancel()
+            finally:
+                if chaos is not None:
+                    server._relay_note(req, None)
 
         def _classify(self, body: dict) -> None:
             if server.classify is None:

@@ -22,6 +22,9 @@ at any slot, with any batch partners, and continued exactly by a
 preempted-and-resumed request. The hash is not JAX's PRNG, so a sampled
 stream differs from tpunet's for the same seed; greedy streams are equal.
 
+``batched_sample_positions`` draws every position of the speculative
+verify's ``[slots, K+1]`` logits the same way, at consecutive steps.
+
 JAX's ``lax.cond(any(temperature > 0))`` is the caller's decision here:
 the engine knows its slots' temperatures on the host, and when no row
 samples it takes the rows' argmax (what this function gives greedy rows)
@@ -101,3 +104,22 @@ def batched_sample(logits: torch.Tensor, temperature: torch.Tensor,
     noise = gumbel_noise(seeds, steps, logits.shape[-1])
     draw = torch.argmax(lg.to(torch.float64) + noise, dim=-1)
     return torch.where(temperature > 0, draw, torch.argmax(logits, dim=-1))
+
+
+def batched_sample_positions(logits: torch.Tensor, temperature: torch.Tensor,
+                             top_k: torch.Tensor, top_p: torch.Tensor,
+                             seeds: torch.Tensor,
+                             steps0: torch.Tensor) -> torch.Tensor:
+    """Per-position sampling for the speculative verify step, tpunet's
+    ``batched_sample_positions``: one token per (row, position) of
+    ``logits`` [B, T, V] float32, int64 [B, T].
+
+    Position ``j`` of row ``b`` draws with step ``steps0[b] + j``, the
+    step the sequential decode loop would have drawn at when it reached
+    that position, which makes a sampled spec-on stream equal the
+    spec-off stream per (seed, step) and keeps a failover resume
+    deterministic. T reuses of the [B]-wide :func:`batched_sample`, so
+    each draw sees the same computation as a decode step's."""
+    cols = [batched_sample(logits[:, j], temperature, top_k, top_p, seeds,
+                           steps0 + j) for j in range(logits.shape[1])]
+    return torch.stack(cols, dim=1)
