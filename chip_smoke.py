@@ -156,7 +156,27 @@ Phases, each of which must pass:
      the first engine's tokens. Chaos: ``python -m tpunet_torch.serve
      --chaos kill@tokens=5`` as a subprocess streams exactly 5 tokens
      and dies by SIGKILL. No kernel launches on this path;
- 15. print the kernel list and the card's name and power limit.
+ 15. router: ``python -m tpunet_torch.router --spawn 2`` in front of two
+     replicas of phase 12's LM (``--checkpoint-dir ""``, the seeded
+     init; the ServeConfig defaults; on this card), twice. Fleet 1:
+     both replicas healthy before a deadline (boot seconds each), a
+     greedy request through the router equal to the same request on
+     each replica's own port, then phase 13's 48 requests from 8 and
+     from 16 closed-loop clients, each against replica r1 alone and then
+     through the router: every request 200 with 128 tokens, both
+     replicas taking requests (the router's split equal to the
+     replicas' own serve_requests_total); generated tokens/s, TTFT and
+     per-token p50; then SIGTERM: exit 0, no child left. Fleet 2, with
+     ``--chaos kill@tokens=12:replica=0``: a streamed greedy request
+     pinned to r0 by its session is whole across the SIGKILL (64 tokens,
+     each index once, a failover in its done frame), its first 12
+     tokens are the unbroken stream's and the rest is r1's own answer
+     to those 12 as ``resume_tokens`` (where it leaves the unbroken
+     stream is a reading); router_failovers_total, evict and respawn
+     events in the obs_router records, r0 healthy again under a new pid
+     (respawn seconds), and the SIGTERM drain. No kernel on this path
+     (decode steps only, in the replicas' processes);
+ 16. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -3085,6 +3105,11 @@ SPEC_FITTED_REQUESTS = 24  # the fitted drafter's pass: the first 24 (its
 #                            low acceptance makes it the phase's slowest)
 CHAOS_KILL_TOKENS = 5
 STORE_SUFFIX = 5         # tokens past the page-aligned shared prefix
+ROUTER_DIR = LM_DIR / "smoke_router"
+ROUTER_KILL_TOKENS = 12  # the failover fleet's replica 0 dies at this token
+ROUTER_STREAM_NEW = 64   # new tokens of the failover stream
+ROUTER_BOOT_S = 300      # deadline of a fleet's boot and of a respawn
+ROUTER_CLIENTS = (SERVE_CLIENTS, 2 * SERVE_CLIENTS)  # one fleet's slots, two
 
 
 def http_call(base, path, body=None, timeout=300.0):
@@ -3105,9 +3130,12 @@ def http_call(base, path, body=None, timeout=300.0):
 
 def http_generate(base, body, timeout=300.0) -> dict:
     """One /v1/generate exchange, sync or streamed (``body['stream']``),
-    as {status, tokens, finish_reason, s}: a stream's tokens are its token
-    lines (their indices must run 0, 1, ...), its finish reason and count
-    its done frame's; a stream that breaks that is status -1."""
+    as {status, tokens, finish_reason, s, ttft_ms}: a stream's tokens are
+    its token lines (their indices must run 0, 1, ...), its finish reason
+    and count its done frame's; a stream that breaks that is status -1.
+    ``ttft_ms`` is the replica's; a sync answer adds its ``e2e_ms``, a
+    stream the seconds at which each token line arrived, the first of
+    them (``client_ttft_s``) and its done frame's ``failover_count``."""
     import urllib.request
 
     t0 = time.perf_counter()
@@ -3115,20 +3143,29 @@ def http_generate(base, body, timeout=300.0) -> dict:
         code, out, _ = http_call(base, "/v1/generate", body, timeout)
         return dict(status=code, tokens=out.get("tokens"),
                     finish_reason=out.get("finish_reason"),
-                    s=time.perf_counter() - t0)
+                    s=time.perf_counter() - t0, ttft_ms=out.get("ttft_ms"),
+                    e2e_ms=out.get("e2e_ms"))
     req = urllib.request.Request(base + "/v1/generate",
                                  json.dumps(body).encode(),
                                  {"Content-Type": "application/json"})
+    lines, at = [], []
     with urllib.request.urlopen(req, timeout=timeout) as r:
         code = r.status
-        lines = [json.loads(line) for line in r if line.strip()]
+        for line in r:
+            if line.strip():
+                lines.append(json.loads(line))
+                at.append(time.perf_counter() - t0)
     toks = [ev["token"] for ev in lines if "token" in ev]
     done = lines[-1] if lines and lines[-1].get("done") else {}
     ok = done.get("n_tokens") == len(toks) and [
         ev["i"] for ev in lines if "token" in ev] == list(range(len(toks)))
+    token_at = [t for t, ev in zip(at, lines) if "token" in ev]
     return dict(status=code if ok else -1, tokens=toks,
                 finish_reason=done.get("finish_reason"),
-                s=time.perf_counter() - t0)
+                s=time.perf_counter() - t0, ttft_ms=done.get("ttft_ms"),
+                failover_count=done.get("failover_count", 0),
+                client_ttft_s=token_at[0] if token_at else None,
+                token_at_s=token_at)
 
 
 def serve_prompts():
@@ -3161,9 +3198,9 @@ def serve_prompts():
     return bodies, rows, prefix
 
 
-def serve_traffic(base, bodies, images, names):
-    """SERVE_CLIENTS closed-loop clients send ``bodies`` (client k the
-    k-th, (k+8)-th, ...), while SERVE_CLASSIFY_CLIENTS clients cycle
+def serve_traffic(base, bodies, images, names, clients=SERVE_CLIENTS):
+    """``clients`` closed-loop clients send ``bodies`` (client k the
+    k-th, (k+clients)-th, ...), while SERVE_CLASSIFY_CLIENTS clients cycle
     ``images`` (when given) through /v1/classify until the generate
     clients are done.
     Returns (generate wall s, generate answers by request, classify
@@ -3180,7 +3217,7 @@ def serve_traffic(base, bodies, images, names):
 
     def generate_client(k):
         try:
-            for i in range(k, len(bodies), SERVE_CLIENTS):
+            for i in range(k, len(bodies), clients):
                 gen[i] = http_generate(base, bodies[i])
         except (OSError, ValueError) as e:
             errors.append(f"generate client {k}: {type(e).__name__}: {e}")
@@ -3204,7 +3241,7 @@ def serve_traffic(base, bodies, images, names):
             errors.append(f"classify client {k}: {type(e).__name__}: {e}")
 
     gthreads = [threading.Thread(target=generate_client, args=(k,))
-                for k in range(SERVE_CLIENTS)]
+                for k in range(clients)]
     cthreads = [threading.Thread(target=classify_client, args=(k,))
                 for k in range(SERVE_CLASSIFY_CLIENTS if images else 0)]
     t0 = time.perf_counter()
@@ -3220,6 +3257,19 @@ def serve_traffic(base, bodies, images, names):
     if any(t.is_alive() for t in gthreads + cthreads):
         errors.append("clients did not finish")
     return wall, gen, [a for per in cls for a in per], cls_wall, errors
+
+
+def check_traffic(tag, answers, errors) -> None:
+    """Every client finished and every request ended 200 with its
+    SERVE_NEW tokens."""
+    check(not errors, f"{tag}: traffic failed: {errors[:3]}")
+    bad = [(i, a and a["status"], a and a["finish_reason"])
+           for i, a in enumerate(answers)
+           if a is None or a["status"] != 200
+           or len(a["tokens"] or ()) != SERVE_NEW
+           or a["finish_reason"] != "length"]
+    check(not bad, f"{tag}: requests without 200 and {SERVE_NEW} tokens: "
+          f"{bad[:4]}")
 
 
 def serve_parity(torch, model32, prompts, want) -> dict:
@@ -3464,14 +3514,7 @@ def serve_pass(torch, model, bodies, rows, pred=None, images=(),
             base, bodies, images, pred.class_names if pred else ())
         launches = launch_counts()
         snap = reg.snapshot()
-        check(not errors, f"serve traffic failed: {errors[:3]}")
-        bad = [(i, a and a["status"], a and a["finish_reason"])
-               for i, a in enumerate(answers)
-               if a is None or a["status"] != 200
-               or len(a["tokens"] or ()) != SERVE_NEW
-               or a["finish_reason"] != "length"]
-        check(not bad, f"requests without 200 and {SERVE_NEW} tokens: "
-              f"{bad[:4]}")
+        check_traffic("serve", answers, errors)
         flash = {k: v for k, v in launches.items() if k.startswith("flash")}
         check(sum(flash.values()) == 0, f"flash launches while serving: "
               f"{flash}")
@@ -3982,6 +4025,312 @@ def phase_serve_item5(torch, serve) -> dict:
     return dict(launches=launches, s=time.perf_counter() - t0)
 
 
+def router_fleet(tag, extra=()) -> dict:
+    """``python -m tpunet_torch.router --spawn 2`` in front of two
+    replicas of the LM at phase 12's widths (``--checkpoint-dir ""``:
+    the seeded init, the same in both) on this card, with ``extra``
+    router flags; waits for both replicas to be healthy. Returns the
+    fleet: its process, base URL, metrics dir, log, replica rows and
+    each replica's boot seconds (from the router's start to its first
+    healthy probe)."""
+    mdir = ROUTER_DIR / tag
+    shutil.rmtree(mdir, ignore_errors=True)
+    log = ROUTER_DIR / f"{tag}.log"
+    out = open(log, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "tpunet_torch.router", "--spawn", "2",
+         "--port", "0", "--metrics-dir", str(mdir),
+         "--probe-interval-s", "0.2", "--unhealthy-after", "2",
+         "--respawn-backoff-s", "0.2", "--min-replicas", "2",
+         "--max-replicas", "2", *extra, "--", "--checkpoint-dir", "",
+         *LM_FLAGS[2:8], "--vocab-size", str(LM_VOCAB), "--max-seq-len",
+         str(LM_T)],
+        cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    fleet = dict(proc=proc, dir=mdir, log=log, boot_s={}, base=None)
+    deadline = t0 + ROUTER_BOOT_S
+    try:
+        while time.perf_counter() < deadline:
+            check(proc.poll() is None,
+                  f"{tag}: router exited {proc.returncode}: "
+                  f"{log.read_text()[-2000:]}")
+            if fleet["base"] is None:
+                found = re.search(r"listening on (http://\S+) ",
+                                  log.read_text())
+                if found:
+                    fleet["base"] = found.group(1)
+            else:
+                rows = router_rows(fleet)
+                for name, r in rows.items():
+                    if r["state"] == "healthy":
+                        fleet["boot_s"].setdefault(
+                            name, time.perf_counter() - t0)
+                if len(fleet["boot_s"]) == 2:
+                    return fleet
+            time.sleep(0.1)
+        raise PhaseError(f"{tag}: replicas not healthy in {ROUTER_BOOT_S} "
+                         f"s: {fleet['boot_s']}, {log.read_text()[-2000:]}")
+    except BaseException:
+        router_stop(fleet)
+        raise
+
+
+def router_drain(fleet) -> dict:
+    """SIGTERM drains the router and its children: it must exit 0, and
+    no child may outlive it."""
+    import signal
+
+    t = time.perf_counter()
+    fleet["proc"].send_signal(signal.SIGTERM)
+    rc = fleet["proc"].wait(timeout=180)
+    pids = [r["pid"] for r in fleet["rows"].values()]
+    alive = [p for p in pids if Path(f"/proc/{p}").exists()]
+    check(rc == 0, f"router exited {rc} after SIGTERM: "
+          f"{fleet['log'].read_text()[-2000:]}")
+    check(not alive, f"replica processes {alive} outlived the router")
+    check("router drained" in fleet["log"].read_text(),
+          "no 'router drained' line in the router's log")
+    fleet["drained"] = True
+    return dict(exit_code=rc, drain_s=time.perf_counter() - t)
+
+
+def router_rows(fleet) -> dict:
+    rows = http_call(fleet["base"], "/replicas", timeout=10)[1]["replicas"]
+    fleet["rows"] = {r["name"]: r for r in rows}
+    return fleet["rows"]
+
+
+def router_stop(fleet) -> None:
+    """Stop what is left of a fleet that did not drain (a failed check):
+    the router, then the children it did not take down."""
+    import os
+    import signal
+
+    if fleet.get("drained"):
+        return
+    proc = fleet["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)     # drains its children first
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    for r in fleet.get("rows", {}).values():
+        try:
+            os.kill(r["pid"], signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def fleet_metrics(wall, answers) -> dict:
+    """Client-side tokens/s and e2e of one traffic pass, with the
+    replicas' own TTFT (every request) and per-token time ((e2e - TTFT)
+    / (tokens - 1) of the sync requests), and the TTFT the clients of
+    the streamed requests saw (the proxy included)."""
+    tokens = sum(len(a["tokens"]) for a in answers)
+
+    def p50(values):
+        return statistics.median(values) if values else None
+
+    return dict(
+        requests=len(answers), wall_s=wall, generated_tokens=tokens,
+        generated_tokens_per_s=tokens / wall,
+        ttft_p50_ms=p50([a["ttft_ms"] for a in answers]),
+        token_p50_ms=p50([(a["e2e_ms"] - a["ttft_ms"])
+                          / (len(a["tokens"]) - 1) for a in answers
+                          if a.get("e2e_ms") is not None]),
+        e2e_p50_ms=p50([a["s"] * 1e3 for a in answers]),
+        stream_client_ttft_p50_ms=p50([a["client_ttft_s"] * 1e3
+                                       for a in answers
+                                       if a.get("client_ttft_s")]))
+
+
+def router_traffic_fleet(bodies, rows) -> dict:
+    """Fleet 1 (no chaos): boot, greedy parity (the router against each
+    replica's own port), phase 13's traffic from 8 and then 16 clients,
+    each against replica r1 alone and then through the router, the
+    split between the replicas, and the SIGTERM drain."""
+    fleet = router_fleet("fleet")
+    try:
+        reps = router_rows(fleet)
+        urls = {name: r["url"] for name, r in reps.items()}
+        # Warm-up on each replica, not counted: each prefill bucket, the
+        # shared prefix in its prefix cache, decode.
+        for url in urls.values():
+            for n in (8, 100, 400):
+                warm = http_generate(url, {"tokens": rows[-2, :n].tolist(),
+                                           "max_new_tokens": 4})
+                check(warm["status"] == 200, f"warm-up request: {warm}")
+            warm = http_generate(url, dict(bodies[0], max_new_tokens=4,
+                                           stream=False))
+            check(warm["status"] == 200, f"warm-up request: {warm}")
+        body = {"tokens": rows[-3, :40].tolist(), "max_new_tokens": 32}
+        got = http_generate(fleet["base"], body)
+        direct = {name: http_generate(url, body)["tokens"]
+                  for name, url in urls.items()}
+        check(got["status"] == 200 and all(t == got["tokens"]
+                                           for t in direct.values()),
+              f"router tokens {got} against the replicas' {direct}")
+        passes = {}
+        for clients in ROUTER_CLIENTS:
+            wall, answers, _, _, errors = serve_traffic(
+                urls["r1"], bodies, (), (), clients)
+            check_traffic(f"direct r1, {clients} clients", answers, errors)
+            alone = fleet_metrics(wall, answers)
+            before = {n: r["requests_routed"] for n, r in router_rows(
+                fleet).items()}
+            served = {n: http_call(url, "/metrics")[1][
+                "serve_requests_total"] for n, url in urls.items()}
+            wall, answers, _, _, errors = serve_traffic(
+                fleet["base"], bodies, (), (), clients)
+            check_traffic(f"router, {clients} clients", answers, errors)
+            routed = fleet_metrics(wall, answers)
+            split = {n: r["requests_routed"] - before[n]
+                     for n, r in router_rows(fleet).items()}
+            served = {n: http_call(url, "/metrics")[1][
+                "serve_requests_total"] - served[n]
+                for n, url in urls.items()}
+            check(min(split.values()) >= 1 and sum(split.values())
+                  == len(bodies) and served == split,
+                  f"requests by replica: routed {split}, served {served}")
+            routed["split"] = split
+            passes[clients] = dict(
+                direct_r1=alone, router=routed,
+                speedup=routed["generated_tokens_per_s"]
+                / alone["generated_tokens_per_s"])
+        snap = http_call(fleet["base"], "/metrics")[1]
+        res = dict(boot_s=fleet["boot_s"], parity_tokens=len(got["tokens"]),
+                   clients=passes,
+                   affinity_hits=snap.get("router_affinity_hits_total"),
+                   rerouted=snap.get("router_rerouted_total"))
+        res["drain"] = router_drain(fleet)
+        return res
+    finally:
+        router_stop(fleet)
+
+
+def router_failover_fleet(rows) -> dict:
+    """Fleet 2 (``--chaos kill@tokens=12:replica=0``): a streamed greedy
+    request pinned to replica r0 by its session outlives the kill, whole
+    and relayed exactly (see below); then the evict, the respawn and the
+    drain."""
+    from tpunet_torch.router.balance import preferred_replica
+    from tpunet_torch.router.replica import ReplicaHandle
+
+    fleet = router_fleet("failover", (
+        "--chaos", f"kill@tokens={ROUTER_KILL_TOKENS}:replica=0"))
+    try:
+        first = router_rows(fleet)
+        names = [ReplicaHandle(n, "http://x") for n in ("r0", "r1")]
+        session = next(s for s in (f"sess{i}" for i in range(256))
+                       if preferred_replica(names, f"s:{s}").name == "r0")
+        body = {"tokens": rows[-4, :64].tolist(),
+                "max_new_tokens": ROUTER_STREAM_NEW, "stream": True,
+                "session": session}
+        t_start = time.perf_counter()
+        got = http_generate(fleet["base"], body, timeout=300)
+        check(got["status"] == 200 and got["finish_reason"] == "length"
+              and len(got["tokens"]) == ROUTER_STREAM_NEW
+              and got["failover_count"] >= 1,
+              f"failover stream: {dict(got, token_at_s=None)}")
+        seam = got["token_at_s"][ROUTER_KILL_TOKENS - 1]
+        t_seam = t_start + seam
+        # The relay is exact: the victim's tokens are the unbroken
+        # stream's, and the rest is what the survivor answers to the
+        # journal (the same body with resume_tokens). In bf16 that
+        # resume's prefill over prompt + journal rounds unlike the T 1
+        # steps that made the journal, so the continuation may leave the
+        # unbroken stream: a reading, not a gate.
+        journal = got["tokens"][:ROUTER_KILL_TOKENS]
+        unbroken = http_generate(first["r1"]["url"], body)
+        resumed = http_generate(first["r1"]["url"], dict(
+            body, resume_tokens=journal, stream=False))
+        check(unbroken["status"] == 200 and resumed["status"] == 200
+              and unbroken["tokens"][:ROUTER_KILL_TOKENS] == journal
+              and resumed["tokens"] == got["tokens"],
+              f"failed-over stream {got['tokens']} against the unbroken "
+              f"one {unbroken['tokens']} and r1's resume of its first "
+              f"{ROUTER_KILL_TOKENS} tokens {resumed['tokens']}")
+        departs = next((i for i, (a, b) in enumerate(
+            zip(got["tokens"], unbroken["tokens"])) if a != b), None)
+        snap = http_call(fleet["base"], "/metrics")[1]
+        check(snap.get("router_failovers_total", 0) >= 1,
+              f"router_failovers_total {snap.get('router_failovers_total')}")
+        deadline = time.perf_counter() + ROUTER_BOOT_S
+        while True:
+            r0 = router_rows(fleet)["r0"]
+            if r0["state"] == "healthy" and r0["pid"] != first["r0"]["pid"]:
+                break
+            check(time.perf_counter() < deadline,
+                  f"r0 not respawned healthy in {ROUTER_BOOT_S} s: {r0}")
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t_seam
+        snap = http_call(fleet["base"], "/metrics")[1]
+        drain = router_drain(fleet)
+        recs = [json.loads(line) for line in
+                (fleet["dir"] / "metrics.jsonl").read_text().splitlines()]
+        events = [r["event"] for r in recs
+                  if r.get("kind") == "obs_router" and r.get("event")]
+        windows = [r for r in recs if r.get("kind") == "obs_router"
+                   and not r.get("event")]
+        check({"failover", "evict", "respawn"} <= set(events)
+              and windows and windows[-1].get("final"),
+              f"obs_router events {events}, last window "
+              f"{windows[-1] if windows else None}")
+        at = got["token_at_s"]
+        return dict(boot_s=fleet["boot_s"], kill_at=ROUTER_KILL_TOKENS,
+                    stream_tokens=len(got["tokens"]),
+                    failover_count=got["failover_count"],
+                    equals_unbroken=departs is None,
+                    departs_from_unbroken_at=departs,
+                    seam_gap_ms=(at[ROUTER_KILL_TOKENS] - seam) * 1e3,
+                    kill_to_end_s=got["s"] - seam,
+                    stream_token_p50_ms=statistics.median(
+                        [b - a for a, b in zip(at, at[1:])]) * 1e3,
+                    respawn_s=respawn_s, events=events,
+                    failovers_total=snap["router_failovers_total"],
+                    evictions_total=snap["router_evictions_total"],
+                    respawns_total=snap["router_respawns_total"],
+                    drain=drain)
+    finally:
+        router_stop(fleet)
+
+
+def phase_router(torch) -> dict:
+    """The serving router on the card (docstring, phase 15): two fleets
+    of 2 full-width LM replicas behind ``python -m tpunet_torch.router``.
+    Its path launches no kernel: the replicas' engines run decode steps
+    only (no flash), in their own processes."""
+    t0 = time.perf_counter()
+    ROUTER_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"router: card memory before spawning: {free / 2**30:.2f} GiB "
+          f"free of {total / 2**30:.2f} GiB", flush=True)
+    check(free > 8 * 2**30, f"{free} bytes free for two replicas")
+    bodies, rows, _ = serve_prompts()
+    traffic = router_traffic_fleet(bodies, rows)
+    emit("router_traffic", **traffic)
+    failover = router_failover_fleet(rows)
+    emit("router_failover", **failover)
+    res = dict(traffic=traffic, failover=failover,
+               free_bytes_before=free, s=time.perf_counter() - t0)
+    headline = {}
+    for clients, p in traffic["clients"].items():
+        for key in ("generated_tokens_per_s", "ttft_p50_ms", "token_p50_ms"):
+            headline[f"{key}_{clients}c"] = p["router"][key]
+            headline[f"direct_{key}_{clients}c"] = p["direct_r1"][key]
+        headline[f"speedup_{clients}c"] = p["speedup"]
+        headline[f"split_{clients}c"] = p["router"]["split"]
+    emit("router", free_bytes_before=free, s=res["s"], **headline,
+         boot_s=traffic["boot_s"], respawn_s=failover["respawn_s"],
+         kill_to_end_s=failover["kill_to_end_s"],
+         failover_equals_unbroken=failover["equals_unbroken"])
+    return dict(res, headline=headline)
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4061,6 +4410,7 @@ def main() -> int:
         lm_gen = phase_lm_generate(torch)
         serve = phase_serve_engine(torch)
         item5 = phase_serve_item5(torch, serve)
+        router = phase_router(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4121,7 +4471,12 @@ def main() -> int:
          lm_decode_new_tokens_per_s=lm_gen["new_tokens_per_s"],
          serve_generated_tokens_per_s=serve["generated_tokens_per_s"],
          serve_ttft_p50_ms=serve["ttft_p50_ms"],
-         serve_item5_s=item5["s"])
+         serve_item5_s=item5["s"],
+         **{f"router_{k}": v for k, v in router["headline"].items()
+            if k.startswith(("generated", "direct_generated", "speedup"))},
+         router_kill_to_end_s=router["failover"]["kill_to_end_s"],
+         router_respawn_s=router["failover"]["respawn_s"],
+         router_s=router["s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -50,9 +50,39 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.obs.flightrec.threads",
                 "tpunet_torch.obs.flightrec.report",
                 "tpunet_torch.obs.flightrec.crash",
-                "tpunet_torch.obs.flightrec.watch"):
+                "tpunet_torch.obs.flightrec.watch",
+                "tpunet_torch.obs.slo", "tpunet_torch.router",
+                "tpunet_torch.router.__main__",
+                "tpunet_torch.router.balance", "tpunet_torch.router.core",
+                "tpunet_torch.router.frontend",
+                "tpunet_torch.router.journal",
+                "tpunet_torch.router.policy", "tpunet_torch.router.prober",
+                "tpunet_torch.router.records",
+                "tpunet_torch.router.replica",
+                "tpunet_torch.router.supervisor"):
         assert mod in res["mods"]
     assert res["bad"] == []
+
+
+def test_router_cli_runs_on_a_host_without_jax():
+    """With JAX and tpunet unimportable, the router package imports and
+    its CLI parses and prints its usage."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
+        "import tpunet_torch.router.__main__ as cli\n"
+        "import tpunet_torch.obs.slo\n"
+        "from tpunet_torch.router import Router, RouterServer, Supervisor\n"
+        "args = cli.build_argparser().parse_args(\n"
+        "    ['--spawn', '2', '--', '--device', 'cpu'])\n"
+        "assert args.spawn == 2 and args.serve_args[-2:] == "
+        "['--device', 'cpu']\n"
+        "sys.argv = ['tpunet_torch.router', '--help']\n"
+        "runpy.run_module('tpunet_torch.router', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage: python -m tpunet_torch.router")
 
 
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py",

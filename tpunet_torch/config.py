@@ -438,6 +438,128 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class RouterConfig:
+    """Routing + autoscaling front tier (tpunet_torch/router/,
+    docs/serving.md "Routing & autoscaling"): a stdlib-threaded HTTP
+    proxy that spreads /v1/generate + /v1/classify over N serve
+    replicas (least-loaded with session/prefix affinity), evicts and
+    respawns unhealthy replicas, and emits hysteresis scale-up/down
+    decisions as ``obs_router`` records. tpunet's fields and defaults,
+    plus ``aot_cache``, which is refused."""
+
+    host: str = "127.0.0.1"
+    port: int = 8100
+    # Health/load probe cadence against each replica's /healthz +
+    # /metrics; a probe slower than probe_timeout_s counts as a
+    # failure, and unhealthy_after consecutive failures evict.
+    probe_interval_s: float = 1.0
+    probe_timeout_s: float = 2.0
+    unhealthy_after: int = 3
+    # Session/prefix affinity: requests with the same "session" field
+    # (or the same first affinity_prefix prompt tokens/bytes) hash to
+    # a stable preferred replica so shared-prompt traffic lands on
+    # warm KV — unless the preferred replica's load score exceeds the
+    # least-loaded replica's by more than affinity_slack (fraction of
+    # its pool), in which case least-loaded wins.
+    affinity_prefix: int = 16
+    affinity_slack: float = 0.5
+    # Re-route budget: a request that hits a dead/draining replica is
+    # retried against another replica up to route_retries times (only
+    # before any response byte reached the client).
+    route_retries: int = 2
+    # Per-proxied-request socket timeout toward a replica.
+    request_timeout_s: float = 600.0
+    # obs_router window record cadence (0 = final record only).
+    emit_every_s: float = 10.0
+    # Autoscale hysteresis over fleet queue depth per slot (and TTFT
+    # SLO burn when ttft_slo_ms > 0): the condition must hold for
+    # scale_window_probes consecutive probe rounds to fire, and after
+    # any action the policy holds for scale_cooldown_s.
+    scale_up_queue_per_slot: float = 1.0
+    scale_down_queue_per_slot: float = 0.1
+    scale_window_probes: int = 5
+    scale_cooldown_s: float = 60.0
+    min_replicas: int = 1
+    max_replicas: int = 8
+    # TTFT SLO (ms): fleet TTFT p99 above it counts as SLO burn > 1
+    # and arms scale-up like queue pressure; 0 disables the term.
+    ttft_slo_ms: float = 0.0
+    # Drain-then-restart budget: SIGTERM -> graceful drain for up to
+    # this long -> SIGKILL; in-flight streams finish inside it.
+    drain_grace_s: float = 30.0
+    # Boot grace: probe failures while a replica is STARTING (loading
+    # weights, warming/deserializing programs) don't count toward
+    # eviction until this much time has passed since its (re)spawn.
+    boot_timeout_s: float = 120.0
+    # Backoff before respawning an evicted/dead replica child.
+    respawn_backoff_s: float = 1.0
+    # Mid-stream failover (--failover / --no-failover, docs/serving.md
+    # "Mid-stream failover & serve-tier chaos"): the frontend journals
+    # every streamed /v1/generate request (prompt, sampling params,
+    # relayed tokens) and, when the serving replica dies mid-stream,
+    # re-submits to a survivor with ``resume_tokens`` — the client's
+    # ndjson stream continues with no error frame (greedy:
+    # token-identical; sampled: deterministic per (seed, step)).
+    failover: bool = True
+    # Per-request journal bound: a stream that has relayed more than
+    # this many tokens is no longer failover-protected (on replica
+    # death it gets the honest error frame — the documented
+    # degradation mode). Bounds router memory per in-flight stream.
+    failover_journal_tokens: int = 4096
+    # Resume attempts per request after a mid-stream replica death
+    # (each attempt picks a different surviving replica).
+    failover_retries: int = 2
+    # Serve-tier fault injection forwarded to spawned replicas
+    # (--chaos, tpunet_torch/serve/chaos.py grammar plus a
+    # ``:replica=I`` scope key naming the child index; unscoped events
+    # reach every child). Empty = no injection.
+    chaos: str = ""
+    # End-to-end request tracing (--trace-sample, docs/serving.md
+    # "Request tracing"): the frontend mints a trace_id per request
+    # and head-samples this fraction of them (deterministic on the
+    # id); sampled requests carry ``X-Trace-Id`` to every replica hop
+    # — including failover re-submits — and every layer records trace
+    # breadcrumbs + an ``obs_trace`` record. A client-supplied
+    # ``X-Trace-Id`` is always sampled (explicit opt-in).
+    trace_sample: float = 0.01
+    # Tail capture for the requests sampling missed
+    # (--no-trace-all-on-error disables): an UNsampled request that
+    # hits a mid-stream failover or errors still gets a router-hop
+    # ``obs_trace`` record — replica-side phases are absent (the
+    # replicas never saw trace context), but the seam and outcome are
+    # on the books.
+    trace_all_on_error: bool = True
+    # Synthetic canary probing (--probe-every-s,
+    # tpunet_torch/router/prober.py, docs/serving.md "SLOs & probing"):
+    # every this many seconds the router issues a pinned greedy
+    # known-answer request through its OWN public endpoint — the full
+    # proxy path — and judges availability, TTFT/e2e latency, and
+    # bitwise golden-output correctness from the client's side, feeding
+    # the SLO engine's SLI streams. Each probe carries a minted
+    # always-sampled X-Trace-Id, so a failed or slow probe points at a
+    # replayable trace. 0 = off.
+    probe_every_s: float = 0.0
+    # SLO policy file (--slo-policy, docs/slos.json format:
+    # objectives + compliance windows + multi-window burn-rate alert
+    # rules; full-line // comments allowed). Arming it (or the
+    # prober) starts the tpunet_torch/obs/slo.py engine: obs_slo
+    # records, slo_* gauges, and edge-latched fast-burn pages / slow-burn
+    # tickets through the obs_alert webhook path. Empty = built-in
+    # default policy when the prober is armed, otherwise off.
+    slo_policy: str = ""
+    # Router identity on obs_router records (empty =
+    # "router-<host>-<pid>").
+    run_id: str = ""
+    # The shared AOT program store that tpunet's router forwards to its
+    # children (its --aot-cache); out of scope here, as in ServeConfig.
+    aot_cache: str = ""
+
+    def __post_init__(self):
+        if self.aot_cache:
+            raise NotImplementedError(AOT_CACHE_SCOPED_OUT)
+
+
+@dataclass(frozen=True)
 class ExportConfig:
     """Live telemetry export (tpunet_torch/obs/export/): push finished obs
     records to off-host endpoints through a bounded queue drained by a
