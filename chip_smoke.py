@@ -176,10 +176,42 @@ Phases, each of which must pass:
      events in the obs_router records, r0 healthy again under a new pid
      (respawn seconds), and the SIGTERM drain. No kernel on this path
      (decode steps only, in the replicas' processes);
- 16. print the kernel list and the card's name and power limit.
+ 16. trainer_item2b: the rest of the reference workload's trainer
+     (ROADMAP Queue A item 2b). MobileNetV2 through ``python -m
+     tpunet_torch.train --preset single`` (in this process; width 1.0,
+     224 px, batch 128, bf16, the hand depthwise and fused-IR kernels,
+     1,024 seeded synthetic images, 8 steps) with ``--pretrained`` (a
+     torchvision-layout .pth with a 1000-class head written from seeded
+     weights) ``--mixup 0.2 --cutmix 1.0 --ema-decay 0.999
+     --block-remat`` and the native loader: its "Host loader:" line, the
+     backbone equal to the .pth and the head fresh before the first
+     step, 17 + 17 + 33 + 33 launches in every step, best.pth equal to
+     the EMA copy; the same epoch without the options and with
+     ``--no-native-loader`` (step p50, stall_frac); one f32 step with
+     mixup at a fixed (perm, lam), EMA and block remat through the
+     kernels against their plain versions (phase 5's gate, the library
+     path in the same configuration; BN running variances from 0), the
+     same step without mixup and without block remat, and each path's
+     BN statistics against float64, as readings; one bf16 step with
+     ``param_dtype`` bfloat16 (bf16 parameters, Adam moments and EMA;
+     phase 5's bf16 gates); bf16 steps
+     with --block-remat and without (peak memory, step p50). SIGTERM
+     at a CLI run's third step: a partial record and state, and
+     --resume re-runs the epoch; two SIGTERMs abandon the save; 2 ranks
+     sharing the card over gloo (``--dp-worker stop``) stop at the same
+     step when rank 1 gets SIGTERM, and time mixup's partner fetch. The
+     LM at phase 12's widths: one f32 step with ``--remat`` and without
+     to the bit (dropout 0.2), 24 flash forward launches a step with
+     remat and 12 without, bf16 peak memory and step p50 each way;
+ 17. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
+
+``python3 chip_smoke.py --four-cards`` (a host of four cards) times
+mixup's partner fetch over NCCL, one rank a card, and runs
+``scripts/torch_dp_check.py``'s 4-ranks-against-1 check with the
+item-2b options.
 """
 
 from __future__ import annotations
@@ -1122,16 +1154,19 @@ def grad_errors(torch, got, want) -> dict:
     return {k: ((got[k] - want[k]).norm() / scale(k)).item() for k in want}
 
 
-def stat_errors(torch, got, want) -> dict:
+def stat_errors(torch, got, want, var0: float = 1.0) -> dict:
     """Per BN, the batch statistics behind the running ones after one
-    update from (mean 0, var 1): |d mean| / std and |d var| / var, maxed
-    over channels."""
+    update from (mean 0, var ``var0``): |d mean| / std and |d var| / var,
+    maxed over channels. From var 1 a float32 running var (0.9 + 0.1 var)
+    resolves the batch var only to 6e-7, so a channel of small var reads
+    one rounding step of it as up to ~1e-3; from var 0 it keeps the
+    batch var's own precision."""
     out = {}
     for k in want:
         if not k.endswith("running_mean"):
             continue
         v = k[:-4] + "var"
-        var = (want[v] - 0.9) / 0.1
+        var = (want[v] - 0.9 * var0) / 0.1
         dm = (got[k] - want[k]).abs() / 0.1
         dv = (got[v] - want[v]).abs() / 0.1
         out[k[:-13]] = max((dm / (var + 1e-5).sqrt()).max().item(),
@@ -1844,7 +1879,10 @@ def dp_worker(role: str, world: int, rank: int) -> int:
       batch in turns without a process group and at world 1 over NCCL
       (none, NCCL, NCCL, none): the wall times, the NCCL runs'
       collective calls and launches, the host time inside the
-      all-reduces over 10 more steps, and one profiled step.
+      all-reduces over 10 more steps, and one profiled step;
+    - ``stop``: :func:`item2b_stop_worker`;
+    - ``fetch``: one rank a card over NCCL, mixup's partner fetch
+      (:func:`time_mix_fetch`, ``--four-cards``).
     Writes its results to DP_DIR/<role>_rank<rank>.pt."""
     import numpy as np
     import torch
@@ -1861,10 +1899,21 @@ def dp_worker(role: str, world: int, rank: int) -> int:
     from tpunet_torch.train.steps import make_train_step, reduce_gradients
     from tpunet_torch.utils.prng import step_generator
 
-    if role == "step":
+    if role in ("step", "stop"):
         dist.initialize_distributed(
             init_method=(DP_DIR / "store").as_uri(), world_size=world,
             rank=rank, backend="gloo")
+    if role == "stop":
+        return item2b_stop_worker(world, rank)
+    if role == "fetch":
+        # One rank a card over NCCL (four_cards).
+        torch.cuda.set_device(dist.local_device())
+        dist.initialize_distributed(
+            init_method=(DP_DIR / "store").as_uri(), world_size=world,
+            rank=rank, backend="nccl")
+        torch.save(time_mix_fetch(world, rank), DP_DIR / f"fetch_rank{rank}.pt")
+        dist.destroy()
+        return 0
     device = dist.local_device()
     torch.cuda.set_device(device)
     data, optim = DataConfig(dataset="synthetic"), OptimConfig()
@@ -1980,6 +2029,86 @@ def dp_worker(role: str, world: int, rank: int) -> int:
     torch.save(out, DP_DIR / f"{role}_rank{rank}.pt")
     dist.destroy()
     return 0
+
+
+def item2b_stop_worker(world: int, rank: int) -> int:
+    """The ``stop`` role of dp_worker: in a gloo group of 2 ranks on
+    the card, the cost of mixup's partner fetch (one collective over 64
+    augmented 224 px rows), then ``python -m tpunet_torch.train --preset
+    distributed`` (the CLI in this process) with SIGTERM sent to rank 1
+    at its third step."""
+    import os
+    import signal as sig
+
+    import torch
+
+    from tpunet_torch.train import __main__ as cli
+    from tpunet_torch.train import loop
+
+    fetch = time_mix_fetch(world, rank)
+    n = TRAIN_BATCH // world
+    trainers = []
+    real_init, real_step = loop.Trainer.__init__, loop.Trainer._step
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        trainers.append(self)
+
+    def step(self, bx, by, gen):
+        if rank == 1 and self.state.global_step == 2:
+            os.kill(os.getpid(), sig.SIGTERM)
+        return real_step(self, bx, by, gen)
+
+    loop.Trainer.__init__, loop.Trainer._step = init, step
+    flags = [f for f in ITEM2B_FLAGS if f not in ("--preset", "single")]
+    rc = cli.main(["--preset", "distributed", "--batch-size", str(n),
+                   "--checkpoint-dir", str(DP_DIR / "stop_ck")] + flags)
+    t = trainers[0]
+    torch.save({"rc": rc, "step": t.state.global_step, "history": t.history,
+                "mix_fetch": fetch}, DP_DIR / f"stop_rank{rank}.pt")
+    return 0
+
+
+def time_mix_fetch(world: int, rank: int) -> dict:
+    """Mixup's partner fetch (``make_mix``: the draw and one
+    ``fetch_rows`` collective) on this rank's rows of the batch of 128,
+    augmented 224 px float32 images, in the process group this process
+    has joined: the median ms of 10 calls after 2, each synchronised,
+    and the bytes of the rows this rank receives from other ranks."""
+    import numpy as np
+    import torch
+
+    from tpunet_torch.config import DataConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.data.augment import (make_mix, make_train_augment,
+                                           sample_mix_params)
+    from tpunet_torch.parallel import dist
+    from tpunet_torch.utils.prng import step_generator
+
+    device = dist.local_device()
+    torch.cuda.set_device(device)
+    n = TRAIN_BATCH // world
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    rows = slice(rank * n, (rank + 1) * n)
+    cfg = DataConfig(dataset="synthetic", mixup_alpha=0.2)
+    x = make_train_augment(cfg)(step_generator(1, 0), torch.from_numpy(
+        images[rows]).to(device))
+    y = torch.from_numpy(labels[rows].astype(np.int64)).to(device)
+    mix = make_mix(cfg)
+    times, remote = [], []
+    for i in range(12):
+        perm = sample_mix_params(step_generator(1, i), TRAIN_BATCH, 0.2,
+                                 0.0)["perm"][rows]
+        remote.append(int(((perm // n) != rank).sum()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mix(step_generator(1, i), x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    row_bytes = x[0].numel() * x.element_size() + y.element_size()
+    return {"backend": dist.backend_name(), "world": world, "rows": n,
+            "ms": statistics.median(times[2:]) * 1e3,
+            "remote_bytes": statistics.median(remote[2:]) * row_bytes}
 
 
 def phase_dp_step(torch, ref) -> None:
@@ -4331,6 +4460,647 @@ def phase_router(torch) -> dict:
     return dict(res, headline=headline)
 
 
+# ---------------------------------------------------------------------------
+# trainer_item2b: --pretrained, the native loader, mixup/CutMix, EMA, block
+# remat, the preemption guard with the agreed stop, and the LM's --remat
+# ---------------------------------------------------------------------------
+
+ITEM2B_DIR = ROOT / "build" / "tpunet_torch" / "smoke_item2b"
+ITEM2B_FLAGS = ("--preset", "single", "--dataset", "synthetic",
+                "--synthetic-size", "1024", "--epochs", "1",
+                "--pallas-depthwise", "--no-download", "--log-every-steps",
+                "1")
+ITEM2B_OPTIONS = ("--mixup", "0.2", "--cutmix", "1.0", "--ema-decay",
+                  "0.999", "--block-remat")
+ITEM2B_STEPS = 1024 // TRAIN_BATCH            # 8 steps an epoch
+ITEM2B_PER_STEP = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
+                   "fused_ir_forward": 33, "fused_ir_backward": 33}
+ITEM2B_TIMED_STEPS = 10
+
+
+def item2b_pretrained(torch) -> Path:
+    """A torchvision-layout MobileNetV2 .pth with a 1000-class head, from
+    seeded weights (no download)."""
+    from tpunet_torch.config import ModelConfig
+    from tpunet_torch.models import create_model
+
+    model = create_model(ModelConfig(num_classes=1000), device="cpu",
+                         generator=torch.Generator().manual_seed(SEED + 900))
+    path = ITEM2B_DIR / "imagenet_seeded.pth"
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def item2b_cli_epoch(torch, tag, flags) -> dict:
+    """One CLI epoch in this process (run_cli_here) with the per-step
+    launch counts of every train step and, before the first step, the
+    model's state; returns the closed Trainer and what was seen."""
+    from tpunet_torch.train import loop
+
+    ckdir = ITEM2B_DIR / tag
+    shutil.rmtree(ckdir, ignore_errors=True)
+    seen = {"per_step": [], "first_state": None}
+    real_step = loop.Trainer._step
+
+    def step(self, bx, by, gen):
+        if seen["first_state"] is None:
+            seen["first_state"] = {k: v.detach().float().cpu().clone()
+                                   for k, v in
+                                   self.state.model.state_dict().items()}
+        before = launch_counts()
+        m = real_step(self, bx, by, gen)
+        after = launch_counts()
+        seen["per_step"].append({k: after[k] - before[k]
+                                 for k in ITEM2B_PER_STEP})
+        return m
+
+    loop.Trainer._step = step
+    try:
+        trainer, out = run_cli_here(torch, list(ITEM2B_FLAGS) + list(flags)
+                                    + ["--checkpoint-dir", str(ckdir)])
+    finally:
+        loop.Trainer._step = real_step
+    obs = [r for r in read_records(ckdir) if r.get("kind") == "obs_epoch"]
+    check(len(obs) == 1 and len(trainer.history) == 1,
+          f"{tag}: {len(trainer.history)} epochs, {len(obs)} obs_epoch")
+    seen.update(trainer=trainer, out=out, obs=obs[0], ckdir=ckdir)
+    return seen
+
+
+def item2b_mobilenet(torch) -> dict:
+    """(a) through the CLI: the options on (native loader), the options
+    off, the options with --no-native-loader."""
+    pth = item2b_pretrained(torch)
+    on = item2b_cli_epoch(torch, "options", ("--pretrained", str(pth))
+                          + ITEM2B_OPTIONS)
+    trainer = on["trainer"]
+    check("Host loader: native C++ prefetcher" in on["out"].splitlines(),
+          "the options run's host loader is not the native prefetcher")
+    # The backbone equals the .pth before the first step; the head (10
+    # classes against its 1000) is the seeded init's.
+    from tpunet_torch.models import create_model
+    want = torch.load(pth, weights_only=True)
+    first = on["first_state"]
+    fresh = create_model(trainer.cfg.model, device="cpu", generator=torch.
+                         Generator().manual_seed(trainer.cfg.seed))
+    head = type(fresh).HEAD_KEYS
+    backbone_equal = all(torch.equal(first[k], want[k].float())
+                         for k in first if k not in head
+                         and not k.endswith("num_batches_tracked"))
+    head_fresh = all(torch.equal(first[k], fresh.state_dict()[k].float())
+                     for k in head)
+    check(backbone_equal and head_fresh, f"--pretrained: backbone equal "
+          f"{backbone_equal}, head fresh {head_fresh}")
+    bad = [s for s in on["per_step"] if s != ITEM2B_PER_STEP]
+    check(len(on["per_step"]) == ITEM2B_STEPS and not bad,
+          f"item2b launches a step {on['per_step'][:2]} (want "
+          f"{ITEM2B_PER_STEP})")
+    # best.pth holds the EMA pair (one epoch: the last EMA state).
+    best = torch.load(on["ckdir"] / "best.pth", weights_only=True)
+    with trainer.state.ema_weights():
+        ema = {k: v.detach().cpu() for k, v in
+               trainer.state.model.state_dict().items()}
+    ema_equal = all(torch.equal(best[k], ema[k]) for k in ema
+                    if not k.endswith("num_batches_tracked"))
+    check(ema_equal, "best.pth is not the EMA copy")
+    off = item2b_cli_epoch(torch, "plain", ("--pretrained", str(pth)))
+    numpy_run = item2b_cli_epoch(torch, "numpy", ("--pretrained", str(pth),
+                                                  "--no-native-loader")
+                                 + ITEM2B_OPTIONS)
+    check("Host loader: numpy" in numpy_run["out"].splitlines(),
+          "--no-native-loader did not take the numpy loader")
+    for run in (on, off, numpy_run):
+        rec = run["trainer"].history[0]
+        check(math.isfinite(rec["train_loss"])
+              and math.isfinite(rec["test_loss"]),
+              f"non-finite epoch record {rec}")
+    res = dict(
+        launches={k: sum(st[k] for st in on["per_step"])
+                  for k in ITEM2B_PER_STEP},
+        launches_per_step={k: sorted({st[k] for st in on["per_step"]})
+                           for k in ITEM2B_PER_STEP},
+        steps=len(on["per_step"]),
+        backbone_equals_pth=backbone_equal, head_fresh=head_fresh,
+        best_pth_equals_ema=ema_equal,
+        step_time_p50_ms_options=on["obs"]["step_time_p50_s"] * 1e3,
+        step_time_p50_ms_plain=off["obs"]["step_time_p50_s"] * 1e3,
+        stall_frac_native=on["obs"]["stall_frac"],
+        stall_frac_numpy=numpy_run["obs"]["stall_frac"],
+        train_loss_options=on["trainer"].history[0]["train_loss"],
+        test_accuracy_options=on["trainer"].history[0]["test_accuracy"])
+    for run in (on, off, numpy_run):
+        del run["trainer"]
+    return res
+
+
+def f64_running_stats(torch, model, x) -> dict:
+    """The BN running statistics after one train-mode forward of ``model``
+    from (mean 0, var 0) on ``x`` [B,S,S,3], computed in float64 with
+    ``F.conv2d`` and a two-pass variance: the exact answer that every
+    float32 path rounds."""
+    import torch.nn.functional as F
+
+    from tpunet_torch.models.mobilenetv2 import BN_EPSILON, BN_MOMENTUM
+
+    names = {id(m): n for n, m in model.named_modules()}
+    out = {}
+
+    def unit(conv, bn, h, act):
+        y = F.conv2d(h, conv.weight.double(), stride=conv.stride,
+                     padding=conv.pad, groups=conv.groups)
+        mean = y.mean(dim=(0, 2, 3))
+        var = (y - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        out[names[id(bn)] + ".running_mean"] = (1 - BN_MOMENTUM) * mean
+        out[names[id(bn)] + ".running_var"] = (1 - BN_MOMENTUM) * var
+        y = ((y - mean[:, None, None])
+             * (torch.rsqrt(var + BN_EPSILON) * bn.weight.double())[:, None, None]
+             + bn.bias.double()[:, None, None])
+        return y.clamp(0.0, 6.0) if act else y
+
+    with torch.no_grad():
+        feats = list(model.features)
+        h = unit(feats[0][0], feats[0][1], x.permute(0, 3, 1, 2).double(), True)
+        for block in feats[1:-1]:
+            units, y = list(block.conv), h
+            for u in units[:-2]:
+                y = unit(u[0], u[1], y, True)
+            y = unit(units[-2], units[-1], y, False)
+            h = y + h if block.use_res else y
+        unit(feats[-1][0], feats[-1][1], h, True)
+    return out
+
+
+def item2b_f32_step(torch) -> dict:
+    """One float32 step with mixup at a fixed (perm, lam), EMA and block
+    remat, through the kernels and their plain versions, gated as
+    phase_train's f32 step, with the library path (kernels off) in the
+    same configuration as the yardstick. The same step without mixup
+    and without block remat, and every path's BN statistics against
+    their float64 value, are readings beside it."""
+    import contextlib
+
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.data.augment import make_train_augment, mix_with_params
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import fit_batch
+    from tpunet_torch.utils.prng import step_generator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    x = make_train_augment(DataConfig(dataset="synthetic"))(
+        step_generator(7, 0), xb)
+    params = {"perm": torch.randperm(TRAIN_BATCH, generator=torch.
+                                     Generator().manual_seed(3)),
+              "mixup": True, "lam0": 0.625, "cy": 0.0, "cx": 0.0}
+
+    def mix(generator, images, labels):
+        out, lam = mix_with_params(images, params)
+        return out, labels[params["perm"].cuda()], lam
+
+    optim = OptimConfig(ema_decay=0.999)
+    # The running variances start at 0 (stat_errors' var0): the update
+    # then holds the batch var at float32's relative precision.
+    start = {k: torch.zeros_like(v) if k.endswith("running_var") else v
+             for k, v in create_model(
+                 ModelConfig(dtype="float32"), device="cpu",
+                 generator=torch.Generator().manual_seed(42)
+             ).state_dict().items()}
+
+    def run(kernels, mixed, remat, plain=False):
+        model = create_model(ModelConfig(
+            dtype="float32", block_remat=remat, use_pallas_depthwise=kernels,
+            fused_ir=kernels), device="cuda")
+        model.load_state_dict(start)
+        state = TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20), ema_decay=0.999)
+        ctx = plain_versions() if plain else contextlib.nullcontext()
+        with ctx:
+            m = fit_batch(state, x, yb, step_generator(7, 0), optim,
+                          mix if mixed else None)
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().float().clone()
+                 for k, p in model.named_parameters()}
+        stats = {k: v.detach().float().clone()
+                 for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        ema = [e.detach().float().clone() for e in state.ema]
+        return float(m["loss_sum"]) / TRAIN_BATCH, grads, stats, ema
+
+    run(True, True, True)                                 # warm-up
+    grid = {}
+    for mixed in (True, False):
+        model64 = create_model(ModelConfig(dtype="float32"), device="cuda")
+        model64.load_state_dict(start)
+        truth = f64_running_stats(
+            torch, model64, mix_with_params(x, params)[0] if mixed else x)
+        del model64
+        for remat in (True, False):
+            k_loss, k_grads, k_stats, k_ema = run(True, mixed, remat)
+            p_loss, p_grads, p_stats, p_ema = run(True, mixed, remat,
+                                                  plain=True)
+            l_loss, l_grads, l_stats, _ = run(False, mixed, remat)
+            g_err = grad_errors(torch, k_grads, p_grads)
+            g_lib = grad_errors(torch, l_grads, p_grads)
+            s_err = stat_errors(torch, k_stats, p_stats, var0=0.0)
+            s_lib = stat_errors(torch, l_stats, p_stats, var0=0.0)
+            exact = {name: stat_errors(torch, st, truth, var0=0.0)
+                     for name, st in (("kernel", k_stats), ("plain", p_stats),
+                                      ("library", l_stats))}
+            worst_s = max(s_err, key=s_err.get)
+            grid[f"mix_{int(mixed)}_remat_{int(remat)}"] = dict(
+                loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
+                loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+                grad_err_median=statistics.median(g_err.values()),
+                grad_err_max=max(g_err.values()),
+                library_grad_err_median=statistics.median(g_lib.values()),
+                library_grad_err_max=max(g_lib.values()),
+                bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
+                library_bn_stat_err_max=max(s_lib.values()),
+                # Each path's BN statistics against their float64 value:
+                # the largest error over the BNs, and where.
+                **{f"f64_bn_stat_err_max_{n}": max(e.values())
+                   for n, e in exact.items()},
+                **{f"f64_bn_stat_err_max_key_{n}": max(e, key=e.get)
+                   for n, e in exact.items()},
+                # Per BN in network order: kernels against plain, the
+                # library against plain.
+                bn_stat_err_by_layer={k: [s_err[k], s_lib[k]] for k in s_err},
+                ema_max_abs_err=max((a - b).abs().max().item()
+                                    for a, b in zip(k_ema, p_ema)))
+    torch.backends.cudnn.allow_tf32 = True
+    return dict(lam=params["lam0"], **grid)
+
+
+def check_item2b_f32(row: dict) -> None:
+    """phase_train's float32 gates on the item-2b step: loss within 1e-5
+    relative of the plain versions'; the gradient (median, max) and
+    BN-statistic (max) errors against the plain versions at most twice
+    the library path's, plus 1e-5."""
+    check(math.isfinite(row["loss_kernel"]) and row["loss_rel_err"] <= 1e-5,
+          f"item2b f32 loss kernel {row['loss_kernel']} vs plain "
+          f"{row['loss_plain']}")
+    for name, key in (("gradient median", "grad_err_median"),
+                      ("gradient max", "grad_err_max"),
+                      ("BN statistic max", "bn_stat_err_max")):
+        ours, lib = row[key], row["library_" + key]
+        check(ours <= 2 * lib + 1e-5, f"item2b f32 {name} error {ours:.3g} "
+              f"against the plain versions; the library path's is {lib:.3g}")
+
+
+def item2b_bf16_params(torch) -> dict:
+    """``--param-dtype bfloat16``: one bf16 train step with the options'
+    data path (mixup, CutMix, EMA, block remat) through the kernels,
+    their plain versions and the library path (kernels off) from the
+    same bf16 weights. Parameters, Adam's moments and the parameters'
+    EMA stay bf16 (the BN statistics float32), the kernels launch as on
+    the main path, and phase_train's bf16 gates hold: loss within 2^-7
+    relative of the plain versions', BN statistics within twice the
+    library path's error plus 2^-10."""
+    import contextlib
+
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    data = DataConfig(dataset="synthetic", mixup_alpha=0.2, cutmix_alpha=1.0)
+    optim = OptimConfig(ema_decay=0.999)
+    start = create_model(ModelConfig(param_dtype="bfloat16"), device="cpu",
+                         generator=torch.Generator().manual_seed(SEED + 902)
+                         ).state_dict()
+
+    def run(kernels, plain=False):
+        model = create_model(ModelConfig(
+            param_dtype="bfloat16", block_remat=True,
+            use_pallas_depthwise=kernels, fused_ir=kernels), device="cuda")
+        model.load_state_dict(start)
+        state = TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20), ema_decay=0.999)
+        step = make_train_step(data, optim)
+        reset_launch_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            m = step(state, xb, yb, step_generator(9, 0))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items()
+                    if k in ITEM2B_PER_STEP}
+        moments = [v for st in state.optimizer.state.values()
+                   for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        n_params = len(list(model.parameters()))
+        dtypes = {
+            "params": sorted({str(p.dtype) for p in model.parameters()}),
+            "adam_moments": sorted({str(v.dtype) for v in moments}),
+            "ema_params": sorted({str(e.dtype) for e in state.ema[:n_params]}),
+            "bn_statistics": sorted({str(b.dtype) for b in model.buffers()
+                                     if b.is_floating_point()})}
+        finite = all(torch.isfinite(p).all().item()
+                     for p in model.parameters())
+        stats = {k: v.detach().float().clone()
+                 for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return (float(m["loss_sum"]) / TRAIN_BATCH, stats, launches, dtypes,
+                finite, len(moments) == 2 * n_params)
+
+    run(True)                                             # warm-up
+    k_loss, k_stats, launches, dtypes, finite, all_moments = run(True)
+    p_loss, p_stats, *_ = run(True, plain=True)
+    l_loss, l_stats, *_ = run(False)
+    s_err = stat_errors(torch, k_stats, p_stats)
+    worst_s = max(s_err, key=s_err.get)
+    res = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
+               loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
+               bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
+               library_bn_stat_err_max=max(
+                   stat_errors(torch, l_stats, p_stats).values()),
+               launches=launches, dtypes=dtypes)
+    bf16 = ["torch.bfloat16"]
+    check(dtypes["params"] == bf16 and dtypes["adam_moments"] == bf16
+          and dtypes["ema_params"] == bf16 and all_moments
+          and dtypes["bn_statistics"] == ["torch.float32"] and finite,
+          f"--param-dtype bfloat16 stored {dtypes} (every moment: "
+          f"{all_moments}, finite: {finite})")
+    check(launches == ITEM2B_PER_STEP, f"bf16-param step launches "
+          f"{launches} (want {ITEM2B_PER_STEP})")
+    check(math.isfinite(k_loss) and res["loss_rel_err"] <= 2.0**-7,
+          f"bf16-param loss kernel {k_loss} vs plain {p_loss}")
+    check(res["bn_stat_err_max"] <= 2 * res["library_bn_stat_err_max"]
+          + 2.0**-10, f"bf16-param BN statistic {worst_s}: error "
+          f"{res['bn_stat_err_max']:.3g}; the library path's is "
+          f"{res['library_bn_stat_err_max']:.3g}")
+    return res
+
+
+def item2b_block_remat_memory(torch) -> dict:
+    """bf16 train steps at batch 128 with --block-remat and without: the
+    allocator's peak over a step and the step's p50 wall time."""
+    import numpy as np
+
+    from tpunet_torch.config import DataConfig, ModelConfig, OptimConfig
+    from tpunet_torch.data import synthetic_cifar10
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    images, labels = synthetic_cifar10(n_train=TRAIN_BATCH, n_test=1)[:2]
+    xb = torch.from_numpy(images).cuda()
+    yb = torch.from_numpy(labels.astype(np.int64)).cuda()
+    data, optim = DataConfig(dataset="synthetic"), OptimConfig()
+    out = {}
+    for remat in (False, True, False, True):
+        model = create_model(ModelConfig(use_pallas_depthwise=True,
+                                         block_remat=remat), device="cuda")
+        state = TrainState(model, make_optimizer(model.parameters(), optim),
+                           lr_schedule(optim, 1, 20))
+        step = make_train_step(data, optim)
+        for _ in range(2):
+            step(state, xb, yb, step_generator(1, state.global_step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(ITEM2B_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(state, xb, yb, step_generator(1, state.global_step))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        key = "block_remat" if remat else "plain"
+        out.setdefault(f"peak_gb_{key}", []).append(
+            torch.cuda.max_memory_allocated() / 1e9)
+        out.setdefault(f"step_above_state_gb_{key}", []).append(
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+        out.setdefault(f"step_p50_ms_{key}", []).append(
+            statistics.median(times) * 1e3)
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def item2b_preempt(torch) -> dict:
+    """(b) SIGTERM to a CLI run (this process) at its third step: exit 0
+    through run(), a partial record, and --resume re-runs the epoch;
+    then two SIGTERMs: the save is abandoned."""
+    import os
+    import signal as sig
+
+    from tpunet_torch.train import loop
+
+    real_step = loop.Trainer._step
+
+    def run_with_signals(tag, n_signals, resume=False):
+        ckdir = ITEM2B_DIR / tag
+
+        def step(self, bx, by, gen):
+            if self.state.global_step == 2 and not resume:
+                for i in range(n_signals):
+                    os.kill(os.getpid(), sig.SIGTERM)
+                    # The second is a delivery of its own: wait until
+                    # the handler has taken the first (signals of one
+                    # number that are pending together count once).
+                    while i == 0 and not self.guard.requested:
+                        time.sleep(0.001)
+            return real_step(self, bx, by, gen)
+
+        loop.Trainer._step = step
+        try:
+            flags = list(ITEM2B_FLAGS) + ["--checkpoint-dir", str(ckdir)]
+            if resume:
+                flags.append("--resume")
+            return run_cli_here(torch, flags)
+        finally:
+            loop.Trainer._step = real_step
+
+    shutil.rmtree(ITEM2B_DIR / "preempt", ignore_errors=True)
+    t, out = run_with_signals("preempt", 1)
+    rows = plain_records(ITEM2B_DIR / "preempt")
+    check(len(rows) == 1 and rows[0].get("partial") is True
+          and "test_accuracy" not in rows[0] and t.history == [],
+          f"preempted run's records {rows}")
+    stopped_at = rows[0]["step"]
+    state = torch.load(ITEM2B_DIR / "preempt" / "state.pt",
+                       weights_only=True, map_location="cpu")
+    check(state["completed"] is False and state["global_step"] == stopped_at,
+          "the preempted state is not marked partial")
+    del t
+    t, out = run_with_signals("preempt", 0, resume=True)
+    check("Resumed from epoch 1 (partial)" in out and len(t.history) == 1
+          and t.state.global_step == stopped_at + ITEM2B_STEPS,
+          f"resume: {t.history}, step {t.state.global_step}")
+    resumed = dict(stopped_at_step=stopped_at,
+                   resumed_to_step=t.state.global_step,
+                   resumed_test_accuracy=t.history[0]["test_accuracy"])
+    del t
+    shutil.rmtree(ITEM2B_DIR / "escalate", ignore_errors=True)
+    t, out = run_with_signals("escalate", 2)
+    metrics = ITEM2B_DIR / "escalate" / "metrics.jsonl"
+    partial = metrics.exists() and [
+        r for r in plain_records(ITEM2B_DIR / "escalate") if r.get("partial")]
+    state_pt = (ITEM2B_DIR / "escalate" / "state.pt").exists()
+    check("Second preemption signal" in out and t.ckpt.abandoned
+          and t.guard.escalated and not state_pt and not partial,
+          f"a second SIGTERM did not abandon the save: escalated "
+          f"{t.guard.escalated}, abandoned {t.ckpt.abandoned}, state.pt "
+          f"{state_pt}, partial records {bool(partial)}")
+    del t
+    return dict(resumed, escalated_abandoned=True)
+
+
+def item2b_two_ranks(torch) -> dict:
+    """(b) 2 ranks sharing the card over gloo (as dp_step), the CLI's
+    --preset distributed in each: SIGTERM to rank 1 at its third step
+    stops both at the same step with one partial state."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    me = str(Path(__file__).resolve())
+    run_workers([(f"stop_rank{r}", [sys.executable, me, "--dp-worker",
+                                    "stop", "2", str(r)]) for r in range(2)],
+                env={f"stop_rank{r}": {"LOCAL_RANK": str(r),
+                                       "TPUNET_STOP_POLL_STEPS": "1"}
+                     for r in range(2)})
+    outs = [torch.load(DP_DIR / f"stop_rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    steps = [o["step"] for o in outs]
+    check([o["rc"] for o in outs] == [0, 0] and steps[0] == steps[1]
+          and all(o["history"] == [] for o in outs),
+          f"two ranks stopped at {steps}, rc {[o['rc'] for o in outs]}")
+    state = torch.load(DP_DIR / "stop_ck" / "state.pt", weights_only=True,
+                       map_location="cpu")
+    check(state["completed"] is False and state["global_step"] == steps[0],
+          "the two ranks' partial state")
+    return dict(ranks=2, backend="gloo", stopped_at_steps=steps,
+                mix_fetch=[o["mix_fetch"] for o in outs])
+
+
+def item2b_lm_remat(torch) -> dict:
+    """(c) The LM at its full width with --remat: one f32 step with remat
+    and without (dropout 0.2, the same generator) to the bit; flash
+    forward launches a step; bf16 peak memory and step time."""
+    from tpunet_torch.config import OptimConfig
+    from tpunet_torch.models import create_model
+    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+    from tpunet_torch.train.steps import make_lm_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    tokens, _ = lm_batches(torch)
+    state = create_model(lm_config("float32", 0.2), device="cpu",
+                         generator=torch.Generator().manual_seed(SEED + 601)
+                         ).state_dict()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res, launches, f32 = {}, {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(lm_config("float32", 0.2), remat=remat)
+        model = create_model(cfg, device="cuda")
+        model.load_state_dict(state)
+        reset_launch_counts()
+        model.zero_grad(set_to_none=True)
+        from tpunet_torch.train.steps import _next_token
+        ce, _ = _next_token(model, tokens, None, 0.0, train=True,
+                            generator=step_generator(5, 0))
+        loss = ce.mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[remat] = launch_counts()
+        f32[remat] = (loss.item(), {k: p.grad.detach().clone()
+                                    for k, p in model.named_parameters()})
+        del model, ce, loss
+    torch.backends.cuda.matmul.allow_tf32 = True
+    (l0, g0), (l1, g1) = f32[False], f32[True]
+    bit_equal = l0 == l1 and all(torch.equal(g0[k], g1[k]) for k in g0)
+    gmax = max(g.abs().max().item() for g in g0.values())
+    err = max((g0[k] - g1[k]).abs().max().item() for k in g0) / gmax
+    # The loss (the forward) to the bit. The gradients were 1.07e-7 of
+    # the largest apart on an H100 (equal to the bit on the CPU): the
+    # backward's recompute runs each block's products
+    # again on fresh allocations, and cuBLAS may pick another kernel for
+    # other operand addresses, so the recomputed activations can round
+    # differently in the last bit. Gate: 1e-6 of the largest gradient.
+    check(l0 == l1 and err <= 1e-6, f"LM f32 step with remat differs from "
+          f"without: loss {l1} vs {l0}, gradients {err:.3g} of the largest")
+    fwd = {r: launches[r]["flash_attention_forward"] for r in launches}
+    check(fwd == {False: LM_LAYERS, True: 2 * LM_LAYERS}
+          and all(launches[r]["flash_attention_dq"] == LM_LAYERS
+                  and launches[r]["flash_attention_dkv"] == LM_LAYERS
+                  for r in launches),
+          f"LM flash launches a step: {launches}")
+    del f32, g0, g1
+    optim = OptimConfig()
+    for remat in (False, True, False, True):
+        cfg = dataclasses.replace(lm_config("bfloat16", 0.2), remat=remat)
+        model = create_model(cfg, device="cuda")
+        model.load_state_dict(state)
+        st = TrainState(model, make_optimizer(model.parameters(), optim),
+                        lr_schedule(optim, 1, 20))
+        step = make_lm_train_step(optim)
+        for _ in range(2):
+            step(st, tokens, tokens, step_generator(2, st.global_step))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ITEM2B_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(st, tokens, tokens, step_generator(2, st.global_step))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        key = "remat" if remat else "plain"
+        res.setdefault(f"bf16_step_p50_ms_{key}", []).append(
+            statistics.median(times) * 1e3)
+        res.setdefault(f"bf16_peak_gb_{key}", []).append(
+            torch.cuda.max_memory_allocated() / 1e9)
+        del model, st
+        torch.cuda.empty_cache()
+    flash = ("flash_attention_forward", "flash_attention_dq",
+             "flash_attention_dkv")
+    res.update(f32_bit_equal=bit_equal, f32_grad_err_of_largest=err,
+               flash_launches_per_step={
+                   "plain" if not r else "remat": {k: launches[r][k]
+                                                   for k in flash}
+                   for r in launches})
+    return res
+
+
+def phase_trainer_item2b(torch) -> dict:
+    """Queue A item 2b on the card (the phase's docstring entry 16)."""
+    t0 = time.perf_counter()
+    ITEM2B_DIR.mkdir(parents=True, exist_ok=True)
+    mobilenet = item2b_mobilenet(torch)
+    emit("item2b_mobilenet", **mobilenet)
+    f32 = item2b_f32_step(torch)
+    emit("item2b_f32_by_layer", **{k: {n: [float(f"{e:.3g}") for e in v]
+                                       for n, v in r.pop(
+                                           "bn_stat_err_by_layer").items()}
+                                   for k, r in f32.items() if k != "lam"})
+    emit("item2b_f32_step", **f32)
+    emit("item2b_bf16_params", **item2b_bf16_params(torch))
+    memory = item2b_block_remat_memory(torch)
+    emit("item2b_block_remat", **memory)
+    torch.cuda.empty_cache()
+    preempt = item2b_preempt(torch)
+    emit("item2b_preempt", **preempt)
+    ranks = item2b_two_ranks(torch)
+    emit("item2b_two_ranks", **ranks)
+    torch.cuda.empty_cache()
+    lm = item2b_lm_remat(torch)
+    emit("item2b_lm_remat", **lm)
+    torch.cuda.empty_cache()
+    check_item2b_f32(f32["mix_1_remat_1"])
+    res = dict(s=time.perf_counter() - t0, mobilenet=mobilenet, lm=lm)
+    emit("trainer_item2b", s=res["s"])
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4411,6 +5181,7 @@ def main() -> int:
         serve = phase_serve_engine(torch)
         item5 = phase_serve_item5(torch, serve)
         router = phase_router(torch)
+        item2b = phase_trainer_item2b(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4447,6 +5218,14 @@ def main() -> int:
                      launches["fused_ir_backward"],
                      train_rows["fused_ir_backward"]),
     ]
+    # Their launches a step on the trainer_item2b path (pretrained,
+    # mixup/CutMix, EMA, block remat, the native loader).
+    for entry in kernels:
+        entry["trainer_item2b"] = {
+            "steps": item2b["mobilenet"]["steps"],
+            "launches": item2b["mobilenet"]["launches"][entry["name"]],
+            "launches_per_step": item2b["mobilenet"]["launches_per_step"][
+                entry["name"]]}
     # Rows 5-7 per ViT-B/16 training step: 12 layers at batch 128, bf16;
     # launches from the ViT training main path.
     # Each also carries its LM rows: launches a step of the LM's
@@ -4461,6 +5240,10 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    lm_rows[name]["causal"]["max_abs_err"])
         entry["lm"] = lm_entry(lm_rows[name], lm_launches[name])
+        # The LM's --remat step, as counted: the forward launched again
+        # in the backward, dQ and dK/dV once.
+        entry["lm_remat_launches_per_step"] = (
+            item2b["lm"]["flash_launches_per_step"]["remat"][name])
         kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0,
          serve_depthwise_launches=serve_launches,
@@ -4476,7 +5259,7 @@ def main() -> int:
             if k.startswith(("generated", "direct_generated", "speedup"))},
          router_kill_to_end_s=router["failover"]["kill_to_end_s"],
          router_respawn_s=router["failover"]["respawn_s"],
-         router_s=router["s"])
+         router_s=router["s"], trainer_item2b_s=item2b["s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4485,7 +5268,63 @@ def main() -> int:
     return 0
 
 
+def four_cards() -> int:
+    """``python3 chip_smoke.py --four-cards`` on a host of four cards:
+    mixup's partner fetch with one rank a card over NCCL (the collective
+    a ``--preset distributed`` run issues, at 32 rows a rank), then
+    ``scripts/torch_dp_check.py``'s check (its ``epoch``, flags and
+    tolerances, 4 ranks against 1 on the same global batch) with the
+    item-2b options. Prints the card line and one JSON object; exits 0
+    when both hold."""
+    import importlib.util
+
+    import torch
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke --four-cards: fewer than 4 CUDA devices",
+              file=sys.stderr)
+        return 1
+    try:
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+        DP_DIR.mkdir(parents=True)
+        me = str(Path(__file__).resolve())
+        run_workers([(f"fetch_rank{r}", [sys.executable, me, "--dp-worker",
+                                         "fetch", "4", str(r)])
+                     for r in range(4)],
+                    env={f"fetch_rank{r}": {"LOCAL_RANK": str(r)}
+                         for r in range(4)})
+        fetch = [torch.load(DP_DIR / f"fetch_rank{r}.pt") for r in range(4)]
+    except PhaseError as e:
+        print(f"chip_smoke --four-cards: FAILED: {e}", file=sys.stderr)
+        return 1
+    spec = importlib.util.spec_from_file_location(
+        "torch_dp_check", ROOT / "scripts" / "torch_dp_check.py")
+    dpc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dpc)
+    flags = ["--dataset", "synthetic", "--synthetic-size", "4096",
+             "--device", "cuda", "--image-size", "224", "--width-mult",
+             "1.0", "--dtype", "bfloat16", "--pallas-depthwise",
+             *ITEM2B_OPTIONS]
+    out = ROOT / "build" / "tpunet_torch" / "dp_check_item2b"
+    many = dpc.epoch(4, 32, out / "w4", flags)
+    one = dpc.epoch(1, 128, out / "w1", flags)
+    diff = {k: many[k] - one[k] for k in
+            ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
+    ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
+              for k in ("train_loss", "test_loss"))
+          and all(abs(diff[k]) <= dpc.ACC_TOL
+                  for k in ("train_accuracy", "test_accuracy")))
+    print(f"card: {card_line()}", flush=True)
+    print(json.dumps({"mix_fetch_nccl": fetch, "options": ITEM2B_OPTIONS,
+                      "world_4": many, "world_1": one, "diff": diff,
+                      "tolerance": {"loss_rel": dpc.LOSS_RTOL,
+                                    "accuracy": dpc.ACC_TOL},
+                      "ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--four-cards"]:
+        sys.exit(four_cards())
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

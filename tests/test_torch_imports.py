@@ -59,7 +59,10 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.router.policy", "tpunet_torch.router.prober",
                 "tpunet_torch.router.records",
                 "tpunet_torch.router.replica",
-                "tpunet_torch.router.supervisor"):
+                "tpunet_torch.router.supervisor",
+                "tpunet_torch.utils.preemption", "tpunet_torch.data.native",
+                "tpunet_torch.models.mobilenetv2", "tpunet_torch.models.vit",
+                "tpunet_torch.train.state", "tpunet_torch.train.steps"):
         assert mod in res["mods"]
     assert res["bad"] == []
 

@@ -324,12 +324,29 @@ def test_cli_refuses_what_is_not_ported(flag, match):
         cli.config_from_args([flag])
 
 
-def test_halt_on_unhealthy_across_processes_is_refused(monkeypatch):
+def test_halt_on_unhealthy_across_processes_is_refused(monkeypatch,
+                                                       tmp_path):
+    """Refused before the agreed stop was ported; now a Trainer of
+    rank 0 of 2 builds with --halt-on-unhealthy, and a fatal alert
+    requests the preemption guard's stop instead of raising (every rank
+    then stops at the same step; tests/test_torch_preemption.py runs two
+    ranks to exit 2)."""
     from tpunet_torch.train import loop
     monkeypatch.setattr(loop, "process_count", lambda: 2)
-    cfg, _ = cli.config_from_args(["--halt-on-unhealthy"])
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        loop.Trainer(cfg, device="cpu")
+    cfg, _ = cli.config_from_args([
+        "--halt-on-unhealthy", "--dataset", "synthetic", "--no-download",
+        "--synthetic-size", "32", "--image-size", "32", "--batch-size",
+        "16", "--width-mult", "0.5", "--dtype", "float32",
+        "--checkpoint-dir", str(tmp_path)])
+    trainer = loop.Trainer(cfg, device="cpu")
+    try:
+        assert trainer.ranks == 2 and not trainer.guard.requested
+        assert trainer.obs.watchdog.on_fatal is not None
+        trainer.obs.observe_loss(1, float("nan"))   # no raise here
+        assert trainer.guard.requested
+        assert trainer._watchdog_halt["reason"] == "nan_loss"
+    finally:
+        trainer.close()
 
 
 # ---------------------------------------------------------------------------

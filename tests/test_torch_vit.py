@@ -205,15 +205,15 @@ def test_predictor_probs_match_tpunet(jax_vit):
 @pytest.mark.parametrize("make,item", [
     (lambda: ModelConfig(name="vit", moe_experts=4), "item 8"),
     (lambda: ModelConfig(name="vit", moe_top_k=1), "item 8"),
-    (lambda: ModelConfig(name="vit", remat=True), "item 2b"),
+    (lambda: ModelConfig(name="vit", moe_dispatch="dense"), "item 8"),
     (lambda: ModelConfig(name="vit", attention="ring"), "item 8"),
     (lambda: ModelConfig(name="vit", attention="ulysses"), "item 8"),
     (lambda: ModelConfig(name="vit", attention_core="flash"), "item 8"),
     (lambda: ModelConfig(name="lm", vocab_ce="sharded"), "item 8"),
     (lambda: ModelConfig(name="lm_pp"), "item 8"),
     (lambda: ModelConfig(name="vit_pp"), "item 8")],
-    ids=["moe", "moe_top_k", "remat", "ring", "ulysses", "core", "lm",
-         "lm_pp", "vit_pp"])
+    ids=["moe", "moe_top_k", "moe_dispatch", "ring", "ulysses", "core",
+         "lm", "lm_pp", "vit_pp"])
 def test_config_refusals_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A {item}"):

@@ -6,14 +6,21 @@
   ``tpunet_torch.models.convert.load_state_dict_file``, and a
   MobileNetV2's into tpunet with ``tpunet.models.convert.load_pretrained``.
 - ``state.pt``: the full state after the last completed epoch (model,
-  optimizer, ``global_step``, epoch, ``best_acc``) for ``--resume``.
+  optimizer, ``global_step``, epoch, ``best_acc``, the EMA copies when
+  EMA is on) for ``--resume``; after a preemption the state of the cut
+  epoch, marked ``completed: False`` so that resume re-runs it.
 
 Each file is written to a temporary name and renamed into place, so a
 crash never leaves a partial checkpoint. Under data parallelism rank 0
 writes and then every rank passes a barrier, so a file is complete
-before any rank goes on; every rank reads the same file when it
-restores (tpunet restores on every process). The JAX package's Orbax
-layout and its asynchronous saves do not carry over.
+before any rank goes on (a rank never exits while rank 0 still writes);
+every rank reads the same file when it restores (tpunet restores on
+every process). The JAX package's Orbax layout and its asynchronous
+saves do not carry over: a save is written before the loop goes on. A
+``timeout`` (what remains of a preemption's grace window) bounds how
+long the loop waits for the write, and :meth:`Checkpointer.abandon`
+(a second SIGTERM) stops writing: no later save starts, and a write
+still running is never renamed into place.
 
 With an ``Observability`` (``obs=``), a save runs under the spans
 ``tpunet/ckpt_dispatch`` (the copy to host memory) and
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -55,6 +63,7 @@ class Checkpointer:
     def __init__(self, cfg: CheckpointConfig, obs=None):
         self.directory = cfg.directory
         self._obs = obs
+        self.abandoned = False
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
@@ -62,38 +71,67 @@ class Checkpointer:
     def _span(self, name: str):
         return NULL_SPAN if self._obs is None else self._obs.span(name)
 
-    def _save(self, obj: Any, name: str) -> str:
+    def _write(self, snap: Any, name: str) -> None:
+        """torch.save to a temporary name, renamed into place unless the
+        checkpointer was abandoned meanwhile."""
+        os.makedirs(self.directory, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
+        os.close(fd)
+        try:
+            torch.save(snap, tmp)
+            if not self.abandoned:
+                os.replace(tmp, self._path(name))
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    def _save(self, obj: Any, name: str,
+              timeout: Optional[float] = None) -> Optional[str]:
+        if self.abandoned:
+            return None
         coordinator = is_coordinator()
         with self._span("tpunet/ckpt_dispatch"):
             snap = _cpu(obj) if coordinator else None
         t0 = time.perf_counter()
         with self._span("tpunet/ckpt_wait"):
-            if coordinator:
-                os.makedirs(self.directory, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(dir=self.directory,
-                                           suffix=".part")
-                os.close(fd)
-                try:
-                    torch.save(snap, tmp)
-                    os.replace(tmp, self._path(name))
-                finally:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
+            if coordinator and timeout is None:
+                self._write(snap, name)
+            elif coordinator:
+                writer = threading.Thread(target=self._write,
+                                          args=(snap, name), daemon=True,
+                                          name=f"ckpt-{name}")
+                writer.start()
+                writer.join(timeout)
+                if writer.is_alive():
+                    print(f"checkpoint {name} not written within the "
+                          f"{timeout:.1f} s left of the grace window; "
+                          "abandoning it", flush=True)
+                    self.abandon()
             sync_hosts(f"saved-{name}")
         if self._obs is not None:
             self._obs.registry.counter("ckpt_wait_s").inc(
                 time.perf_counter() - t0)
-        return self._path(name)
+        return None if self.abandoned else self._path(name)
 
-    def save_best(self, model: torch.nn.Module) -> str:
+    def save_best(self, model: torch.nn.Module) -> Optional[str]:
         """Write ``best.pth`` (torchvision layout)."""
         return self._save(model.state_dict(), BEST)
 
-    def save_state(self, payload: Dict[str, Any]) -> str:
-        """Write ``state.pt``."""
+    def save_state(self, payload: Dict[str, Any],
+                   timeout: Optional[float] = None) -> Optional[str]:
+        """Write ``state.pt``, waiting at most ``timeout`` seconds for
+        the write (None: until it is done); its path, or None when the
+        save was abandoned."""
         if self._obs is not None:
             self._obs.registry.counter("ckpt_saves").inc()
-        return self._save(payload, STATE)
+        return self._save(payload, STATE, timeout)
+
+    def abandon(self) -> None:
+        """Stop checkpoint work (a second SIGTERM: the platform kills
+        the process next): no save starts after this, and a write still
+        in flight is left under its temporary name, so the last intact
+        checkpoint stays the one ``--resume`` reads."""
+        self.abandoned = True
 
     def best_path(self) -> Optional[str]:
         path = self._path(BEST)

@@ -100,10 +100,10 @@ class DataConfig:
     # The train remainder is dropped, and the test set is evaluated
     # exactly (the last batch padded with masked examples).
     drop_remainder: bool = True
-    # The JAX package uses its native C++ prefetcher when it can build
-    # it and numpy otherwise. The port has no prefetcher yet (ROADMAP
-    # Queue A item 2b): its loader is numpy, in the same order, and the
-    # field that chooses between the two waits for that item.
+    # The native C++ prefetcher (``tpunet_torch/data/native.py``, the
+    # unchanged ``cxx/batcher.cc``) when it can be built, the numpy
+    # loader otherwise or when off (``--no-native-loader``); both give
+    # the same batches in the same order.
     native_loader: bool = True
 
     def __post_init__(self):
@@ -121,12 +121,6 @@ class DataConfig:
             raise ValueError("drop_remainder=False is not a mode of the "
                              "JAX pipeline either: the train remainder is "
                              "always dropped")
-        _refuse_unported(self, {
-            "mixup_alpha": "Queue A item 2b (mixup/CutMix)",
-            "cutmix_alpha": "Queue A item 2b (mixup/CutMix)",
-            "native_loader": "Queue A item 2b (the native C++ prefetcher "
-                             "and the choice between it and numpy)",
-        })
 
     @property
     def effective_eval_batch_size(self) -> int:
@@ -154,9 +148,15 @@ class ModelConfig:
     ViT: ``attention`` picks the core, ``auto`` and ``flash`` the flash
     kernels (``tpunet_torch.ops.flash``), ``dense`` or ``blockwise`` the
     plain versions; ``attention_block`` is the blockwise chunk and the
-    flash call's TPU block size (the LM's core is causal). The
-    sequence-parallel cores, MoE, the vocab-sharded cross-entropy and
-    remat wait for their ROADMAP items and raise when set.
+    flash call's TPU block size (the LM's core is causal). ``remat``
+    recomputes each encoder block of the ViT and the LM in the backward
+    (training only; never the decode path), ``block_remat`` each
+    MobileNetV2 inverted-residual block's BN/ReLU6 epilogues from the
+    saved conv outputs and (C,) statistics. ``param_dtype`` is the
+    storage dtype of the parameters and the optimizer state (float32 or
+    bfloat16; the BN running statistics stay float32). The
+    sequence-parallel cores, MoE and the vocab-sharded cross-entropy
+    wait for their ROADMAP items and raise when set.
     """
 
     name: str = "mobilenet_v2"  # mobilenet_v2 | vit | vit_{tiny,small,base}
@@ -225,9 +225,10 @@ class ModelConfig:
             raise ValueError(f"attention_block must be >= 1, got "
                              f"{self.attention_block}")
         moe = "Queue A item 8 (MoE and expert parallelism)"
+        if self.param_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown param_dtype {self.param_dtype!r}; "
+                             "expected float32|bfloat16")
         _refuse_unported(self, {
-            "block_remat": "Queue A item 2b (block remat)",
-            "remat": "Queue A item 2b (block remat)",
             "attention_core": "Queue A item 8 (the ring/Ulysses cores)",
             "moe_experts": moe, "moe_every": moe, "moe_top_k": moe,
             "moe_capacity_factor": moe, "moe_aux_weight": moe,
@@ -243,9 +244,9 @@ class ModelConfig:
         if self.pretrained_path == "auto":
             raise NotImplementedError(
                 "pretrained_path='auto' downloads torchvision's ImageNet "
-                "checkpoint; the port takes a local .pth only until ROADMAP "
-                "Queue A item 2b (CIFAR-10 and the ImageNet .pth on the "
-                "card's machine)")
+                "checkpoint; the port takes a local .pth only, until ROADMAP "
+                "Queue A item 2b's remainder (CIFAR-10 and the ImageNet .pth "
+                "in the repository)")
 
 
 @dataclass(frozen=True)
@@ -254,7 +255,9 @@ class OptimConfig:
 
     ``grad_accum``: microbatches a step (strided rows of the batch), one
     update; ``clip_norm``: optax's ``clip_by_global_norm`` before the
-    update, 0 = off."""
+    update, 0 = off; ``ema_decay``: an exponential moving average of
+    the parameters and BN running statistics after every update, which
+    eval and the best checkpoint read, 0 = off."""
 
     name: str = "adam"
     learning_rate: float = 1e-4
@@ -276,7 +279,6 @@ class OptimConfig:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
         if self.clip_norm < 0:
             raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
-        _refuse_unported(self, {"ema_decay": "Queue A item 2b (EMA)"})
 
 
 @dataclass(frozen=True)
@@ -686,6 +688,10 @@ class TrainConfig:
     eval_only: bool = False
     log_every_steps: int = 0          # 0 -> per-epoch only, like the reference
     profile_dir: str = ""             # non-empty -> torch.profiler traces
+    # Preemption grace window (--preempt-grace-s): seconds the platform
+    # grants after SIGTERM; the preemption save's wait is bounded by
+    # what remains of it (0 = unbounded).
+    preempt_grace_s: float = 0.0
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)

@@ -18,19 +18,26 @@ key tree instead, so the two give other numbers from one seed; a test
 feeds the port the parameters that JAX's keys draw. Under data
 parallelism the train augment draws the parameters of the global batch
 and each rank takes its rows, so N ranks see the images one rank would.
-Mixup/CutMix is ROADMAP Queue A item 2b.
+
+Mixup/CutMix (tpunet's ``mixup_cutmix``, after the augment) is split the
+same way: :func:`sample_mix_params` draws one step's permutation, the
+choice between the two and the Beta draw (all from one draw of the step
+generator), and :func:`mix_with_params` applies them. The permutation
+runs over the global batch: every rank draws the same one, fetches the
+partner rows it needs from the other ranks with one collective
+(:func:`make_mix`), and so computes its rows of what one process would.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from tpunet_torch.config import DataConfig
-from tpunet_torch.parallel.dist import process_count, process_index
+from tpunet_torch.parallel.dist import fetch_rows, process_count, process_index
 
 SRC = 32  # CIFAR-10 native resolution
 
@@ -334,3 +341,97 @@ def make_eval_preprocess(cfg: DataConfig) -> Callable:
         x = torch.einsum("pw,bowc->bopc", rm, x)
         return (x - mean) / std
     return preprocess
+
+
+# ---------------------------------------------------------------------------
+# Mixup / CutMix
+# ---------------------------------------------------------------------------
+
+
+def sample_mix_params(generator: torch.Generator, n: int, mixup_alpha: float,
+                      cutmix_alpha: float) -> Dict[str, object]:
+    """One step's mixup/CutMix draws for a batch of ``n`` images, from
+    one draw of ``generator``: ``perm`` (int64 [n], each image's partner),
+    ``mixup`` (True: mixup, False: CutMix; with both alphas above 0 a fair
+    coin), ``lam0`` ~ Beta(alpha, alpha) of the chosen method, and the
+    CutMix box centre ``cy``, ``cx`` as fractions of the frame in [0, 1).
+    tpunet's distributions, drawn from a numpy generator seeded by the
+    step's generator (torch has no seeded Beta)."""
+    if mixup_alpha <= 0 and cutmix_alpha <= 0:
+        raise ValueError("mixup and cutmix are both off")
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    rng = np.random.default_rng(seed)
+    perm = torch.from_numpy(rng.permutation(n))
+    mixup = mixup_alpha > 0 and (cutmix_alpha <= 0 or rng.random() < 0.5)
+    alpha = mixup_alpha if mixup else cutmix_alpha
+    return {"perm": perm, "mixup": bool(mixup),
+            "lam0": float(np.float32(rng.beta(alpha, alpha))),
+            "cy": float(np.float32(rng.random())),
+            "cx": float(np.float32(rng.random()))}
+
+
+def cutmix_box(lam0: float, cy: float, cx: float, h: int, w: int
+               ) -> torch.Tensor:
+    """bool [h, w]: tpunet's CutMix box, of area (1 - lam0) centred at
+    (cy * h, cx * w) and clipped at the borders, in float32 as tpunet
+    computes it."""
+    f32 = torch.float32
+    lam0_t = torch.tensor(lam0, dtype=f32)
+    rh = torch.sqrt(1.0 - lam0_t) * h
+    rw = torch.sqrt(1.0 - lam0_t) * w
+    cy_t = torch.tensor(cy, dtype=f32) * h
+    cx_t = torch.tensor(cx, dtype=f32) * w
+    y0, y1 = (cy_t - rh / 2).clamp(0, h), (cy_t + rh / 2).clamp(0, h)
+    x0, x1 = (cx_t - rw / 2).clamp(0, w), (cx_t + rw / 2).clamp(0, w)
+    yy = torch.arange(h, dtype=f32)
+    xx = torch.arange(w, dtype=f32)
+    return ((yy[:, None] >= y0) & (yy[:, None] < y1)
+            & (xx[None, :] >= x0) & (xx[None, :] < x1))
+
+
+def mix_with_params(images: torch.Tensor, params: Dict[str, object],
+                    partners: torch.Tensor = None
+                    ) -> "tuple[torch.Tensor, float]":
+    """Mix ``images`` [B,S,S,3] with their ``partners`` (by default
+    ``images[params["perm"]]``) -> ``(mixed images in images.dtype, lam)``: mixup ``lam * x + (1 -
+    lam) * x_b`` with ``lam = lam0``, or CutMix, the partner's pixels
+    inside the box and ``lam`` the surviving area. The loss is then
+    ``lam * CE(y) + (1 - lam) * CE(y_b)``. ``lam`` is a host float32
+    value: nothing here waits for the device."""
+    if partners is None:
+        partners = images[params["perm"].to(images.device,
+                                            non_blocking=True)]
+    if params["mixup"]:
+        lam = params["lam0"]
+        lam_t = torch.tensor(lam, dtype=torch.float32, device=images.device)
+        out = lam_t * images + (1.0 - lam_t) * partners
+        return out.to(images.dtype), lam
+    h, w = images.shape[1:3]
+    box = cutmix_box(params["lam0"], params["cy"], params["cx"], h, w)
+    lam = float(1.0 - box.float().mean())
+    box = box.to(images.device, non_blocking=True)
+    return torch.where(box[None, :, :, None], partners, images), lam
+
+
+def make_mix(cfg: DataConfig) -> Optional[Callable]:
+    """fn(generator, images [B,S,S,3], labels [B]) -> (mixed images,
+    partner labels, lam) over this rank's rows of the global batch, or
+    None when mixup and CutMix are off (the step then draws nothing, so
+    its generator stream is that of a run without them). Under a process
+    group the draw is the global batch's, and one collective
+    (:func:`fetch_rows`) brings this rank's partner rows and labels."""
+    if cfg.mixup_alpha <= 0 and cfg.cutmix_alpha <= 0:
+        return None
+
+    def mix(generator, images, labels):
+        n, ranks = images.shape[0], process_count()
+        params = sample_mix_params(generator, n * ranks, cfg.mixup_alpha,
+                                   cfg.cutmix_alpha)
+        if ranks == 1:
+            out, lam = mix_with_params(images, params)
+            return out, labels[params["perm"].to(labels.device)], lam
+        partners, partner_labels = fetch_rows((images, labels),
+                                              params["perm"])
+        out, lam = mix_with_params(images, params, partners)
+        return out, partner_labels, lam
+    return mix

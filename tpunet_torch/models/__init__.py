@@ -8,7 +8,8 @@ explicit ``torch.Generator`` on the CPU and then moved, so one seed
 gives the same weights on every device. MobileNetV2 follows
 torchvision's initialisation (kaiming-normal fan_out convs, N(0, 0.01)
 classifier, unit/zero BN); the ViT and the LM follow Flax's
-(``init_vit``, ``init_lm``).
+(``init_vit``, ``init_lm``). ``param_dtype`` bfloat16 stores the
+parameters (and so the optimizer state) in bf16.
 """
 
 from __future__ import annotations
@@ -51,13 +52,21 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
                             dropout_rate=cfg.dropout_rate,
                             use_pallas=cfg.use_pallas_depthwise,
                             fused_ir=cfg.fused_ir,
-                            dtype=getattr(torch, cfg.dtype))
+                            dtype=getattr(torch, cfg.dtype),
+                            block_remat=cfg.block_remat)
         init_weights(model, generator)
     elif cfg.name == "lm":
         model = create_lm(cfg, generator)
     else:
         model = create_vit(cfg, image_size, generator)
-    return model.to(device=device, dtype=getattr(torch, cfg.param_dtype)).eval()
+    model = model.to(device=device)
+    if cfg.param_dtype != "float32":
+        # Parameters only: tpunet keeps the BN running statistics in
+        # float32 whatever the parameters' dtype.
+        dt = getattr(torch, cfg.param_dtype)
+        for p in model.parameters():
+            p.data = p.data.to(dt)
+    return model.eval()
 
 
 def num_params(model: torch.nn.Module) -> int:

@@ -34,9 +34,10 @@ fixed-size buffer (the flash forward, one launch a layer a token).
 Sampling draws with ``torch.multinomial`` from an explicit generator,
 one draw a new token: JAX's key stream cannot be matched, so a sampled
 stream is deterministic per seed within the port, and a greedy stream
-equals tpunet's. Not ported: the hidden states for the vocab-sharded
-cross-entropy, MoE blocks and ``lm_pp`` (ROADMAP Queue A item 8), block
-remat (item 2b).
+equals tpunet's. ``remat`` checkpoints each block of a training forward
+(the ViT's ``Encoder._remat_block``), never a decode step. Not ported:
+the hidden states for the vocab-sharded cross-entropy, MoE blocks and
+``lm_pp`` (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -207,6 +208,7 @@ def create_lm(cfg, generator: torch.Generator) -> TransformerLM:
                           dropout_rate=cfg.dropout_rate,
                           attn_fn=make_attn_fn(cfg, causal=True),
                           dtype=getattr(torch, cfg.dtype))
+    model.remat = cfg.remat
     init_lm(model, generator)
     return model
 

@@ -33,7 +33,16 @@ Train mode (``forward(x, train=True, generator=g)``):
   autograd Function; the stem, the head 1x1 and the classifier stay
   ``F.conv2d``/``F.linear``, as tpunet leaves them to XLA;
 - dropout keeps each pooled feature with probability ``1 - rate`` and
-  scales it by ``1 / (1 - rate)``; the mask comes from ``generator``.
+  scales it by ``1 / (1 - rate)``; the mask comes from ``generator``;
+- with ``block_remat`` (tpunet's saved-residual policy) an inverted-
+  residual block keeps for its backward only its conv outputs and the
+  (C,) BN statistics: every activation-sized tensor derived from a conv
+  output by the BN/ReLU6 epilogue (the cast to float32, the normalised
+  value, the activation the next conv reads) is saved as a recipe and
+  recomputed from them in the backward (:class:`EpilogueRemat`), with
+  the same ops, so the gradients are the same to the bit. No conv runs
+  again, and the BN running statistics are updated once, in the
+  forward.
 
 Under data parallelism (a process group, ``tpunet_torch.parallel``)
 train mode computes the function of the global batch, as tpunet's jit
@@ -57,7 +66,7 @@ from torch import nn
 
 from tpunet_torch.ops import depthwise_conv3x3
 from tpunet_torch.ops.depthwise import depthwise_conv3x3_train
-from tpunet_torch.ops.fused_ir import conv1x1_bn_act
+from tpunet_torch.ops.fused_ir import bn_act_epilogue, conv1x1_bn_act
 from tpunet_torch.parallel.dist import (all_reduce_sum, process_count,
                                         process_index)
 
@@ -139,6 +148,44 @@ class InvertedResidual(nn.Module):
         self.conv = nn.Sequential(*layers)
 
 
+class EpilogueRemat:
+    """Saved-tensor hooks of one block's forward under block remat.
+    ``register(t, make)`` names a tensor that ``make()`` recomputes bit
+    for bit from what the block keeps; a saved tensor that shares its
+    storage (``t`` or any view of it) is packed as the recipe and the
+    view's geometry, and unpacked by recomputing. The registry holds
+    its tensors only for the block's forward (:meth:`clear`)."""
+
+    def __init__(self):
+        self._recipes: Dict[int, tuple] = {}
+
+    def register(self, t: torch.Tensor, make: Callable[[], torch.Tensor]):
+        self._recipes[t.untyped_storage().data_ptr()] = (t, make)
+
+    def clear(self) -> None:
+        self._recipes.clear()
+
+    def pack(self, t: torch.Tensor):
+        hit = self._recipes.get(t.untyped_storage().data_ptr())
+        if hit is None or hit[0].dtype != t.dtype:
+            return t
+        base, make = hit
+        return (make, base.shape, base.stride(), t.shape, t.stride(),
+                t.storage_offset())
+
+    @staticmethod
+    def unpack(packed):
+        if not isinstance(packed, tuple):
+            return packed
+        make, shape, stride, vshape, vstride, offset = packed
+        with torch.no_grad():
+            base = make()
+        if base.shape != shape or base.stride() != stride:
+            raise RuntimeError("block remat recomputed a tensor of another "
+                               "layout than the forward's")
+        return base.as_strided(vshape, vstride, offset)
+
+
 class MobileNetV2(nn.Module):
     """MobileNetV2 backbone + linear classifier head.
 
@@ -151,12 +198,14 @@ class MobileNetV2(nn.Module):
 
     def __init__(self, num_classes: int = 10, width_mult: float = 1.0,
                  dropout_rate: float = 0.2, use_pallas: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, fused_ir: bool = True):
+                 dtype: torch.dtype = torch.bfloat16, fused_ir: bool = True,
+                 block_remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
         self.use_pallas = use_pallas
         self.fused_ir = fused_ir
+        self.block_remat = block_remat
         self.dtype = dtype
         cin = _make_divisible(32 * width_mult)
         features = [ConvBNAct(3, cin, 3, 2)]
@@ -249,10 +298,16 @@ class MobileNetV2(nn.Module):
 
     # -- train mode -------------------------------------------------------
 
-    def _bn_train(self, bn: BN, x: torch.Tensor, act: bool) -> torch.Tensor:
+    def _bn_train(self, bn: BN, x: torch.Tensor, act: bool,
+                  remat: Optional[EpilogueRemat] = None) -> torch.Tensor:
         """FusedBNAct's train math on a conv output [N,C,H,W], with the
-        statistics of the global batch."""
+        statistics of the global batch. Under ``remat`` the float32 copy,
+        the normalised value and the output are registered as recomputed
+        from ``x`` and the statistics."""
         xf = x.float()
+        if remat is not None:
+            # Each tensor is registered before an op saves it.
+            remat.register(xf, x.float)
         sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
                                            (xf * xf).sum(dim=(0, 2, 3))]))
         count = xf.numel() // xf.shape[1] * process_count()
@@ -262,9 +317,22 @@ class MobileNetV2(nn.Module):
         inv = torch.rsqrt(var + BN_EPSILON) * bn.weight.float()
         shift = bn.bias.float() - mean * inv
         y = xf * inv[:, None, None] + shift[:, None, None]
-        if act:
-            y = torch.clamp(y, 0.0, 6.0)
-        return y.to(self.dtype)
+        if remat is not None:
+            inv_c = inv.detach()[:, None, None]
+            shift_c = shift.detach()[:, None, None]
+
+            def norm():
+                return x.float() * inv_c + shift_c
+
+            def final():
+                o = norm()
+                return (torch.clamp(o, 0.0, 6.0) if act else o).to(self.dtype)
+            remat.register(y, norm)
+        out = torch.clamp(y, 0.0, 6.0) if act else y
+        out = out.to(self.dtype)
+        if remat is not None:
+            remat.register(out, final)
+        return out
 
     @staticmethod
     def _update_running(bn: BN, mean: torch.Tensor, var: torch.Tensor):
@@ -287,17 +355,37 @@ class MobileNetV2(nn.Module):
         return y.contiguous(memory_format=torch.channels_last)
 
     def _unit_train(self, conv: Conv, bn: BN, x: torch.Tensor, act: bool,
-                    fused: bool) -> torch.Tensor:
+                    fused: bool, remat: Optional[EpilogueRemat] = None
+                    ) -> torch.Tensor:
         if fused and self.fused_ir:
             # Stride-1 1x1 conv + BN through the fused-IR op (ConvBN's
             # routing); [Co,Ci,1,1] -> [Ci,Co].
             w = conv.weight.to(self.dtype)[:, :, 0, 0].t().contiguous()
-            y, mean, var = conv1x1_bn_act(x.permute(0, 2, 3, 1), w,
-                                          bn.weight, bn.bias, act,
-                                          BN_EPSILON)
+            y, mean, var, conv_out = conv1x1_bn_act(
+                x.permute(0, 2, 3, 1), w, bn.weight, bn.bias, act,
+                BN_EPSILON, return_conv=True)
             self._update_running(bn, mean, var)
+            if remat is not None:
+                # The recipe holds the conv output and (C,) tensors only,
+                # never ``y`` itself.
+                scale, bias, shape = bn.weight.detach(), bn.bias.detach(), y.shape
+                remat.register(y, lambda: bn_act_epilogue(
+                    conv_out, mean, var, scale, bias, act,
+                    BN_EPSILON)[0].view(shape))
             return y.permute(0, 3, 1, 2)
-        return self._bn_train(bn, self._conv_train(conv, x), act)
+        return self._bn_train(bn, self._conv_train(conv, x), act, remat)
+
+    def _block_train(self, block: InvertedResidual, x: torch.Tensor,
+                     remat: Optional[EpilogueRemat] = None) -> torch.Tensor:
+        units = list(block.conv)
+        y = x
+        for unit in units[:-2]:
+            # The expand 1x1 (fused) and the depthwise 3x3.
+            y = self._unit_train(unit[0], unit[1], y, act=True,
+                                 fused=unit[0].groups == 1, remat=remat)
+        y = self._unit_train(units[-2], units[-1], y, act=False, fused=True,
+                             remat=remat)
+        return y + x if block.use_res else y
 
     def _forward_train(self, x: torch.Tensor,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -306,15 +394,14 @@ class MobileNetV2(nn.Module):
         stem = feats[0]
         x = self._unit_train(stem[0], stem[1], x, act=True, fused=False)
         for block in feats[1:-1]:
-            units = list(block.conv)
-            y = x
-            for unit in units[:-2]:
-                # The expand 1x1 (fused) and the depthwise 3x3.
-                y = self._unit_train(unit[0], unit[1], y, act=True,
-                                     fused=unit[0].groups == 1)
-            y = self._unit_train(units[-2], units[-1], y, act=False,
-                                 fused=True)
-            x = y + x if block.use_res else y
+            if self.block_remat:
+                remat = EpilogueRemat()
+                with torch.autograd.graph.saved_tensors_hooks(
+                        remat.pack, remat.unpack):
+                    x = self._block_train(block, x, remat)
+                remat.clear()
+            else:
+                x = self._block_train(block, x)
         head = feats[-1]
         x = self._unit_train(head[0], head[1], x, act=True, fused=False)
         x = x.mean(dim=(2, 3))  # global average pool -> [N, C]

@@ -44,9 +44,13 @@ chunked causal prefill) and an ``active`` gate, against a dense
 (:class:`PagedKV`, :func:`paged_decode_attend`), whose pages hold the
 compute dtype, bf16, or int8 codes with a float32 scale a token row
 (:func:`quantize_kv_rows`, dequantised on the gather). Every cache is
-per-layer tensors written in place. Not ported: MoE blocks and the
-sequence-parallel cores (ROADMAP Queue A item 8), block remat (item 2b);
-the config refuses them.
+per-layer tensors written in place. With ``remat`` (``--remat``) a
+training forward runs each block under ``torch.utils.checkpoint``, so
+the backward recomputes it (the flash forward launches twice a layer a
+step), with the block's dropout masks drawn again from the same
+generator state; decode steps are never wrapped. Not ported: MoE blocks
+and the sequence-parallel cores (ROADMAP Queue A item 8); the config
+refuses them.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
@@ -402,6 +407,37 @@ def _layer_attend(cache: KVCache, i: int,
                              positions=step.positions, active=step.active)
 
 
+class Dropout:
+    """One forward's dropout: each call draws a Bernoulli(1 - rate) mask
+    from ``bits`` (a generator on the activations' device) and returns
+    ``x * mask / (1 - rate)``; the identity without a generator. The
+    generator's state can be read, forked and set, which remat needs."""
+
+    def __init__(self, bits: Optional[torch.Generator], rate: float):
+        self.bits, self.keep = bits, 1.0 - rate
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bits is None:
+            return x
+        mask = torch.empty_like(x).bernoulli_(self.keep, generator=self.bits)
+        return x * mask / self.keep
+
+    def state(self) -> Optional[torch.Tensor]:
+        return None if self.bits is None else self.bits.get_state()
+
+    def set_state(self, state: Optional[torch.Tensor]) -> None:
+        if self.bits is not None:
+            self.bits.set_state(state)
+
+    def fork(self, state: Optional[torch.Tensor]) -> "Dropout":
+        """A dropout of the same rate on a new generator at ``state``."""
+        if self.bits is None:
+            return self
+        bits = torch.Generator(device=self.bits.device)
+        bits.set_state(state)
+        return Dropout(bits, 1.0 - self.keep)
+
+
 class Encoder(nn.Module):
     """The machinery the ViT and the LM share: the pre-LN blocks'
     arithmetic in the activation dtype over float32 parameters, the
@@ -415,6 +451,8 @@ class Encoder(nn.Module):
         self.dropout_rate = dropout_rate
         self.attn_fn = attn_fn
         self.dtype = dtype
+        # ModelConfig.remat: checkpoint each block of a training forward.
+        self.remat = False
         # id(parameter) -> (source state, parameter, cast copy); eval only.
         self._consts: Dict[int, tuple] = {}
 
@@ -442,27 +480,20 @@ class Encoder(nn.Module):
                             self._cast(ln.bias, train), LN_EPSILON)
 
     def _dropout(self, train: bool, generator: Optional[torch.Generator],
-                 device: torch.device) -> Callable[[torch.Tensor],
-                                                   torch.Tensor]:
+                 device: torch.device) -> "Dropout":
         """The step's dropout: x -> x / keep where a Bernoulli(keep) draw
         is 1, else 0 (flax's ``nn.Dropout``); the identity in eval mode or
         at rate 0."""
         rate = self.dropout_rate
         if not train or rate == 0.0:
-            return lambda x: x
+            return Dropout(None, 0.0)
         if generator is None:
             raise ValueError("train mode with dropout needs a generator")
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         # Rank 0 keeps the draw; the others step away from it by a large
         # odd constant (2^64 / golden ratio).
         seed = (seed + process_index() * 0x9E3779B97F4A7C15) % 2**63
-        bits = torch.Generator(device=device).manual_seed(seed)
-        keep = 1.0 - rate
-
-        def drop(x):
-            mask = torch.empty_like(x).bernoulli_(keep, generator=bits)
-            return x * mask / keep
-        return drop
+        return Dropout(torch.Generator(device=device).manual_seed(seed), rate)
 
     def _attention(self, attn: Attention, x: torch.Tensor, train: bool,
                    segment_ids: Optional[torch.Tensor] = None,
@@ -487,20 +518,52 @@ class Encoder(nn.Module):
         y = F.gelu(self._linear(mlp.fc1, x, train), approximate="tanh")
         return self._linear(mlp.fc2, y, train)
 
-    def _encode(self, x: torch.Tensor, train: bool, drop,
+    def _block(self, blk: "EncoderBlock", x: torch.Tensor, train: bool,
+               drop: "Dropout", segment_ids: Optional[torch.Tensor],
+               attend: Optional[AttnFn]) -> torch.Tensor:
+        """One block: x + drop(Attn(LN(x))); x + drop(Mlp(LN(x)))."""
+        x = x + drop(self._attention(blk.attn, self._norm(blk.ln1, x, train),
+                                     train, segment_ids, attend))
+        return x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
+                                  train))
+
+    def _remat_block(self, blk: "EncoderBlock", x: torch.Tensor,
+                     drop: "Dropout",
+                     segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """A training block under ``torch.utils.checkpoint``: only its
+        input is kept, and the backward runs its forward again (the
+        attention core included). The block's dropout masks come from a
+        generator forked at the step generator's state before the block,
+        so the recompute draws the masks the forward drew, and the step's
+        generator then moves on as it would without remat."""
+        start, end = drop.state(), {}
+
+        def run(x):
+            d = drop.fork(start)
+            y = self._block(blk, x, True, d, segment_ids, None)
+            end["state"] = d.state()
+            return y
+        y = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+        drop.set_state(end["state"])
+        return y
+
+    def _encode(self, x: torch.Tensor, train: bool, drop: "Dropout",
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 step: Optional[ServeStep] = None) -> torch.Tensor:
-        """The blocks over ``x``: x + drop(Attn(LN(x))); x +
-        drop(Mlp(LN(x))), against ``cache`` when one is given: on its
-        module clock, or per row as ``step`` says."""
+        """The blocks over ``x``, against ``cache`` when one is given: on
+        its module clock, or per row as ``step`` says. With ``remat`` a
+        training forward recomputes each block in the backward; a decode
+        step (a ``cache``) never does."""
+        remat = (self.remat and train and cache is None
+                 and torch.is_grad_enabled())
         for i, blk in enumerate(self.blocks):
-            attend = None if cache is None else _layer_attend(cache, i, step)
-            x = x + drop(self._attention(blk.attn,
-                                         self._norm(blk.ln1, x, train),
-                                         train, segment_ids, attend))
-            x = x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
-                                   train))
+            if remat:
+                x = self._remat_block(blk, x, drop, segment_ids)
+            else:
+                attend = (None if cache is None
+                          else _layer_attend(cache, i, step))
+                x = self._block(blk, x, train, drop, segment_ids, attend)
         return x
 
 
@@ -613,5 +676,6 @@ def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
                 patch_size=patch, hidden=hidden, depth=depth, heads=heads,
                 mlp_ratio=cfg.vit_mlp_ratio, dropout_rate=cfg.dropout_rate,
                 attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype))
+    model.remat = cfg.remat
     init_vit(model, generator)
     return model

@@ -1,7 +1,6 @@
 """Black-box flight recorder: crash forensics for the host runtime.
 
-A copy of ``tpunet/obs/flightrec/`` (framework-free), without the JAX
-package's native-batcher journal: the port has no native loader.
+A copy of ``tpunet/obs/flightrec/`` (framework-free).
 
 Three instruments, one goal — when a run dies, the last milliseconds
 are evidence, not a shrug:
@@ -10,19 +9,23 @@ are evidence, not a shrug:
   structured events: span begin/end, alerts, checkpoint / export /
   prefetch state transitions. ~1-2 us per event, default-ON.
 - ``threads``  — the host-thread registry: every background thread
-  (the serve engine loop, the classify batcher) registers with a
-  name, heartbeat, and stall budget; exported as ``thread_*`` gauges
-  and feeding the watchdog's ``thread_stalled`` alert.
-- ``crash``    — crash handlers (faulthandler) plus a post-mortem
-  watcher process that assembles a torn-write-safe
-  ``crash_report.json`` from the ring tail, per-thread Python stacks
-  and the last device ``memory_stats()`` sample.
+  (the native prefetcher, the serve engine loop, the classify
+  batcher) registers with a name, heartbeat, and stall budget;
+  exported as ``thread_*`` gauges and feeding the watchdog's
+  ``thread_stalled`` alert.
+- ``crash``    — crash handlers (faulthandler + the C extension's
+  SIGSEGV/SIGABRT/SIGBUS hook, ``tpunet_torch/data/native.py``) plus a
+  post-mortem watcher process that assembles a torn-write-safe
+  ``crash_report.json`` from the ring tail, per-thread Python stacks,
+  the native batcher journal and the last device ``memory_stats()``
+  sample.
 
 This module owns the process-global singleton: ``install()`` arms the
 recorder, ``record()`` is the no-op-when-disabled event hook call
 sites use (one global read + None check), ``close()`` marks a clean
-shutdown. The serving CLI (``tpunet_torch/serve/__main__.py``) arms
-it; ``scripts/obs_crash_report.py`` renders reports (the file layout
+shutdown. ``tpunet_torch/obs/__init__.py`` wires it to the trainer's
+run and the serving CLI (``tpunet_torch/serve/__main__.py``) arms it;
+``scripts/obs_crash_report.py`` renders reports (the file layout
 is the JAX package's).
 """
 

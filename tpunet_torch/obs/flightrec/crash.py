@@ -1,8 +1,6 @@
 """FlightRecorder: always-on crash forensics for one process.
 
-A copy of ``tpunet/obs/flightrec/crash.py`` without the native-batcher
-journal (the JAX package's C prefetcher; the port has none), so a
-report's ``native_journal`` is always empty.
+A copy of ``tpunet/obs/flightrec/crash.py``.
 
 Capture is split by what each death mode allows:
 
@@ -12,6 +10,12 @@ Capture is split by what each death mode allows:
 - **per-thread Python stacks**: ``faulthandler.enable`` onto a file in
   the flightrec dir — the only async-signal-safe way to get
   interpreter stacks out of a SIGSEGV/SIGABRT/SIGBUS.
+- **native journal**: the C extension's op ring
+  (``tpunet_torch/data/native.py``, ``cxx/batcher.cc``) is spilled to
+  disk by its own C-level signal handler (``tn_crash_install``),
+  installed AFTER faulthandler so the chain runs C-journal -> Python
+  stacks -> default action: the last N alloc/free/enqueue/shutdown ops
+  the batcher performed before the process died.
 - **report assembly**: a watcher subprocess (watch.py) detects parent
   death via pipe EOF and materializes ``crash_report.json`` — no
   crash-time JSON, no malloc in handlers, works for OOM-kills too.
@@ -75,13 +79,14 @@ def _ensure_watcher() -> bool:
 class FlightRecorder:
     def __init__(self, directory: str, *, process_index: int = 0,
                  n_events: int = DEFAULT_SLOTS, watcher: bool = True,
-                 run_id: str = ""):
+                 native: bool = True, run_id: str = ""):
         self.directory = (os.path.join(directory, "flightrec")
                           if directory else "")
         self.process_index = process_index
         self.n_events = n_events
         self.run_id = run_id
         self._want_watcher = watcher and bool(self.directory)
+        self._want_native = native
         self.ring: Optional[EventRing] = None
         self._stacks_file = None
         self._prev_faulthandler = False
@@ -123,6 +128,8 @@ class FlightRecorder:
             self.n_events)
         if self.directory:
             self._install_faulthandler()
+            if self._want_native:
+                self._install_native()
             if self._want_watcher and _ensure_watcher():
                 # The pid rides along so a lingering watcher from a
                 # PREVIOUS incarnation of a reused run dir can never
@@ -145,6 +152,18 @@ class FlightRecorder:
                                 all_threads=True)
         except OSError:
             self._stacks_file = None
+
+    def _install_native(self) -> None:
+        """Arm the C extension's journal spill: its SIGSEGV/SIGABRT/
+        SIGBUS handler writes the native op ring to the flightrec dir
+        and then chains to the handler faulthandler just installed
+        (install order is the chain order)."""
+        try:
+            from tpunet_torch.data import native
+            native.crash_install(
+                self._path(_report.NATIVE_JOURNAL_TXT))
+        except Exception:
+            pass          # no toolchain / no library: python-only report
 
     def close(self) -> None:
         """Clean shutdown: tell the watcher this was not a crash."""

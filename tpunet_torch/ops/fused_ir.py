@@ -466,6 +466,22 @@ grad_layout_copies = 0
 # ---------------------------------------------------------------------------
 
 
+def bn_act_epilogue(y: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor, act: bool,
+                    eps: float) -> Tuple[torch.Tensor, ...]:
+    """The BN (+ReLU6) epilogue of the conv output ``y`` [M, Co] with the
+    batch statistics: ``(out in y.dtype, r = rsqrt(var + eps), inv,
+    shift)``. :class:`Conv1x1BNActFunction` runs it, and block remat
+    calls it again to recompute ``out`` to the bit."""
+    r = torch.rsqrt(var + eps)
+    inv = r * scale.float()
+    shift = bias.float() - mean * inv
+    o = y.float() * inv + shift
+    if act:
+        o = torch.clamp(o, 0.0, 6.0)
+    return o.to(y.dtype), r, inv, shift
+
+
 class Conv1x1BNActFunction(torch.autograd.Function):
     """Fused 1x1 conv + train-mode BN (+ReLU6), the counterpart of
     tpunet's ``_fused`` custom_vjp: kernel forward, then the statistics
@@ -484,21 +500,17 @@ class Conv1x1BNActFunction(torch.autograd.Function):
         m = m * process_count()
         mean = s[0] / m
         var = torch.clamp_min(s[1] / m - mean * mean, 0.0)
-        r = torch.rsqrt(var + eps)
-        inv = r * scale.float()
-        shift = bias.float() - mean * inv
-        o = y.float() * inv + shift
-        if act:
-            o = torch.clamp(o, 0.0, 6.0)
+        o, r, inv, shift = bn_act_epilogue(y, mean, var, scale, bias, act,
+                                           eps)
         ctx.act = act
         ctx.save_for_backward(x2, w, y, inv, shift, r, mean * r)
-        ctx.mark_non_differentiable(mean, var)
+        ctx.mark_non_differentiable(mean, var, y)
         ctx.dtypes = (x.shape, scale.dtype, bias.dtype)
         ctx.rows = m
-        return o.to(y.dtype).view(n, h, wd, co), mean, var
+        return o.view(n, h, wd, co), mean, var, y
 
     @staticmethod
-    def backward(ctx, g, _g_mean, _g_var):
+    def backward(ctx, g, _g_mean, _g_var, _g_y):
         global grad_layout_copies
         x2, w, y, inv, shift, r, mr = ctx.saved_tensors
         x_shape, scale_dtype, bias_dtype = ctx.dtypes
@@ -525,14 +537,17 @@ class Conv1x1BNActFunction(torch.autograd.Function):
 
 
 def conv1x1_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                   bias: torch.Tensor, act: bool = True, eps: float = 1e-5
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   bias: torch.Tensor, act: bool = True, eps: float = 1e-5,
+                   return_conv: bool = False) -> Tuple[torch.Tensor, ...]:
     """Fused train-mode 1x1 conv + BN statistics + scale/shift (+ReLU6):
     ``x`` [N,H,W,Ci] (contiguous NHWC), ``w`` [Ci,Co] of the same dtype,
     ``scale``/``bias`` the BN affine parameters -> ``(out [N,H,W,Co] in
     x.dtype, batch_mean, batch_var)`` float32; mean and var carry no
-    gradient."""
+    gradient. ``return_conv`` appends the conv output y [N*H*W, Co]
+    (no gradient), from which block remat recomputes ``out``."""
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"conv1x1_bn_act: x must be a contiguous "
                          f"[N,H,W,Ci], got {list(x.shape)}")
-    return Conv1x1BNActFunction.apply(x, w, scale, bias, act, eps)
+    out = Conv1x1BNActFunction.apply(x, w, scale, bias, act, eps)
+    return out if return_conv else out[:3]
+

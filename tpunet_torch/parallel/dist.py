@@ -12,20 +12,23 @@ them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
     torchrun --standalone --nproc-per-node 2 -m tpunet_torch.train \\
         --preset distributed --device cpu ...
 
-Every collective of the port goes through :func:`all_reduce`, which
-counts its calls (``all_reduce.calls``), as the kernel wrappers count
-their launches. Without a process group every helper here is the
+Every collective of the port goes through :func:`all_reduce` or
+:func:`fetch_rows` (mixup's partner rows), which count their calls
+(``all_reduce.calls``, ``fetch_rows.calls``), as the kernel wrappers
+count their launches. Without a process group every helper here is the
 identity (one rank, index 0), so single-process code runs unchanged.
-Not ported: the collective-free host agreements (``agree_any``,
-``kv_live_processes``) of the preemption and elastic paths, ROADMAP
-Queue A items 2b and 9.
+
+:func:`agree_any` is the preemption path's stop agreement without a
+device collective: a cross-process OR of a host flag through the
+process group's key-value store. Not ported: ``kv_live_processes`` of
+the elastic path, ROADMAP Queue A item 9.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -134,6 +137,48 @@ def all_reduce(t: torch.Tensor) -> torch.Tensor:
 all_reduce.calls = 0
 
 
+def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+    """Rows of the global batch, by global index, for this rank: each of
+    ``tensors`` holds this rank's ``n`` rows of a global batch that the
+    ranks split evenly in rank order, ``perm`` (int64 [n * ranks], the
+    same on every rank) names for each global row the row it wants, and
+    this rank gets rows ``perm[n*rank:n*(rank+1)]`` of each tensor, in
+    that order. One ``all_to_all_single`` over the tensors' bytes moves
+    only the wanted rows, in their own dtypes; counts the call in
+    ``fetch_rows.calls``. Without a process group, ``t[perm]``."""
+    if not is_initialized():
+        return tuple(t[perm.to(t.device)] for t in tensors)
+    ranks, me, n = process_count(), process_index(), tensors[0].shape[0]
+    want = perm.cpu().view(ranks, n)
+    owner = want // n
+    mine = owner == me
+    # Mine that rank r wants, in r's order; from rank s, what I want of
+    # its rows, in my order: ``order`` puts each back at its place.
+    send = torch.cat([want[r][mine[r]] for r in range(ranks)]) - me * n
+    order = torch.argsort(owner[me], stable=True)
+    flat = [t.reshape(n, -1).contiguous().view(torch.uint8) for t in tensors]
+    packed = torch.cat(flat, dim=1)
+    dev = packed.device
+    recv = packed.new_empty(packed.shape)
+    dist.all_to_all_single(
+        recv, packed[send.to(dev)],
+        output_split_sizes=torch.bincount(owner[me], minlength=ranks).tolist(),
+        input_split_sizes=mine.sum(dim=1).tolist())
+    rows = torch.empty_like(recv)
+    rows[order.to(dev)] = recv
+    fetch_rows.calls += 1
+    out, col = [], 0
+    for t, f in zip(tensors, flat):
+        part = rows[:, col:col + f.shape[1]].contiguous()
+        out.append(part.view(t.dtype).view(t.shape))
+        col += f.shape[1]
+    return tuple(out)
+
+
+fetch_rows.calls = 0
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks, forward and backward. The gradient of a rank's
     local summand is the sum over the ranks of the gradients of the
@@ -154,3 +199,24 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if not is_initialized():
         return t
     return _AllReduceSum.apply(t)
+
+
+def agree_any(tag: str, flag: bool,
+              timeout: datetime.timedelta = TIMEOUT) -> bool:
+    """Cross-process OR of a host-side flag (the preemption stop
+    agreement, tpunet's ``agree_any``) through the default group's c10d
+    store: each rank sets ``<tag>/<rank>``, waits until every rank's key
+    is there (the store's barrier) and reads them all. No device
+    collective: no device sync per poll, and nothing that could
+    interleave with the step's collectives. ``tag`` must be unique per
+    agreement round and the same on every rank (the global step). The
+    local flag in a world of one."""
+    world = process_count()
+    if world == 1:
+        return bool(flag)
+    store = dist.distributed_c10d._get_default_store()
+    base = f"tpunet_agree/{tag}"
+    store.set(f"{base}/{process_index()}", "1" if flag else "0")
+    keys = [f"{base}/{i}" for i in range(world)]
+    store.wait(keys, timeout)
+    return any(store.get(k) == b"1" for k in keys)

@@ -8,6 +8,8 @@
     python -m tpunet_torch.train --model lm --dataset synthetic_lm  # the LM
     python -m tpunet_torch.train --model lm --dataset text_lm \
         --text-file corpus.txt --pack-docs                    # packed docs
+    python -m tpunet_torch.train --pretrained w.pth --mixup 0.2 \\
+        --cutmix 1.0 --ema-decay 0.999 --block-remat         # fine-tuning
     torchrun --standalone --nproc-per-node N -m tpunet_torch.train \
         --preset distributed                                  # N ranks
 
@@ -18,8 +20,10 @@ Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``;
 ``--batch-size`` is per rank, and the global batch is that times the
 world size; rank 0 materialises the dataset while the others wait; the
-group is left on exit. Any other flag of tpunet's CLI is refused with an
-error, never ignored.
+group is left on exit. SIGTERM stops a run at a step boundary with its
+state saved (every rank at the same step) and exits 0; ``--resume``
+re-runs the interrupted epoch. Any other flag of tpunet's CLI is refused
+with an error, never ignored.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grad-accum", type=int, default=None,
                    help="microbatches accumulated per optimizer step "
                         "(strided rows of the batch)")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="parameter EMA decay (e.g. 0.999); eval and the "
+                        "best checkpoint use the EMA weights; 0 = off")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dataset", default=None,
                    choices=["cifar10", "synthetic", "synthetic_lm",
@@ -78,6 +85,24 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--vocab-size", type=int, default=None,
                    help="vocab for the lm model + synthetic_lm data")
     p.add_argument("--data-dir", default=None)
+    p.add_argument("--no-download", action="store_true",
+                   help="never fetch CIFAR-10/pretrained weights over "
+                        "the network; fail with drop-in instructions "
+                        "instead (reference auto-downloads, :97)")
+    p.add_argument("--pretrained", default=None, metavar="PATH|auto",
+                   help="torch MobileNetV2 state_dict to load (the "
+                        "backbone; a head of another class count is "
+                        "left fresh); 'auto' fetches torchvision's "
+                        "ImageNet checkpoint, which the port refuses "
+                        "(a download)")
+    p.add_argument("--no-native-loader", action="store_true",
+                   help="force the pure-numpy host batch path")
+    p.add_argument("--mixup", type=float, default=None, metavar="ALPHA",
+                   help="mixup Beta(a,a) strength for image models; "
+                        "0 = off")
+    p.add_argument("--cutmix", type=float, default=None, metavar="ALPHA",
+                   help="CutMix Beta(a,a) strength; with --mixup, each "
+                        "step picks one at random")
     p.add_argument("--synthetic-size", type=int, default=None,
                    help="train-set size when --dataset synthetic (test: "
                         "a quarter of it)")
@@ -110,9 +135,23 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--attention-block", type=int, default=None,
                    help="K/V chunk for --attention blockwise; the TPU "
                         "block size of --attention flash")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder blocks (less activation "
+                        "memory, ~1/3 more backward FLOPs)")
+    p.add_argument("--block-remat", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="MobileNetV2: recompute inverted-residual "
+                        "elementwise epilogues in backward, saving "
+                        "only conv outputs + BN stats as residuals "
+                        "(default off)")
     p.add_argument("--width-mult", type=float, default=None)
     p.add_argument("--dropout-rate", type=float, default=None)
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
+    p.add_argument("--param-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="parameter/optimizer-state storage dtype "
+                        "(default float32 master params; --dtype "
+                        "stays the compute dtype)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--log-every-steps", type=int, default=None,
@@ -187,6 +226,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "checkpoint-now-then-evict through the agreed "
                         "stop — the elastic agent re-meshes the pod "
                         "without the slow host (docs/elasticity.md)")
+    p.add_argument("--preempt-grace-s", type=float, default=None,
+                   help="SIGTERM grace window the platform grants: "
+                        "the preemption save's durability wait is "
+                        "bounded by what remains of it, and a second "
+                        "SIGTERM escalates to immediate "
+                        "checkpoint-abandon exit (0 = unbounded)")
     p.add_argument("--halt-on-unhealthy", action="store_true",
                    help="abort the run (RunUnhealthyError) on a fatal "
                         "obs_alert: step stall, NaN/spiking loss, or "
@@ -257,19 +302,32 @@ def _config(args: argparse.Namespace):
         data = dataclasses.replace(data, pack_docs=True)
     if args.seq_len is not None:
         data = dataclasses.replace(data, seq_len=args.seq_len)
+    if args.no_native_loader:
+        data = dataclasses.replace(data, native_loader=False)
+    if args.no_download:
+        data = dataclasses.replace(data, download=False)
+    if args.mixup is not None:
+        data = dataclasses.replace(data, mixup_alpha=args.mixup)
+    if args.cutmix is not None:
+        data = dataclasses.replace(data, cutmix_alpha=args.cutmix)
     fields = {}
     for dest, obj_field in (("model", "name"),
                             ("pallas_depthwise", "use_pallas_depthwise"),
                             ("fused_ir", "fused_ir"),
                             ("width_mult", "width_mult"),
                             ("dropout_rate", "dropout_rate"),
-                            ("dtype", "dtype")) + tuple(
+                            ("dtype", "dtype"),
+                            ("param_dtype", "param_dtype"),
+                            ("pretrained", "pretrained_path"),
+                            ("block_remat", "block_remat")) + tuple(
             (f, f) for f in ("vit_patch", "vit_hidden", "vit_depth",
                              "vit_heads", "vit_mlp_ratio", "attention",
                              "attention_block")):
         val = getattr(args, dest)
         if val is not None:
             fields[obj_field] = val
+    if args.remat:
+        fields["remat"] = True
     if args.max_seq_len is not None:
         fields["max_seq_len"] = args.max_seq_len
     # tpunet grows the position table to cover the requested length.
@@ -286,7 +344,8 @@ def _config(args: argparse.Namespace):
                             ("optimizer", "name"),
                             ("weight_decay", "weight_decay"),
                             ("clip_norm", "clip_norm"),
-                            ("grad_accum", "grad_accum")):
+                            ("grad_accum", "grad_accum"),
+                            ("ema_decay", "ema_decay")):
         val = getattr(args, dest)
         if val is not None:
             optim = dataclasses.replace(optim, **{obj_field: val})
@@ -295,7 +354,7 @@ def _config(args: argparse.Namespace):
     if args.resume:
         ckpt = dataclasses.replace(ckpt, resume=True)
     cfg = cfg.replace(data=data, model=model, optim=optim, checkpoint=ckpt)
-    for dest in ("epochs", "seed", "log_every_steps"):
+    for dest in ("epochs", "seed", "log_every_steps", "preempt_grace_s"):
         val = getattr(args, dest)
         if val is not None:
             cfg = cfg.replace(**{dest: val})
@@ -409,6 +468,9 @@ def _run(cfg, device: str):
 
 
 def main(argv=None) -> int:
+    """The exit code of tpunet's ``main``: 0 after training, also when a
+    preemption (SIGTERM) stopped it with its state saved; 2 when
+    ``--halt-on-unhealthy`` stopped it."""
     from tpunet_torch.obs.health import RunUnhealthyError
 
     try:

@@ -32,13 +32,29 @@ memory, heartbeat) after the plain record, in the same
 ``metrics.jsonl``; every record carries the run identity and the
 config fingerprint. The default path issues no device sync of its own:
 ``torch.cuda.synchronize`` runs only at a profile window's two edges.
-Not in this slice (ROADMAP Queue A items 2b and 9): preemption, the
-agreed multi-process stop, chaos and elastic paths.
+
+The host loader is tpunet's native C++ prefetcher
+(``tpunet_torch/data/native.py``) over the same index order when
+``native_loader`` is set and it can be built (never for ``eval_only``
+or packed documents), numpy otherwise. With ``ema_decay`` > 0 eval and
+``best.pth`` read the EMA parameters and BN statistics.
+
+Preemption (tpunet's ``PreemptionGuard``): SIGTERM sets a flag that the
+loop reads at step boundaries. Under a process group the ranks agree on
+it through the store (``agree_any``) every ``STOP_POLL_STEPS`` steps
+and once after each epoch, so every rank stops at the same step. A
+stopped epoch writes a ``partial: true`` record without eval fields and
+saves the state marked partial, so ``--resume`` re-runs that epoch while
+the step counter goes on; a second SIGTERM abandons the save and exits
+at once. ``--halt-on-unhealthy`` above one process routes a fatal alert
+through the same stop, and the run then raises ``RunUnhealthyError``.
+Not in this slice (ROADMAP Queue A item 9): chaos and elastic paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -46,23 +62,26 @@ import torch
 
 from tpunet_torch.ckpt import Checkpointer
 from tpunet_torch.config import TrainConfig
-from tpunet_torch.data import (eval_batches, get_dataset, steps_per_epoch,
+from tpunet_torch.data import (eval_batches, get_dataset,
+                               host_index_sequence, steps_per_epoch,
                                timed_batches, train_batches)
 from tpunet_torch.models import create_model, num_params
 from tpunet_torch.models.convert import load_state_dict_file
-from tpunet_torch.obs import JsonlSink, Observability
+from tpunet_torch.obs import JsonlSink, Observability, RunUnhealthyError
+from tpunet_torch.obs import flightrec
 from tpunet_torch.obs.history import train_fingerprint
 from tpunet_torch.obs.identity import ensure_run_id
 from tpunet_torch.obs.perf import train_flops_per_unit
-from tpunet_torch.parallel.dist import (is_initialized, local_device,
-                                        process_count, process_index,
-                                        sync_hosts)
+from tpunet_torch.parallel.dist import (agree_any, is_initialized,
+                                        local_device, process_count,
+                                        process_index, sync_hosts)
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
 from tpunet_torch.train.steps import (make_eval_step, make_lm_eval_step,
                                       make_lm_train_step, make_train_step)
 from tpunet_torch.utils.logging import (MetricsLogger, epoch_line, log0,
                                         summary_lines)
+from tpunet_torch.utils.preemption import PreemptionGuard
 from tpunet_torch.utils.prng import step_generator
 from tpunet_torch.utils.timing import Timer
 
@@ -89,17 +108,15 @@ class Trainer:
                 f"warmup_epochs ({cfg.optim.warmup_epochs}) must be in "
                 f"[0, epochs={cfg.epochs})")
         self.cfg = cfg
+        if cfg.data.mixup_alpha < 0 or cfg.data.cutmix_alpha < 0:
+            raise ValueError("mixup/cutmix alphas must be >= 0")
+        if cfg.is_lm and (cfg.data.mixup_alpha > 0
+                          or cfg.data.cutmix_alpha > 0):
+            raise ValueError("mixup/cutmix are image-family options; "
+                             "the LM train step does not read them")
         self.device = (local_device(torch.device(device).type)
                        if is_initialized() else torch.device(device))
         self.rank, self.ranks = process_index(), process_count()
-        if cfg.obs.halt_on_unhealthy and self.ranks > 1:
-            # tpunet stops every process together on a fatal alert
-            # (its _agree_stop); that agreement comes with the
-            # preemption guard.
-            raise NotImplementedError(
-                "--halt-on-unhealthy across processes needs the agreed "
-                "stop, which is not ported to tpunet_torch yet; it comes "
-                "with ROADMAP Queue A item 2b (the preemption guard)")
         ds = dataset if dataset is not None else get_dataset(cfg.data)
         self.train_x, self.train_y, self.test_x, self.test_y = ds
         self.spe = steps_per_epoch(len(self.train_x), cfg.data.batch_size)
@@ -113,7 +130,8 @@ class Trainer:
         self._schedule = lr_schedule(cfg.optim, self.spe, cfg.epochs)
         self.state = TrainState(model, make_optimizer(model.parameters(),
                                                       cfg.optim),
-                                self._schedule, clip_norm=cfg.optim.clip_norm)
+                                self._schedule, clip_norm=cfg.optim.clip_norm,
+                                ema_decay=cfg.optim.ema_decay)
         if cfg.is_lm:
             self.train_step = make_lm_train_step(cfg.optim,
                                                  cfg.data.pack_docs)
@@ -150,6 +168,33 @@ class Trainer:
         self.obs.set_flops_per_unit(train_flops_per_unit(
             cfg.model, cfg.data, n_params=num_params(model)))
         self.ckpt = Checkpointer(cfg.checkpoint, obs=self.obs)
+        self._prefetcher = None
+        if (cfg.data.native_loader and not cfg.eval_only
+                and not cfg.data.pack_docs):
+            # The native gather moves raw bytes a row, so uint8 image
+            # rows and int32 token rows share the path; packed documents
+            # carry [B, T] segment ids in the label slot, which the
+            # prefetcher's scalar-label ABI does not cover (numpy there).
+            from tpunet_torch.data import native
+            if native.available():
+                self._prefetcher = native.NativePrefetcher(
+                    self.train_x, self.train_y.astype(np.int32),
+                    cfg.data.batch_size // self.ranks)
+        self.guard = PreemptionGuard(deadline_s=cfg.preempt_grace_s)
+        self._watchdog_halt = None
+        if self.ranks > 1 and self.obs.watchdog is not None:
+            # --halt-on-unhealthy across processes: a fatal alert on one
+            # rank must not raise there (the others would wait in their
+            # next collective). It requests the agreed stop instead, and
+            # train() raises once every rank has stopped at the same step
+            # with the partial state saved, so the exit code still says
+            # "unhealthy" (2), not "preempted" (0).
+            def _halt(record):
+                print(f"[process {self.rank}] HALT requested by watchdog: "
+                      f"{record}", flush=True)
+                self._watchdog_halt = record
+                self.guard.request()
+            self.obs.watchdog.on_fatal = _halt
         self.start_epoch = 1
         self.best_acc = 0.0
         self.history: List[Dict[str, float]] = []
@@ -162,11 +207,18 @@ class Trainer:
     def global_step(self) -> int:
         return self.state.global_step
 
-    def _payload(self, epoch: int) -> Dict:
-        return {"model": self.state.model.state_dict(),
-                "optimizer": self.state.optimizer.state_dict(),
-                "global_step": self.state.global_step,
-                "epoch": epoch, "best_acc": self.best_acc}
+    def _payload(self, epoch: int, completed: bool = True) -> Dict:
+        payload = {"model": self.state.model.state_dict(),
+                   "optimizer": self.state.optimizer.state_dict(),
+                   "global_step": self.state.global_step,
+                   "epoch": epoch, "best_acc": self.best_acc,
+                   # False marks a mid-epoch (preemption) save: resume
+                   # re-runs that epoch instead of skipping its remaining
+                   # data; the step counter goes on either way.
+                   "completed": completed}
+        if self.state.ema is not None:
+            payload["ema"] = self.state.ema
+        return payload
 
     def _try_resume(self) -> bool:
         restored = self.ckpt.restore_state()
@@ -174,10 +226,21 @@ class Trainer:
             return False
         self.state.model.load_state_dict(restored["model"])
         self.state.optimizer.load_state_dict(restored["optimizer"])
+        if self.state.ema is not None:
+            if "ema" not in restored:
+                raise ValueError("--ema-decay is set but the checkpoint "
+                                 "holds no EMA copies")
+            for e, r in zip(self.state.ema, restored["ema"]):
+                e.copy_(r)
         self.state.global_step = int(restored["global_step"])
-        self.start_epoch = int(restored["epoch"]) + 1
+        completed = bool(restored.get("completed", True))
+        self.start_epoch = int(restored["epoch"]) + (1 if completed else 0)
         self.best_acc = float(restored["best_acc"])
-        log0(f"Resumed from epoch {int(restored['epoch'])} "
+        flightrec.record("train", f"resume restored epoch="
+                                  f"{int(restored['epoch'])} "
+                                  f"step={self.state.global_step}")
+        log0(f"Resumed from epoch {int(restored['epoch'])}"
+             f"{'' if completed else ' (partial)'} "
              f"(best acc {self.best_acc:.4f})")
         return True
 
@@ -201,6 +264,53 @@ class Trainer:
         return self.train_step(self.state, self._to_device(bx),
                                self._to_device(by, self._label_dtype), gen)
 
+    def _epoch_batches(self, epoch: int):
+        cfg = self.cfg
+        if self._prefetcher is not None:
+            idx = host_index_sequence(
+                len(self.train_x), global_batch=cfg.data.batch_size,
+                seed=cfg.seed, epoch=epoch, process_index=self.rank,
+                process_count=self.ranks)
+            return self._prefetcher.iter_epoch(idx)
+        return train_batches(self.train_x, self.train_y,
+                             global_batch=cfg.data.batch_size,
+                             seed=cfg.seed, epoch=epoch,
+                             process_index=self.rank,
+                             process_count=self.ranks)
+
+    # Multi-process preemption polling period (steps): the agreement
+    # waits for every rank, so it runs every K steps, in lockstep; a
+    # grace window is tens of seconds, far longer than K steps.
+    # TPUNET_STOP_POLL_STEPS overrides it (tests stop inside tiny
+    # epochs).
+    STOP_POLL_STEPS = int(os.environ.get("TPUNET_STOP_POLL_STEPS", "16"))
+
+    def _agree_stop(self, tag: str) -> bool:
+        """Cross-rank OR of the local stop flag, through the store."""
+        stop = agree_any(tag, self.guard.requested)
+        if stop:
+            self.guard.request()  # keep the local flag consistent
+        return stop
+
+    def _stop_agreed(self) -> bool:
+        """The agreed preemption decision at a step boundary: every
+        ``STOP_POLL_STEPS`` steps the ranks agree, and all stop if any
+        was signalled (a rank that stopped alone would leave the others
+        waiting in the step's collectives)."""
+        if self.ranks == 1:
+            return self.guard.requested
+        if self.state.global_step % self.STOP_POLL_STEPS:
+            return False
+        return self._agree_stop(f"stop/{self.state.global_step}")
+
+    def _epoch_stop_agreed(self, epoch: int) -> bool:
+        """One agreement after every epoch: a signal in the epoch's last
+        stretch could leave one rank on the partial-save path while the
+        others enter eval."""
+        if self.ranks == 1:
+            return self.guard.requested
+        return self._agree_stop(f"estop/{epoch}")
+
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         every = cfg.log_every_steps
@@ -211,11 +321,7 @@ class Trainer:
         # around the batch iterator.
         obs_hot = obs.hot
         obs.begin_epoch(epoch)
-        batches = train_batches(self.train_x, self.train_y,
-                                global_batch=cfg.data.batch_size,
-                                seed=cfg.seed, epoch=epoch,
-                                process_index=self.rank,
-                                process_count=self.ranks)
+        batches = self._epoch_batches(epoch)
         if obs_hot:
             batches = timed_batches(
                 batches, obs.observe_data_wait,
@@ -223,6 +329,8 @@ class Trainer:
             sync = self._sync
             step_timer = Timer()
         for bx, by in batches:
+            if self._stop_agreed():
+                break  # preemption: stop at a step boundary
             step = self.state.global_step
             gen = step_generator(cfg.seed, step)
             if obs_hot:
@@ -258,6 +366,12 @@ class Trainer:
                            else M.zeros_metrics(self.device))
 
     def evaluate(self) -> Dict[str, float]:
+        """One pass over the test set, with the EMA weights and BN
+        statistics when EMA is on."""
+        with self.state.ema_weights():
+            return self._evaluate()
+
+    def _evaluate(self) -> Dict[str, float]:
         cfg = self.cfg
         acc: Optional[M.Metrics] = None
         with self.obs.span("tpunet/eval"):
@@ -284,6 +398,9 @@ class Trainer:
         best = self.ckpt.best_path()
         if best is not None:
             load_state_dict_file(best, self.state.model)
+            # With EMA on, best.pth holds the EMA pair, which evaluate()
+            # reads from the EMA copies.
+            self.state.reset_ema()
         elif not self._try_resume():
             raise FileNotFoundError(
                 f"no checkpoint under {self.cfg.checkpoint.directory!r} "
@@ -294,11 +411,14 @@ class Trainer:
 
     def train(self) -> List[Dict[str, float]]:
         cfg = self.cfg
+        loader = "native" if self._prefetcher is not None else "numpy"
         log0(f"Train samples: {len(self.train_x)}")
         log0(f"Test samples: {len(self.test_x)}")
         log0(f"Total parameters: {num_params(self.state.model)}")
-        log0("Host loader: numpy")
+        log0("Host loader: " + ("native C++ prefetcher"
+                                if self._prefetcher is not None else "numpy"))
         log0("Starting training...")
+        flightrec.record("train", f"starting training loader={loader}")
         log0("")
         metrics_log = MetricsLogger(cfg.checkpoint.directory,
                                     resume=cfg.checkpoint.resume)
@@ -309,57 +429,130 @@ class Trainer:
         # them here with the same identity.
         identity = self.obs.registry.identity()
         total = Timer()
-        for epoch in range(self.start_epoch, cfg.epochs + 1):
-            timer = Timer()
-            train_m = self.train_one_epoch(epoch)
-            train_secs = timer.elapsed()
-            # Watchdog loss checks run BEFORE the NaN guard: the
-            # obs_alert record lands in metrics.jsonl even when the
-            # guard below aborts the run.
-            self.obs.observe_loss(self.state.global_step, train_m["loss"])
-            if not np.isfinite(train_m["loss"]):
-                raise FloatingPointError(
-                    f"non-finite train loss ({train_m['loss']}) at epoch "
-                    f"{epoch}; the last completed checkpoint is still "
-                    "finite — resume from it with a lower --lr")
-            test_m = self.evaluate()
-            secs = timer.elapsed()
-            log0(epoch_line(epoch, cfg.epochs, secs,
-                            train_m["loss"], train_m["accuracy"],
-                            test_m["loss"], test_m["accuracy"]))
-            record = {
-                **identity,
-                "epoch": epoch, "seconds": secs,
-                "step": self.state.global_step,
-                # Throughput over the epoch (eval included) in the
-                # family's unit: next-token predictions for the LM.
-                ("tokens_per_sec" if cfg.is_lm else "examples_per_sec"):
-                    round(train_m["count"] / secs, 2),
-                "train_loss": train_m["loss"],
-                "train_accuracy": train_m["accuracy"],
-                "test_loss": test_m["loss"],
-                "test_accuracy": test_m["accuracy"],
-            }
-            self.history.append(record)
-            metrics_log.log(record)
-            if test_m["accuracy"] > self.best_acc:
-                self.best_acc = test_m["accuracy"]
-                self.ckpt.save_best(self.state.model)
-            self.start_epoch = epoch + 1
-            self.ckpt.save_state(self._payload(epoch))
-            # After the save so this epoch's own checkpoint shows in its
-            # cumulative ckpt counters.
-            self.obs.end_epoch(
-                epoch=epoch, step=self.state.global_step,
-                units=train_m["count"], train_seconds=train_secs,
-                eval_seconds=secs - train_secs)
+        self.guard.install()
+        try:
+            for epoch in range(self.start_epoch, cfg.epochs + 1):
+                timer = Timer()
+                train_m = self.train_one_epoch(epoch)
+                train_secs = timer.elapsed()
+                # Watchdog loss checks run BEFORE the NaN guard: the
+                # obs_alert record lands in metrics.jsonl even when the
+                # guard below aborts the run.
+                self.obs.observe_loss(self.state.global_step,
+                                      train_m["loss"])
+                if not np.isfinite(train_m["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite train loss ({train_m['loss']}) at "
+                        f"epoch {epoch}; the last completed checkpoint is "
+                        "still finite — resume from it with a lower --lr")
+                if self._epoch_stop_agreed(epoch):
+                    if self._stop_epoch(epoch, train_m, train_secs, timer,
+                                        metrics_log, identity):
+                        break
+                test_m = self.evaluate()
+                secs = timer.elapsed()
+                log0(epoch_line(epoch, cfg.epochs, secs,
+                                train_m["loss"], train_m["accuracy"],
+                                test_m["loss"], test_m["accuracy"]))
+                record = {
+                    **identity,
+                    "epoch": epoch, "seconds": secs,
+                    "step": self.state.global_step,
+                    # Throughput over the epoch (eval included) in the
+                    # family's unit: next-token predictions for the LM.
+                    ("tokens_per_sec" if cfg.is_lm else "examples_per_sec"):
+                        round(train_m["count"] / secs, 2),
+                    "train_loss": train_m["loss"],
+                    "train_accuracy": train_m["accuracy"],
+                    "test_loss": test_m["loss"],
+                    "test_accuracy": test_m["accuracy"],
+                }
+                self.history.append(record)
+                metrics_log.log(record)
+                if test_m["accuracy"] > self.best_acc:
+                    self.best_acc = test_m["accuracy"]
+                    # With EMA on, the test accuracy was measured on the
+                    # EMA weights and BN statistics: save that pair.
+                    with self.state.ema_weights():
+                        self.ckpt.save_best(self.state.model)
+                self.start_epoch = epoch + 1
+                self.ckpt.save_state(self._payload(epoch))
+                # After the save so this epoch's own checkpoint shows in
+                # its cumulative ckpt counters.
+                self.obs.end_epoch(
+                    epoch=epoch, step=self.state.global_step,
+                    units=train_m["count"], train_seconds=train_secs,
+                    eval_seconds=secs - train_secs)
+        finally:
+            self.guard.uninstall()
         log0("")
         for line in summary_lines(self.best_acc, total.elapsed()):
             log0(line)
         return self.history
 
+    def _stop_epoch(self, epoch: int, train_m: Dict[str, float],
+                    train_secs: float, timer: Timer, metrics_log,
+                    identity: Dict) -> bool:
+        """The agreed stop after a (possibly cut) epoch; True to leave
+        the epoch loop. A second SIGTERM abandons the save; otherwise the
+        state is saved marked partial, with a ``partial: true`` record,
+        and an agreed watchdog halt then raises."""
+        self.start_epoch = epoch
+        escalated = self.guard.escalated
+        if self.ranks > 1:
+            # Escalation is per process; the ranks agree on it too, or
+            # one would abandon while rank 0 waits at the save's barrier.
+            escalated = agree_any(f"escalated/{epoch}", escalated)
+        if escalated:
+            # Second SIGTERM inside the grace window: the platform says
+            # NOW. A save cut off mid-write is worse than resuming from
+            # the last intact checkpoint, which is what --resume does.
+            flightrec.record("train", f"escalated preemption epoch={epoch}")
+            log0(f"Second preemption signal at epoch {epoch} (step "
+                 f"{self.state.global_step}); abandoning checkpoint work "
+                 "and exiting immediately")
+            self.ckpt.abandon()
+            return True
+        # Preempted mid-epoch: persist the advanced state, marked partial
+        # so --resume re-runs this epoch's remaining data.
+        flightrec.record("train", f"preemption epoch={epoch}")
+        log0(f"Preemption requested at epoch {epoch} (step "
+             f"{self.state.global_step}); saving state and exiting")
+        self.ckpt.save_state(self._payload(epoch, completed=False),
+                             timeout=self.guard.remaining())
+        # The eval pass was skipped: the record says so.
+        metrics_log.log({
+            **identity,
+            "epoch": epoch, "partial": True,
+            "step": self.state.global_step,
+            "seconds": timer.elapsed(),
+            "train_loss": train_m["loss"],
+            "train_accuracy": train_m["accuracy"],
+        })
+        self.obs.end_epoch(epoch=epoch, step=self.state.global_step,
+                           units=train_m["count"], train_seconds=train_secs,
+                           partial=True)
+        halted = self._watchdog_halt is not None
+        if self.ranks > 1:
+            # Every rank learns of the halt, so every rank exits 2.
+            halted = agree_any(f"halted/{epoch}", halted)
+        if halted:
+            # The stop was the watchdog's agreed halt: the state is
+            # saved, and the exit must say unhealthy, so an orchestrator
+            # that requeues preemptions does not restart a sick run.
+            raise RunUnhealthyError(
+                f"run unhealthy (agreed multi-process halt): "
+                f"{self._watchdog_halt or 'a fatal alert on another rank'}"
+                f"; partial state saved at epoch {epoch}")
+        return True
+
     def close(self) -> None:
         """Stop a still-open profile window (writing its trace), drain
-        the exporters and close the flight recorder: the end of a run,
-        or its error path."""
-        self.obs.close(self._sync)
+        the exporters, close the flight recorder and stop the native
+        prefetcher: the end of a run, or its error path."""
+        try:
+            self.obs.close(self._sync)
+        finally:
+            if self._prefetcher is not None:
+                self._prefetcher.close()
+                self._prefetcher = None

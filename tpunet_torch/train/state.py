@@ -8,13 +8,21 @@ step sets each update's learning rate from it. The update at index
 ``10 * steps_per_epoch`` is the first at the decayed rate, as with
 torch's per-epoch ``StepLR``. ``clip_norm`` > 0 puts optax's
 ``clip_by_global_norm`` before the optimizer, as tpunet chains it.
+
+Parameter EMA (``ema_decay`` > 0, tpunet's ``ema_params`` and
+``ema_batch_stats``): copies of the parameters and of the floating
+buffers (BN running statistics), made at the start, are moved after
+every update by ``e = d*e + (1-d)*p`` over the post-update values (one
+``torch._foreach_lerp_``); :meth:`TrainState.ema_weights` puts them in
+the model for eval and the best checkpoint.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, Iterator, List
 
 import torch
 
@@ -102,18 +110,56 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the schedule, the global-norm clip (0 =
-    off), and the number of updates taken (``global_step``, the index of
-    the next update)."""
+    off), the number of updates taken (``global_step``, the index of
+    the next update) and the EMA decay (0 = off)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     global_step: int = 0
     clip_norm: float = 0.0
+    ema_decay: float = 0.0
+
+    def __post_init__(self):
+        if not 0.0 <= self.ema_decay < 1.0:
+            # decay >= 1 freezes the EMA at the init, and eval and the
+            # best checkpoint would measure that forever.
+            raise ValueError(f"ema_decay must be in [0, 1), got "
+                             f"{self.ema_decay}")
+        self.reset_ema()
+
+    def ema_sources(self) -> List[torch.Tensor]:
+        """What the EMA follows: every parameter, then every floating
+        buffer (the BN running statistics), in module order."""
+        return list(self.model.parameters()) + [
+            b for b in self.model.buffers() if b.is_floating_point()]
+
+    def reset_ema(self) -> None:
+        """The EMA copies := the model's current values (None when off)."""
+        self.ema = ([t.detach().clone() for t in self.ema_sources()]
+                    if self.ema_decay > 0 else None)
+
+    @contextlib.contextmanager
+    def ema_weights(self) -> Iterator[None]:
+        """Inside, the model holds the EMA copies (parameters and BN
+        statistics as a pair, as tpunet evaluates them); the live values
+        return on exit. Nothing changes when EMA is off."""
+        if self.ema is None:
+            yield
+            return
+        src = self.ema_sources()
+        live = [t.data for t in src]
+        for t, e in zip(src, self.ema):
+            t.data = e
+        try:
+            yield
+        finally:
+            for t, d in zip(src, live):
+                t.data = d
 
     def apply_gradients(self) -> None:
         """One optimizer update at the schedule's rate for this step,
-        after the clip."""
+        after the clip; then the EMA step."""
         if self.clip_norm > 0:
             clip_by_global_norm([p.grad for p in self.model.parameters()
                                  if p.grad is not None], self.clip_norm)
@@ -122,3 +168,8 @@ class TrainState:
             group["lr"] = lr
         self.optimizer.step()
         self.global_step += 1
+        if self.ema is not None:
+            with torch.no_grad():
+                torch._foreach_lerp_(
+                    self.ema, [t.detach() for t in self.ema_sources()],
+                    1.0 - self.ema_decay)

@@ -16,6 +16,14 @@ microbatch i; after the last micro every gradient is summed over the
 ranks in one flat buffer and divided by their number, then clipped
 (``clip_norm``), then applied.
 
+With mixup or CutMix (``DataConfig.mixup_alpha``/``cutmix_alpha``)
+each microbatch is mixed after the augment (``data.augment.make_mix``,
+its draws from the same generator, before the dropout mask's) and its
+loss is ``lam * CE(y) + (1 - lam) * CE(y_b)`` with the same label
+smoothing; accuracy counts against the primary label ``y``. With both
+alphas at 0 nothing more is drawn, so the generator stream is that of a
+run without them.
+
 The LM's steps (:func:`make_lm_train_step`, :func:`make_lm_eval_step`)
 predict the input shifted by one and count next-token predictions. With
 packed documents the labels are [B, T] segment ids: the core masks
@@ -29,13 +37,14 @@ averaged, and each rank scales its sum by the world size, which
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from tpunet_torch.config import DataConfig, OptimConfig
-from tpunet_torch.data.augment import make_eval_preprocess, make_train_augment
+from tpunet_torch.data.augment import (make_eval_preprocess, make_mix,
+                                      make_train_augment)
 from tpunet_torch.parallel.dist import all_reduce, is_initialized, process_count
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState
@@ -65,24 +74,31 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
 
 
 def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-              generator: torch.Generator, optim_cfg: OptimConfig
-              ) -> M.Metrics:
+              generator: torch.Generator, optim_cfg: OptimConfig,
+              mix: Optional[Callable] = None) -> M.Metrics:
     """Forward/backward over ``optim_cfg.grad_accum`` strided microbatches
     of the float images [B,S,S,3] (this rank's rows), the gradients
     reduced over the ranks, one update; returns this rank's metric sums.
-    The microbatches draw their dropout masks from ``generator`` in
-    turn."""
+    The microbatches draw their mixing (``mix``, from ``make_mix``) and
+    dropout masks from ``generator`` in turn."""
     accum, n = optim_cfg.grad_accum, labels.shape[0]
     if n % accum:
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
+    smoothing = optim_cfg.label_smoothing
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum = correct = 0
     for i in range(accum):
-        y = labels[i::accum]
-        logits = state.model(images[i::accum].permute(0, 3, 1, 2),
-                             train=True, generator=generator)
-        loss = _ce_loss(logits, y, optim_cfg.label_smoothing).mean()
+        x, y = images[i::accum], labels[i::accum]
+        if mix is not None:
+            x, y_b, lam = mix(generator, x, y)
+        logits = state.model(x.permute(0, 3, 1, 2), train=True,
+                             generator=generator)
+        ce = _ce_loss(logits, y, smoothing)
+        if mix is not None:
+            lam = torch.tensor(lam, dtype=torch.float32, device=ce.device)
+            ce = lam * ce + (1.0 - lam) * _ce_loss(logits, y_b, smoothing)
+        loss = ce.mean()
         (loss / accum).backward()
         loss_sum = loss_sum + loss.detach() * y.shape[0]
         correct = correct + (logits.detach().argmax(-1) == y).sum()
@@ -96,12 +112,13 @@ def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig) -> Callable:
     generator) -> metrics; the images and labels (this rank's rows of
     the global batch) on the model's device."""
     augment = make_train_augment(data_cfg)
+    mix = make_mix(data_cfg)
 
     def train_step(state: TrainState, images_u8: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator
                    ) -> M.Metrics:
         return fit_batch(state, augment(generator, images_u8), labels,
-                         generator, optim_cfg)
+                         generator, optim_cfg, mix)
 
     return train_step
 
