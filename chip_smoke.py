@@ -203,15 +203,38 @@ Phases, each of which must pass:
      LM at phase 12's widths: one f32 step with ``--remat`` and without
      to the bit (dropout 0.2), 24 flash forward launches a step with
      remat and 12 without, bf16 peak memory and step p50 each way;
- 17. print the kernel list and the card's name and power limit.
+ 17. sharded_trainer: ``python -m tpunet_torch.train --preset
+     distributed`` with the mesh flags (ROADMAP Queue A item 8, first
+     part), 2 ranks sharing the card over gloo, each rank a subprocess
+     of this script (``--dp-worker shard``) running the CLI in its
+     process, float32, dropout 0, 3 steps a run: the LM of phase 12
+     with ``--mesh-model 2`` (tensor parallelism, 6 heads a rank, the
+     vocab-parallel CE) and with ``--fsdp`` (data 2), ViT-B/16 with
+     ``--mesh-model 2``, each against the same run at one rank in this
+     process (train loss within 1e-4, test accuracy within 1e-6,
+     parameters within rtol 2e-4 / atol 2e-5 but the qkv key bias);
+     MobileNetV2 1.0 at 224 px, 64 images a rank, with ``--fsdp`` and
+     with ``--zero1`` against the same 2-rank run without (loss within
+     1e-4 relative, accuracy within 1e-6, parameters at the same bounds
+     but the leaves whose gradient in that run is 0 to rounding, which
+     must be the projection BNs' betas); in every run the replicated
+     leaves equal to the bit on both ranks and their gradients within
+     1e-4 of the 'model' group's mean before it is taken, 12 + 12 + 12
+     flash launches or 17 + 17 + 33 + 33 a rank-step; per-rank peak
+     memory, the train state's resident bytes, step time and the host
+     ms inside each collective as readings; the LM at a 32,768-token vocabulary under
+     TP 2, one step with the vocab-parallel CE and one with the full
+     logits (losses within 1e-5, the peaks as readings);
+ 18. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
 
 ``python3 chip_smoke.py --four-cards`` (a host of four cards) times
-mixup's partner fetch over NCCL, one rank a card, and runs
+mixup's partner fetch over NCCL, one rank a card, runs
 ``scripts/torch_dp_check.py``'s 4-ranks-against-1 check with the
-item-2b options.
+item-2b options, and the sharded_trainer phase's LM and ViT-B/16 at
+data 2 x model 2 with ``--fsdp`` over NCCL against one card.
 """
 
 from __future__ import annotations
@@ -1154,6 +1177,17 @@ def grad_errors(torch, got, want) -> dict:
     return {k: ((got[k] - want[k]).norm() / scale(k)).item() for k in want}
 
 
+def zero_running_var(torch, model):
+    """``model`` with every BN running variance at 0, so that one update
+    leaves 0.1 x the batch variance at float32's relative precision
+    (stat_errors' ``var0``); train-mode outputs do not read it."""
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k.endswith("running_var"):
+                v.zero_()
+    return model
+
+
 def stat_errors(torch, got, want, var0: float = 1.0) -> dict:
     """Per BN, the batch statistics behind the running ones after one
     update from (mean 0, var ``var0``): |d mean| / std and |d var| / var,
@@ -1235,8 +1269,8 @@ def phase_train(torch):
     def make(dtype, kernels=True):
         cfg = ModelConfig(use_pallas_depthwise=kernels, fused_ir=kernels,
                           dtype=dtype)              # width 1.0
-        return create_model(cfg, device="cuda",
-                            generator=torch.Generator().manual_seed(42))
+        return zero_running_var(torch, create_model(
+            cfg, device="cuda", generator=torch.Generator().manual_seed(42)))
 
     def both_paths(model):
         """(kernels, plain versions): loss, gradients, running statistics
@@ -1266,8 +1300,8 @@ def phase_train(torch):
     del lib_model
     g_err = grad_errors(torch, k_grads, f32_grads)
     g_lib = grad_errors(torch, l_grads, f32_grads)
-    s_err = stat_errors(torch, k_stats, p_stats)
-    s_lib = stat_errors(torch, l_stats, p_stats)
+    s_err = stat_errors(torch, k_stats, p_stats, var0=0.0)
+    s_lib = stat_errors(torch, l_stats, p_stats, var0=0.0)
     worst = sorted(g_err, key=g_err.get, reverse=True)
     worst_s = max(s_err, key=s_err.get)
     f32 = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
@@ -1306,7 +1340,7 @@ def phase_train(torch):
     lib_model = make("bfloat16", kernels=False)
     l_loss, l_grads, l_stats = grad_step(torch, lib_model, augment, xb, yb, 7)
     del lib_model
-    s_err = stat_errors(torch, k_stats, p_stats)
+    s_err = stat_errors(torch, k_stats, p_stats, var0=0.0)
     worst_s = max(s_err, key=s_err.get)
     # In bf16 the gradients of this randomly initialised net are mostly
     # rounding noise through the BN backward: the plain versions' and the
@@ -1326,7 +1360,7 @@ def phase_train(torch):
                   grad_errors(torch, k_grads, p_grads).values()),
               bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
               library_bn_stat_err_max=max(
-                  stat_errors(torch, l_stats, p_stats).values()))
+                  stat_errors(torch, l_stats, p_stats, var0=0.0).values()))
     emit("train_grad_check_bf16", **bf)
     # bf16 tolerances: loss within 2^-7 relative (a few bf16 ulps); the
     # BN-statistic error against the plain versions at most twice the
@@ -1830,32 +1864,35 @@ DP_EPOCH_RTOL = 1e-3
 DP_EPOCH_ACC_TOL = 0.01
 
 
-def run_workers(cmds, env=None) -> list:
+def run_workers(cmds, env=None, log_dir=None, timeout=None) -> list:
     """Run the commands together, stdout and stderr to files under
-    DP_DIR; each must exit 0 within DP_TIMEOUT_S, and all are killed on
-    any failure. Returns their stdout. A worker finds its rendezvous in
-    its arguments or ``env``, never in an inherited MASTER_ADDR."""
+    ``log_dir`` (DP_DIR); each must exit 0 within ``timeout``
+    (DP_TIMEOUT_S seconds), and all are killed on any failure. Returns their
+    stdout. A worker finds its rendezvous in its arguments or ``env``,
+    never in an inherited MASTER_ADDR."""
     import os
+    log_dir = DP_DIR if log_dir is None else log_dir
+    timeout = DP_TIMEOUT_S if timeout is None else timeout
     base = {k: v for k, v in os.environ.items()
             if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
                          "LOCAL_RANK")}
     procs = []
     try:
         for name, cmd in cmds:
-            out = open(DP_DIR / f"{name}.out", "w")
-            err = open(DP_DIR / f"{name}.err", "w")
+            out = open(log_dir / f"{name}.out", "w")
+            err = open(log_dir / f"{name}.err", "w")
             procs.append((name, out, err, subprocess.Popen(
                 cmd, stdout=out, stderr=err, cwd=ROOT,
                 env={**base, **(env or {}).get(name, {})})))
         for name, out, err, p in procs:
             try:
-                p.wait(timeout=DP_TIMEOUT_S)
+                p.wait(timeout=timeout)
             except subprocess.TimeoutExpired:
                 raise PhaseError(f"{name} did not finish in "
-                                 f"{DP_TIMEOUT_S} s") from None
+                                 f"{timeout} s") from None
             check(p.returncode == 0, f"{name} exited {p.returncode}: "
-                  f"{(DP_DIR / f'{name}.err').read_text()[-3000:]}")
-        return [(DP_DIR / f"{name}.out").read_text() for name, _ in cmds]
+                  f"{(log_dir / f'{name}.err').read_text()[-3000:]}")
+        return [(log_dir / f"{name}.out").read_text() for name, _ in cmds]
     finally:
         for name, out, err, p in procs:
             if p.poll() is None:
@@ -1895,8 +1932,9 @@ def dp_worker(role: str, world: int, rank: int) -> int:
     from tpunet_torch.models import create_model
     from tpunet_torch.parallel import dist
     from tpunet_torch.train import metrics as M
-    from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
-    from tpunet_torch.train.steps import make_train_step, reduce_gradients
+    from tpunet_torch.train.state import (TrainState, lr_schedule,
+                                          make_optimizer, reduce_gradients)
+    from tpunet_torch.train.steps import make_train_step
     from tpunet_torch.utils.prng import step_generator
 
     if role in ("step", "stop"):
@@ -1934,7 +1972,7 @@ def dp_worker(role: str, world: int, rank: int) -> int:
         out.update(backend=dist.backend_name(), world=dist.process_count())
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        model = make("float32")
+        model = zero_running_var(torch, make("float32"))   # phase_train's
         gen = step_generator(7, 0)
         x = make_train_augment(data)(gen, xb).permute(0, 3, 1, 2)
         loss = F.cross_entropy(model(x, train=True, generator=gen), yb)
@@ -2131,9 +2169,9 @@ def phase_dp_step(torch, ref) -> None:
     g_err = grad_errors(torch, got["f32_grads"], want)
     g_lib = grad_errors(torch, lib, want)
     s_want = {k: v.float().cpu() for k, v in ref["stats"].items()}
-    s_err = stat_errors(torch, got["f32_stats"], s_want)
+    s_err = stat_errors(torch, got["f32_stats"], s_want, var0=0.0)
     s_lib = stat_errors(torch, {k: v.float().cpu() for k, v in
-                                ref["lib_stats"].items()}, s_want)
+                                ref["lib_stats"].items()}, s_want, var0=0.0)
     res = dict(ranks=2, backend="gloo", rows_per_rank=DP_STEP_BATCH,
                grad_err_median=statistics.median(g_err.values()),
                grad_err_max=max(g_err.values()),
@@ -5101,6 +5139,433 @@ def phase_trainer_item2b(torch) -> dict:
     return res
 
 
+SHARD_DIR = ROOT / "build" / "tpunet_torch" / "smoke_shard"
+SHARD_RUN_STEPS = 3          # train steps of each sharded run
+SHARD_F32 = ("--dtype", "float32", "--dropout-rate", "0", "--epochs", "1",
+             "--no-obs", "--seed", str(SEED + 15))
+SHARD_LM = ("--model", "lm", "--dataset", "synthetic_lm", "--vit-hidden",
+            str(LM_HIDDEN), "--vit-depth", str(LM_LAYERS), "--vit-heads",
+            str(LM_HEADS), "--seq-len", str(LM_T), "--max-seq-len", str(LM_T),
+            "--vocab-size", str(LM_VOCAB),
+            "--synthetic-size", str(LM_BATCH * SHARD_RUN_STEPS))
+SHARD_VIT = ("--model", "vit_base", "--dataset", "synthetic",
+             "--synthetic-size", str(TRAIN_BATCH * SHARD_RUN_STEPS))
+SHARD_MNV2 = ("--dataset", "synthetic", "--pallas-depthwise",
+              "--synthetic-size", str(TRAIN_BATCH * SHARD_RUN_STEPS),
+              "--batch-size", str(TRAIN_BATCH // 2))
+# The 2-rank runs (per-rank batch: the LM's 16 rows and ViT-B/16's 128
+# images are one rank's under TP, two ranks' under FSDP) and their
+# world-1 references, run in this process.
+SHARD_RUNS = {
+    "lm_tp": SHARD_LM + ("--mesh-model", "2", "--batch-size", str(LM_BATCH)),
+    "lm_fsdp": SHARD_LM + ("--fsdp", "--batch-size", str(LM_BATCH // 2)),
+    "vit_tp": SHARD_VIT + ("--mesh-model", "2", "--batch-size",
+                           str(TRAIN_BATCH)),
+    "mnv2_dp": SHARD_MNV2,
+    "mnv2_fsdp": SHARD_MNV2 + ("--fsdp",),
+    "mnv2_zero1": SHARD_MNV2 + ("--zero1",),
+}
+SHARD_REFS = {"lm": SHARD_LM + ("--batch-size", str(LM_BATCH)),
+              "vit": SHARD_VIT + ("--batch-size", str(TRAIN_BATCH))}
+SHARD_VOCAB = 32768          # tests/test_vocab_ce.py:84's vocabulary
+# tests/test_tp.py:84-86 and tests/test_fsdp.py:150-156.
+SHARD_LOSS_TOL, SHARD_PARAM_RTOL, SHARD_PARAM_ATOL = 1e-4, 2e-4, 2e-5
+# A replicated leaf's gradient on a 'model' rank against the group's
+# mean, relative to its largest entry: the ranks compute it alike but
+# for the order of CUDA's atomic accumulations; a backward that misses
+# its all-reduce over 'model' gives a gap of order 1.
+SHARD_GAP_TOL = 1e-4
+# A gradient is 0 to rounding when the root of its largest Adam second
+# moment is under this fraction of the model's largest
+# (tests/test_torch_fsdp.py's rule).
+SHARD_ZERO_GRAD_RATIO = 7e-6
+SHARD_TIMEOUT_S = 600
+
+
+def shard_recorded(torch, flags, world) -> dict:
+    """``python -m tpunet_torch.train`` (the CLI in this process) with a
+    record of each train step (wall ms after a sync, the kernels'
+    launches, the collectives' calls and host seconds, the peak memory
+    over the steps), and at the run's end the train state's resident
+    bytes (parameters or FSDP's pieces, ZeRO-1's master pieces, the
+    optimizer state), each replicated leaf's largest gradient gap to
+    the 'model' group's mean before it is averaged
+    (``Sharding.replicated_gaps``), and whether the replicated leaves
+    are equal to the bit on every rank; the epoch record and the whole
+    state rank 0 saved."""
+    from tpunet_torch.parallel import dist
+    from tpunet_torch.train import __main__ as cli
+    from tpunet_torch.train import loop
+
+    steps, seen = [], {}
+    real_step, real_close = loop.Trainer._step, loop.Trainer.close
+
+    def step(self, bx, by, gen):
+        torch.cuda.synchronize()
+        if not steps:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        dist.reset_collective_counts()
+        t0 = time.perf_counter()
+        m = real_step(self, bx, by, gen)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          launches=launch_counts(),
+                          collectives=dist.collective_counts(),
+                          peak_bytes=torch.cuda.max_memory_allocated()))
+        return m
+
+    def close(self):
+        st = self.state
+        sh = st.sharding
+        tensors = list(st.model.parameters()) + [
+            t for s in st.optimizer.state.values() for t in s.values()
+            if torch.is_tensor(t) and t.dim() > 0]
+        if sh is not None:
+            tensors += [m for m, s, f in zip(sh.masters, sh.split, sh.fsdp)
+                        if s is not None]
+        seen["state_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in tensors)
+        if sh is not None:
+            seen["replicated_gaps"] = sh.replicated_gaps()
+        if world > 1:
+            if sh is not None:
+                sh.gather()
+            rep = torch.cat([p.detach().reshape(-1) for n, p in
+                             st.model.named_parameters()
+                             if sh is None or sh.model_spec(n) is None])
+            got = dist.all_gather(rep)
+            seen["replicated_equal"] = all(torch.equal(got[0], got[r])
+                                           for r in range(1, world))
+            seen["replicated_numel"] = rep.numel()
+            if sh is not None:
+                sh.release()
+        real_close(self)
+
+    loop.Trainer._step, loop.Trainer.close = step, close
+    try:
+        trainer = cli.run(list(flags))
+    finally:
+        loop.Trainer._step, loop.Trainer.close = real_step, real_close
+    return dict(steps=steps, history=trainer.history, **seen)
+
+
+def shard_vocab_memory(torch) -> dict:
+    """The LM at full width and a 32,768-token vocabulary, cut over a
+    'model' axis of 2: one warm-up step, then one step with the
+    vocab-parallel CE and one with the full logits, at learning rate 0:
+    each step's peak memory above what was allocated before it, and its
+    loss."""
+    from tpunet_torch.config import MeshConfig, ModelConfig, OptimConfig
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.convert import shard_model
+    from tpunet_torch.parallel.mesh import make_mesh, set_mesh
+    from tpunet_torch.parallel.tp import layout
+    from tpunet_torch.train.state import Sharding, TrainState, make_optimizer
+    from tpunet_torch.train.steps import fit_lm_batch
+
+    mesh = make_mesh(MeshConfig(model=2))
+    cfg = ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=LM_LAYERS,
+                      vit_heads=LM_HEADS, vocab_size=SHARD_VOCAB,
+                      max_seq_len=LM_T, dtype="float32", dropout_rate=0.0)
+    model = create_model(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED + 16))
+    table = layout({k: tuple(p.shape) for k, p in model.named_parameters()},
+                   cfg, mesh.shape)
+    shard_model(model, table, cfg)
+    sh = Sharding(model, table)
+    optim = OptimConfig(learning_rate=0.0)
+    state = TrainState(model, make_optimizer(sh.masters, optim),
+                       lambda t: 0.0, sharding=sh)
+    tokens = torch.randint(0, SHARD_VOCAB, (LM_BATCH, LM_T),
+                           generator=torch.Generator().manual_seed(SEED + 17)
+                           ).cuda()
+    out = {}
+    for name, sharded in (("warmup", False), ("sharded", True),
+                          ("full", False)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = fit_lm_batch(state, tokens, tokens, torch.Generator("cuda"),
+                         optim, sharded_ce=sharded)
+        torch.cuda.synchronize()
+        out[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                         peak_above_base_bytes=(torch.cuda.max_memory_allocated()
+                                                - base),
+                         loss=float(m["loss_sum"]) / float(m["count"]))
+    set_mesh(None)
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_worker(world: int, rank: int, backend: str) -> int:
+    """One rank of the sharded_trainer phase (``--dp-worker shard``): the
+    runs of SHARD_DIR/runs.json in turn, each in a new process group of
+    ``world`` ranks over ``backend`` (gloo: ranks sharing the card; NCCL:
+    a card a rank), then, on gloo, the vocab-32,768 steps. Writes
+    SHARD_DIR/shard_rank<rank>.pt."""
+    import torch
+
+    from tpunet_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms for the parity runs: its others
+    # (the stem convolution's weight gradient) sum in an order that varies
+    # between runs, and Adam's lr * g / (|g| + eps) turns that noise in
+    # gradients near 0 into steps of the learning rate (1.5e-4 beyond the
+    # bounds in MobileNetV2's expansion weights on an H100).
+    torch.backends.cudnn.deterministic = True
+    if backend == "nccl":
+        torch.cuda.set_device(dist.local_device())
+    spec = json.loads((SHARD_DIR / "runs.json").read_text())
+    out = {}
+    for name, flags in spec["runs"].items():
+        dist.initialize_distributed(
+            init_method=(SHARD_DIR / f"store_{name}").as_uri(),
+            world_size=world, rank=rank, backend=backend)
+        out[name] = shard_recorded(torch, flags + [
+            "--preset", "distributed", "--device", "cuda",
+            "--checkpoint-dir", str(SHARD_DIR / f"ck_{name}")], world)
+        torch.cuda.empty_cache()
+    if spec.get("vocab"):
+        dist.initialize_distributed(
+            init_method=(SHARD_DIR / "store_vocab").as_uri(),
+            world_size=world, rank=rank, backend=backend)
+        out["vocab"] = shard_vocab_memory(torch)
+        dist.destroy()
+    torch.save(out, SHARD_DIR / f"shard_rank{rank}.pt")
+    return 0
+
+
+def shard_zero_gradient(torch, saved) -> dict:
+    """From a saved whole state (model and Adam moments): the parameters
+    whose gradient is 0 to rounding, by the rule on the root of each
+    leaf's largest second moment against the model's largest, with
+    that ratio for the largest such leaf and the smallest other; and
+    the beta of each MobileNetV2 block's projection BN, which the rule
+    should pick: a linear bottleneck whose output reaches the loss only
+    through 1x1 convolutions into train-mode BN, which removes a
+    per-channel shift."""
+    names = [k for k, v in saved["model"].items() if v.is_floating_point()
+             and not k.endswith(("running_mean", "running_var"))]
+    state = saved["optimizer"]["state"]
+    check(len(state) == len(names), f"{len(state)} moments for "
+                                     f"{len(names)} parameters")
+    rms = {names[int(i)]: float(st["exp_avg_sq"].max().sqrt())
+           for i, st in state.items()}
+    top = max(rms.values())
+    zero = sorted(k for k, v in rms.items()
+                  if v < SHARD_ZERO_GRAD_RATIO * top)
+    last = {}
+    for k in names:
+        m = re.match(r"features\.(\d+)\.conv\.(\d+)\.", k)
+        if m:
+            last[m[1]] = max(last.get(m[1], 0), int(m[2]))
+    return dict(leaves=zero, projection_bn_biases=sorted(
+        f"features.{b}.conv.{j}.bias" for b, j in last.items()),
+        largest_ratio_left_out=max([rms[k] / top for k in zero],
+                                   default=None),
+        smallest_ratio_kept=min(v / top for k, v in rms.items()
+                                if k not in zero))
+
+
+def shard_params_close(torch, got, want, skip=()) -> dict:
+    """The largest |got - want| over the parameters beyond rtol/atol (0
+    when every element is within), and the largest relative error, with
+    the leaves ``skip`` and the key third of each qkv bias left out:
+    their exact gradient is 0, so Adam moves them by rounding noise
+    scaled to the learning rate."""
+    worst, worst_key, rel = 0.0, None, 0.0
+    for k, w in want.items():
+        if not w.is_floating_point() or k in skip or k.endswith(
+                ("running_mean", "running_var")):
+            continue
+        g = got[k].float()
+        w = w.float()
+        if k.endswith("attn.qkv.bias"):
+            g, w = g.view(3, -1)[[0, 2]], w.view(3, -1)[[0, 2]]
+        over = ((g - w).abs() - (SHARD_PARAM_ATOL + SHARD_PARAM_RTOL
+                                 * w.abs())).max().item()
+        rel = max(rel, ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+        if over > worst:
+            worst, worst_key = over, k
+    return dict(excess=worst, excess_key=worst_key, rel_l2_max=rel)
+
+
+def shard_summary(run) -> dict:
+    """A run's readings: step ms p50 (steps after the first), launches
+    and collectives a step, the peak and resident bytes."""
+    steps = run["steps"]
+    later = steps[1:] or steps
+    coll = {k: [statistics.median(s["collectives"][k][0] for s in later),
+                statistics.median(s["collectives"][k][1] * 1e3
+                                  for s in later)]
+            for k in steps[0]["collectives"]}
+    return dict(steps=len(steps),
+                step_ms_p50=statistics.median(s["ms"] for s in later),
+                step_ms=[s["ms"] for s in steps],
+                launches_per_step=later[-1]["launches"],
+                collectives_calls_and_host_ms_per_step=coll,
+                collective_host_ms_per_step=sum(v[1] for v in coll.values()),
+                peak_bytes=max(s["peak_bytes"] for s in steps),
+                state_bytes=run["state_bytes"],
+                train_loss=run["history"][0]["train_loss"],
+                test_accuracy=run["history"][0]["test_accuracy"])
+
+
+def phase_sharded_trainer(torch, backend="gloo", world=2,
+                          runs=None, vocab=True) -> dict:
+    """sharded_trainer: ``python -m tpunet_torch.train --preset
+    distributed`` with the mesh flags, ``world`` ranks over ``backend``
+    (on one card, 2 ranks sharing it over gloo), each run in float32 with
+    dropout 0 and cuDNN's deterministic algorithms for SHARD_RUN_STEPS
+    steps, against the same run at one
+    rank in this process (the LM and ViT-B/16) or at the same world
+    without the flag (MobileNetV2): the train loss within 1e-4 and the
+    test accuracy within 1e-6, the parameters within rtol 2e-4 / atol
+    2e-5 (but the qkv key bias, and MobileNetV2's leaves of gradient 0
+    to rounding, :func:`shard_zero_gradient`, which must be its
+    projection BNs' betas); the replicated leaves equal to the bit on
+    every rank, and each one's gradient within 1e-4 (relative to its
+    largest entry) of the 'model' group's mean before the ranks average
+    it; the
+    flash trio's launches a rank-step 12 each (6 heads a rank under TP),
+    kernels 1-4's 17, 17, 33, 33; per-rank peak memory, the train
+    state's resident bytes, step time and the host milliseconds inside
+    collectives as readings; the LM at a 32,768-token vocabulary, its
+    vocab-parallel CE's peak memory beside the full logits'."""
+    runs = SHARD_RUNS if runs is None else runs
+    fails = []
+
+    def gate(cond, msg):
+        # Every gate is read before the phase fails, so that the emitted
+        # line holds the whole run.
+        if not cond:
+            fails.append(msg)
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    (SHARD_DIR / "runs.json").write_text(json.dumps(
+        {"runs": {k: list(SHARD_F32) + list(v) for k, v in runs.items()},
+         "vocab": vocab}))
+    me = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    run_workers([(f"shard_rank{r}", [sys.executable, me, "--dp-worker",
+                                     "shard", str(world), str(r), backend])
+                 for r in range(world)],
+                env={f"shard_rank{r}": {"LOCAL_RANK": str(
+                    r if backend == "nccl" else 0)} for r in range(world)},
+                log_dir=SHARD_DIR, timeout=SHARD_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    outs = [torch.load(SHARD_DIR / f"shard_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True     # as in shard_worker
+    refs = {}
+    for name, flags in SHARD_REFS.items():
+        if not any(k.startswith(name) for k in runs):
+            continue
+        refs[name] = shard_recorded(torch, list(SHARD_F32) + list(flags) + [
+            "--preset", "single", "--device", "cuda", "--checkpoint-dir",
+            str(SHARD_DIR / f"ck_ref_{name}")], 1)
+        refs[name]["state"] = torch.load(
+            SHARD_DIR / f"ck_ref_{name}" / "state.pt")["model"]
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    res = {"card": card_line(), "world": world, "backend": backend,
+           "workers_s": workers_s}
+    want_flash = {"flash_attention_forward": LM_LAYERS,
+                  "flash_attention_dq": LM_LAYERS,
+                  "flash_attention_dkv": LM_LAYERS}
+    want_mnv2 = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
+                 "fused_ir_forward": 33, "fused_ir_backward": 33}
+    for name in runs:
+        family = name.split("_")[0]
+        ref = refs.get(family) if family != "mnv2" else outs[0]["mnv2_dp"]
+        state = torch.load(SHARD_DIR / f"ck_{name}" / "state.pt")["model"]
+        row = {f"rank{r}": shard_summary(o[name]) for r, o in enumerate(outs)}
+        row["replicated_equal"] = outs[0][name].get("replicated_equal")
+        row["replicated_numel"] = outs[0][name].get("replicated_numel")
+        gate(row["replicated_equal"] is not False,
+              f"{name}: the replicated leaves differ between the ranks")
+        for r, o in enumerate(outs):
+            gaps = o[name].get("replicated_gaps") or {}
+            # The leaves whose gradient differed between the ranks at all.
+            row[f"rank{r}"]["replicated_gaps"] = {
+                k: v for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])
+                if v > 0}
+            big = {k: v for k, v in gaps.items() if v > SHARD_GAP_TOL}
+            gate(not big, f"{name} rank {r}: replicated gradients apart "
+                          f"from the 'model' mean by {big}")
+        for r, o in enumerate(outs):
+            s = row[f"rank{r}"]
+            gate(s["steps"] == SHARD_RUN_STEPS,
+                  f"{name} rank {r}: {s['steps']} steps")
+            want = want_mnv2 if family == "mnv2" else want_flash
+            for k, n in want.items():
+                gate(all(st["launches"][k] == n for st in o[name]["steps"]),
+                      f"{name} rank {r}: {k} launches a step "
+                      f"{[st['launches'][k] for st in o[name]['steps']]}, "
+                      f"want {n}")
+        if ref is not None and ref is not outs[0][name]:
+            skip = ()
+            if family == "mnv2":
+                saved = torch.load(SHARD_DIR / "ck_mnv2_dp" / "state.pt")
+                ref_state = saved["model"]
+                zero = shard_zero_gradient(torch, saved)
+                row["zero_gradient"] = zero
+                gate(zero["leaves"] == zero["projection_bn_biases"],
+                      f"{name}: the leaves of gradient 0 to rounding "
+                      f"{zero['leaves']} are not the projection BN betas")
+                skip = set(zero["leaves"])
+            else:
+                ref_state = ref["state"]
+            rec, base = outs[0][name]["history"][0], ref["history"][0]
+            close = shard_params_close(torch, state, ref_state, skip)
+            row.update(
+                reference="world 1" if family != "mnv2" else "mnv2_dp",
+                train_loss_diff=rec["train_loss"] - base["train_loss"],
+                test_accuracy_diff=rec["test_accuracy"] - base["test_accuracy"],
+                params=close,
+                reference_state_bytes=ref["state_bytes"],
+                reference_peak_bytes=max(s["peak_bytes"] for s in
+                                         ref["steps"]),
+                reference_step_ms_p50=statistics.median(
+                    s["ms"] for s in (ref["steps"][1:] or ref["steps"])))
+            tol = SHARD_LOSS_TOL * (abs(base["train_loss"])
+                                    if family == "mnv2" else 1.0)
+            gate(abs(row["train_loss_diff"]) <= tol,
+                  f"{name}: train loss {rec['train_loss']} vs "
+                  f"{base['train_loss']}")
+            gate(abs(row["test_accuracy_diff"]) <= 1e-6,
+                  f"{name}: test accuracy {rec['test_accuracy']} vs "
+                  f"{base['test_accuracy']}")
+            gate(close["excess"] <= 0.0,
+                  f"{name}: {close['excess_key']} beyond rtol "
+                  f"{SHARD_PARAM_RTOL} / atol {SHARD_PARAM_ATOL} by "
+                  f"{close['excess']:.3g}")
+        res[name] = row
+    if vocab:
+        res["vocab_32768"] = {f"rank{r}": o["vocab"]
+                              for r, o in enumerate(outs)}
+        for r, o in enumerate(outs):
+            v = o["vocab"]
+            gate(abs(v["sharded"]["loss"] - v["full"]["loss"])
+                  <= 1e-5 * abs(v["full"]["loss"]),
+                  f"vocab {SHARD_VOCAB} rank {r}: sharded CE loss "
+                  f"{v['sharded']['loss']} vs full {v['full']['loss']}")
+    res["s"] = time.perf_counter() - t0
+    res["failed"] = fails
+    emit("sharded_trainer", **res)
+    check(not fails, "sharded_trainer: " + "; ".join(fails[:6]))
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5182,6 +5647,8 @@ def main() -> int:
         item5 = phase_serve_item5(torch, serve)
         router = phase_router(torch)
         item2b = phase_trainer_item2b(torch)
+        torch.cuda.empty_cache()
+        shard = phase_sharded_trainer(torch)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5221,6 +5688,9 @@ def main() -> int:
     # Their launches a step on the trainer_item2b path (pretrained,
     # mixup/CutMix, EMA, block remat, the native loader).
     for entry in kernels:
+        entry["sharded_trainer"] = {
+            run: shard[run]["rank0"]["launches_per_step"][entry["name"]]
+            for run in ("mnv2_fsdp", "mnv2_zero1")}
         entry["trainer_item2b"] = {
             "steps": item2b["mobilenet"]["steps"],
             "launches": item2b["mobilenet"]["launches"][entry["name"]],
@@ -5244,6 +5714,11 @@ def main() -> int:
         # in the backward, dQ and dK/dV once.
         entry["lm_remat_launches_per_step"] = (
             item2b["lm"]["flash_launches_per_step"]["remat"][name])
+        # A rank's launches a step under tensor parallelism (6 heads a
+        # rank) and under FSDP.
+        entry["sharded_trainer"] = {
+            run: shard[run]["rank0"]["launches_per_step"][name]
+            for run in ("lm_tp", "lm_fsdp", "vit_tp")}
         kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0,
          serve_depthwise_launches=serve_launches,
@@ -5259,7 +5734,8 @@ def main() -> int:
             if k.startswith(("generated", "direct_generated", "speedup"))},
          router_kill_to_end_s=router["failover"]["kill_to_end_s"],
          router_respawn_s=router["failover"]["respawn_s"],
-         router_s=router["s"], trainer_item2b_s=item2b["s"])
+         router_s=router["s"], trainer_item2b_s=item2b["s"],
+         sharded_trainer_s=shard["s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5274,8 +5750,9 @@ def four_cards() -> int:
     a ``--preset distributed`` run issues, at 32 rows a rank), then
     ``scripts/torch_dp_check.py``'s check (its ``epoch``, flags and
     tolerances, 4 ranks against 1 on the same global batch) with the
-    item-2b options. Prints the card line and one JSON object; exits 0
-    when both hold."""
+    item-2b options, then the LM and ViT-B/16 at data 2 x model 2 with
+    ``--fsdp`` over NCCL (phase_sharded_trainer) against one card.
+    Prints the card line and one JSON object; exits 0 when all hold."""
     import importlib.util
 
     import torch
@@ -5307,24 +5784,40 @@ def four_cards() -> int:
     out = ROOT / "build" / "tpunet_torch" / "dp_check_item2b"
     many = dpc.epoch(4, 32, out / "w4", flags)
     one = dpc.epoch(1, 128, out / "w1", flags)
+    # Data 2 x model 2 with FSDP over NCCL, a card a rank: the LM and
+    # ViT-B/16 against one card (sharded_trainer's checks and readings).
+    try:
+        shard = phase_sharded_trainer(torch, backend="nccl", world=4, runs={
+            "lm_tp_fsdp": SHARD_LM + ("--mesh-model", "2", "--fsdp",
+                                      "--batch-size", str(LM_BATCH // 2)),
+            "vit_tp_fsdp": SHARD_VIT + ("--mesh-model", "2", "--fsdp",
+                                        "--batch-size",
+                                        str(TRAIN_BATCH // 2))},
+            vocab=False)
+    except PhaseError as e:
+        shard = {"failed": str(e)}
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
               for k in ("train_loss", "test_loss"))
           and all(abs(diff[k]) <= dpc.ACC_TOL
-                  for k in ("train_accuracy", "test_accuracy")))
+                  for k in ("train_accuracy", "test_accuracy"))
+          and "failed" not in shard)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"mix_fetch_nccl": fetch, "options": ITEM2B_OPTIONS,
                       "world_4": many, "world_1": one, "diff": diff,
                       "tolerance": {"loss_rel": dpc.LOSS_RTOL,
                                     "accuracy": dpc.ACC_TOL},
-                      "ok": ok}), flush=True)
+                      "sharded_trainer_nccl": shard, "ok": ok}),
+          flush=True)
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--four-cards"]:
         sys.exit(four_cards())
+    if sys.argv[1:3] == ["--dp-worker", "shard"]:
+        sys.exit(shard_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

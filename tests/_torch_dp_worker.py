@@ -40,9 +40,9 @@ from tpunet_torch.config import ModelConfig, OptimConfig  # noqa: E402
 from tpunet_torch.models import create_model  # noqa: E402
 from tpunet_torch.parallel import dist  # noqa: E402
 from tpunet_torch.train import __main__ as cli  # noqa: E402
-from tpunet_torch.train.state import TrainState, make_optimizer  # noqa: E402
-from tpunet_torch.train.steps import (fit_batch, fit_lm_batch,  # noqa: E402
+from tpunet_torch.train.state import (TrainState, make_optimizer,  # noqa: E402
                                       reduce_gradients)
+from tpunet_torch.train.steps import fit_batch, fit_lm_batch  # noqa: E402
 
 WIDTH = 0.5
 VIT = dict(name="vit", vit_patch=4, vit_hidden=32, vit_depth=2, vit_heads=2,

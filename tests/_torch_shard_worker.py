@@ -1,0 +1,159 @@
+"""One rank of the port's sharded-state CPU tests (tests/test_torch_tp.py,
+tests/test_torch_fsdp.py, tests/test_torch_vocab_ce.py).
+
+    python tests/_torch_shard_worker.py DIR WORLD RANK CASE...
+
+joins a gloo process group of WORLD ranks through a file store in DIR and
+runs each CASE in turn on the inputs the test wrote into DIR, saving what
+it computed to ``DIR/<case>_rank<RANK>.pt``:
+
+- ``vocab``: ``vocab_parallel_ce`` over a 'model' group of WORLD ranks on
+  ``vocab.npz`` (h, emb, targets), with smoothing 0 and 0.1: the CE, the
+  hits and the gradients of the CE's mean with respect to h and emb;
+- ``vit_grad``: the tiny ViT of ``vit.pt`` cut for tensor parallelism
+  over WORLD ranks, one train-mode forward/backward (dropout 0) on
+  ``images.npz``: the logits, the loss and the whole gradients;
+- ``lm``/``vit``/``mnv2``/``mnv2_fsdp``/``mnv2_zero1``: ``python -m
+  tpunet_torch.train --preset distributed`` for one epoch with the flags
+  in ``flags.json`` under that name (the CLI in this process); the epoch
+  record, and at the end of the run this rank's parameters as its model
+  computes with them (FSDP's gathered), its optimizer state (the pieces
+  it keeps) with their splits, each replicated leaf's largest gradient
+  gap to the 'model' group's mean (``Sharding.replicated_gaps``), and
+  the sizes of what it keeps resident, taken before the run leaves its
+  group.
+
+Imports no JAX and nothing of the tpunet package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from tpunet_torch.config import MeshConfig, ModelConfig  # noqa: E402
+from tpunet_torch.models import create_model  # noqa: E402
+from tpunet_torch.models.convert import gather_tensor, shard_model  # noqa: E402
+from tpunet_torch.ops.vocab_ce import vocab_parallel_ce  # noqa: E402
+from tpunet_torch.parallel import dist  # noqa: E402
+from tpunet_torch.parallel.mesh import (axis_group, make_mesh,  # noqa: E402
+                                        set_mesh)
+from tpunet_torch.parallel.tp import compute_spec, layout  # noqa: E402
+from tpunet_torch.train import __main__ as cli  # noqa: E402
+from tpunet_torch.train import loop  # noqa: E402
+
+VIT = dict(name="vit", vit_patch=4, vit_hidden=64, vit_depth=2, vit_heads=4,
+           dtype="float32", dropout_rate=0.0)
+
+
+def case_vocab(d, world, rank):
+    make_mesh(MeshConfig(model=world))
+    inputs = np.load(os.path.join(d, "vocab.npz"))
+    out = {}
+    for s in (0.0, 0.1):
+        h = torch.from_numpy(inputs["h"]).requires_grad_()
+        emb = torch.from_numpy(inputs["emb"]).requires_grad_()
+        ce, hit = vocab_parallel_ce(h, emb, torch.from_numpy(inputs["tgt"]),
+                                    axis_group("model"), smoothing=s)
+        ce.mean().backward()
+        out[s] = dict(ce=ce.detach(), hit=hit, dh=h.grad, demb=emb.grad)
+    set_mesh(None)
+    return out
+
+
+def case_vit_grad(d, world, rank):
+    mesh = make_mesh(MeshConfig(model=world))
+    cfg = ModelConfig(**VIT)
+    model = create_model(cfg, device="cpu", image_size=32)
+    model.load_state_dict(torch.load(os.path.join(d, "vit.pt")))
+    table = layout({k: tuple(p.shape) for k, p in model.named_parameters()},
+                   cfg, mesh.shape)
+    assert shard_model(model, table, cfg)
+    inputs = np.load(os.path.join(d, "images.npz"))
+    x = torch.from_numpy(inputs["x"]).permute(0, 3, 1, 2)
+    logits = model(x, train=True, generator=torch.Generator())
+    loss = F.cross_entropy(logits, torch.from_numpy(inputs["y"]))
+    loss.backward()
+    grads = {k: gather_tensor(p.grad, compute_spec(table[k]))
+             for k, p in model.named_parameters()}
+    set_mesh(None)
+    return dict(logits=logits.detach(), loss=loss.item(), grads=grads)
+
+
+def case_cli(d, world, rank, name):
+    flags = json.load(open(os.path.join(d, "flags.json")))[name]
+    seen = {}
+    real_close = loop.Trainer.close
+
+    def close(self):
+        # Still inside the group: gather FSDP's parameters to read them
+        # as the model computes with them (every rank calls this).
+        sh = self.state.sharding
+        if sh is not None:
+            sh.gather()
+        seen["params"] = {k: v.detach().clone() for k, v in
+                          self.state.model.state_dict().items()}
+        opt = self.state.optimizer.state_dict()["state"]
+        names = [n for n, _ in self.state.model.named_parameters()]
+        seen["moments"] = {names[i]: {k: v.clone() for k, v in st.items()}
+                           for i, st in opt.items()}
+        if sh is not None:
+            # As plain tuples (dim, axis, interleave): torch.load's
+            # weights_only unpickler takes no other class.
+            seen["moment_specs"] = {
+                n: None if sh.moment_spec(i) is None
+                else tuple(sh.moment_spec(i)) for i, n in enumerate(sh.names)}
+            seen["replicated_gaps"] = sh.replicated_gaps()
+            sh.release()
+            seen["resident"] = dict(
+                params=sum(p.numel() for p in self.state.model.parameters()),
+                masters=sum(m.numel() for m, f in zip(sh.masters, sh.fsdp)
+                            if f),
+                moments=sum(t.numel() for st in
+                            self.state.optimizer.state.values()
+                            for t in st.values() if t.dim() > 0),
+                fsdp=[n for n, f in zip(sh.names, sh.fsdp) if f],
+                data_split=[n for n, s in zip(sh.names, sh.split)
+                            if s is not None])
+        real_close(self)
+
+    loop.Trainer.close = close
+    try:
+        trainer = cli.run(flags + ["--checkpoint-dir",
+                                   os.path.join(d, f"ck_{name}")])
+    finally:
+        loop.Trainer.close = real_close
+    dist.initialize_distributed(
+        init_method="file://" + os.path.join(d, f"store_after_{name}"),
+        world_size=world, rank=rank, device="cpu")
+    return dict(history=trainer.history, **seen)
+
+
+def main() -> int:
+    d, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    dist.initialize_distributed(
+        init_method="file://" + os.path.join(d, f"store_w{world}"),
+        world_size=world, rank=rank, device="cpu")
+    assert dist.backend_name() == "gloo"
+    for case in sys.argv[4:]:
+        if case == "vocab":
+            out = case_vocab(d, world, rank)
+        elif case == "vit_grad":
+            out = case_vit_grad(d, world, rank)
+        else:
+            out = case_cli(d, world, rank, case)
+        torch.save(out, os.path.join(d, f"{case}_rank{rank}.pt"))
+    dist.destroy()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

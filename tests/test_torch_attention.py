@@ -15,6 +15,7 @@ import torch
 
 from tpunet.ops import attention as jatt
 from tpunet_torch.ops import attention as att
+import _torch_threads  # noqa: E402,F401
 
 # (b, tq, tk, h, d, causal, segments)
 CASES = [(2, 24, 24, 2, 8, False, False), (2, 24, 24, 2, 8, True, False),

@@ -23,6 +23,7 @@ from tpunet.config import DataConfig as JaxDataConfig
 from tpunet.data import augment as jaug
 from tpunet_torch.config import DataConfig
 from tpunet_torch.data import augment as paug
+import _torch_threads  # noqa: E402,F401
 
 
 def _jax_params(key, n, cfg):

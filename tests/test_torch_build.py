@@ -6,6 +6,7 @@ and a header is never built on its own."""
 import shutil
 
 from tpunet_torch.ops import _build
+import _torch_threads  # noqa: E402,F401
 
 
 def _copy_csrc(tmp_path, monkeypatch):

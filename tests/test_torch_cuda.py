@@ -19,6 +19,7 @@ from tpunet_torch.models import create_model
 from tpunet_torch.ops import depthwise_conv3x3, depthwise_conv3x3_reference
 from tpunet_torch.ops import depthwise as dwmod
 from tpunet_torch.ops import fused_ir
+import _torch_threads  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -947,3 +948,59 @@ def test_serve_spec_greedy_equals_spec_off(cuda, wm):
         == snap["serve_spec_draft_tokens_total"] > 0
     cached = eng._prefix.pages_cached if eng._prefix else 0
     assert len(eng._free_pages) + cached == eng.kv_pages_usable
+
+
+def test_sharded_lm_step_at_world_one(cuda):
+    """One step of the sharded-state path on the card at world 1 over
+    NCCL: the mesh with ``fsdp``, its (empty) layout's Sharding, and the
+    vocab-parallel CE over a 'model' group of one, against the plain
+    step on the same weights (float32, learning rate 0): the same loss
+    to 1e-5 relative, every gradient before the update within 1e-5 of
+    the largest, and 2 + 2 + 2 flash launches."""
+    from tpunet_torch.config import MeshConfig, OptimConfig
+    from tpunet_torch.ops import flash
+    from tpunet_torch.parallel import dist
+    from tpunet_torch.parallel.mesh import make_mesh, set_mesh
+    from tpunet_torch.parallel.tp import layout
+    from tpunet_torch.train.state import Sharding, TrainState, make_optimizer
+    from tpunet_torch.train.steps import fit_lm_batch
+    cfg = ModelConfig(name="lm", vit_hidden=128, vit_depth=2, vit_heads=2,
+                      vocab_size=256, max_seq_len=64, dtype="float32",
+                      dropout_rate=0.0)
+    optim = OptimConfig(learning_rate=0.0)
+    tokens = torch.randint(0, 256, (4, 64), generator=torch.Generator()
+                           .manual_seed(1)).cuda()
+    dist.initialize_distributed(world_size=1, rank=0, device="cuda")
+    try:
+        mesh = make_mesh(MeshConfig(fsdp=True))
+        runs = {}
+        for sharded in (False, True):
+            model = create_model(cfg, generator=torch.Generator().manual_seed(3))
+            sh = None
+            if sharded:
+                sh = Sharding(model, layout(
+                    {k: tuple(p.shape) for k, p in model.named_parameters()},
+                    cfg, mesh.shape, fsdp=True))
+            state = TrainState(model, make_optimizer(
+                sh.masters if sh else model.parameters(), optim),
+                lambda t: 0.0, sharding=sh)
+            counters = (flash.flash_attention_forward,
+                        flash.flash_attention_dq, flash.flash_attention_dkv)
+            before = [c.launches for c in counters]
+            m = fit_lm_batch(state, tokens, tokens, torch.Generator("cuda"),
+                             optim, sharded_ce=sharded)
+            torch.cuda.synchronize()
+            assert [c.launches - b for c, b in zip(counters, before)] == \
+                [2, 2, 2]
+            runs[sharded] = (m["loss_sum"].item(), {
+                k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        assert abs(runs[True][0] - runs[False][0]) <= 1e-5 * abs(runs[False][0])
+        ref, got = runs[False][1], runs[True][1]
+        gmax = max(float(g.abs().max()) for g in ref.values())
+        assert gmax > 1e-3 and set(got) == set(ref)
+        for k, g in ref.items():
+            err = float((got[k] - g).abs().max())
+            assert err <= 1e-5 * gmax, (k, err, gmax)
+    finally:
+        set_mesh(None)
+        dist.destroy()

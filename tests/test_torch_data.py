@@ -11,6 +11,7 @@ from tpunet_torch.config import DataConfig
 from tpunet_torch.data import cifar10 as pcifar
 from tpunet_torch.data import pipeline as ppipe
 from tpunet.config import DataConfig as JaxDataConfig
+import _torch_threads  # noqa: E402,F401
 
 SEEDS_EPOCHS = [(42, 1), (42, 2), (0, 1), (7, 13)]
 

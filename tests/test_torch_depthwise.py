@@ -23,6 +23,7 @@ import torch
 import tpunet.ops as jops
 from tpunet_torch.ops import depthwise_conv3x3, depthwise_conv3x3_reference
 from tpunet_torch.ops import depthwise as port_dw
+import _torch_threads  # noqa: E402,F401
 
 # (n, h, w, c, stride): strides 1/2, odd H/W, C in {8, 24, 40}, plus a
 # C that is no multiple of 8 (the kernel's scalar path).

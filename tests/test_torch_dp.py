@@ -63,6 +63,7 @@ from tpunet_torch.parallel import dist
 from tpunet_torch.train.state import TrainState, make_optimizer
 
 from _torch_port import SIZE, WIDTH, train_variables
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_dp_worker.py"

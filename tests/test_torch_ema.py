@@ -38,6 +38,7 @@ from tpunet_torch.train.state import TrainState
 from tpunet_torch.train.steps import fit_batch
 
 from _torch_port import SIZE, WIDTH, train_variables
+import _torch_threads  # noqa: E402,F401
 
 DECAY = 0.9
 EPS32 = float(np.finfo(np.float32).eps)

@@ -33,6 +33,7 @@ import torch
 
 from tpunet.ops import flash as jflash
 from tpunet_torch.ops import flash
+import _torch_threads  # noqa: E402,F401
 
 # (b, tq, tk, h, d, causal, segments)
 CASES = [(2, 48, 48, 2, 16, False, False), (2, 48, 48, 2, 16, True, False),

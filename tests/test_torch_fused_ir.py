@@ -20,6 +20,7 @@ import torch
 
 from tpunet.ops import fused_ir as jfi
 from tpunet_torch.ops import fused_ir as pfi
+import _torch_threads  # noqa: E402,F401
 
 SHAPES = [((2, 8, 8, 16, 24), "float32", 1e-5),
           ((2, 7, 9, 13, 24), "float32", 1e-5),     # odd H/W, off-8 Ci

@@ -9,6 +9,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpunet")
@@ -31,7 +32,8 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
         f"{FORBIDDEN!r})\n"
         "print(json.dumps({'mods': mods, 'bad': bad}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=_torch_threads.child_env())
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("tpunet_torch.serve.classify", "tpunet_torch.ops.fused_ir",
@@ -62,7 +64,9 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.router.supervisor",
                 "tpunet_torch.utils.preemption", "tpunet_torch.data.native",
                 "tpunet_torch.models.mobilenetv2", "tpunet_torch.models.vit",
-                "tpunet_torch.train.state", "tpunet_torch.train.steps"):
+                "tpunet_torch.train.state", "tpunet_torch.train.steps",
+                "tpunet_torch.parallel.mesh", "tpunet_torch.parallel.tp",
+                "tpunet_torch.ops.vocab_ce"):
         assert mod in res["mods"]
     assert res["bad"] == []
 
@@ -83,13 +87,35 @@ def test_router_cli_runs_on_a_host_without_jax():
         "sys.argv = ['tpunet_torch.router', '--help']\n"
         "runpy.run_module('tpunet_torch.router', run_name='__main__')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=_torch_threads.child_env())
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("usage: python -m tpunet_torch.router")
 
 
+def test_sharded_modules_and_train_help_without_jax():
+    """With JAX and tpunet unimportable, the mesh, the rule table and the
+    vocab-parallel CE import, and the training CLI's usage lists
+    tpunet's mesh flags."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
+        "import tpunet_torch.parallel.mesh, tpunet_torch.parallel.tp\n"
+        "import tpunet_torch.ops.vocab_ce\n"
+        "sys.argv = ['tpunet_torch.train', '--help']\n"
+        "runpy.run_module('tpunet_torch.train', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=_torch_threads.child_env())
+    assert out.returncode == 0, out.stderr
+    for flag in ("--mesh-data", "--mesh-seq", "--mesh-pipe", "--mesh-model",
+                 "--zero1", "--fsdp", "--vocab-ce"):
+        assert flag in out.stdout, flag
+
+
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py",
-                                                "tests/_torch_dp_worker.py"])
+                                                "tests/_torch_dp_worker.py",
+                                                "tests/_torch_shard_worker.py"])
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
     bad = []

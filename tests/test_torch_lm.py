@@ -40,6 +40,7 @@ from tpunet_torch.models.lm import filter_logits, generate
 from tpunet_torch.models.vit import PagedKV
 
 from _torch_port import LM, jax_lm, lm_params, packed_segments, port_lm
+import _torch_threads  # noqa: E402,F401
 
 T = 64
 
@@ -116,8 +117,15 @@ def test_positions_offset_and_refusals(params):
             port(x, decode_active=torch.ones(1, dtype=torch.bool))
         with pytest.raises(ValueError, match="needs a cache"):
             port(x, pos_offset=torch.zeros(1, dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            port(x, return_hidden=True)
+        # return_hidden (the vocab-parallel CE's hook) is ported: the
+        # final LayerNorm's output, whose tied head gives the logits; a
+        # decode step returns logits only.
+        h = port(x, return_hidden=True)
+        assert h.dtype == torch.float32 and h.shape == (1, 8, LM["vit_hidden"])
+        np.testing.assert_allclose((h @ port.embed.weight.t()).numpy(),
+                                   port(x).numpy(), rtol=1e-6, atol=1e-6)
+        with pytest.raises(ValueError, match="return_hidden"):
+            port(x, cache=port.init_cache(1, 16), return_hidden=True)
     want = np.asarray(jax_lm().apply({"params": params}, jnp.asarray(
         x.numpy()), train=False, pos_offset=5))
     with torch.no_grad():

@@ -55,6 +55,7 @@ from tpunet_torch.train.state import TrainState, make_optimizer
 from tpunet_torch.train.steps import fit_lm_batch, make_lm_eval_step
 
 from _torch_port import LM, jax_lm, lm_params, packed_segments, port_lm
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_dp_worker.py"

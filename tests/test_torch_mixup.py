@@ -44,6 +44,7 @@ from tpunet_torch.train.steps import fit_batch
 from tpunet_torch.utils.prng import step_generator
 
 from _torch_port import SIZE, WIDTH, train_variables
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,6 +30,7 @@ from tpunet_torch.models.convert import (load_state_dict, load_state_dict_file,
 from torch_ref_mobilenetv2 import TorchMobileNetV2
 
 from _torch_port import SIZE, WIDTH, jax_variables, nchw, port_model
+import _torch_threads  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

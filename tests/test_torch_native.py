@@ -28,6 +28,7 @@ from tpunet_torch.config import (CheckpointConfig, DataConfig, ModelConfig,
 from tpunet_torch.data import native
 from tpunet_torch.data.pipeline import host_index_sequence, train_batches
 from tpunet_torch.train.loop import Trainer
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -219,7 +220,8 @@ def test_crash_report_holds_the_native_journal(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(repo=str(ROOT),
                                              workdir=workdir)],
-        capture_output=True, text=True, timeout=180)
+        capture_output=True, text=True, timeout=180,
+        env=_torch_threads.child_env())
     assert proc.returncode != 0
     report = os.path.join(workdir, "flightrec", "crash_report.json")
     deadline = time.monotonic() + 20.0

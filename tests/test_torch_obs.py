@@ -50,6 +50,7 @@ from tpunet_torch.obs.export import (AsyncExporter, HttpLineTransport,
 from tpunet_torch.obs.history import config_fingerprint, train_fingerprint
 from tpunet_torch.obs.registry import MemorySink, Registry
 from tpunet_torch.train import __main__ as cli
+import _torch_threads  # noqa: E402,F401
 
 
 class _Clock:

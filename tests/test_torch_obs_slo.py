@@ -21,6 +21,7 @@ from tpunet.obs.registry import MemorySink as JaxMemorySink
 from tpunet.obs.registry import Registry as JaxRegistry
 from tpunet_torch.obs import slo
 from tpunet_torch.obs.registry import MemorySink, Registry
+import _torch_threads  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

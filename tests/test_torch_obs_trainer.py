@@ -30,6 +30,7 @@ from tpunet.train.loop import Trainer as JaxTrainer
 from tpunet_torch import config as pcfg
 from tpunet_torch.train import __main__ as cli
 from tpunet_torch.train.loop import Trainer
+import _torch_threads  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))

@@ -30,6 +30,7 @@ from tpunet_torch.obs.registry import Registry
 from tpunet_torch.serve import ClassifyBatcher
 
 from _torch_port import SIZE, WIDTH, jax_variables
+import _torch_threads  # noqa: E402,F401
 
 # (h, w) of uint8 test images: upscaled, downscaled, mixed, one axis
 # already at the model size.

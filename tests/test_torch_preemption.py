@@ -34,6 +34,7 @@ from tpunet_torch.train.loop import Trainer
 from tpunet_torch.utils.preemption import PreemptionGuard
 
 from test_torch_mixup import ROOT, run_workers
+import _torch_threads  # noqa: E402,F401
 
 
 def test_guard_catches_signal_and_restores_handler():

@@ -33,6 +33,7 @@ from tpunet_torch.models.convert import load_state_dict, vit_state_dict_from_jax
 from tpunet_torch.utils.prng import step_generator
 
 from test_torch_vit import SIZE, VIT, _images, jax_vit  # noqa: F401
+import _torch_threads  # noqa: E402,F401
 
 LM = dict(name="lm", vit_hidden=32, vit_depth=2, vit_heads=2, vocab_size=64,
           max_seq_len=32, dtype="float32")

@@ -41,6 +41,7 @@ from tpunet_torch.obs.registry import Registry
 from tpunet_torch.router import balance, policy, records, replica
 from tpunet_torch.router.replica import (DEAD, DRAINING, EVICTED, HEALTHY,
                                          STARTING, ReplicaHandle)
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STATES = (HEALTHY, HEALTHY, HEALTHY, DRAINING, DEAD, STARTING, EVICTED)
@@ -376,7 +377,8 @@ def test_cli_aot_cache_exits_2_before_any_child(tmp_path):
         [sys.executable, "-m", "tpunet_torch.router", "--spawn", "2",
          "--metrics-dir", str(mdir), "--aot-cache", str(tmp_path / "aot"),
          "--", "--device", "cpu"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=_torch_threads.child_env())
     assert out.returncode == 2, out.stderr
     assert out.stderr.strip() == \
         f"python -m tpunet_torch.router: error: {AOT_CACHE_SCOPED_OUT}"
@@ -577,13 +579,14 @@ def _classifier_checkpoint(directory: Path):
     torch.save(model.state_dict(), directory / "best.pth")
 
 
-def test_router_end_to_end_two_spawned_port_replicas(tmp_path):
+def test_router_end_to_end_two_spawned_port_replicas(tmp_path, monkeypatch):
     from tpunet_torch.infer.generate import load_lm
     from tpunet_torch.infer.predict import Predictor
     from tpunet_torch.models.lm import generate
     from tpunet_torch.router.__main__ import build_argparser, build_server
     from tpunet_torch.config import DataConfig
 
+    _torch_threads.one_thread_children(monkeypatch)
     ck = tmp_path / "cls"
     _classifier_checkpoint(ck)
     argv = ["--spawn", "2", "--port", "0", "--probe-interval-s", "0.2",

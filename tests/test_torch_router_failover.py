@@ -34,6 +34,7 @@ from tpunet.router import journal as jax_journal
 from tpunet_torch.config import ModelConfig, RouterConfig, ServeConfig
 from tpunet_torch.router import journal
 from tpunet_torch.router.journal import JournalEntry, RequestJournal
+import _torch_threads  # noqa: E402,F401
 
 SCRIPTS = os.path.join(os.path.dirname(__file__), "..", "scripts")
 
@@ -341,7 +342,7 @@ def _stream(base, body, timeout=60, headers=()):
         return [json.loads(line) for line in resp]
 
 
-def test_midstream_sigkill_failover_real_http(tmp_path):
+def test_midstream_sigkill_failover_real_http(tmp_path, monkeypatch):
     """A chaos SIGKILL of the serving port replica after first bytes
     reached the client gives a whole client stream with no error frame:
     greedy token-identical to the port's ``generate``, sampled identical
@@ -351,6 +352,7 @@ def test_midstream_sigkill_failover_real_http(tmp_path):
     from tpunet_torch.router.__main__ import build_argparser, build_server
     from tpunet_torch.serve import Engine
 
+    _torch_threads.one_thread_children(monkeypatch)
     argv = ["--spawn", "2", "--port", "0", "--probe-interval-s", "0.2",
             "--probe-timeout-s", "2", "--unhealthy-after", "2",
             "--boot-timeout-s", "90", "--respawn-backoff-s", "0.2",

@@ -25,6 +25,7 @@ from tpunet.models.vit import PagedKV as JaxPagedKV
 from tpunet_torch.models.vit import KVCache, PagedKV
 
 from _torch_port import jax_lm, lm_params, port_lm
+import _torch_threads  # noqa: E402,F401
 
 TINY = dict(vocab_size=31, max_seq_len=48)
 H, D, DEPTH, TOTAL = 2, 16, 2, 48

@@ -30,6 +30,7 @@ from tpunet_torch.models import create_model
 from tpunet_torch.serve import Engine, ServeServer
 from tpunet_torch.serve.chaos import (ServeChaos, ServeChaosError,
                                       split_by_replica, spec_for_replica)
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ModelConfig(name="lm", vit_hidden=32, vit_depth=2, vit_heads=2,
@@ -185,7 +186,8 @@ def test_serve_cli_killed_after_n_streamed_tokens(tmp_path):
          "--prefill-buckets", "16", "--slots", "2", "--port", str(port),
          "--metrics-dir", str(tmp_path / "m"), "--chaos",
          f"kill@tokens={n}"],
-        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+        env=_torch_threads.child_env())
     base = f"http://127.0.0.1:{port}"
     try:
         deadline = time.perf_counter() + 120

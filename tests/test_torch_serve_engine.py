@@ -33,6 +33,7 @@ from tpunet_torch.serve.engine import _Slot
 from tpunet_torch.serve.scheduler import DrainingError
 
 from _torch_port import jax_lm, lm_params, port_lm
+import _torch_threads  # noqa: E402,F401
 
 TINY = dict(vocab_size=31, max_seq_len=48)
 VOCAB = TINY["vocab_size"]

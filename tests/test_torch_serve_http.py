@@ -31,6 +31,7 @@ from tpunet_torch.obs.registry import JsonlSink, Registry
 from tpunet_torch.serve import ClassifyBatcher, Engine, ServeServer
 from tpunet_torch.serve.engine import build_serve_record
 from tpunet_torch.utils.logging import MetricsLogger
+import _torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ModelConfig(name="lm", vit_hidden=32, vit_depth=2, vit_heads=2,

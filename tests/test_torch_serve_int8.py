@@ -33,6 +33,7 @@ from tpunet_torch.models.vit import KVCache, PagedKV, quantize_kv_rows
 from tpunet_torch.serve import Engine
 
 from _torch_port import jax_lm, lm_params, port_lm
+import _torch_threads  # noqa: E402,F401
 
 TINY = dict(vocab_size=31, max_seq_len=48)
 H, D, DEPTH = 2, 16, 2

@@ -33,6 +33,7 @@ from tpunet_torch.serve.prefixcache.store import digest
 from tpunet_torch.utils import fsatomic
 
 from _torch_port import LM, lm_params, port_lm
+import _torch_threads  # noqa: E402,F401
 
 TINY = dict(vocab_size=31, max_seq_len=48)
 VOCAB = TINY["vocab_size"]

@@ -22,6 +22,7 @@ from tpunet.serve import sample_token as jax_sample_token
 from tpunet_torch.serve import GenerateRequest, sample_token
 from tpunet_torch.serve.sampling import (batched_sample, filter_rows,
                                         gumbel_noise)
+import _torch_threads  # noqa: E402,F401
 
 V = 31
 

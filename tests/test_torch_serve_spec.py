@@ -35,6 +35,7 @@ from tpunet_torch.serve import spec
 from tpunet_torch.serve.engine import build_serve_record
 
 from _torch_port import jax_lm, lm_params, port_lm
+import _torch_threads  # noqa: E402,F401
 
 TINY = dict(vocab_size=31, max_seq_len=48)
 VOCAB = TINY["vocab_size"]

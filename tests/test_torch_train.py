@@ -39,8 +39,9 @@ from tpunet.models import create_model as jax_create_model
 from tpunet.models import init_variables
 from tpunet.models.convert import export_torch_state_dict, load_pretrained
 from tpunet.train.state import lr_schedule as jax_lr_schedule
-from tpunet_torch.config import (CheckpointConfig, DataConfig, ModelConfig,
-                                 OptimConfig, TrainConfig, preset)
+from tpunet_torch.config import (CheckpointConfig, DataConfig, MeshConfig,
+                                 ModelConfig, OptimConfig, TrainConfig,
+                                 preset)
 from tpunet_torch.models import create_model
 from tpunet_torch.models.convert import load_state_dict, state_dict_from_jax
 from tpunet_torch.train import __main__ as cli
@@ -49,6 +50,7 @@ from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
 from tpunet_torch.utils.prng import step_generator
 
 from _torch_port import SIZE, WIDTH, nchw, train_variables
+import _torch_threads  # noqa: E402,F401
 
 # Train-mode BN over few images is ill-conditioned: 8 images, not 2 or
 # 4, so that the 1x1 tail of a 32 px net reduces over 8 samples.
@@ -530,15 +532,19 @@ def test_presets_and_defaults_match_tpunet():
     lambda: ModelConfig(pretrained_path="auto"),
     lambda: ModelConfig(name="vit", moe_experts=4),
     lambda: ModelConfig(name="vit", attention="ring"),
-    lambda: ModelConfig(name="lm", vocab_ce="sharded"),
+    lambda: MeshConfig(seq=2),
+    lambda: MeshConfig(pipe=2),
     lambda: ModelConfig(name="vit_pp"),
     lambda: ModelConfig(name="vit", attention_core="flash")],
-    ids=["auto_weights", "moe", "ring", "vocab_ce", "vit_pp",
+    ids=["auto_weights", "moe", "ring", "mesh_seq", "mesh_pipe", "vit_pp",
          "attention_core"])
 def test_unported_fields_raise_with_their_roadmap_item(make):
     """What the port still refuses: the download of ``pretrained='auto'``
-    and Queue A item 8's parallelism fields (item 2b's fields are
-    ported: tests/test_torch_{mixup,ema,native,preemption,remat}.py)."""
+    and what is left of Queue A item 8 (sequence and pipeline
+    parallelism, MoE). Item 2b's fields are ported
+    (tests/test_torch_{mixup,ema,native,preemption,remat}.py), and so
+    are the mesh's 'data'/'model' axes, ZeRO-1, FSDP and the
+    vocab-parallel CE (tests/test_torch_{tp,fsdp,vocab_ce}.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         make()
 
@@ -574,11 +580,18 @@ def test_cli_maps_flags_and_refuses_the_rest():
     lm, _ = cli.config_from_args(["--model", "lm", "--dataset",
                                   "synthetic_lm", "--remat"])
     assert lm.model.remat
-    for flag in (["--mesh-data", "2"], ["--mesh-model", "2"], ["--zero1"],
-                 ["--fsdp"], ["--moe-experts", "4"], ["--vocab-ce", "sharded"],
-                 ["--pp-schedule", "1f1b"], ["--attention-core", "flash"],
-                 ["--optimizer", "lamb"]):
+    mesh, _ = cli.config_from_args(["--model", "lm", "--dataset",
+                                    "synthetic_lm", "--mesh-data", "2",
+                                    "--mesh-model", "2", "--zero1", "--fsdp",
+                                    "--vocab-ce", "sharded"])
+    assert mesh.mesh == MeshConfig(data=2, model=2, zero1=True, fsdp=True)
+    assert mesh.model.vocab_ce == "sharded"
+    for flag in (["--moe-experts", "4"], ["--pp-schedule", "1f1b"],
+                 ["--attention-core", "flash"], ["--optimizer", "lamb"]):
         with pytest.raises(SystemExit):
+            cli.config_from_args(flag)
+    for flag in (["--mesh-seq", "2"], ["--mesh-pipe", "2"]):
+        with pytest.raises(NotImplementedError, match="item 8"):
             cli.config_from_args(flag)
     # The one item-2b value still refused: a download of the weights.
     with pytest.raises(NotImplementedError, match="download"):

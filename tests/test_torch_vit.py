@@ -52,6 +52,7 @@ from tpunet_torch.models.convert import (load_state_dict,
                                          vit_state_dict_from_jax)
 from tpunet_torch.train import __main__ as cli
 from tpunet_torch.train.loop import Trainer
+import _torch_threads  # noqa: E402,F401
 
 SIZE = 32
 VIT = dict(name="vit", vit_patch=4, vit_hidden=32, vit_depth=2, vit_heads=2,
@@ -209,7 +210,7 @@ def test_predictor_probs_match_tpunet(jax_vit):
     (lambda: ModelConfig(name="vit", attention="ring"), "item 8"),
     (lambda: ModelConfig(name="vit", attention="ulysses"), "item 8"),
     (lambda: ModelConfig(name="vit", attention_core="flash"), "item 8"),
-    (lambda: ModelConfig(name="lm", vocab_ce="sharded"), "item 8"),
+    (lambda: ModelConfig(name="lm", moe_experts=4), "item 8"),
     (lambda: ModelConfig(name="lm_pp"), "item 8"),
     (lambda: ModelConfig(name="vit_pp"), "item 8")],
     ids=["moe", "moe_top_k", "moe_dispatch", "ring", "ulysses", "core",

@@ -15,7 +15,9 @@ crash never leaves a partial checkpoint. Under data parallelism rank 0
 writes and then every rank passes a barrier, so a file is complete
 before any rank goes on (a rank never exits while rank 0 still writes);
 every rank reads the same file when it restores (tpunet restores on
-every process). The JAX package's Orbax layout and its asynchronous
+every process). On a mesh the files hold the whole state, gathered
+from the ranks' pieces before rank 0 writes (tpunet's re-mesh restore:
+a resume on another mesh cuts it again). The JAX package's Orbax layout and its asynchronous
 saves do not carry over: a save is written before the loop goes on. A
 ``timeout`` (what remains of a preemption's grace window) bounds how
 long the loop waits for the write, and :meth:`Checkpointer.abandon`
@@ -113,9 +115,10 @@ class Checkpointer:
                 time.perf_counter() - t0)
         return None if self.abandoned else self._path(name)
 
-    def save_best(self, model: torch.nn.Module) -> Optional[str]:
-        """Write ``best.pth`` (torchvision layout)."""
-        return self._save(model.state_dict(), BEST)
+    def save_best(self, state_dict: Dict[str, Any]) -> Optional[str]:
+        """Write ``best.pth``: a model's whole state dict (torchvision's
+        layout for MobileNetV2)."""
+        return self._save(state_dict, BEST)
 
     def save_state(self, payload: Dict[str, Any],
                    timeout: Optional[float] = None) -> Optional[str]:

@@ -156,7 +156,9 @@ class ModelConfig:
     storage dtype of the parameters and the optimizer state (float32 or
     bfloat16; the BN running statistics stay float32). The
     sequence-parallel cores, MoE and the vocab-sharded cross-entropy
-    wait for their ROADMAP items and raise when set.
+    wait for their ROADMAP items and raise when set. ``vocab_ce``
+    (``auto``/``sharded``/``full``) is resolved against the mesh by
+    ``tpunet_torch.ops.vocab_ce.resolve_vocab_ce``.
     """
 
     name: str = "mobilenet_v2"  # mobilenet_v2 | vit | vit_{tiny,small,base}
@@ -199,13 +201,6 @@ class ModelConfig:
         if self.vocab_ce not in ("auto", "full", "sharded"):
             raise ValueError(f"unknown vocab_ce {self.vocab_ce!r}; expected "
                              "auto|full|sharded")
-        if self.vocab_ce == "sharded":
-            # "auto" resolves to "full" without a mesh 'model' axis, and
-            # the port has none.
-            raise NotImplementedError(
-                "vocab_ce='sharded' (the vocab-parallel cross-entropy over "
-                "a mesh 'model' axis) is not ported to tpunet_torch yet; it "
-                "comes with ROADMAP Queue A item 8")
         if self.vocab_size < 1 or self.max_seq_len < 1:
             raise ValueError(f"vocab_size {self.vocab_size} and max_seq_len "
                              f"{self.max_seq_len} must be >= 1")
@@ -279,6 +274,52 @@ class OptimConfig:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
         if self.clip_norm < 0:
             raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
+
+
+# What is left of ROADMAP Queue A item 8 after the sharded-state slice,
+# named by the refusals of the axes that need it.
+SEQ_PARALLEL = "Queue A item 8 (sequence parallelism: ring/Ulysses)"
+PIPE_PARALLEL = "Queue A item 8 (pipeline parallelism: vit_pp/lm_pp)"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The process mesh, tpunet's ``MeshConfig``: axes ``('data', 'seq',
+    'pipe', 'model')``, one process (one card) a point. ``data`` -1 takes
+    the processes the other axes leave. ``model`` > 1 is tensor
+    parallelism (Megatron blocks for the ViT family and the LM);
+    ``zero1`` shards the Adam moments over 'data' with the parameters
+    replicated; ``fsdp`` shards the parameters, both moments and the EMA
+    copies over 'data' and subsumes ``zero1``. ``seq`` and ``pipe`` > 1
+    wait for the rest of ROADMAP Queue A item 8 and raise."""
+
+    data: int = -1                    # -1 -> all remaining processes
+    seq: int = 1                      # sequence/context-parallel axis
+    pipe: int = 1                     # pipeline-parallel axis
+    model: int = 1                    # tensor-parallel axis
+    zero1: bool = False
+    fsdp: bool = False
+
+    def __post_init__(self):
+        if self.seq > 1:
+            raise NotImplementedError(
+                f"MeshConfig.seq={self.seq} is not ported to tpunet_torch "
+                f"yet; it comes with ROADMAP {SEQ_PARALLEL}")
+        if self.pipe > 1:
+            raise NotImplementedError(
+                f"MeshConfig.pipe={self.pipe} is not ported to tpunet_torch "
+                f"yet; it comes with ROADMAP {PIPE_PARALLEL}")
+        if self.data == 0 or self.data < -1 or self.model < 1:
+            raise ValueError(f"mesh axes must be >= 1 (data may be -1), "
+                             f"got data={self.data} model={self.model}")
+
+    def shape(self, n_devices: int) -> Tuple[int, int, int, int]:
+        """(data, seq, pipe, model) for ``n_devices`` processes."""
+        seq, pipe, model = max(1, self.seq), max(1, self.pipe), \
+            max(1, self.model)
+        data = (self.data if self.data > 0
+                else max(1, n_devices // (seq * pipe * model)))
+        return (data, seq, pipe, model)
 
 
 @dataclass(frozen=True)
@@ -697,6 +738,7 @@ class TrainConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def __post_init__(self):
         # tpunet's cross-checks (tpunet/train/loop.py:55-66, 159-176).

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from tpunet_torch.config import DataConfig
-from tpunet_torch.parallel.dist import fetch_rows, process_count, process_index
+from tpunet_torch.parallel.dist import fetch_rows
+from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 
 SRC = 32  # CIFAR-10 native resolution
 
@@ -314,8 +315,8 @@ def make_train_augment(cfg: DataConfig) -> Callable:
     (a [B * ranks, 8] draw on the CPU costs nothing) and sliced."""
     def augment(generator, images_u8):
         n = images_u8.shape[0]
-        lo = n * process_index()
-        params = sample_augment_params(generator, n * process_count(), cfg)
+        lo = n * axis_index("data")
+        params = sample_augment_params(generator, n * axis_size("data"), cfg)
         return augment_with_params(
             images_u8, {k: v[lo:lo + n] for k, v in params.items()}, cfg)
     return augment
@@ -424,14 +425,15 @@ def make_mix(cfg: DataConfig) -> Optional[Callable]:
         return None
 
     def mix(generator, images, labels):
-        n, ranks = images.shape[0], process_count()
+        n, ranks = images.shape[0], axis_size("data")
         params = sample_mix_params(generator, n * ranks, cfg.mixup_alpha,
                                    cfg.cutmix_alpha)
         if ranks == 1:
             out, lam = mix_with_params(images, params)
             return out, labels[params["perm"].to(labels.device)], lam
         partners, partner_labels = fetch_rows((images, labels),
-                                              params["perm"])
+                                              params["perm"],
+                                              axis_group("data"))
         out, lam = mix_with_params(images, params, partners)
         return out, partner_labels, lam
     return mix

@@ -21,6 +21,13 @@ Port of the parts of ``tpunet/models/convert.py`` the port needs:
   ``convert_torch_state_dict``, leave the head at its fresh init when
   the checkpoint's class count differs.
 
+- :func:`shard_state_dict` / :func:`gather_state_dict`: a whole state
+  dict -> this rank's pieces of it on the mesh (tensor parallelism's
+  'model' splits, FSDP's and ZeRO-1's 'data' splits, as the table of
+  ``tpunet_torch.parallel.tp.layout`` says), and back: the pieces of
+  every rank gathered into the whole, which is what a checkpoint holds,
+  so a run on another mesh (or on one process) reads it unchanged.
+
 From a tpunet MobileNetV2 checkpoint the user path is
 ``python -m tpunet.models.convert out.pth`` and then this loader; from a
 Flax ViT tree, ``vit_state_dict_from_jax`` and then this loader.
@@ -28,12 +35,15 @@ Flax ViT tree, ``vit_state_dict_from_jax`` and then this loader.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpunet_torch.models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS
+from tpunet_torch.parallel import dist
+from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
+from tpunet_torch.parallel.tp import Shard, join, piece
 
 
 def _block_specs() -> Tuple[Tuple[str, int, bool], ...]:
@@ -210,7 +220,69 @@ def load_state_dict(model: torch.nn.Module, obj: Mapping) -> bool:
     return head_ok
 
 
+def state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``.pth`` file, on the CPU."""
+    return _unwrap(torch.load(path, map_location="cpu", weights_only=True))
+
+
 def load_state_dict_file(path: str, model: torch.nn.Module) -> bool:
     """Load a ``.pth`` file into ``model`` (see :func:`load_state_dict`)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    return load_state_dict(model, obj)
+    return load_state_dict(model, state_dict_file(path))
+
+
+def shard_tensor(t: torch.Tensor, spec: Optional[Shard]) -> torch.Tensor:
+    """This rank's piece of the whole ``t`` under ``spec`` (a copy; ``t``
+    itself when ``spec`` is None or its axis has size 1)."""
+    if spec is None or axis_size(spec.axis) == 1:
+        return t
+    return piece(t, spec, axis_size(spec.axis), axis_index(spec.axis))
+
+
+def gather_tensor(t: torch.Tensor, spec: Optional[Shard]) -> torch.Tensor:
+    """The whole tensor of this rank's piece ``t``: every rank's piece,
+    gathered over ``spec``'s axis and joined (one collective; ``t`` when
+    it is not split)."""
+    if spec is None or axis_size(spec.axis) == 1:
+        return t
+    return join(dist.all_gather(t, axis_group(spec.axis)), spec)
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor],
+                     specs: Mapping[str, Optional[Shard]]
+                     ) -> Dict[str, torch.Tensor]:
+    """This rank's pieces of the whole state dict ``sd``: each key of
+    ``specs`` cut as its spec says, every other key as it is."""
+    return {k: shard_tensor(v, specs.get(k)) for k, v in sd.items()}
+
+
+def gather_state_dict(sd: Mapping[str, torch.Tensor],
+                      specs: Mapping[str, Optional[Shard]]
+                      ) -> Dict[str, torch.Tensor]:
+    """The whole state dict of this rank's pieces ``sd``, gathered on
+    every rank (a collective per split key: every rank calls it with
+    the same keys, in the same order)."""
+    return {k: gather_tensor(v, specs.get(k)) for k, v in sd.items()}
+
+
+def shard_model(model: torch.nn.Module, table, cfg) -> bool:
+    """Cut the tensor-parallel leaves of the whole ``model`` for this
+    rank of the mesh's 'model' axis, as ``table`` (parameter name ->
+    ``LeafLayout``) says, and have its blocks compute as that rank;
+    returns whether any leaf was cut. Raises when the heads do not split
+    evenly (each rank needs whole heads)."""
+    from tpunet_torch.parallel.tp import compute_spec
+    cut = False
+    for name, p in model.named_parameters():
+        spec = compute_spec(table[name])
+        if spec is None:
+            continue
+        cut = True
+        p.data = shard_tensor(p.data, spec).contiguous()
+    if cut:
+        n = axis_size("model")
+        heads = getattr(model, "heads", 0)
+        if heads % n:
+            raise ValueError(f"{cfg.name}: {heads} heads do not split over "
+                             f"a 'model' axis of {n}")
+        model.set_tensor_parallel(axis_group("model"))
+    return cut

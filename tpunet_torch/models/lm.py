@@ -35,9 +35,13 @@ Sampling draws with ``torch.multinomial`` from an explicit generator,
 one draw a new token: JAX's key stream cannot be matched, so a sampled
 stream is deterministic per seed within the port, and a greedy stream
 equals tpunet's. ``remat`` checkpoints each block of a training forward
-(the ViT's ``Encoder._remat_block``), never a decode step. Not ported:
-the hidden states for the vocab-sharded cross-entropy, MoE blocks and
-``lm_pp`` (ROADMAP Queue A item 8).
+(the ViT's ``Encoder._remat_block``), never a decode step.
+``return_hidden`` returns the final LayerNorm's output in float32
+instead of the logits, for the vocab-parallel cross-entropy
+(``tpunet_torch.ops.vocab_ce``). Under tensor parallelism the blocks are
+the ViT's Megatron blocks; the embedding, the positions and the final
+LayerNorm stay replicated. Not ported: MoE blocks and ``lm_pp`` (ROADMAP
+Queue A item 8).
 """
 
 from __future__ import annotations
@@ -131,12 +135,12 @@ class TransformerLM(Encoder):
         ``cache``. ``pos_offset`` is the absolute position of
         ``tokens[:, 0]``: a scalar, or with a ``cache`` a [B] tensor
         (each row its own position; ``decode_active``, ``paged_kv`` and
-        ``page_table`` go with it)."""
-        if return_hidden:
-            raise NotImplementedError(
-                "return_hidden (the vocab-sharded cross-entropy's hook) is "
-                "not ported to tpunet_torch yet; it comes with ROADMAP "
-                "Queue A item 8")
+        ``page_table`` go with it). ``return_hidden``: the final
+        LayerNorm's output [B, T, hidden] in float32 instead of the
+        logits (not with a ``cache``)."""
+        if return_hidden and cache is not None:
+            raise ValueError("return_hidden is a training/eval forward; "
+                             "a decode step returns logits")
         b, t = tokens.shape
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
@@ -176,6 +180,8 @@ class TransformerLM(Encoder):
             segment_ids = segment_ids.to(torch.int32)
         x = self._encode(drop(x), train, drop, segment_ids, cache, step)
         x = self._norm(self.ln, x, train)
+        if return_hidden:
+            return x.float()
         # Tied head in float32 (tpunet's ``embed.attend`` on float32).
         logits = torch.matmul(x.float(), self.embed.weight.t())
         if cache is None:

@@ -53,7 +53,9 @@ running statistics are updated from them and so agree on every rank,
 and the dropout mask is drawn at the global batch's shape, of which
 each rank takes its rows. Without a group the reduction is the identity
 on the same code path, so one rank computes bit for bit what a run
-without a group does.
+without a group does. On a mesh (``tpunet_torch.parallel.mesh``) the
+ranks are those of the 'data' axis: MobileNetV2 takes no tensor-parallel
+rule, so the ranks of a 'model' group compute the same rows alike.
 """
 
 from __future__ import annotations
@@ -67,8 +69,8 @@ from torch import nn
 from tpunet_torch.ops import depthwise_conv3x3
 from tpunet_torch.ops.depthwise import depthwise_conv3x3_train
 from tpunet_torch.ops.fused_ir import bn_act_epilogue, conv1x1_bn_act
-from tpunet_torch.parallel.dist import (all_reduce_sum, process_count,
-                                        process_index)
+from tpunet_torch.parallel.dist import all_reduce_sum
+from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 
 # (expansion, out_channels, num_blocks, first_stride)
 INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
@@ -309,8 +311,9 @@ class MobileNetV2(nn.Module):
             # Each tensor is registered before an op saves it.
             remat.register(xf, x.float)
         sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
-                                           (xf * xf).sum(dim=(0, 2, 3))]))
-        count = xf.numel() // xf.shape[1] * process_count()
+                                           (xf * xf).sum(dim=(0, 2, 3))]),
+                              axis_group("data"))
+        count = xf.numel() // xf.shape[1] * axis_size("data")
         mean = sums[0] / count
         var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
         self._update_running(bn, mean, var)
@@ -411,9 +414,10 @@ class MobileNetV2(nn.Module):
                 raise ValueError("train mode with dropout needs a generator")
             # The global batch's mask; this rank's rows of it.
             n = x.shape[0]
-            u = torch.rand((n * process_count(),) + x.shape[1:],
+            u = torch.rand((n * axis_size("data"),) + x.shape[1:],
                            generator=generator, device=generator.device)
-            u = u[n * process_index():n * (process_index() + 1)].to(x.device)
+            r = axis_index("data")
+            u = u[n * r:n * (r + 1)].to(x.device)
             x = torch.where(u < 1.0 - rate, x / (1.0 - rate),
                             torch.zeros((), dtype=x.dtype, device=x.device))
         lin = self.classifier[1]

@@ -27,12 +27,31 @@ it as views of the fused projection. Dropout (``dropout_rate``) sits
 after the position embedding, each attention output and each MLP, 25
 masks in ViT-B/16: their bits come from a generator on the activations'
 device, seeded by one draw from the step's generator and this process's
-rank, so no mask is drawn on the host and copied. Under data parallelism
-each rank therefore draws its own masks: with dropout above 0, N ranks
-do not repeat the masks of one rank on the same global batch (they
-already differ between the CPU and the card); at dropout 0 they compute
-the same step. In eval mode the weights cast to
+index on the mesh's 'data' axis, so no mask is drawn on the host and
+copied. Under data parallelism each rank therefore draws its own masks:
+with dropout above 0, N ranks do not repeat the masks of one rank on the
+same global batch (they already differ between the CPU and the card); at
+dropout 0 they compute the same step. In eval mode the weights cast to
 ``dtype`` are computed once and reused until a parameter changes.
+
+Tensor parallelism (:meth:`Encoder.set_tensor_parallel`, the mesh's
+'model' axis): each rank holds its heads of the qkv projection and its
+columns of fc1 (column-parallel), and the matching input columns of
+``attn.out`` and fc2 (row-parallel); ``tpunet_torch.parallel.tp`` says
+which, ``tpunet_torch.models.convert.shard_state_dict`` cuts them. The
+block's input enters the column-parallel layers through
+``copy_to_group`` (its gradient all-reduced over the group in the
+backward), and a row-parallel product is all-reduced
+(``reduce_from_group``) before its bias: two all-reduces a block
+forward, two backward, Megatron's. The attention core runs on the
+rank's heads. Every dropout mask lies on a replicated activation (the
+embedding sum, the attention and MLP outputs after their reduce), and
+the ranks of one 'model' group share the data index the masks are
+seeded from, so their masks are equal and tensor parallelism computes
+one rank's step at any dropout rate. The replicated leaves' gradients
+are averaged over the group before the update
+(``tpunet_torch.train.state.Sharding``): the ranks compute them alike
+but for the order of CUDA's atomic accumulations.
 
 The blocks' arithmetic lives in :class:`Encoder`, which the LM
 (``tpunet_torch.models.lm``) shares, with tpunet's decode paths, which
@@ -68,7 +87,8 @@ from torch import nn
 from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
                                         dense_attention)
 from tpunet_torch.ops.flash import flash_attention
-from tpunet_torch.parallel.dist import process_index
+from tpunet_torch.parallel.dist import copy_to_group, reduce_from_group
+from tpunet_torch.parallel.mesh import axis_index
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v) BTHD -> BTHD
 
@@ -453,6 +473,10 @@ class Encoder(nn.Module):
         self.dtype = dtype
         # ModelConfig.remat: checkpoint each block of a training forward.
         self.remat = False
+        # Tensor parallelism over the 'model' axis group (None is the
+        # whole world).
+        self.tensor_parallel = False
+        self.tp_group = None
         # id(parameter) -> (source state, parameter, cast copy); eval only.
         self._consts: Dict[int, tuple] = {}
 
@@ -471,9 +495,29 @@ class Encoder(nn.Module):
             self._consts[id(t)] = hit
         return hit[2]
 
+    def set_tensor_parallel(self, group) -> None:
+        """Compute as one rank of the tensor-parallel ``group``: the
+        blocks' TP leaves must hold this rank's pieces."""
+        self.tensor_parallel, self.tp_group = True, group
+
     def _linear(self, dense: Dense, x: torch.Tensor, train: bool):
         return F.linear(x, self._cast(dense.weight, train),
                         self._cast(dense.bias, train))
+
+    def _column_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated activation entering column-parallel layers."""
+        if not self.tensor_parallel:
+            return x
+        return copy_to_group(x, self.tp_group)
+
+    def _row_linear(self, dense: Dense, x: torch.Tensor, train: bool):
+        """A row-parallel layer: the partial product summed over the
+        group, then the (replicated) bias."""
+        if not self.tensor_parallel:
+            return self._linear(dense, x, train)
+        y = reduce_from_group(F.linear(x, self._cast(dense.weight, train)),
+                              self.tp_group)
+        return y + self._cast(dense.bias, train)
 
     def _norm(self, ln: LayerNorm, x: torch.Tensor, train: bool):
         return F.layer_norm(x, x.shape[-1:], self._cast(ln.weight, train),
@@ -492,7 +536,7 @@ class Encoder(nn.Module):
         seed = int(torch.randint(0, 2**62, (1,), generator=generator))
         # Rank 0 keeps the draw; the others step away from it by a large
         # odd constant (2^64 / golden ratio).
-        seed = (seed + process_index() * 0x9E3779B97F4A7C15) % 2**63
+        seed = (seed + axis_index("data") * 0x9E3779B97F4A7C15) % 2**63
         return Dropout(torch.Generator(device=device).manual_seed(seed), rate)
 
     def _attention(self, attn: Attention, x: torch.Tensor, train: bool,
@@ -504,19 +548,21 @@ class Encoder(nn.Module):
         or, with ``attend`` (q, k, v) -> y, a decode step against the
         layer's cache, which skips the core."""
         b, t, c = x.shape
-        qkv = self._linear(attn.qkv, x, train)
-        q, k, v = qkv.view(b, t, 3, self.heads, c // self.heads).unbind(2)
+        qkv = self._linear(attn.qkv, self._column_in(x), train)
+        # -1: the heads this rank holds (all of them without TP).
+        q, k, v = qkv.view(b, t, 3, -1, c // self.heads).unbind(2)
         if attend is not None:
             y = attend(q, k, v)
         elif segment_ids is not None:
             y = self.attn_fn(q, k, v, segment_ids=(segment_ids, segment_ids))
         else:
             y = self.attn_fn(q, k, v)
-        return self._linear(attn.out, y.reshape(b, t, c), train)
+        return self._row_linear(attn.out, y.reshape(b, t, -1), train)
 
     def _mlp(self, mlp: MlpBlock, x: torch.Tensor, train: bool):
-        y = F.gelu(self._linear(mlp.fc1, x, train), approximate="tanh")
-        return self._linear(mlp.fc2, y, train)
+        y = F.gelu(self._linear(mlp.fc1, self._column_in(x), train),
+                   approximate="tanh")
+        return self._row_linear(mlp.fc2, y, train)
 
     def _block(self, blk: "EncoderBlock", x: torch.Tensor, train: bool,
                drop: "Dropout", segment_ids: Optional[torch.Tensor],

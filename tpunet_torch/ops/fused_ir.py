@@ -66,7 +66,8 @@ import torch
 
 from tpunet_torch.ops import _build
 from tpunet_torch.ops.depthwise import _DTYPE_CODES, _sm_count
-from tpunet_torch.parallel.dist import all_reduce, process_count
+from tpunet_torch.parallel.dist import all_reduce
+from tpunet_torch.parallel.mesh import axis_group, axis_size
 
 
 
@@ -496,8 +497,8 @@ class Conv1x1BNActFunction(torch.autograd.Function):
         m = n * h * wd
         x2 = x.reshape(m, ci)
         y, s = fused_ir_forward(x2, w)
-        s = all_reduce(s)
-        m = m * process_count()
+        s = all_reduce(s, axis_group("data"))
+        m = m * axis_size("data")
         mean = s[0] / m
         var = torch.clamp_min(s[1] / m - mean * mean, 0.0)
         o, r, inv, shift = bn_act_epilogue(y, mean, var, scale, bias, act,
@@ -528,7 +529,7 @@ class Conv1x1BNActFunction(torch.autograd.Function):
         r2 = (gm * yh).sum(dim=0)     # = dscale (this rank's rows)
         # dx sees the whole batch's reductions: rank r's rows feed every
         # rank's outputs through the global statistics.
-        rr = all_reduce(torch.stack([r1, r2]))
+        rr = all_reduce(torch.stack([r1, r2]), axis_group("data"))
         chan = torch.stack([inv, shift, r, mr, rr[0] / ctx.rows,
                             rr[1] / ctx.rows])
         dx, dw = fused_ir_backward(x2, g2, y, w, chan, ctx.act)

@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed``: the process group, rank
-and device binding, barriers and the counted all-reduces (``dist``),
-port of ``tpunet/parallel/dist.py``. TP, FSDP, ZeRO-1, SP, PP and MoE
-come with ROADMAP Queue A item 8."""
+"""Parallelism over ``torch.distributed``: the process group, rank and
+device binding, barriers and the counted collectives (``dist``, port of
+``tpunet/parallel/dist.py``), the process mesh and its axis groups
+(``mesh``) and the rule table of tensor parallelism, ZeRO-1 and FSDP
+(``tp``). SP, PP and MoE come with the rest of ROADMAP Queue A item 8."""
 
 from tpunet_torch.parallel.dist import (all_reduce, all_reduce_sum,  # noqa: F401
                                         destroy, initialize_distributed,

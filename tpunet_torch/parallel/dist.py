@@ -12,11 +12,23 @@ them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
     torchrun --standalone --nproc-per-node 2 -m tpunet_torch.train \\
         --preset distributed --device cpu ...
 
-Every collective of the port goes through :func:`all_reduce` or
+Every collective of the port goes through :func:`all_reduce`,
+:func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_max` or
 :func:`fetch_rows` (mixup's partner rows), which count their calls
-(``all_reduce.calls``, ``fetch_rows.calls``), as the kernel wrappers
-count their launches. Without a process group every helper here is the
-identity (one rank, index 0), so single-process code runs unchanged.
+(``all_reduce.calls``, ...) and the host seconds spent inside them
+(``all_reduce.seconds``, ...; NCCL returns once the collective is
+queued, gloo when it is done), as the kernel wrappers count their
+launches. Each takes a ``group`` (``None``: every rank; the mesh's axis
+groups come from ``tpunet_torch.parallel.mesh``); on a group of one
+rank it is the identity and counts nothing. Without a process group
+every helper here is the identity (one rank, index 0), so
+single-process code runs unchanged.
+
+Tensor parallelism's two Megatron operators are here too:
+:func:`copy_to_group` (the identity forward, an all-reduce of the
+gradient backward: a replicated activation entering a column-parallel
+layer) and :func:`reduce_from_group` (an all-reduce forward, the
+identity backward: a row-parallel layer's partial sums).
 
 :func:`agree_any` is the preemption path's stop agreement without a
 device collective: a cross-process OR of a host flag through the
@@ -28,6 +40,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -125,20 +138,130 @@ def sync_hosts(name: str = "barrier") -> None:
         dist.barrier()
 
 
-def all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place and return it; counts the call
-    in ``all_reduce.calls``. The identity without a process group."""
-    if is_initialized():
-        dist.all_reduce(t)
-        all_reduce.calls += 1
+class _Self:
+    """The group of this rank alone (a mesh axis of size 1): every
+    collective over it is the identity, and no process group is made."""
+
+    def __repr__(self) -> str:
+        return "SELF"
+
+
+SELF = _Self()
+
+
+def group_size(group=None) -> int:
+    """The number of ranks in ``group`` (None: all of them)."""
+    if group is SELF or not is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+def _counted(fn, t0: float) -> None:
+    fn.calls += 1
+    fn.seconds += time.perf_counter() - t0
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` (None: all) in place and
+    return it; counts the call in ``all_reduce.calls``. The identity
+    without a process group. A group of one rank is the identity too,
+    except the default group, which reduces even alone (a world of one
+    over NCCL still runs its collectives, as the data-parallel path has
+    always done)."""
+    if not is_initialized() or (group is not None
+                                and group_size(group) == 1):
+        return t
+    t0 = time.perf_counter()
+    dist.all_reduce(t, group=group)
+    _counted(all_reduce, t0)
     return t
 
 
 all_reduce.calls = 0
+all_reduce.seconds = 0.0
 
 
-def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor
-               ) -> Tuple[torch.Tensor, ...]:
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise max of ``t`` over the ranks of ``group``, in place;
+    counted in ``all_reduce_max.calls``."""
+    if group_size(group) == 1:
+        return t
+    t0 = time.perf_counter()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    _counted(all_reduce_max, t0)
+    return t
+
+
+all_reduce_max.calls = 0
+all_reduce_max.seconds = 0.0
+
+# torch 2.13 renames the tensor forms of all-gather and reduce-scatter;
+# the older names (torch 2.11) take the same arguments.
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    getattr(dist, "all_gather_into_tensor", None)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    getattr(dist, "reduce_scatter_tensor", None)
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ``t`` of every rank of ``group``, stacked in rank order on a
+    new dim 0 ([ranks, *t.shape]); counted in ``all_gather.calls``. One
+    rank: ``t[None]``. NCCL and gloo (CPU and CUDA tensors) both run the
+    tensor form of the collective."""
+    n = group_size(group)
+    if n == 1:
+        return t[None]
+    flat = t.contiguous().reshape(-1)
+    out = flat.new_empty(n * flat.numel())
+    t0 = time.perf_counter()
+    _all_gather_single(out, flat, group=group)
+    _counted(all_gather, t0)
+    return out.view((n,) + tuple(t.shape))
+
+
+all_gather.calls = 0
+all_gather.seconds = 0.0
+
+
+def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank r of ``group`` gets ``t[r]`` summed over the ranks: ``t`` is
+    [ranks, *shape], the result [*shape]; counted in
+    ``reduce_scatter.calls``. One rank: ``t[0]``. NCCL and torch's gloo
+    (2.11 and later, CPU and CUDA tensors) both run the tensor form of
+    the collective; no all-reduce-and-slice stands in for it."""
+    n = group_size(group)
+    if n == 1:
+        return t[0]
+    if t.shape[0] != n:
+        raise ValueError(f"reduce_scatter of {t.shape[0]} pieces over "
+                         f"{n} ranks")
+    flat = t.contiguous().reshape(-1)
+    out = flat.new_empty(flat.numel() // n)
+    t0 = time.perf_counter()
+    _reduce_scatter_single(out, flat, group=group)
+    _counted(reduce_scatter, t0)
+    return out.view(t.shape[1:])
+
+
+reduce_scatter.calls = 0
+reduce_scatter.seconds = 0.0
+
+
+def collective_counts() -> dict:
+    """{wrapper name: (calls, host seconds)} of every counted collective."""
+    return {f.__name__: (f.calls, f.seconds)
+            for f in (all_reduce, all_reduce_max, all_gather, reduce_scatter,
+                      fetch_rows)}
+
+
+def reset_collective_counts() -> None:
+    for f in (all_reduce, all_reduce_max, all_gather, reduce_scatter,
+              fetch_rows):
+        f.calls, f.seconds = 0, 0.0
+
+
+def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor,
+               group=None) -> Tuple[torch.Tensor, ...]:
     """Rows of the global batch, by global index, for this rank: each of
     ``tensors`` holds this rank's ``n`` rows of a global batch that the
     ranks split evenly in rank order, ``perm`` (int64 [n * ranks], the
@@ -146,10 +269,13 @@ def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor
     this rank gets rows ``perm[n*rank:n*(rank+1)]`` of each tensor, in
     that order. One ``all_to_all_single`` over the tensors' bytes moves
     only the wanted rows, in their own dtypes; counts the call in
-    ``fetch_rows.calls``. Without a process group, ``t[perm]``."""
-    if not is_initialized():
+    ``fetch_rows.calls``. ``group``: the ranks that split the batch
+    (None: all). Without a process group, ``t[perm]``."""
+    if not is_initialized() or (group is not None
+                                and group_size(group) == 1):
         return tuple(t[perm.to(t.device)] for t in tensors)
-    ranks, me, n = process_count(), process_index(), tensors[0].shape[0]
+    ranks, n = dist.get_world_size(group), tensors[0].shape[0]
+    me = dist.get_rank(group)
     want = perm.cpu().view(ranks, n)
     owner = want // n
     mine = owner == me
@@ -161,13 +287,14 @@ def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor
     packed = torch.cat(flat, dim=1)
     dev = packed.device
     recv = packed.new_empty(packed.shape)
+    t0 = time.perf_counter()
     dist.all_to_all_single(
         recv, packed[send.to(dev)],
         output_split_sizes=torch.bincount(owner[me], minlength=ranks).tolist(),
-        input_split_sizes=mine.sum(dim=1).tolist())
+        input_split_sizes=mine.sum(dim=1).tolist(), group=group)
     rows = torch.empty_like(recv)
     rows[order.to(dev)] = recv
-    fetch_rows.calls += 1
+    _counted(fetch_rows, t0)
     out, col = [], 0
     for t, f in zip(tensors, flat):
         part = rows[:, col:col + f.shape[1]].contiguous()
@@ -177,6 +304,7 @@ def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor
 
 
 fetch_rows.calls = 0
+fetch_rows.seconds = 0.0
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -185,20 +313,70 @@ class _AllReduceSum(torch.autograd.Function):
     global sum, so the backward is a sum too."""
 
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce(t.clone())
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone())
+        return all_reduce(g.clone(), ctx.group), None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of ``t`` over the ranks; the identity (``t``
-    itself) without a process group."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of ``t`` over the ranks of ``group``, where
+    each rank's ``t`` is its own summand of a loss that every rank of
+    the group sums (BN's batch sums); the identity (``t`` itself)
+    without a process group."""
     if not is_initialized():
         return t
-    return _AllReduceSum.apply(t)
+    return _AllReduceSum.apply(t, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over
+    the group backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's ``g``: the partial sums summed over the group forward,
+    the identity backward (every rank holds the same loss, so each
+    summand's gradient is the sum's)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering rank-specific work (a
+    column-parallel layer): ``t`` forward, the gradient all-reduced over
+    ``group`` backward; ``t`` itself on a group of one."""
+    if group_size(group) == 1:
+        return t
+    return _CopyToGroup.apply(t, group)
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """Rank-specific partial sums becoming one replicated value (a
+    row-parallel layer's output): all-reduced over ``group`` forward,
+    the gradient passed through backward; ``t`` itself on a group of
+    one."""
+    if group_size(group) == 1:
+        return t
+    return _ReduceFromGroup.apply(t, group)
 
 
 def agree_any(tag: str, flag: bool,

@@ -12,15 +12,22 @@
         --cutmix 1.0 --ema-decay 0.999 --block-remat         # fine-tuning
     torchrun --standalone --nproc-per-node N -m tpunet_torch.train \
         --preset distributed                                  # N ranks
+    torchrun --standalone --nproc-per-node 4 -m tpunet_torch.train \
+        --preset distributed --model vit_base --mesh-model 2 --fsdp
+                                            # data 2 x model 2, FSDP
 
 Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
 (128 a rank: data parallelism, the reference's MPI script). Under
 ``distributed`` each process joins the process group first, even alone
 (one card still reduces through NCCL), from the launcher's ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``;
-``--batch-size`` is per rank, and the global batch is that times the
-world size; rank 0 materialises the dataset while the others wait; the
-group is left on exit. SIGTERM stops a run at a step boundary with its
+``--batch-size`` is per rank of the mesh's 'data' axis, and the global
+batch is that times the axis (the world divided by ``--mesh-model``);
+rank 0 materialises the dataset while the others wait; the group is
+left on exit. ``--mesh-data``/``--mesh-model`` lay the ranks out as
+tpunet's mesh, ``--zero1`` and ``--fsdp`` shard the state over 'data',
+``--vocab-ce`` picks the LM's loss; ``--mesh-seq`` and ``--mesh-pipe``
+above 1 are refused with the ROADMAP item that ports them. SIGTERM stops a run at a step boundary with its
 state saved (every rank at the same step) and exits 0; ``--resume``
 re-runs the interrupted epoch. Any other flag of tpunet's CLI is refused
 with an error, never ignored.
@@ -34,6 +41,7 @@ import sys
 
 from tpunet_torch.config import preset
 from tpunet_torch.parallel import dist
+from tpunet_torch.parallel.mesh import set_mesh
 from tpunet_torch.utils import log0
 
 
@@ -138,6 +146,28 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="rematerialize encoder blocks (less activation "
                         "memory, ~1/3 more backward FLOPs)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer moments over the 'data' axis "
+                        "(ZeRO-1); params stay replicated")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded data parallelism (ZeRO-3): shard "
+                        "params and optimizer moments over 'data'; "
+                        "weights are all-gathered just-in-time")
+    p.add_argument("--vocab-ce", default=None,
+                   choices=["auto", "sharded", "full"],
+                   help="LM loss lowering: vocab-sharded logits + CE "
+                        "over the mesh 'model' axis (full [B,T,V] "
+                        "logits never materialize) vs the full-logits "
+                        "path (auto shards when the axis divides the "
+                        "vocab)")
+    p.add_argument("--mesh-data", type=int, default=None)
+    p.add_argument("--mesh-seq", type=int, default=None,
+                   help="sequence-parallel axis size (ring/ulysses "
+                        "attention)")
+    p.add_argument("--mesh-pipe", type=int, default=None,
+                   help="pipeline-parallel axis size (vit_pp model)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="tensor-parallel axis size")
     p.add_argument("--block-remat", default=None,
                    action=argparse.BooleanOptionalAction,
                    help="MobileNetV2: recompute inverted-residual "
@@ -336,6 +366,8 @@ def _config(args: argparse.Namespace):
     if args.vocab_size is not None:
         data = dataclasses.replace(data, vocab_size=args.vocab_size)
         fields["vocab_size"] = args.vocab_size
+    if args.vocab_ce is not None:
+        fields["vocab_ce"] = args.vocab_ce
     model = dataclasses.replace(model, **fields)
     for dest, obj_field in (("lr", "learning_rate"),
                             ("lr_schedule", "schedule"),
@@ -353,7 +385,18 @@ def _config(args: argparse.Namespace):
         ckpt = dataclasses.replace(ckpt, directory=args.checkpoint_dir)
     if args.resume:
         ckpt = dataclasses.replace(ckpt, resume=True)
-    cfg = cfg.replace(data=data, model=model, optim=optim, checkpoint=ckpt)
+    mesh = cfg.mesh
+    for dest, obj_field in (("mesh_data", "data"), ("mesh_seq", "seq"),
+                            ("mesh_pipe", "pipe"), ("mesh_model", "model")):
+        val = getattr(args, dest)
+        if val is not None:
+            mesh = dataclasses.replace(mesh, **{obj_field: val})
+    if args.zero1:
+        mesh = dataclasses.replace(mesh, zero1=True)
+    if args.fsdp:
+        mesh = dataclasses.replace(mesh, fsdp=True)
+    cfg = cfg.replace(data=data, model=model, optim=optim, checkpoint=ckpt,
+                      mesh=mesh)
     for dest in ("epochs", "seed", "log_every_steps", "preempt_grace_s"):
         val = getattr(args, dest)
         if val is not None:
@@ -431,12 +474,17 @@ def run(argv=None):
     dist.initialize_distributed(device=args.device)
     try:
         ranks = dist.process_count()
+        shape = cfg.mesh.shape(ranks)
         # The reference's per-rank batch of 128: the global batch grows
-        # with the world (cifar10_mpi_mobilenet_224.py:117).
+        # with the 'data' axis (cifar10_mpi_mobilenet_224.py:117).
         cfg = cfg.replace(data=dataclasses.replace(
-            cfg.data, batch_size=cfg.data.batch_size * ranks))
+            cfg.data, batch_size=cfg.data.batch_size * shape[0]))
         log0(f"Processes: {ranks} ({dist.backend_name()}), global batch "
-             f"{cfg.data.batch_size}")
+             f"{cfg.data.batch_size}, mesh " + " ".join(
+                 f"{a}={n}" for a, n in zip(("data", "seq", "pipe", "model"),
+                                            shape))
+             + (" fsdp" if cfg.mesh.fsdp else "")
+             + (" zero1" if cfg.mesh.zero1 and not cfg.mesh.fsdp else ""))
         if dist.process_index() == 0:
             # Rank 0 fetches the data first, the others wait (the
             # reference's rank-0 download and barrier, :93-102).
@@ -445,6 +493,7 @@ def run(argv=None):
         dist.sync_hosts("dataset-ready")
         return _run(cfg, args.device)
     finally:
+        set_mesh(None)
         dist.destroy()
 
 

@@ -25,6 +25,16 @@ numbers and the best checkpoint follows the global test accuracy (the
 reference script's is rank 0's own, :196,224). Rank 0 alone writes
 files, and the ranks meet at a barrier after each write.
 
+On a mesh (``MeshConfig``: ``--mesh-data``, ``--mesh-model``,
+``--zero1``, ``--fsdp``) the Trainer builds the mesh's groups, cuts the
+model's tensor-parallel leaves for its 'model' rank, and lays the state
+out as ``tpunet_torch.parallel.tp.layout`` says (``TrainState.sharding``).
+The batch is split over the 'data' axis only: the ranks of a 'model'
+group read the same rows. Eval runs on whole (gathered) FSDP weights,
+and checkpoints hold the whole state, so ``--resume`` may take another
+mesh. The LM's CE is vocab-parallel when ``vocab_ce`` resolves to
+``sharded``.
+
 Observability (``tpunet_torch.obs``) is threaded through as tpunet's
 Trainer does it: per-step host laps, the data-wait split, the profile
 window, the watchdog, and one ``obs_epoch`` record an epoch (MFU, CUDA
@@ -66,17 +76,23 @@ from tpunet_torch.data import (eval_batches, get_dataset,
                                host_index_sequence, steps_per_epoch,
                                timed_batches, train_batches)
 from tpunet_torch.models import create_model, num_params
-from tpunet_torch.models.convert import load_state_dict_file
+from tpunet_torch.models.convert import (load_state_dict_file, shard_model,
+                                         state_dict_file)
 from tpunet_torch.obs import JsonlSink, Observability, RunUnhealthyError
 from tpunet_torch.obs import flightrec
 from tpunet_torch.obs.history import train_fingerprint
 from tpunet_torch.obs.identity import ensure_run_id
 from tpunet_torch.obs.perf import train_flops_per_unit
+from tpunet_torch.ops.vocab_ce import resolve_vocab_ce
 from tpunet_torch.parallel.dist import (agree_any, is_initialized,
                                         local_device, process_count,
                                         process_index, sync_hosts)
+from tpunet_torch.parallel.mesh import (axis_index, axis_size, make_mesh,
+                                        set_mesh)
+from tpunet_torch.parallel.tp import layout
 from tpunet_torch.train import metrics as M
-from tpunet_torch.train.state import TrainState, lr_schedule, make_optimizer
+from tpunet_torch.train.state import (Sharding, TrainState, lr_schedule,
+                                      make_optimizer)
 from tpunet_torch.train.steps import (make_eval_step, make_lm_eval_step,
                                       make_lm_train_step, make_train_step)
 from tpunet_torch.utils.logging import (MetricsLogger, epoch_line, log0,
@@ -117,6 +133,10 @@ class Trainer:
         self.device = (local_device(torch.device(device).type)
                        if is_initialized() else torch.device(device))
         self.rank, self.ranks = process_index(), process_count()
+        self.mesh = make_mesh(cfg.mesh)
+        # The batch is split over the 'data' axis alone.
+        self.data_rank, self.data_ranks = axis_index("data"), \
+            axis_size("data")
         ds = dataset if dataset is not None else get_dataset(cfg.data)
         self.train_x, self.train_y, self.test_x, self.test_y = ds
         self.spe = steps_per_epoch(len(self.train_x), cfg.data.batch_size)
@@ -127,15 +147,31 @@ class Trainer:
                              image_size=cfg.data.image_size)
         if cfg.model.pretrained_path:
             load_state_dict_file(cfg.model.pretrained_path, model)
+        self.n_params = num_params(model)
+        sharding = None
+        if self.mesh.size > 1 and (cfg.mesh.zero1 or cfg.mesh.fsdp
+                                   or axis_size("model") > 1):
+            table = layout({k: tuple(p.shape) for k, p
+                            in model.named_parameters()}, cfg.model,
+                           self.mesh.shape, zero1=cfg.mesh.zero1,
+                           fsdp=cfg.mesh.fsdp)
+            shard_model(model, table, cfg.model)
+            sharding = Sharding(model, table)
         self._schedule = lr_schedule(cfg.optim, self.spe, cfg.epochs)
-        self.state = TrainState(model, make_optimizer(model.parameters(),
-                                                      cfg.optim),
-                                self._schedule, clip_norm=cfg.optim.clip_norm,
-                                ema_decay=cfg.optim.ema_decay)
+        self.state = TrainState(
+            model, make_optimizer(model.parameters() if sharding is None
+                                  else sharding.masters, cfg.optim),
+            self._schedule, clip_norm=cfg.optim.clip_norm,
+            ema_decay=cfg.optim.ema_decay, sharding=sharding)
         if cfg.is_lm:
+            sharded_ce = resolve_vocab_ce(cfg.model.vocab_ce,
+                                          axis_size("model"),
+                                          cfg.model.vocab_size) == "sharded"
             self.train_step = make_lm_train_step(cfg.optim,
-                                                 cfg.data.pack_docs)
-            self.eval_step = make_lm_eval_step(cfg.data.pack_docs)
+                                                 cfg.data.pack_docs,
+                                                 sharded_ce)
+            self.eval_step = make_lm_eval_step(cfg.data.pack_docs,
+                                               sharded_ce)
             # Token rows and segment ids go to the device as int32; the
             # image labels as int64 (cross_entropy's class index type).
             self._label_dtype = None
@@ -166,7 +202,7 @@ class Trainer:
             self.obs.registry.set_identity(
                 **ident, config_fingerprint=train_fingerprint(cfg))
         self.obs.set_flops_per_unit(train_flops_per_unit(
-            cfg.model, cfg.data, n_params=num_params(model)))
+            cfg.model, cfg.data, n_params=self.n_params))
         self.ckpt = Checkpointer(cfg.checkpoint, obs=self.obs)
         self._prefetcher = None
         if (cfg.data.native_loader and not cfg.eval_only
@@ -179,7 +215,7 @@ class Trainer:
             if native.available():
                 self._prefetcher = native.NativePrefetcher(
                     self.train_x, self.train_y.astype(np.int32),
-                    cfg.data.batch_size // self.ranks)
+                    cfg.data.batch_size // self.data_ranks)
         self.guard = PreemptionGuard(deadline_s=cfg.preempt_grace_s)
         self._watchdog_halt = None
         if self.ranks > 1 and self.obs.watchdog is not None:
@@ -208,8 +244,9 @@ class Trainer:
         return self.state.global_step
 
     def _payload(self, epoch: int, completed: bool = True) -> Dict:
-        payload = {"model": self.state.model.state_dict(),
-                   "optimizer": self.state.optimizer.state_dict(),
+        """The whole state (a collective on a mesh: every rank calls)."""
+        payload = {"model": self.state.full_model_state(),
+                   "optimizer": self.state.full_optimizer_state(),
                    "global_step": self.state.global_step,
                    "epoch": epoch, "best_acc": self.best_acc,
                    # False marks a mid-epoch (preemption) save: resume
@@ -217,21 +254,20 @@ class Trainer:
                    # data; the step counter goes on either way.
                    "completed": completed}
         if self.state.ema is not None:
-            payload["ema"] = self.state.ema
+            payload["ema"] = self.state.full_ema()
         return payload
 
     def _try_resume(self) -> bool:
         restored = self.ckpt.restore_state()
         if restored is None:
             return False
-        self.state.model.load_state_dict(restored["model"])
-        self.state.optimizer.load_state_dict(restored["optimizer"])
+        self.state.load_full_model_state(restored["model"])
+        self.state.load_full_optimizer_state(restored["optimizer"])
         if self.state.ema is not None:
             if "ema" not in restored:
                 raise ValueError("--ema-decay is set but the checkpoint "
                                  "holds no EMA copies")
-            for e, r in zip(self.state.ema, restored["ema"]):
-                e.copy_(r)
+            self.state.load_full_ema(restored["ema"])
         self.state.global_step = int(restored["global_step"])
         completed = bool(restored.get("completed", True))
         self.start_epoch = int(restored["epoch"]) + (1 if completed else 0)
@@ -269,14 +305,14 @@ class Trainer:
         if self._prefetcher is not None:
             idx = host_index_sequence(
                 len(self.train_x), global_batch=cfg.data.batch_size,
-                seed=cfg.seed, epoch=epoch, process_index=self.rank,
-                process_count=self.ranks)
+                seed=cfg.seed, epoch=epoch, process_index=self.data_rank,
+                process_count=self.data_ranks)
             return self._prefetcher.iter_epoch(idx)
         return train_batches(self.train_x, self.train_y,
                              global_batch=cfg.data.batch_size,
                              seed=cfg.seed, epoch=epoch,
-                             process_index=self.rank,
-                             process_count=self.ranks)
+                             process_index=self.data_rank,
+                             process_count=self.data_ranks)
 
     # Multi-process preemption polling period (steps): the agreement
     # waits for every rank, so it runs every K steps, in lockstep; a
@@ -367,8 +403,8 @@ class Trainer:
 
     def evaluate(self) -> Dict[str, float]:
         """One pass over the test set, with the EMA weights and BN
-        statistics when EMA is on."""
-        with self.state.ema_weights():
+        statistics when EMA is on (whole, under FSDP)."""
+        with self.state.eval_weights():
             return self._evaluate()
 
     def _evaluate(self) -> Dict[str, float]:
@@ -378,7 +414,8 @@ class Trainer:
             for bx, by, bm in eval_batches(
                     self.test_x, self.test_y,
                     global_batch=cfg.data.effective_eval_batch_size,
-                    process_index=self.rank, process_count=self.ranks):
+                    process_index=self.data_rank,
+                    process_count=self.data_ranks):
                 m = self.eval_step(self.state.model, self._to_device(bx),
                                    self._to_device(by, self._label_dtype),
                                    self._to_device(bm))
@@ -397,7 +434,7 @@ class Trainer:
             prof.on_step(prof.start_step)
         best = self.ckpt.best_path()
         if best is not None:
-            load_state_dict_file(best, self.state.model)
+            self.state.load_full_model_state(state_dict_file(best))
             # With EMA on, best.pth holds the EMA pair, which evaluate()
             # reads from the EMA copies.
             self.state.reset_ema()
@@ -414,7 +451,7 @@ class Trainer:
         loader = "native" if self._prefetcher is not None else "numpy"
         log0(f"Train samples: {len(self.train_x)}")
         log0(f"Test samples: {len(self.test_x)}")
-        log0(f"Total parameters: {num_params(self.state.model)}")
+        log0(f"Total parameters: {self.n_params}")
         log0("Host loader: " + ("native C++ prefetcher"
                                 if self._prefetcher is not None else "numpy"))
         log0("Starting training...")
@@ -473,8 +510,8 @@ class Trainer:
                     self.best_acc = test_m["accuracy"]
                     # With EMA on, the test accuracy was measured on the
                     # EMA weights and BN statistics: save that pair.
-                    with self.state.ema_weights():
-                        self.ckpt.save_best(self.state.model)
+                    with self.state.eval_weights():
+                        self.ckpt.save_best(self.state.full_model_state())
                 self.start_epoch = epoch + 1
                 self.ckpt.save_state(self._payload(epoch))
                 # After the save so this epoch's own checkpoint shows in
@@ -553,6 +590,7 @@ class Trainer:
         try:
             self.obs.close(self._sync)
         finally:
+            set_mesh(None)
             if self._prefetcher is not None:
                 self._prefetcher.close()
                 self._prefetcher = None

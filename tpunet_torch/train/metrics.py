@@ -2,8 +2,9 @@
 
 Every metric is a (loss_sum, correct, count) triple of sums over the
 batch; they stay on the device while they are accumulated and are read
-once, by :func:`summarize`, which sums them over the ranks first, so
-every rank reads the global numbers.
+once, by :func:`summarize`, which sums them over the ranks of the
+mesh's 'data' axis first (the ranks of a 'model' group hold the same
+rows), so every rank reads the global numbers.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict
 import torch
 
 from tpunet_torch.parallel.dist import all_reduce
+from tpunet_torch.parallel.mesh import axis_group
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -37,7 +39,8 @@ def summarize(acc: Metrics) -> Dict[str, float]:
     global batch: one all-reduce over the ranks, one read from the
     device."""
     loss_sum, correct, n = all_reduce(torch.stack(
-        [acc["loss_sum"], acc["correct"], acc["count"]])).tolist()
+        [acc["loss_sum"], acc["correct"], acc["count"]]),
+        axis_group("data")).tolist()
     count = max(n, 1.0)
     return {"loss": loss_sum / count, "accuracy": correct / count,
             "count": n}

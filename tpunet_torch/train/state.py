@@ -15,6 +15,29 @@ buffers (BN running statistics), made at the start, are moved after
 every update by ``e = d*e + (1-d)*p`` over the post-update values (one
 ``torch._foreach_lerp_``); :meth:`TrainState.ema_weights` puts them in
 the model for eval and the best checkpoint.
+
+Sharded state (:class:`Sharding`, the mesh of ``MeshConfig``; tpunet's
+``state_shardings`` and ``gather_params``): the table of
+``tpunet_torch.parallel.tp.layout`` says where each parameter and its
+moments rest. A parameter whose moments are split over 'data' gets a
+*master*, its piece, on which the optimizer runs (Adam on 1/N of the
+moments); the others are their own masters. Under FSDP the master is
+the parameter at rest: the model's tensor is empty between steps,
+:meth:`Sharding.gather` fills it at the step's start (one all-gather
+over 'data' for all of them), and it is emptied again after the update;
+the EMA copies follow the masters, so they rest sharded too. Under
+ZeRO-1 the parameter stays whole and is refreshed from the updated
+masters by one all-gather. The gradients are reduced over 'data' only:
+one all-reduce for the leaves whose moments are whole, one
+reduce-scatter for the split ones, each in one flat buffer a dtype;
+before them, on a 'model' axis, one all-reduce averages the replicated
+leaves' gradients over its group, which its ranks compute alike but
+for the order of CUDA's atomic accumulations, and each leaf's gap to
+that mean is kept (:meth:`Sharding.replicated_gaps`). The global clip
+norm sums the squares of the pieces over their axis and counts a
+replicated leaf once. The checkpoint's model, optimizer and EMA
+entries are gathered whole (:meth:`TrainState.full_model_state` ...) and
+cut again on load, so a resume may take another mesh.
 """
 
 from __future__ import annotations
@@ -22,11 +45,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Callable, Iterable, Iterator, List
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
 from tpunet_torch.config import OptimConfig
+from tpunet_torch.models.convert import (gather_state_dict, gather_tensor,
+                                         load_state_dict, shard_state_dict,
+                                         shard_tensor)
+from tpunet_torch.parallel import dist
+from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
+from tpunet_torch.parallel.tp import LeafLayout, Shard, join, pieces
 
 Schedule = Callable[[int], float]
 
@@ -97,21 +126,276 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
     raise ValueError(f"unknown optimizer {cfg.name!r}")
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> None:
     """optax's ``clip_by_global_norm``, in place and without a host sync:
     every gradient times ``max_norm / norm`` when the L2 norm of all of
     them together is at least ``max_norm``, else unchanged (no epsilon
-    and no clamp, unlike ``torch.nn.utils.clip_grad_norm_``)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    and no clamp, unlike ``torch.nn.utils.clip_grad_norm_``). ``norm``:
+    the global norm when ``grads`` are pieces of it (sharded state)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
+
+
+def _flat_groups(tensors: List[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
+    """Indices of ``tensors`` by dtype, for one flat buffer each."""
+    out: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.dtype, []).append(i)
+    return out
+
+
+def mean_over_group(grads: List[torch.Tensor], group, n: int,
+                    gaps: bool = False) -> Optional[List[torch.Tensor]]:
+    """Replace each of ``grads`` by its mean over the ``n`` ranks of
+    ``group``, in place: one all-reduce of one flat buffer a dtype. With
+    ``gaps``, returns for each gradient its largest |own - mean| over
+    the mean's largest |entry| (0-d float32 on its device, no host
+    sync): 0 where the ranks held the same gradient."""
+    out: Optional[List[torch.Tensor]] = [None] * len(grads) if gaps else None
+    for ids in _flat_groups(grads).values():
+        gs = [grads[j] for j in ids]
+        flat = dist.all_reduce(torch.cat([g.reshape(-1) for g in gs]), group)
+        flat.div_(n)
+        means = [c.view_as(g) for c, g in zip(
+            flat.split([g.numel() for g in gs]), gs)]
+        if gaps:
+            inf = float("inf")
+            diff = torch._foreach_norm(torch._foreach_sub(gs, means), inf)
+            scale = torch._foreach_norm(means, inf)
+            for j, d, s in zip(ids, diff, scale):
+                out[j] = d.float() / s.float().clamp_min(
+                    torch.finfo(torch.float32).tiny)
+        torch._foreach_copy_(gs, means)
+    return out
+
+
+def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
+    """Replace every gradient by its mean over the ranks of the 'data'
+    axis: one all-reduce of one flat buffer a dtype, divided by their
+    number (each rank's gradient is that of its rows' mean loss, so the
+    mean over equal shards is the global batch's). Nothing to do without
+    a process group."""
+    if not dist.is_initialized():
+        return
+    mean_over_group([p.grad for p in params if p.grad is not None],
+                    axis_group("data"), axis_size("data"))
+
+
+class Sharding:
+    """Where a model's parameters and optimizer state rest on the mesh
+    (see the module docstring). ``table``: the layout of every
+    parameter name; the model's tensor-parallel leaves must already hold
+    this rank's pieces (``tpunet_torch.models.convert``)."""
+
+    def __init__(self, model: torch.nn.Module,
+                 table: Dict[str, LeafLayout]):
+        self.model = model
+        self.table = table
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        self.group, self.n = axis_group("data"), axis_size("data")
+        self.rank = axis_index("data")
+        # Per parameter: the 'data' split of its moments (None: whole).
+        self.split: List[Optional[Shard]] = []
+        self.fsdp: List[bool] = []
+        self.masters: List[torch.Tensor] = []
+        for name, p in zip(self.names, self.params):
+            lay = table[name]
+            mom = (lay.moments if lay.moments is not None
+                   and lay.moments.axis == "data" and self.n > 1 else None)
+            self.split.append(mom)
+            self.fsdp.append(mom is not None and lay.param == mom)
+            if mom is None:
+                self.masters.append(p)
+            else:
+                self.masters.append(torch.nn.Parameter(
+                    shard_tensor(p.detach(), mom).contiguous()))
+        self._gap_names: List[str] = []
+        self._gaps: Optional[torch.Tensor] = None
+        self.gathered = True
+        self.release()
+
+    @property
+    def active(self) -> bool:
+        """Whether any parameter or moment is split over 'data'."""
+        return any(s is not None for s in self.split)
+
+    def _idx(self, fsdp_only: bool) -> List[int]:
+        return [i for i, s in enumerate(self.split) if s is not None
+                and (self.fsdp[i] or not fsdp_only)]
+
+    def _all_gather_into(self, idx: List[int], copy: bool) -> None:
+        """The whole parameters ``idx`` from their masters: one
+        all-gather a dtype; ``copy`` writes into the model's tensors in
+        place (ZeRO-1), else they get new storage (FSDP)."""
+        for ids in _flat_groups([self.masters[i] for i in idx]).values():
+            ids = [idx[j] for j in ids]
+            flat = torch.cat([self.masters[i].detach().reshape(-1)
+                              for i in ids])
+            got = dist.all_gather(flat, self.group)          # [n, total]
+            off = 0
+            for i in ids:
+                m = self.masters[i]
+                part = got[:, off:off + m.numel()].reshape(self.n, *m.shape)
+                whole = join(part, self.split[i])
+                p = self.params[i]
+                if copy:
+                    p.data.copy_(whole)
+                else:
+                    p.data = whole.contiguous()
+                # New values: the eval-mode caches of derived weights
+                # key on the version (a new storage may reuse an address).
+                torch.autograd.graph.increment_version(p)
+                off += m.numel()
+
+    def gather(self) -> None:
+        """FSDP: the whole parameters from the resting pieces, for a
+        step or an eval (a no-op when they are whole already)."""
+        if self.gathered:
+            return
+        self._all_gather_into(self._idx(fsdp_only=True), copy=False)
+        self.gathered = True
+
+    def release(self) -> None:
+        """FSDP: drop the whole parameters (and their gradients); only
+        the pieces stay resident."""
+        for i in self._idx(fsdp_only=True):
+            p = self.params[i]
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            p.grad = None
+        self.gathered = False
+
+    def _agree_over_model(self) -> None:
+        """The leaves replicated over 'model' get the same gradient on
+        every rank of the group in exact arithmetic, but some CUDA
+        backward kernels (the embedding's) accumulate with atomics in no
+        fixed order, and the ranks' copies would drift apart in the
+        last bits: their gradients are averaged over the group, one flat
+        all-reduce a dtype, so the copies stay equal to the bit. Each leaf's gap to the mean before that, relative to
+        the mean's largest entry, is kept as its largest over the steps
+        (:meth:`replicated_gaps`): a backward that misses its all-reduce
+        over 'model' shows there as a gap of order 1."""
+        pairs = [(n, p.grad) for n, p in zip(self.names, self.params)
+                 if p.grad is not None and self.model_spec(n) is None]
+        if not pairs:
+            return
+        names = [n for n, _ in pairs]
+        gaps = torch.stack(mean_over_group([g for _, g in pairs],
+                                           axis_group("model"),
+                                           axis_size("model"), gaps=True))
+        if names != self._gap_names:
+            self._gap_names, self._gaps = names, gaps
+        else:
+            torch.maximum(self._gaps, gaps, out=self._gaps)
+
+    def replicated_gaps(self) -> Dict[str, float]:
+        """Per replicated leaf, the largest gap between this rank's
+        gradient and the 'model' group's mean over the steps so far,
+        relative to the mean's largest entry (empty without a 'model'
+        axis)."""
+        if self._gaps is None:
+            return {}
+        return dict(zip(self._gap_names, self._gaps.tolist()))
+
+    def reduce_gradients(self) -> None:
+        """Every master's gradient := the mean over 'data' of the whole
+        parameter's: an all-reduce for the whole masters, a
+        reduce-scatter for the pieces (one flat buffer a dtype each); the
+        whole gradients of split parameters are then dropped. First, on
+        a 'model' axis, the replicated leaves' gradients are made equal
+        on its ranks (:meth:`_agree_over_model`)."""
+        if axis_size("model") > 1:
+            self._agree_over_model()
+        n = self.n
+        mean_over_group([p.grad for p, s in zip(self.params, self.split)
+                         if s is None and p.grad is not None],
+                        self.group, n)
+        split = [i for i in self._idx(fsdp_only=False)
+                 if self.params[i].grad is not None]
+        grads = [self.params[i].grad for i in split]
+        for ids in _flat_groups(grads).values():
+            sel = [split[j] for j in ids]
+            stacked = torch.cat([pieces(self.params[i].grad, self.split[i],
+                                        n).reshape(n, -1) for i in sel], 1)
+            mine = dist.reduce_scatter(stacked, self.group).div_(n)
+            off = 0
+            for i in sel:
+                m = self.masters[i]
+                m.grad = mine[off:off + m.numel()].view_as(m).clone()
+                off += m.numel()
+                self.params[i].grad = None
+
+    def global_norm(self) -> torch.Tensor:
+        """The L2 norm of the whole gradient: each piece's squares summed
+        over its axis ('data' pieces, tensor-parallel leaves over
+        'model'), each replicated leaf once."""
+        parts = {"data": [], "model": [], None: []}
+        for i, m in enumerate(self.masters):
+            if m.grad is None:
+                continue
+            lay = self.table[self.names[i]]
+            axis = ("data" if self.split[i] is not None else
+                    "model" if lay.param is not None
+                    and lay.param.axis == "model" else None)
+            parts[axis].append(m.grad)
+        dev = self.masters[0].device
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for axis, gs in parts.items():
+            if not gs:
+                sq = torch.zeros((), dtype=torch.float32, device=dev)
+            else:
+                sq = torch.stack([n.float() for n in
+                                  torch._foreach_norm(gs)]).square().sum()
+            if axis is not None:
+                # Every rank calls the same collectives, even with no
+                # leaf of this kind.
+                sq = dist.all_reduce(sq, axis_group(axis)) \
+                    if axis_size(axis) > 1 else sq
+            total = total + sq
+        return total.sqrt()
+
+    def after_update(self) -> None:
+        """ZeRO-1: the whole parameters from the updated pieces (one
+        all-gather a dtype); FSDP: release the whole parameters."""
+        zero = [i for i in self._idx(fsdp_only=False) if not self.fsdp[i]]
+        if zero:
+            self._all_gather_into(zero, copy=True)
+        self.release()
+
+    # -- whole state for checkpoints ---------------------------------
+
+    def model_spec(self, name: str) -> Optional[Shard]:
+        """The split a parameter's tensor in the model has now: its
+        'model' split (the tensor-parallel leaves), None otherwise."""
+        lay = self.table.get(name)
+        return (lay.param if lay is not None and lay.param is not None
+                and lay.param.axis == "model" else None)
+
+    def moment_spec(self, i: int) -> Optional[Shard]:
+        """The split of master ``i`` (and its optimizer state)."""
+        return self.split[i] or self.model_spec(self.names[i])
+
+    def set_whole(self, name_to_whole: Dict[str, torch.Tensor]) -> None:
+        """Cut whole (tensor-parallel-local) parameters into the masters
+        and refresh the model's copies: after a load."""
+        for i, name in enumerate(self.names):
+            if self.split[i] is None or name not in name_to_whole:
+                continue
+            with torch.no_grad():
+                self.masters[i].copy_(shard_tensor(name_to_whole[name],
+                                                   self.split[i]))
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the schedule, the global-norm clip (0 =
     off), the number of updates taken (``global_step``, the index of
-    the next update) and the EMA decay (0 = off)."""
+    the next update), the EMA decay (0 = off) and, on a mesh, the
+    :class:`Sharding` (the optimizer then runs on its masters)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -119,6 +403,7 @@ class TrainState:
     global_step: int = 0
     clip_norm: float = 0.0
     ema_decay: float = 0.0
+    sharding: Optional[Sharding] = None
 
     def __post_init__(self):
         if not 0.0 <= self.ema_decay < 1.0:
@@ -129,9 +414,15 @@ class TrainState:
         self.reset_ema()
 
     def ema_sources(self) -> List[torch.Tensor]:
-        """What the EMA follows: every parameter, then every floating
-        buffer (the BN running statistics), in module order."""
-        return list(self.model.parameters()) + [
+        """What the EMA follows: every parameter (its resting piece under
+        FSDP), then every floating buffer (the BN running statistics), in
+        module order."""
+        params = list(self.model.parameters())
+        if self.sharding is not None:
+            sh = self.sharding
+            params = [m if f else p for m, f, p in
+                      zip(sh.masters, sh.fsdp, sh.params)]
+        return params + [
             b for b in self.model.buffers() if b.is_floating_point()]
 
     def reset_ema(self) -> None:
@@ -157,19 +448,157 @@ class TrainState:
             for t, d in zip(src, live):
                 t.data = d
 
+    @contextlib.contextmanager
+    def eval_weights(self) -> Iterator[None]:
+        """Inside, the model holds whole weights to evaluate or save:
+        the EMA pair when EMA is on, gathered from their pieces under
+        FSDP (and dropped again on exit)."""
+        with self.ema_weights():
+            if self.sharding is None:
+                yield
+                return
+            self.sharding.gather()
+            try:
+                yield
+            finally:
+                self.sharding.release()
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.sharding is not None:
+            self.model.zero_grad(set_to_none=True)
+
+    def begin_step(self) -> None:
+        """Before a step's forward: the whole parameters under FSDP."""
+        if self.sharding is not None:
+            self.sharding.gather()
+
+    def reduce_gradients(self) -> None:
+        """The gradients' mean over the mesh's 'data' axis, on the
+        masters."""
+        if self.sharding is not None:
+            self.sharding.reduce_gradients()
+        else:
+            reduce_gradients(self.model.parameters())
+
     def apply_gradients(self) -> None:
         """One optimizer update at the schedule's rate for this step,
         after the clip; then the EMA step."""
+        sh = self.sharding
         if self.clip_norm > 0:
-            clip_by_global_norm([p.grad for p in self.model.parameters()
-                                 if p.grad is not None], self.clip_norm)
+            params = sh.masters if sh is not None else \
+                self.model.parameters()
+            clip_by_global_norm([p.grad for p in params
+                                 if p.grad is not None], self.clip_norm,
+                                None if sh is None else sh.global_norm())
         lr = self.schedule(self.global_step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.global_step += 1
+        if sh is not None:
+            sh.after_update()
         if self.ema is not None:
             with torch.no_grad():
                 torch._foreach_lerp_(
                     self.ema, [t.detach() for t in self.ema_sources()],
                     1.0 - self.ema_decay)
+
+    # -- whole state (checkpoints): collectives on every rank ----------
+
+    def full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's whole state dict (parameters and buffers), on
+        every rank."""
+        sh = self.sharding
+        if sh is None:
+            return self.model.state_dict()
+        with _gathered(sh):
+            sd = self.model.state_dict()
+            return gather_state_dict(sd, {k: sh.model_spec(k) for k in sd})
+
+    def load_full_model_state(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Load a whole state dict (another mesh's, or one process's)."""
+        sh = self.sharding
+        if sh is None:
+            load_state_dict(self.model, sd)
+            return
+        local = shard_state_dict(sd, {k: sh.model_spec(k) for k in sd})
+        with _gathered(sh):
+            load_state_dict(self.model, local)
+            sh.set_whole(local)
+
+    def full_optimizer_state(self) -> dict:
+        """The optimizer's state dict with every moment whole, in the
+        form of an unsharded run's."""
+        sd = self.optimizer.state_dict()
+        sh = self.sharding
+        if sh is None:
+            return sd
+        state = {}
+        for i, st in sd["state"].items():
+            spec = sh.moment_spec(i)
+            state[i] = {k: (gather_tensor(v, spec) if _is_moment(v, sh, i)
+                            else v) for k, v in st.items()}
+        return {**sd, "state": state}
+
+    def load_full_optimizer_state(self, sd: dict) -> None:
+        sh = self.sharding
+        if sh is not None:
+            state = {}
+            for i, st in sd["state"].items():
+                i = int(i)
+                spec = sh.moment_spec(i)
+                whole = _whole_shape(sh, i)
+                state[i] = {k: (shard_tensor(v, spec)
+                                if torch.is_tensor(v)
+                                and tuple(v.shape) == whole else v)
+                            for k, v in st.items()}
+            sd = {**sd, "state": state}
+        self.optimizer.load_state_dict(sd)
+
+    def full_ema(self) -> Optional[List[torch.Tensor]]:
+        """The EMA copies, each whole (None when EMA is off)."""
+        if self.ema is None or self.sharding is None:
+            return self.ema
+        sh = self.sharding
+        n = len(sh.params)
+        return [gather_tensor(e, sh.moment_spec(i) if sh.fsdp[i]
+                              else sh.model_spec(sh.names[i]))
+                if i < n else e for i, e in enumerate(self.ema)]
+
+    def load_full_ema(self, ema: List[torch.Tensor]) -> None:
+        sh = self.sharding
+        for i, (e, r) in enumerate(zip(self.ema, ema)):
+            if sh is not None and i < len(sh.params):
+                spec = (sh.moment_spec(i) if sh.fsdp[i]
+                        else sh.model_spec(sh.names[i]))
+                r = shard_tensor(r.to(e.device), spec)
+            e.copy_(r)
+
+
+@contextlib.contextmanager
+def _gathered(sh: Sharding) -> Iterator[None]:
+    """The whole parameters inside (FSDP), released after if they were
+    not whole before."""
+    was = sh.gathered
+    sh.gather()
+    try:
+        yield
+    finally:
+        if not was:
+            sh.release()
+
+
+def _whole_shape(sh: Sharding, i: int) -> tuple:
+    """The shape of parameter ``i``'s moments when gathered whole."""
+    m = sh.masters[i]
+    spec = sh.moment_spec(i)
+    if spec is None or axis_size(spec.axis) == 1:
+        return tuple(m.shape)
+    shape = list(m.shape)
+    shape[spec.dim] *= axis_size(spec.axis)
+    return tuple(shape)
+
+
+def _is_moment(v, sh: Sharding, i: int) -> bool:
+    return torch.is_tensor(v) and tuple(v.shape) == tuple(sh.masters[i].shape)

@@ -32,12 +32,24 @@ document boundary or land on padding; the CE is summed over the valid
 targets and divided by the global batch's valid count (tpunet's
 ``count_fn`` contract), so microbatch gradients are summed, not
 averaged, and each rank scales its sum by the world size, which
-``reduce_gradients`` divides out.
+``TrainState.reduce_gradients`` divides out.
+
+On a mesh (``tpunet_torch.parallel.mesh``) "the ranks" above are the
+'data' axis: its ranks split the batch, and the gradients and metric
+sums are reduced over its group only; the ranks of a 'model' group see
+the same rows and compute one step together (tensor parallelism). A
+sharded state (``TrainState.sharding``) gathers the FSDP parameters at
+the step's start (``begin_step``), reduce-scatters the split gradients
+(``TrainState.reduce_gradients``) and updates the pieces. With
+``vocab_ce`` resolving to ``sharded`` (``--vocab-ce``; ``auto`` on a
+'model' axis that divides the vocab) the LM returns its hidden states
+and the CE runs vocab-parallel against the tied embedding
+(``tpunet_torch.ops.vocab_ce``): the [B, T, V] logits never exist whole.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +57,9 @@ import torch.nn.functional as F
 from tpunet_torch.config import DataConfig, OptimConfig
 from tpunet_torch.data.augment import (make_eval_preprocess, make_mix,
                                       make_train_augment)
-from tpunet_torch.parallel.dist import all_reduce, is_initialized, process_count
+from tpunet_torch.ops.vocab_ce import vocab_parallel_ce
+from tpunet_torch.parallel.dist import all_reduce
+from tpunet_torch.parallel.mesh import axis_group, axis_size
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState
 
@@ -56,21 +70,6 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
     ``optax.smooth_labels``: (1 - s) * one_hot + s / classes."""
     return F.cross_entropy(logits, targets, reduction="none",
                            label_smoothing=smoothing)
-
-
-def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Replace every gradient by its mean over the ranks: one all-reduce
-    of one flat buffer, divided by the number of ranks (each rank's
-    gradient is that of its rows' mean loss, so the mean over equal
-    shards is the global batch's). Nothing to do without a process
-    group."""
-    if not is_initialized():
-        return
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-    flat.div_(process_count())
-    torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(
-        flat.split([g.numel() for g in grads]), grads)])
 
 
 def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
@@ -86,7 +85,8 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
     smoothing = optim_cfg.label_smoothing
-    state.optimizer.zero_grad(set_to_none=True)
+    state.zero_grad()
+    state.begin_step()
     loss_sum = correct = 0
     for i in range(accum):
         x, y = images[i::accum], labels[i::accum]
@@ -102,7 +102,7 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         (loss / accum).backward()
         loss_sum = loss_sum + loss.detach() * y.shape[0]
         correct = correct + (logits.detach().argmax(-1) == y).sum()
-    reduce_gradients(state.model.parameters())
+    state.reduce_gradients()
     state.apply_gradients()
     return M.from_batch(loss_sum, correct, n, labels.device)
 
@@ -131,9 +131,15 @@ def _packed_target_weights(segs: torch.Tensor) -> torch.Tensor:
 
 
 def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
-                smoothing: float, **kw):
+                smoothing: float, sharded_ce: bool = False, **kw):
     """Per-target CE [B, T-1] and whether the argmax hits, of the logits
-    at positions 0..T-2 against the tokens at 1..T-1."""
+    at positions 0..T-2 against the tokens at 1..T-1; ``sharded_ce``:
+    vocab-parallel over the 'model' axis from the hidden states."""
+    if sharded_ce:
+        h = model(tokens, segment_ids=segs, return_hidden=True, **kw)
+        return vocab_parallel_ce(h[:, :-1], model.embed.weight,
+                                 tokens[:, 1:], axis_group("model"),
+                                 smoothing=smoothing)
     logits = model(tokens, segment_ids=segs, **kw)[:, :-1]
     tgt = tokens[:, 1:].long()
     ce = _ce_loss(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
@@ -143,7 +149,8 @@ def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
 
 def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
                  labels: torch.Tensor, generator: torch.Generator,
-                 optim_cfg: OptimConfig, packed: bool = False) -> M.Metrics:
+                 optim_cfg: OptimConfig, packed: bool = False,
+                 sharded_ce: bool = False) -> M.Metrics:
     """The LM's :func:`fit_batch`: forward/backward over
     ``optim_cfg.grad_accum`` strided microbatches of the token rows
     [B, T] (this rank's), the gradients reduced over the ranks, one
@@ -156,16 +163,18 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
     smoothing = optim_cfg.label_smoothing
-    state.optimizer.zero_grad(set_to_none=True)
+    state.zero_grad()
+    state.begin_step()
     if packed:
-        total = all_reduce(_packed_target_weights(labels).sum())
-        scale = process_count() / total.clamp_min(1.0)
+        total = all_reduce(_packed_target_weights(labels).sum(),
+                           axis_group("data"))
+        scale = axis_size("data") / total.clamp_min(1.0)
     loss_sum = correct = count = 0
     for i in range(accum):
         x = tokens[i::accum]
         segs = labels[i::accum] if packed else None
-        ce, hit = _next_token(state.model, x, segs, smoothing, train=True,
-                              generator=generator)
+        ce, hit = _next_token(state.model, x, segs, smoothing, sharded_ce,
+                              train=True, generator=generator)
         if packed:
             wt = _packed_target_weights(segs)
             ce_sum = (ce * wt).sum()
@@ -179,27 +188,28 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
             loss_sum = loss_sum + loss.detach() * ce.numel()
             correct = correct + hit.sum()
             count = count + ce.numel()
-    reduce_gradients(state.model.parameters())
+    state.reduce_gradients()
     state.apply_gradients()
     return M.from_batch(loss_sum, correct, count, tokens.device)
 
 
-def make_lm_train_step(optim_cfg: OptimConfig, packed: bool = False
-                       ) -> Callable:
+def make_lm_train_step(optim_cfg: OptimConfig, packed: bool = False,
+                       sharded_ce: bool = False) -> Callable:
     """train_step(state, tokens [B,T] int, labels, generator) -> metrics
     for the LM: ``labels`` are [B, T] segment ids when ``packed``, else
-    unread."""
+    unread; ``sharded_ce``: the vocab-parallel CE."""
 
     def train_step(state: TrainState, tokens: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator
                    ) -> M.Metrics:
         return fit_lm_batch(state, tokens, labels, generator, optim_cfg,
-                            packed)
+                            packed, sharded_ce)
 
     return train_step
 
 
-def make_lm_eval_step(packed: bool = False) -> Callable:
+def make_lm_eval_step(packed: bool = False,
+                      sharded_ce: bool = False) -> Callable:
     """eval_step(model, tokens, labels, mask) -> metrics of next-token
     prediction; ``mask`` [B] zeroes padded rows, and ``packed`` composes
     it with the per-token packing weights of the segment ids in
@@ -209,7 +219,8 @@ def make_lm_eval_step(packed: bool = False) -> Callable:
                   labels: torch.Tensor, mask: torch.Tensor) -> M.Metrics:
         with torch.no_grad():
             losses, hit = _next_token(model, tokens,
-                                      labels if packed else None, 0.0)
+                                      labels if packed else None, 0.0,
+                                      sharded_ce)
             wt = mask[:, None]
             if packed:
                 wt = wt * _packed_target_weights(labels)
