@@ -225,7 +225,19 @@ Phases, each of which must pass:
      ms inside each collective as readings; the LM at a 32,768-token vocabulary under
      TP 2, one step with the vocab-parallel CE and one with the full
      logits (losses within 1e-5, the peaks as readings);
- 18. print the kernel list and the card's name and power limit.
+ 18. seq_trainer: sequence parallelism (ROADMAP Queue A item 8b):
+     the CLI with ``--mesh-seq 2``, 2 ranks sharing the card over gloo
+     as in phase 17, 3 steps a run, each against the same run at one
+     rank in this process: in float32 the LM under ``--attention ring``
+     and ``ulysses``, the packed LM (the corpus's first 54 rows) under
+     ``ulysses``, ViT-B/16 under ``ring``, with phase 17's gates and the
+     parameters equal to the bit on both ranks; the LM ring in bf16,
+     its loss within 2^-7 relative of one rank's; the flash trio's
+     launches a rank-step: the causal ring 12 on rank 0 (the diagonal;
+     the future block skipped) and 24 on rank 1, the ViT's ring 24,
+     Ulysses 12; per-rank peak memory against one rank's, the step and
+     the host ms inside the hops and all-to-alls as readings;
+ 19. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -233,8 +245,10 @@ nothing of the tpunet package.
 ``python3 chip_smoke.py --four-cards`` (a host of four cards) times
 mixup's partner fetch over NCCL, one rank a card, runs
 ``scripts/torch_dp_check.py``'s 4-ranks-against-1 check with the
-item-2b options, and the sharded_trainer phase's LM and ViT-B/16 at
-data 2 x model 2 with ``--fsdp`` over NCCL against one card.
+item-2b options, the sharded_trainer phase's LM and ViT-B/16 at
+data 2 x model 2 with ``--fsdp`` over NCCL against one card, and the
+seq_trainer phase's LM at ``--mesh-seq 4`` under ring and at data 1 x
+seq 2 x model 2 under Ulysses (readings).
 """
 
 from __future__ import annotations
@@ -298,6 +312,12 @@ FLASH_CASES = [
     (4, 77, 77, 4, 32, False, False, False),        # no tile divides T
     (2, 150, 150, 2, 128, True, False, False),
     (BATCH, 196, 196, 12, 64, False, False, True),  # nonzero glse
+    # The ring's blocks at --mesh-seq 2 (seq_trainer), with the nonzero
+    # glse of the state merge: the LM's (B 16, T 512 a rank; the diagonal
+    # causal, the past not) and ViT-B/16's (B 128, 98 tokens a rank).
+    (16, 512, 512, 12, 64, True, False, True),
+    (16, 512, 512, 12, 64, False, False, True),
+    (TRAIN_BATCH, 98, 98, 12, 64, False, False, True),
     # T that cut through the tensor-core kernels' 16-row warps and their
     # 8-key / 16-key steps.
     (2, 1, 1, 4, 64, False, False, False),
@@ -4799,8 +4819,8 @@ def item2b_bf16_params(torch) -> dict:
     same bf16 weights. Parameters, Adam's moments and the parameters'
     EMA stay bf16 (the BN statistics float32), the kernels launch as on
     the main path, and phase_train's bf16 gates hold: loss within 2^-7
-    relative of the plain versions', BN statistics within twice the
-    library path's error plus 2^-10."""
+    relative of the plain versions', BN statistics (from running
+    variances of 0) within twice the library path's error plus 2^-10."""
     import contextlib
 
     import numpy as np
@@ -4817,9 +4837,11 @@ def item2b_bf16_params(torch) -> dict:
     yb = torch.from_numpy(labels.astype(np.int64)).cuda()
     data = DataConfig(dataset="synthetic", mixup_alpha=0.2, cutmix_alpha=1.0)
     optim = OptimConfig(ema_decay=0.999)
-    start = create_model(ModelConfig(param_dtype="bfloat16"), device="cpu",
-                         generator=torch.Generator().manual_seed(SEED + 902)
-                         ).state_dict()
+    # The BN running variances start at 0, as phase_train's do, so that
+    # stat_errors reads the batch statistics at their own precision.
+    start = zero_running_var(torch, create_model(
+        ModelConfig(param_dtype="bfloat16"), device="cpu",
+        generator=torch.Generator().manual_seed(SEED + 902))).state_dict()
 
     def run(kernels, plain=False):
         model = create_model(ModelConfig(
@@ -4856,13 +4878,13 @@ def item2b_bf16_params(torch) -> dict:
     k_loss, k_stats, launches, dtypes, finite, all_moments = run(True)
     p_loss, p_stats, *_ = run(True, plain=True)
     l_loss, l_stats, *_ = run(False)
-    s_err = stat_errors(torch, k_stats, p_stats)
+    s_err = stat_errors(torch, k_stats, p_stats, var0=0.0)
     worst_s = max(s_err, key=s_err.get)
     res = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_library=l_loss,
                loss_rel_err=abs(k_loss - p_loss) / abs(p_loss),
                bn_stat_err_max=s_err[worst_s], bn_stat_err_max_key=worst_s,
                library_bn_stat_err_max=max(
-                   stat_errors(torch, l_stats, p_stats).values()),
+                   stat_errors(torch, l_stats, p_stats, var0=0.0).values()),
                launches=launches, dtypes=dtypes)
     bf16 = ["torch.bfloat16"]
     check(dtypes["params"] == bf16 and dtypes["adam_moments"] == bf16
@@ -5140,7 +5162,7 @@ def phase_trainer_item2b(torch) -> dict:
 
 
 SHARD_DIR = ROOT / "build" / "tpunet_torch" / "smoke_shard"
-SHARD_RUN_STEPS = 3          # train steps of each sharded run
+SHARD_RUN_STEPS = 3          # train steps of each sharded and SP run
 SHARD_F32 = ("--dtype", "float32", "--dropout-rate", "0", "--epochs", "1",
              "--no-obs", "--seed", str(SEED + 15))
 SHARD_LM = ("--model", "lm", "--dataset", "synthetic_lm", "--vit-hidden",
@@ -5300,12 +5322,33 @@ def shard_vocab_memory(torch) -> dict:
     return out
 
 
-def shard_worker(world: int, rank: int, backend: str) -> int:
-    """One rank of the sharded_trainer phase (``--dp-worker shard``): the
-    runs of SHARD_DIR/runs.json in turn, each in a new process group of
-    ``world`` ranks over ``backend`` (gloo: ranks sharing the card; NCCL:
-    a card a rank), then, on gloo, the vocab-32,768 steps. Writes
-    SHARD_DIR/shard_rank<rank>.pt."""
+_SHARD_REFERENCES = {}
+
+
+def shard_reference(torch, flags, directory: Path) -> dict:
+    """The one-rank run of ``flags`` (``--preset single``, SHARD_F32,
+    recorded by :func:`shard_recorded`) with its saved whole parameters
+    under ``state``; the sharded_trainer and seq_trainer phases share
+    one run of the same flags (the LM's and ViT-B/16's)."""
+    key = tuple(flags)
+    if key not in _SHARD_REFERENCES:
+        run = shard_recorded(torch, list(SHARD_F32) + list(flags) + [
+            "--preset", "single", "--device", "cuda", "--checkpoint-dir",
+            str(directory)], 1)
+        run["state"] = torch.load(directory / "state.pt")["model"]
+        _SHARD_REFERENCES[key] = run
+        torch.cuda.empty_cache()
+    return _SHARD_REFERENCES[key]
+
+
+def shard_worker(world: int, rank: int, backend: str,
+                 directory: Path = SHARD_DIR) -> int:
+    """One rank of the sharded_trainer and seq_trainer phases
+    (``--dp-worker shard``): the runs of ``directory``/runs.json in
+    turn, each in a new process group of ``world`` ranks over
+    ``backend`` (gloo: ranks sharing the card; NCCL: a card a rank),
+    then, when asked, the vocab-32,768 steps. Writes
+    ``directory``/shard_rank<rank>.pt."""
     import torch
 
     from tpunet_torch.parallel import dist
@@ -5320,23 +5363,23 @@ def shard_worker(world: int, rank: int, backend: str) -> int:
     torch.backends.cudnn.deterministic = True
     if backend == "nccl":
         torch.cuda.set_device(dist.local_device())
-    spec = json.loads((SHARD_DIR / "runs.json").read_text())
+    spec = json.loads((directory / "runs.json").read_text())
     out = {}
     for name, flags in spec["runs"].items():
         dist.initialize_distributed(
-            init_method=(SHARD_DIR / f"store_{name}").as_uri(),
+            init_method=(directory / f"store_{name}").as_uri(),
             world_size=world, rank=rank, backend=backend)
         out[name] = shard_recorded(torch, flags + [
             "--preset", "distributed", "--device", "cuda",
-            "--checkpoint-dir", str(SHARD_DIR / f"ck_{name}")], world)
+            "--checkpoint-dir", str(directory / f"ck_{name}")], world)
         torch.cuda.empty_cache()
     if spec.get("vocab"):
         dist.initialize_distributed(
-            init_method=(SHARD_DIR / "store_vocab").as_uri(),
+            init_method=(directory / "store_vocab").as_uri(),
             world_size=world, rank=rank, backend=backend)
         out["vocab"] = shard_vocab_memory(torch)
         dist.destroy()
-    torch.save(out, SHARD_DIR / f"shard_rank{rank}.pt")
+    torch.save(out, directory / f"shard_rank{rank}.pt")
     return 0
 
 
@@ -5469,12 +5512,7 @@ def phase_sharded_trainer(torch, backend="gloo", world=2,
     for name, flags in SHARD_REFS.items():
         if not any(k.startswith(name) for k in runs):
             continue
-        refs[name] = shard_recorded(torch, list(SHARD_F32) + list(flags) + [
-            "--preset", "single", "--device", "cuda", "--checkpoint-dir",
-            str(SHARD_DIR / f"ck_ref_{name}")], 1)
-        refs[name]["state"] = torch.load(
-            SHARD_DIR / f"ck_ref_{name}" / "state.pt")["model"]
-        torch.cuda.empty_cache()
+        refs[name] = shard_reference(torch, flags, SHARD_DIR / f"ck_ref_{name}")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cudnn.deterministic = False
     res = {"card": card_line(), "world": world, "backend": backend,
@@ -5566,6 +5604,211 @@ def phase_sharded_trainer(torch, backend="gloo", world=2,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism: ring and Ulysses attention over the 'seq' axis
+# ---------------------------------------------------------------------------
+
+SEQ_DIR = ROOT / "build" / "tpunet_torch" / "smoke_seq"
+# Packed rows of the cut corpus: SHARD_RUN_STEPS train steps of LM_BATCH rows
+# once text_lm keeps nine tenths for training.
+SEQ_PACKED_ROWS = -(-SHARD_RUN_STEPS * LM_BATCH * 10 // 9)
+# The 2-rank runs (a 'seq' group of 2: every rank reads the same rows and
+# holds half of the positions) and their world-1 references, in this
+# process; the packed corpus is filled in by phase_seq_trainer.
+SEQ_RUNS = {
+    "lm_ring": SHARD_LM + ("--attention", "ring", "--mesh-seq", "2",
+                           "--batch-size", str(LM_BATCH)),
+    "lm_ulysses": SHARD_LM + ("--attention", "ulysses", "--mesh-seq", "2",
+                              "--batch-size", str(LM_BATCH)),
+    "lmpk_ulysses": ("--attention", "ulysses", "--mesh-seq", "2"),
+    "vit_ring": SHARD_VIT + ("--attention", "ring", "--mesh-seq", "2",
+                             "--batch-size", str(TRAIN_BATCH)),
+    "lmbf_ring": SHARD_LM + ("--attention", "ring", "--mesh-seq", "2",
+                             "--batch-size", str(LM_BATCH), "--dtype",
+                             "bfloat16"),
+}
+# --four-cards, a card a rank over NCCL: the LM's ring of four hops, and
+# Ulysses beside tensor parallelism (data 1 x seq 2 x model 2).
+SEQ_RUNS_FOUR = {
+    "lm_ring4": SHARD_LM + ("--attention", "ring", "--mesh-seq", "4",
+                            "--batch-size", str(LM_BATCH)),
+    "lm_ulysses_tp": SHARD_LM + ("--attention", "ulysses", "--mesh-seq", "2",
+                                 "--mesh-model", "2", "--batch-size",
+                                 str(LM_BATCH))}
+SEQ_REFS = {"lm": SHARD_LM + ("--batch-size", str(LM_BATCH)),
+            "lmpk": (),
+            "vit": SHARD_VIT + ("--batch-size", str(TRAIN_BATCH)),
+            "lmbf": SHARD_LM + ("--batch-size", str(LM_BATCH), "--dtype",
+                                "bfloat16")}
+# The bf16 ring's loss against one rank's bf16 loss, relative.
+SEQ_BF16_LOSS_RTOL = 2.0**-7
+SEQ_FLASH = ("flash_attention_forward", "flash_attention_dq",
+             "flash_attention_dkv")
+
+
+def seq_flash_launches(name: str, rank: int, seq: int) -> int:
+    """The flash trio's launches (each of the three) a rank-step of a
+    sequence-parallel run: the ring folds (rank + 1) blocks a layer when
+    causal (the LM: the diagonal and the past, the future skipped) and
+    all ``seq`` when not (the ViT); Ulysses runs one local core a layer
+    over the whole sequence."""
+    if "ulysses" in name:
+        return LM_LAYERS
+    if name.startswith("vit"):
+        return VIT_LAYERS * seq
+    return LM_LAYERS * (rank + 1)
+
+
+def seq_packed_flags() -> tuple:
+    """The packed LM's flags on the start of the corpus: the lines that
+    pack into SEQ_PACKED_ROWS rows of LM_T tokens (SHARD_RUN_STEPS train
+    steps of LM_BATCH rows)."""
+    from tpunet_torch.data.lm import text_lm_packed
+
+    lines = lm_corpus().read_bytes().split(b"\n")
+    path = SEQ_DIR / "corpus.txt"
+    lo, hi = 1, len(lines)
+    while lo < hi:            # the fewest lines that give the rows
+        mid = (lo + hi) // 2
+        path.write_bytes(b"\n".join(lines[:mid]))
+        try:
+            x, _, tx, _ = text_lm_packed(str(path), LM_T)
+            rows = len(x) + len(tx)
+        except ValueError:
+            rows = 0
+        lo, hi = (mid + 1, hi) if rows < SEQ_PACKED_ROWS else (lo, mid)
+    path.write_bytes(b"\n".join(lines[:lo]))
+    return (*LM_FLAGS, "--dataset", "text_lm", "--pack-docs", "--text-file",
+            str(path), "--batch-size", str(LM_BATCH))
+
+
+def phase_seq_trainer(torch, backend="gloo", world=2, runs=None) -> dict:
+    """seq_trainer: ``python -m tpunet_torch.train --preset distributed``
+    with ``--mesh-seq`` and ``--attention ring|ulysses``, ``world``
+    ranks over ``backend`` (on one card 2 ranks sharing it over gloo),
+    SHARD_RUN_STEPS steps with dropout 0 and cuDNN's deterministic
+    algorithms, each against the same run at one rank in this process.
+    In float32 (the LM under ring and Ulysses, the packed LM under
+    Ulysses, ViT-B/16 under ring): the train loss within 1e-4, the test
+    accuracy within 1e-6 and the parameters within rtol 2e-4 / atol 2e-5
+    (but the qkv key bias, whose exact gradient is 0), and the
+    parameters equal to the bit on every rank (all of them replicated
+    over 'seq'); in bf16 (the LM ring): the loss within 2^-7 relative of
+    one rank's bf16 loss. Every run: the flash trio's launches a
+    rank-step as :func:`seq_flash_launches` says (bf16: the tensor-core
+    kernels), so no CUDA tensor went around a kernel. Readings: per-rank
+    peak memory against one rank's, the step time, and the host
+    milliseconds inside the ring's hops (``ppermute``) and Ulysses'
+    ``all_to_all``. Returns the readings with what failed the gates
+    (``failed``): the caller decides."""
+    runs = dict(SEQ_RUNS if runs is None else runs)
+    fails = []
+
+    def gate(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    refs_flags = dict(SEQ_REFS)
+    if "lmpk_ulysses" in runs:
+        packed = seq_packed_flags()
+        runs["lmpk_ulysses"] = packed + tuple(runs["lmpk_ulysses"])
+        refs_flags["lmpk"] = packed
+    (SEQ_DIR / "runs.json").write_text(json.dumps(
+        {"runs": {k: list(SHARD_F32) + list(v) for k, v in runs.items()},
+         "vocab": False}))
+    me = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    run_workers([(f"seq_rank{r}", [sys.executable, me, "--dp-worker",
+                                   "shard", str(world), str(r), backend,
+                                   str(SEQ_DIR)])
+                 for r in range(world)],
+                env={f"seq_rank{r}": {"LOCAL_RANK": str(
+                    r if backend == "nccl" else 0)} for r in range(world)},
+                log_dir=SEQ_DIR, timeout=SHARD_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    outs = [torch.load(SEQ_DIR / f"shard_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True     # as in shard_worker
+    refs = {}
+    families = {name.split("_")[0] for name in runs}
+    for family, flags in refs_flags.items():
+        if family not in families:
+            continue
+        refs[family] = shard_reference(torch, flags,
+                                       SEQ_DIR / f"ck_ref_{family}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    res = {"card": card_line(), "world": world, "backend": backend,
+           "workers_s": workers_s}
+    for name in runs:
+        family = name.split("_")[0]
+        ref = refs[family]
+        flags = list(runs[name])
+        seq = int(flags[flags.index("--mesh-seq") + 1])
+        model = (int(flags[flags.index("--mesh-model") + 1])
+                 if "--mesh-model" in flags else 1)
+        state = torch.load(SEQ_DIR / f"ck_{name}" / "state.pt")["model"]
+        row = {f"rank{r}": shard_summary(o[name]) for r, o in enumerate(outs)}
+        for r in range(world):
+            s = row[f"rank{r}"]
+            coll = s["collectives_calls_and_host_ms_per_step"]
+            s["seq_collective_host_ms_per_step"] = sum(
+                coll[k][1] for k in ("ppermute", "all_to_all"))
+            s.pop("replicated_gaps", None)
+        row["replicated_equal"] = outs[0][name].get("replicated_equal")
+        gate(row["replicated_equal"] is True,
+             f"{name}: the parameters differ between the ranks")
+        for r, o in enumerate(outs):
+            s = row[f"rank{r}"]
+            gate(s["steps"] == SHARD_RUN_STEPS,
+                 f"{name} rank {r}: {s['steps']} steps")
+            # The mesh is row-major over (data, seq, pipe, model).
+            want = seq_flash_launches(name, (r // model) % seq, seq)
+            for k in SEQ_FLASH:
+                got = [st["launches"][k] for st in o[name]["steps"]]
+                gate(all(g == want for g in got),
+                     f"{name} rank {r}: {k} launches a step {got}, "
+                     f"want {want}")
+        rec, base = outs[0][name]["history"][0], ref["history"][0]
+        row.update(
+            reference="world 1",
+            train_loss_diff=rec["train_loss"] - base["train_loss"],
+            test_accuracy_diff=rec["test_accuracy"] - base["test_accuracy"],
+            reference_peak_bytes=max(st["peak_bytes"] for st in ref["steps"]),
+            reference_step_ms_p50=statistics.median(
+                st["ms"] for st in (ref["steps"][1:] or ref["steps"])))
+        row["peak_vs_reference"] = [row[f"rank{r}"]["peak_bytes"]
+                                    / row["reference_peak_bytes"]
+                                    for r in range(world)]
+        if family == "lmbf":
+            gate(abs(row["train_loss_diff"])
+                 <= SEQ_BF16_LOSS_RTOL * abs(base["train_loss"]),
+                 f"{name}: bf16 train loss {rec['train_loss']} vs "
+                 f"{base['train_loss']}")
+        else:
+            close = shard_params_close(torch, state, ref["state"])
+            row["params"] = close
+            gate(abs(row["train_loss_diff"]) <= SHARD_LOSS_TOL,
+                 f"{name}: train loss {rec['train_loss']} vs "
+                 f"{base['train_loss']}")
+            gate(abs(row["test_accuracy_diff"]) <= 1e-6,
+                 f"{name}: test accuracy {rec['test_accuracy']} vs "
+                 f"{base['test_accuracy']}")
+            gate(close["excess"] <= 0.0,
+                 f"{name}: {close['excess_key']} beyond rtol "
+                 f"{SHARD_PARAM_RTOL} / atol {SHARD_PARAM_ATOL} by "
+                 f"{close['excess']:.3g}")
+        res[name] = row
+    res["s"] = time.perf_counter() - t0
+    res["failed"] = fails
+    emit("seq_trainer", **res)
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5614,42 +5857,61 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
+    # Seconds of each phase, in the summary line (and printed on a
+    # failure): the script's time limit is shared by every phase.
+    phase_s = {}
+
+    def timed(fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            key = fn.__name__
+            while key in phase_s:
+                key += "+"
+            phase_s[key] = time.perf_counter() - t
+
     try:
-        phase_build()
-        fwd_rows = phase_kernels(torch)
-        train_rows = phase_train_kernels(torch)
-        serve_launches = phase_main_path(torch)
-        launches, images_per_s, dp_ref = phase_train(torch)
-        phase_train_b512(torch)
-        epoch = phase_trainer(torch, sync_step_ms=dp_ref["step_ms"],
-                              exporters=True)
+        timed(phase_build)
+        fwd_rows = timed(phase_kernels, torch)
+        train_rows = timed(phase_train_kernels, torch)
+        serve_launches = timed(phase_main_path, torch)
+        launches, images_per_s, dp_ref = timed(phase_train, torch)
+        timed(phase_train_b512, torch)
+        epoch = timed(phase_trainer, torch, sync_step_ms=dp_ref["step_ms"],
+                      exporters=True)
         torch.cuda.empty_cache()
-        phase_dp_step(torch, dp_ref)
-        phase_dp_trainer(torch, epoch, dp_ref["step_ms"])
+        timed(phase_dp_step, torch, dp_ref)
+        timed(phase_dp_trainer, torch, epoch, dp_ref["step_ms"])
         del dp_ref
         torch.cuda.empty_cache()
-        flash_rows = phase_flash_kernels(torch)
-        state = vit_state(torch)
-        vit_serve_launches = phase_vit_serving(torch, state)
-        vit_launches, vit_images_per_s = phase_vit_train(torch, state)
+        flash_rows = timed(phase_flash_kernels, torch)
+        state = timed(vit_state, torch)
+        vit_serve_launches = timed(phase_vit_serving, torch, state)
+        vit_launches, vit_images_per_s = timed(phase_vit_train, torch, state)
         from tpunet_torch.config import ModelConfig
-        phase_trainer(torch, ModelConfig(name="vit_base"),
-                      ("--model", "vit_base"), "vit_trainer",
-                      sync_step_ms=TRAIN_BATCH / vit_images_per_s * 1e3,
-                      window_kernels=FLASH_WINDOW_KERNELS)
+        timed(phase_trainer, torch, ModelConfig(name="vit_base"),
+              ("--model", "vit_base"), "vit_trainer",
+              sync_step_ms=TRAIN_BATCH / vit_images_per_s * 1e3,
+              window_kernels=FLASH_WINDOW_KERNELS)
         torch.cuda.empty_cache()
-        lm_rows = phase_lm_kernels(torch)
-        lm_launches, lm_tokens_per_s = phase_lm_train(torch)
-        phase_lm_trainer(torch,
-                         sync_step_ms=LM_BATCH * LM_T / lm_tokens_per_s * 1e3)
-        lm_gen = phase_lm_generate(torch)
-        serve = phase_serve_engine(torch)
-        item5 = phase_serve_item5(torch, serve)
-        router = phase_router(torch)
-        item2b = phase_trainer_item2b(torch)
+        lm_rows = timed(phase_lm_kernels, torch)
+        lm_launches, lm_tokens_per_s = timed(phase_lm_train, torch)
+        timed(phase_lm_trainer, torch,
+              sync_step_ms=LM_BATCH * LM_T / lm_tokens_per_s * 1e3)
+        lm_gen = timed(phase_lm_generate, torch)
+        serve = timed(phase_serve_engine, torch)
+        item5 = timed(phase_serve_item5, torch, serve)
+        router = timed(phase_router, torch)
+        item2b = timed(phase_trainer_item2b, torch)
         torch.cuda.empty_cache()
-        shard = phase_sharded_trainer(torch)
+        shard = timed(phase_sharded_trainer, torch)
+        torch.cuda.empty_cache()
+        seqp = timed(phase_seq_trainer, torch)
+        check(not seqp["failed"], "seq_trainer: " + "; ".join(
+            seqp["failed"][:6]))
     except PhaseError as e:
+        emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
@@ -5719,8 +5981,13 @@ def main() -> int:
         entry["sharded_trainer"] = {
             run: shard[run]["rank0"]["launches_per_step"][name]
             for run in ("lm_tp", "lm_fsdp", "vit_tp")}
+        # A rank's launches a step under --mesh-seq 2 (seq_trainer): the
+        # causal ring's rank 0 folds the diagonal, rank 1 the past too.
+        entry["seq_trainer"] = {
+            run: [seqp[run][f"rank{r}"]["launches_per_step"][name]
+                  for r in range(2)] for run in SEQ_RUNS}
         kernels.append(entry)
-    emit("summary", seconds=time.perf_counter() - t0,
+    emit("summary", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
          serve_depthwise_launches=serve_launches,
          train_images_per_sec_per_chip=images_per_s,
          vit_serve_flash_launches_per_forward=vit_serve_launches,
@@ -5735,7 +6002,7 @@ def main() -> int:
          router_kill_to_end_s=router["failover"]["kill_to_end_s"],
          router_respawn_s=router["failover"]["respawn_s"],
          router_s=router["s"], trainer_item2b_s=item2b["s"],
-         sharded_trainer_s=shard["s"])
+         sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5751,7 +6018,9 @@ def four_cards() -> int:
     ``scripts/torch_dp_check.py``'s check (its ``epoch``, flags and
     tolerances, 4 ranks against 1 on the same global batch) with the
     item-2b options, then the LM and ViT-B/16 at data 2 x model 2 with
-    ``--fsdp`` over NCCL (phase_sharded_trainer) against one card.
+    ``--fsdp`` over NCCL (phase_sharded_trainer) against one card, then
+    the LM's ring at ``--mesh-seq 4`` and Ulysses at data 1 x seq 2 x
+    model 2 (phase_seq_trainer, readings) against one card.
     Prints the card line and one JSON object; exits 0 when all hold."""
     import importlib.util
 
@@ -5796,6 +6065,15 @@ def four_cards() -> int:
             vocab=False)
     except PhaseError as e:
         shard = {"failed": str(e)}
+    # Sequence parallelism over NCCL, a card a rank, against one card: the
+    # LM's ring of four hops at --mesh-seq 4, and Ulysses at data 1 x
+    # seq 2 x model 2. Readings: what would fail is listed, not gated; a
+    # worker that dies is caught as sharded_trainer's are.
+    try:
+        seqp = phase_seq_trainer(torch, backend="nccl", world=4,
+                                 runs=SEQ_RUNS_FOUR)
+    except PhaseError as e:
+        seqp = {"failed": [str(e)]}
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
@@ -5808,7 +6086,8 @@ def four_cards() -> int:
                       "world_4": many, "world_1": one, "diff": diff,
                       "tolerance": {"loss_rel": dpc.LOSS_RTOL,
                                     "accuracy": dpc.ACC_TOL},
-                      "sharded_trainer_nccl": shard, "ok": ok}),
+                      "sharded_trainer_nccl": shard,
+                      "seq_trainer_nccl": seqp, "ok": ok}),
           flush=True)
     return 0 if ok else 1
 
@@ -5817,7 +6096,8 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--four-cards"]:
         sys.exit(four_cards())
     if sys.argv[1:3] == ["--dp-worker", "shard"]:
-        sys.exit(shard_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+        sys.exit(shard_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                              *map(Path, sys.argv[6:7])))
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

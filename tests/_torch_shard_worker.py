@@ -21,7 +21,21 @@ it computed to ``DIR/<case>_rank<RANK>.pt``:
   it keeps) with their splits, each replicated leaf's largest gradient
   gap to the 'model' group's mean (``Sharding.replicated_gaps``), and
   the sizes of what it keeps resident, taken before the run leaves its
-  group.
+  group (the sequence-parallel runs of tests/test_torch_seq_train.py
+  too);
+- ``seq_s2``/``seq_s4``/``seq_tp`` (tests/test_torch_seq.py): on a mesh
+  of 'seq' 2 (2 ranks), 'seq' 4 (4 ranks) or 'seq' 2 x 'model' 2 (4
+  ranks), the rank's shard of ``seq_qkv.npz`` (its tokens, and under
+  'model' its heads) through ``ring_self_attention`` and
+  ``ulysses_self_attention`` with each core, causal and not: the output
+  and the q/k/v gradients of sum(out^2) over every rank's output; the
+  flash ring in bf16; and on 'seq' 2 the errors of an unknown core,
+  indivisible heads, Ulysses on cross-length inputs and the flash core
+  on a causal cross-length ring;
+- ``seq_vit_grad``: the tiny ViT of ``vit.pt`` with ring attention over
+  a 'seq' axis of WORLD ranks, one train-mode forward/backward (dropout
+  0) on ``images.npz`` with the loss split over the ranks and the
+  gradients summed over 'seq', as the train step does.
 
 Imports no JAX and nothing of the tpunet package.
 """
@@ -88,6 +102,74 @@ def case_vit_grad(d, world, rank):
     return dict(logits=logits.detach(), loss=loss.item(), grads=grads)
 
 
+SEQ_MESHES = {"seq_s2": dict(seq=2), "seq_s4": dict(seq=4),
+              "seq_tp": dict(seq=2, model=2)}
+
+
+def case_seq(d, world, rank, name):
+    from tpunet_torch.ops.attention import (ring_self_attention,
+                                            ulysses_self_attention)
+    mesh = make_mesh(MeshConfig(**SEQ_MESHES[name]))
+    n, r = mesh.shape["seq"], mesh.coords["seq"]
+    m, j = mesh.shape["model"], mesh.coords["model"]
+    qkv = [torch.from_numpy(a) for a in np.load(
+        os.path.join(d, "seq_qkv.npz")).values()]
+    t, h = qkv[0].shape[1], qkv[0].shape[2]
+    mine = [a[:, r * t // n:(r + 1) * t // n, j * h // m:(j + 1) * h // m]
+            for a in qkv]
+    fns = {"ring": ring_self_attention, "ulysses": ulysses_self_attention}
+    out = {}
+    for attn, fn in fns.items():
+        for core in ("blockwise", "flash"):
+            for causal in (False, True):
+                x = [a.clone().requires_grad_() for a in mine]
+                y = fn(*x, causal=causal, core=core)
+                (y ** 2).sum().backward()
+                out[(attn, core, causal)] = dict(
+                    out=y.detach(), grads=[a.grad for a in x])
+    x = [a.bfloat16() for a in mine]
+    out["bf16_ring"] = ring_self_attention(*x, causal=True,
+                                           core="flash").float()
+    if name == "seq_s2":
+        q, k, v = mine
+        errors = {}
+        for tag, call in (
+                ("unknown_core", lambda: ring_self_attention(
+                    q, k, v, core="blokwise")),
+                ("indivisible_heads", lambda: ulysses_self_attention(
+                    q[:, :, :3], k[:, :, :3], v[:, :, :3])),
+                ("cross_length", lambda: ulysses_self_attention(
+                    q, k[:, :8], v[:, :8])),
+                ("flash_causal_cross_length", lambda: ring_self_attention(
+                    q, k[:, :8], v[:, :8], causal=True, core="flash"))):
+            try:
+                call()
+                errors[tag] = None
+            except ValueError as e:
+                errors[tag] = str(e)
+        out["errors"] = errors
+    set_mesh(None)
+    return out
+
+
+def case_seq_vit_grad(d, world, rank):
+    from tpunet_torch.train.state import sum_over_seq
+    make_mesh(MeshConfig(seq=world))
+    cfg = ModelConfig(attention="ring", **VIT)
+    model = create_model(cfg, device="cpu", image_size=32)
+    model.load_state_dict(torch.load(os.path.join(d, "vit.pt")))
+    inputs = np.load(os.path.join(d, "images.npz"))
+    x = torch.from_numpy(inputs["x"]).permute(0, 3, 1, 2)
+    logits = model(x, train=True, generator=torch.Generator())
+    loss = F.cross_entropy(logits, torch.from_numpy(inputs["y"]))
+    (loss / world).backward()
+    grads = [p.grad for p in model.parameters()]
+    sum_over_seq(grads)
+    set_mesh(None)
+    return dict(logits=logits.detach(), loss=loss.item(),
+                grads={k: p.grad for k, p in model.named_parameters()})
+
+
 def case_cli(d, world, rank, name):
     flags = json.load(open(os.path.join(d, "flags.json")))[name]
     seen = {}
@@ -148,6 +230,10 @@ def main() -> int:
             out = case_vocab(d, world, rank)
         elif case == "vit_grad":
             out = case_vit_grad(d, world, rank)
+        elif case in SEQ_MESHES:
+            out = case_seq(d, world, rank, case)
+        elif case == "seq_vit_grad":
+            out = case_seq_vit_grad(d, world, rank)
         else:
             out = case_cli(d, world, rank, case)
         torch.save(out, os.path.join(d, f"{case}_rank{rank}.pt"))

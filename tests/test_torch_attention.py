@@ -102,5 +102,14 @@ def test_blockwise_needs_a_dividing_block_and_divisor_block_finds_one():
                                   "ulysses_attention",
                                   "ulysses_self_attention"])
 def test_sequence_parallel_attentions_raise_with_their_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        getattr(att, name)(None, None, None, "seq")
+    """Refused until ROADMAP Queue A item 8b ported them: each
+    sequence-parallel attention now computes. In one process its 'seq'
+    axis has one rank, and it is tpunet's dense attention (the blockwise
+    core takes head dim 8; tests/test_torch_seq.py holds both cores on
+    gloo gangs against tpunet's ring and Ulysses)."""
+    q, k, v, _, causal = _inputs(CASES[1])
+    want = np.asarray(jatt.dense_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    got = getattr(att, name)(*(torch.from_numpy(a) for a in (q, k, v)),
+                             causal=causal, core="blockwise")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

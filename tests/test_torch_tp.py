@@ -287,16 +287,27 @@ def test_qkv_split_gives_whole_heads_of_tpunet_kernel():
 
 
 def test_cli_parses_tpunet_mesh_flags_and_refuses_seq_pipe():
+    """The mesh flags map as tpunet's do; --mesh-pipe is refused with its
+    item. --mesh-seq, refused until sequence parallelism was ported
+    (ROADMAP Queue A item 8b), now gives tpunet's mesh with ring or
+    Ulysses attention."""
+    from tpunet.config import config_from_args as jax_config_from_args
     cfg, _ = cli.config_from_args(["--model", "lm", "--dataset",
                                    "synthetic_lm", "--mesh-data", "2",
                                    "--mesh-model", "2", "--zero1",
                                    "--vocab-ce", "sharded"])
     assert (cfg.mesh.data, cfg.mesh.model, cfg.mesh.zero1) == (2, 2, True)
     assert cfg.mesh.shape(4) == (2, 1, 1, 2)
-    for flags, part in ((["--mesh-seq", "2"], "sequence parallelism"),
-                        (["--mesh-pipe", "2"], "pipeline parallelism")):
-        with pytest.raises(NotImplementedError, match=f"item 8 \\({part}"):
-            cli.config_from_args(flags)
+    with pytest.raises(NotImplementedError,
+                       match="item 8 \\(pipeline parallelism"):
+        cli.config_from_args(["--mesh-pipe", "2"])
+    argv = ["--model", "lm", "--dataset", "synthetic_lm", "--mesh-seq", "2",
+            "--mesh-model", "2", "--attention", "ring"]
+    cfg, _ = cli.config_from_args(argv)
+    want = jax_config_from_args(argv).mesh
+    assert (cfg.mesh.data, cfg.mesh.seq, cfg.mesh.pipe, cfg.mesh.model) == (
+        want.data, want.seq, want.pipe, want.model)
+    assert cfg.mesh.shape(8) == (2, 2, 1, 2)
 
 
 # ------------------------------------------------------------ two ranks

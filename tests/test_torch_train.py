@@ -531,22 +531,44 @@ def test_presets_and_defaults_match_tpunet():
 @pytest.mark.parametrize("make", [
     lambda: ModelConfig(pretrained_path="auto"),
     lambda: ModelConfig(name="vit", moe_experts=4),
-    lambda: ModelConfig(name="vit", attention="ring"),
-    lambda: MeshConfig(seq=2),
     lambda: MeshConfig(pipe=2),
-    lambda: ModelConfig(name="vit_pp"),
-    lambda: ModelConfig(name="vit", attention_core="flash")],
-    ids=["auto_weights", "moe", "ring", "mesh_seq", "mesh_pipe", "vit_pp",
-         "attention_core"])
+    lambda: ModelConfig(name="vit_pp")],
+    ids=["auto_weights", "moe", "mesh_pipe", "vit_pp"])
 def test_unported_fields_raise_with_their_roadmap_item(make):
     """What the port still refuses: the download of ``pretrained='auto'``
-    and what is left of Queue A item 8 (sequence and pipeline
-    parallelism, MoE). Item 2b's fields are ported
-    (tests/test_torch_{mixup,ema,native,preemption,remat}.py), and so
-    are the mesh's 'data'/'model' axes, ZeRO-1, FSDP and the
-    vocab-parallel CE (tests/test_torch_{tp,fsdp,vocab_ce}.py)."""
+    and what is left of Queue A item 8 (pipeline parallelism, MoE). Item
+    2b's fields are ported (tests/test_torch_{mixup,ema,native,
+    preemption,remat}.py), and so are the mesh's 'data'/'model' axes,
+    ZeRO-1, FSDP, the vocab-parallel CE (tests/test_torch_{tp,fsdp,
+    vocab_ce}.py) and sequence parallelism
+    (:func:`test_sequence_parallel_fields_are_accepted`)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         make()
+
+
+@pytest.mark.parametrize("make,argv", [
+    (lambda: ModelConfig(name="vit", attention="ring"),
+     ["--model", "vit", "--attention", "ring", "--mesh-seq", "2"]),
+    (lambda: MeshConfig(seq=2),
+     ["--model", "lm", "--dataset", "synthetic_lm", "--attention",
+      "ulysses", "--mesh-seq", "2"]),
+    (lambda: ModelConfig(name="vit", attention_core="flash"),
+     ["--model", "vit", "--attention", "ring", "--attention-core",
+      "flash"])],
+    ids=["ring", "mesh_seq", "attention_core"])
+def test_sequence_parallel_fields_are_accepted(make, argv):
+    """The values refused until sequence parallelism was ported (ROADMAP
+    Queue A item 8b; tests/test_torch_seq*.py run them): each now
+    constructs, and the CLI flags that set it give tpunet's mesh and
+    attention fields."""
+    from tpunet.config import config_from_args as jax_config_from_args
+    make()
+    got, _ = cli.config_from_args(argv)
+    want = jax_config_from_args(argv)
+    for f in dataclasses.fields(got.mesh):
+        assert getattr(got.mesh, f.name) == getattr(want.mesh, f.name), f.name
+    for f in ("name", "attention", "attention_core", "attention_block"):
+        assert getattr(got.model, f) == getattr(want.model, f), f
 
 
 def test_cli_maps_flags_and_refuses_the_rest():
@@ -587,12 +609,22 @@ def test_cli_maps_flags_and_refuses_the_rest():
     assert mesh.mesh == MeshConfig(data=2, model=2, zero1=True, fsdp=True)
     assert mesh.model.vocab_ce == "sharded"
     for flag in (["--moe-experts", "4"], ["--pp-schedule", "1f1b"],
-                 ["--attention-core", "flash"], ["--optimizer", "lamb"]):
+                 ["--optimizer", "lamb"]):
         with pytest.raises(SystemExit):
             cli.config_from_args(flag)
-    for flag in (["--mesh-seq", "2"], ["--mesh-pipe", "2"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cli.config_from_args(flag)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        cli.config_from_args(["--mesh-pipe", "2"])
+    # Sequence parallelism (ROADMAP Queue A item 8b): the flags map, and
+    # --mesh-seq shards the tokens of a ViT or the LM under ring/ulysses.
+    seq, _ = cli.config_from_args(["--model", "lm", "--dataset",
+                                   "synthetic_lm", "--attention", "ring",
+                                   "--attention-core", "flash",
+                                   "--mesh-seq", "2"])
+    assert seq.mesh == MeshConfig(seq=2)
+    assert (seq.model.attention, seq.model.attention_core) == ("ring",
+                                                               "flash")
+    with pytest.raises(ValueError, match="needs --attention ring or ulysses"):
+        cli.config_from_args(["--mesh-seq", "2"])
     # The one item-2b value still refused: a download of the weights.
     with pytest.raises(NotImplementedError, match="download"):
         cli.config_from_args(["--pretrained", "auto"])

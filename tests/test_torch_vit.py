@@ -207,18 +207,35 @@ def test_predictor_probs_match_tpunet(jax_vit):
     (lambda: ModelConfig(name="vit", moe_experts=4), "item 8"),
     (lambda: ModelConfig(name="vit", moe_top_k=1), "item 8"),
     (lambda: ModelConfig(name="vit", moe_dispatch="dense"), "item 8"),
-    (lambda: ModelConfig(name="vit", attention="ring"), "item 8"),
-    (lambda: ModelConfig(name="vit", attention="ulysses"), "item 8"),
-    (lambda: ModelConfig(name="vit", attention_core="flash"), "item 8"),
     (lambda: ModelConfig(name="lm", moe_experts=4), "item 8"),
     (lambda: ModelConfig(name="lm_pp"), "item 8"),
     (lambda: ModelConfig(name="vit_pp"), "item 8")],
-    ids=["moe", "moe_top_k", "moe_dispatch", "ring", "ulysses", "core",
-         "lm", "lm_pp", "vit_pp"])
+    ids=["moe", "moe_top_k", "moe_dispatch", "lm", "lm_pp", "vit_pp"])
 def test_config_refusals_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A {item}"):
         make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: ModelConfig(name="vit", attention="ring"),
+    lambda: ModelConfig(name="vit", attention="ulysses"),
+    lambda: ModelConfig(name="vit", attention_core="flash")],
+    ids=["ring", "ulysses", "core"])
+def test_sequence_parallel_attention_configs_compute_dense(make):
+    """Refused until sequence parallelism was ported (ROADMAP Queue A
+    item 8b): the config now builds, and its attention computes tpunet's
+    dense attention (one process: the 'seq' axis has one rank;
+    tests/test_torch_seq*.py hold the gangs)."""
+    from tpunet.ops.attention import dense_attention as jax_dense
+    from tpunet_torch.models.vit import make_attn_fn
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, 16, 3, 64)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jax_dense(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v)))
+    got = make_attn_fn(make())(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_config_keeps_mobilenet_fields_to_mobilenet():

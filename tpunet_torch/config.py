@@ -37,6 +37,8 @@ VIT_NAMES = ("vit", "vit_tiny", "vit_small", "vit_base")
 IMAGE_DATASETS = ("cifar10", "synthetic")
 TOKEN_DATASETS = ("synthetic_lm", "text_lm")
 ATTENTIONS = ("auto", "dense", "blockwise", "flash", "ring", "ulysses")
+SEQ_ATTENTIONS = ("ring", "ulysses")      # sequence-parallel over 'seq'
+ATTENTION_CORES = ("auto", "flash", "blockwise")
 
 
 def _refuse_unported(obj, items) -> None:
@@ -148,15 +150,18 @@ class ModelConfig:
     ViT: ``attention`` picks the core, ``auto`` and ``flash`` the flash
     kernels (``tpunet_torch.ops.flash``), ``dense`` or ``blockwise`` the
     plain versions; ``attention_block`` is the blockwise chunk and the
-    flash call's TPU block size (the LM's core is causal). ``remat``
+    flash call's TPU block size (the LM's core is causal). ``ring`` and
+    ``ulysses`` are sequence-parallel over the mesh's 'seq' axis, with
+    ``attention_core`` the local core inside them (``auto`` and
+    ``flash`` the flash kernels, ``blockwise`` the plain online
+    softmax). ``remat``
     recomputes each encoder block of the ViT and the LM in the backward
     (training only; never the decode path), ``block_remat`` each
     MobileNetV2 inverted-residual block's BN/ReLU6 epilogues from the
     saved conv outputs and (C,) statistics. ``param_dtype`` is the
     storage dtype of the parameters and the optimizer state (float32 or
-    bfloat16; the BN running statistics stay float32). The
-    sequence-parallel cores, MoE and the vocab-sharded cross-entropy
-    wait for their ROADMAP items and raise when set. ``vocab_ce``
+    bfloat16; the BN running statistics stay float32). MoE waits for
+    its ROADMAP item and raises when set. ``vocab_ce``
     (``auto``/``sharded``/``full``) is resolved against the mesh by
     ``tpunet_torch.ops.vocab_ce.resolve_vocab_ce``.
     """
@@ -211,11 +216,9 @@ class ModelConfig:
         if self.attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {self.attention!r}; "
                              f"expected one of {ATTENTIONS}")
-        if self.attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={self.attention!r} (sequence parallelism over a "
-                "mesh) is not ported to tpunet_torch yet; it comes with "
-                "ROADMAP Queue A item 8")
+        if self.attention_core not in ATTENTION_CORES:
+            raise ValueError(f"unknown attention_core {self.attention_core!r}"
+                             f"; expected one of {ATTENTION_CORES}")
         if self.attention_block < 1:
             raise ValueError(f"attention_block must be >= 1, got "
                              f"{self.attention_block}")
@@ -224,7 +227,6 @@ class ModelConfig:
             raise ValueError(f"unknown param_dtype {self.param_dtype!r}; "
                              "expected float32|bfloat16")
         _refuse_unported(self, {
-            "attention_core": "Queue A item 8 (the ring/Ulysses cores)",
             "moe_experts": moe, "moe_every": moe, "moe_top_k": moe,
             "moe_capacity_factor": moe, "moe_aux_weight": moe,
             "moe_dispatch": moe})
@@ -276,9 +278,8 @@ class OptimConfig:
             raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
 
 
-# What is left of ROADMAP Queue A item 8 after the sharded-state slice,
-# named by the refusals of the axes that need it.
-SEQ_PARALLEL = "Queue A item 8 (sequence parallelism: ring/Ulysses)"
+# What is left of ROADMAP Queue A item 8, named by the refusal of the axis
+# that needs it.
 PIPE_PARALLEL = "Queue A item 8 (pipeline parallelism: vit_pp/lm_pp)"
 
 
@@ -290,8 +291,10 @@ class MeshConfig:
     parallelism (Megatron blocks for the ViT family and the LM);
     ``zero1`` shards the Adam moments over 'data' with the parameters
     replicated; ``fsdp`` shards the parameters, both moments and the EMA
-    copies over 'data' and subsumes ``zero1``. ``seq`` and ``pipe`` > 1
-    wait for the rest of ROADMAP Queue A item 8 and raise."""
+    copies over 'data' and subsumes ``zero1``. ``seq`` > 1 is sequence
+    parallelism (ring or Ulysses attention: the ranks of a 'seq' group
+    read the same rows and each holds ``T / seq`` of the positions).
+    ``pipe`` > 1 waits for ROADMAP Queue A item 8 and raises."""
 
     data: int = -1                    # -1 -> all remaining processes
     seq: int = 1                      # sequence/context-parallel axis
@@ -301,17 +304,14 @@ class MeshConfig:
     fsdp: bool = False
 
     def __post_init__(self):
-        if self.seq > 1:
-            raise NotImplementedError(
-                f"MeshConfig.seq={self.seq} is not ported to tpunet_torch "
-                f"yet; it comes with ROADMAP {SEQ_PARALLEL}")
         if self.pipe > 1:
             raise NotImplementedError(
                 f"MeshConfig.pipe={self.pipe} is not ported to tpunet_torch "
                 f"yet; it comes with ROADMAP {PIPE_PARALLEL}")
-        if self.data == 0 or self.data < -1 or self.model < 1:
+        if self.data == 0 or self.data < -1 or self.model < 1 or self.seq < 1:
             raise ValueError(f"mesh axes must be >= 1 (data may be -1), "
-                             f"got data={self.data} model={self.model}")
+                             f"got data={self.data} seq={self.seq} "
+                             f"model={self.model}")
 
     def shape(self, n_devices: int) -> Tuple[int, int, int, int]:
         """(data, seq, pipe, model) for ``n_devices`` processes."""
@@ -754,10 +754,21 @@ class TrainConfig:
                 f"{self.data.vocab_size}; out-of-range tokens would index "
                 "past the embedding")
         if self.data.pack_docs and self.model.attention not in (
-                "dense", "flash", "auto"):
+                "dense", "flash", "auto", "ulysses"):
             raise ValueError(
                 f"--pack-docs needs a segment-capable attention core "
-                f"(dense/flash/auto), got {self.model.attention!r}")
+                f"(dense/flash/auto, or ulysses for packed x SP), got "
+                f"{self.model.attention!r} — ring's state-merging core has "
+                "no segment operands")
+        if self.mesh.seq > 1 and (self.model.attention not in SEQ_ATTENTIONS
+                                  or self.model.name == "mobilenet_v2"):
+            # The port shards the tokens over 'seq' (tpunet leaves them
+            # to GSPMD): a local core would attend within a shard only.
+            raise ValueError(
+                f"--mesh-seq {self.mesh.seq} shards a ViT's or the LM's "
+                "token sequence over the 'seq' axis; it needs --attention "
+                f"ring or ulysses, got model {self.model.name!r} with "
+                f"attention {self.model.attention!r}")
 
     @property
     def is_lm(self) -> bool:

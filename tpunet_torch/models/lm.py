@@ -40,8 +40,12 @@ equals tpunet's. ``remat`` checkpoints each block of a training forward
 instead of the logits, for the vocab-parallel cross-entropy
 (``tpunet_torch.ops.vocab_ce``). Under tensor parallelism the blocks are
 the ViT's Megatron blocks; the embedding, the positions and the final
-LayerNorm stay replicated. Not ported: MoE blocks and ``lm_pp`` (ROADMAP
-Queue A item 8).
+LayerNorm stay replicated. Under sequence parallelism (``attention``
+``ring`` or ``ulysses`` over the mesh's 'seq' axis of S ranks) a forward
+without a cache takes the whole rows and computes rank r's positions
+``r*T/S`` to ``(r+1)*T/S``: their tokens, ``pos_embed`` rows and segment
+ids, and logits (or hidden states) for those positions only. Not ported:
+MoE blocks and ``lm_pp`` (ROADMAP Queue A items 8c and 8d).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpunet_torch.config import SEQ_ATTENTIONS
 from tpunet_torch.models.vit import (AttnFn, Dense, Encoder, EncoderBlock,
                                      KVCache, LayerNorm, PagedKV, ServeStep,
                                      _lecun_normal_, make_attn_fn)
@@ -131,8 +136,9 @@ class TransformerLM(Encoder):
                 decode_active: Optional[torch.Tensor] = None,
                 paged_kv: Optional[PagedKV] = None,
                 page_table: Optional[torch.Tensor] = None):
-        """Logits [B, T, vocab] float32, or ``(logits, cache)`` with a
-        ``cache``. ``pos_offset`` is the absolute position of
+        """Logits [B, T, vocab] float32 (under sequence parallelism the
+        rank's T/S positions, :meth:`seq_shard`), or ``(logits, cache)``
+        with a ``cache``. ``pos_offset`` is the absolute position of
         ``tokens[:, 0]``: a scalar, or with a ``cache`` a [B] tensor
         (each row its own position; ``decode_active``, ``paged_kv`` and
         ``page_table`` go with it). ``return_hidden``: the final
@@ -173,6 +179,11 @@ class TransformerLM(Encoder):
                                  f"{pos_offset + t - 1} outside the table of "
                                  f"{self.max_len}")
             pos = pos[:, pos_offset:pos_offset + t]
+        if cache is None:
+            # Sequence parallelism: this rank's positions r*T/S on.
+            tokens, pos = self._seq_slice(tokens), self._seq_slice(pos)
+            if segment_ids is not None:
+                segment_ids = self._seq_slice(segment_ids)
         x = F.embedding(tokens.long(), self.embed.weight).to(self.dtype)
         x = x + pos
         drop = self._dropout(train, generator, x.device)
@@ -215,6 +226,7 @@ def create_lm(cfg, generator: torch.Generator) -> TransformerLM:
                           attn_fn=make_attn_fn(cfg, causal=True),
                           dtype=getattr(torch, cfg.dtype))
     model.remat = cfg.remat
+    model.seq_parallel = cfg.attention in SEQ_ATTENTIONS
     init_lm(model, generator)
     return model
 

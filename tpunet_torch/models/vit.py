@@ -67,9 +67,21 @@ per-layer tensors written in place. With ``remat`` (``--remat``) a
 training forward runs each block under ``torch.utils.checkpoint``, so
 the backward recomputes it (the flash forward launches twice a layer a
 step), with the block's dropout masks drawn again from the same
-generator state; decode steps are never wrapped. Not ported: MoE blocks
-and the sequence-parallel cores (ROADMAP Queue A item 8); the config
-refuses them.
+generator state; decode steps are never wrapped.
+
+Sequence parallelism (``attention`` ``ring`` or ``ulysses``, the mesh's
+'seq' axis of S ranks, :meth:`Encoder.seq_shard`): every rank of a
+'seq' group gets the whole input, and a forward without a cache keeps
+rank r's tokens ``r*T/S`` to ``(r+1)*T/S`` from the embedding plus
+positions on, through every block; the core is
+``tpunet_torch.ops.attention.ring_self_attention`` or
+``ulysses_self_attention``. Each dropout mask is drawn at the whole
+sequence's shape from the generator that the group's ranks share and
+sliced, so the group draws one rank's masks (remat's fork too). The
+ViT's mean pool sums the rank's tokens and then sums over the group
+(``all_reduce_sum``, differentiable) before it divides by T, so every
+rank holds the whole logits. Not ported: MoE blocks (ROADMAP Queue A
+item 8c); the config refuses them.
 """
 
 from __future__ import annotations
@@ -84,11 +96,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from tpunet_torch.config import SEQ_ATTENTIONS
 from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
-                                        dense_attention)
+                                        dense_attention, ring_self_attention,
+                                        ulysses_self_attention)
 from tpunet_torch.ops.flash import flash_attention
-from tpunet_torch.parallel.dist import copy_to_group, reduce_from_group
-from tpunet_torch.parallel.mesh import axis_index
+from tpunet_torch.parallel.dist import (all_reduce_sum, copy_to_group,
+                                        reduce_from_group)
+from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v) BTHD -> BTHD
 
@@ -431,15 +446,24 @@ class Dropout:
     """One forward's dropout: each call draws a Bernoulli(1 - rate) mask
     from ``bits`` (a generator on the activations' device) and returns
     ``x * mask / (1 - rate)``; the identity without a generator. The
-    generator's state can be read, forked and set, which remat needs."""
+    generator's state can be read, forked and set, which remat needs.
+    ``shard`` (n, r): ``x`` is shard r of n along the tokens (dim 1),
+    and the mask is drawn at the whole sequence's shape and sliced, so
+    the n ranks of a 'seq' group draw one rank's masks between them."""
 
-    def __init__(self, bits: Optional[torch.Generator], rate: float):
-        self.bits, self.keep = bits, 1.0 - rate
+    def __init__(self, bits: Optional[torch.Generator], rate: float,
+                 shard: Tuple[int, int] = (1, 0)):
+        self.bits, self.keep, self.shard = bits, 1.0 - rate, shard
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.bits is None:
             return x
-        mask = torch.empty_like(x).bernoulli_(self.keep, generator=self.bits)
+        n, r = self.shard
+        t = x.shape[1]
+        mask = x.new_empty((x.shape[0], t * n) + x.shape[2:]).bernoulli_(
+            self.keep, generator=self.bits)
+        if n > 1:
+            mask = mask.narrow(1, r * t, t)
         return x * mask / self.keep
 
     def state(self) -> Optional[torch.Tensor]:
@@ -455,7 +479,7 @@ class Dropout:
             return self
         bits = torch.Generator(device=self.bits.device)
         bits.set_state(state)
-        return Dropout(bits, 1.0 - self.keep)
+        return Dropout(bits, 1.0 - self.keep, self.shard)
 
 
 class Encoder(nn.Module):
@@ -477,6 +501,10 @@ class Encoder(nn.Module):
         # whole world).
         self.tensor_parallel = False
         self.tp_group = None
+        # A sequence-parallel core (ring/Ulysses): a training or eval
+        # forward computes this rank's share of the tokens on the mesh's
+        # 'seq' axis (seq_shard).
+        self.seq_parallel = False
         # id(parameter) -> (source state, parameter, cast copy); eval only.
         self._consts: Dict[int, tuple] = {}
 
@@ -499,6 +527,25 @@ class Encoder(nn.Module):
         """Compute as one rank of the tensor-parallel ``group``: the
         blocks' TP leaves must hold this rank's pieces."""
         self.tensor_parallel, self.tp_group = True, group
+
+    def seq_shard(self) -> Tuple[int, int]:
+        """(n, r): this rank computes token shard r of n of a forward
+        without a cache, the current mesh's 'seq' axis when the core is
+        sequence-parallel; (1, 0) otherwise."""
+        if not self.seq_parallel:
+            return 1, 0
+        return axis_size("seq"), axis_index("seq")
+
+    def _seq_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``x`` along dim 1 (the tokens)."""
+        n, r = self.seq_shard()
+        if n == 1:
+            return x
+        t = x.shape[1]
+        if t % n:
+            raise ValueError(f"sequence of {t} tokens not divisible by "
+                             f"sequence axis {n}")
+        return x[:, r * t // n:(r + 1) * t // n]
 
     def _linear(self, dense: Dense, x: torch.Tensor, train: bool):
         return F.linear(x, self._cast(dense.weight, train),
@@ -537,7 +584,8 @@ class Encoder(nn.Module):
         # Rank 0 keeps the draw; the others step away from it by a large
         # odd constant (2^64 / golden ratio).
         seed = (seed + axis_index("data") * 0x9E3779B97F4A7C15) % 2**63
-        return Dropout(torch.Generator(device=device).manual_seed(seed), rate)
+        return Dropout(torch.Generator(device=device).manual_seed(seed), rate,
+                       self.seq_shard())
 
     def _attention(self, attn: Attention, x: torch.Tensor, train: bool,
                    segment_ids: Optional[torch.Tensor] = None,
@@ -657,10 +705,17 @@ class ViT(Encoder):
         x = F.linear(x, self._cast(pe.weight, train).reshape(pe.weight.shape[0],
                                                              -1),
                      self._cast(pe.bias, train))
-        x = x + self._cast(self.pos_embed, train)
+        x = self._seq_slice(x + self._cast(self.pos_embed, train))
         drop = self._dropout(train, generator, x.device)
-        x = self._encode(drop(x), train, drop)
-        x = self._norm(self.ln, x, train).mean(dim=1)  # mean pool over tokens
+        x = self._norm(self.ln, self._encode(drop(x), train, drop), train)
+        if self.seq_shard()[0] == 1:
+            x = x.mean(dim=1)  # mean pool over tokens
+        else:
+            # This rank's tokens summed, then the sum over the 'seq' group
+            # (differentiable: each rank's share of the loss reaches its
+            # own tokens).
+            x = all_reduce_sum(x.sum(dim=1), axis_group("seq")) / (
+                x.shape[1] * self.seq_shard()[0])
         return self._linear(self.classifier, x, train).float()
 
 
@@ -669,7 +724,9 @@ def make_attn_fn(cfg, causal: bool = False) -> AttnFn:
     and ``flash`` give the flash kernels (``attention_block`` is their
     TPU block size, not read by the CUDA kernels), ``dense`` the plain
     softmax, ``blockwise`` the chunked online softmax over
-    ``attention_block`` keys."""
+    ``attention_block`` keys; ``ring`` and ``ulysses`` the
+    sequence-parallel attentions over the mesh's 'seq' axis with
+    ``attention_core`` inside (``auto`` is the flash core)."""
     if cfg.attention in ("auto", "flash"):
         return functools.partial(flash_attention,
                                  block_q=cfg.attention_block,
@@ -680,11 +737,13 @@ def make_attn_fn(cfg, causal: bool = False) -> AttnFn:
         return functools.partial(blockwise_attention,
                                  block_size=cfg.attention_block,
                                  causal=causal)
-    if cfg.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} (sequence parallelism over a mesh) "
-            "is not ported to tpunet_torch yet; it comes with ROADMAP "
-            "Queue A item 8")
+    core = None if cfg.attention_core == "auto" else cfg.attention_core
+    if cfg.attention == "ring":
+        return functools.partial(ring_self_attention, causal=causal,
+                                 core=core)
+    if cfg.attention == "ulysses":
+        return functools.partial(ulysses_self_attention, causal=causal,
+                                 core=core, block=cfg.attention_block)
     raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
@@ -723,5 +782,6 @@ def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
                 mlp_ratio=cfg.vit_mlp_ratio, dropout_rate=cfg.dropout_rate,
                 attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype))
     model.remat = cfg.remat
+    model.seq_parallel = cfg.attention in SEQ_ATTENTIONS
     init_vit(model, generator)
     return model

@@ -9,7 +9,8 @@
 - ``flash``: flash attention, the forward with optional lse, dQ and
   dK/dV (CUDA C++, ``csrc/flash.cu``), port of ``tpunet/ops/flash.py``;
   ``attention`` holds the plain dense and blockwise attentions of
-  ``tpunet/ops/attention.py``.
+  ``tpunet/ops/attention.py`` and its sequence-parallel ring and
+  Ulysses attentions, which run the flash kernels inside.
 
 Kernels are built by ``_build`` at first use on a CUDA tensor; a CPU
 tensor always takes the plain version.

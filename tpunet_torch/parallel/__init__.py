@@ -2,7 +2,8 @@
 device binding, barriers and the counted collectives (``dist``, port of
 ``tpunet/parallel/dist.py``), the process mesh and its axis groups
 (``mesh``) and the rule table of tensor parallelism, ZeRO-1 and FSDP
-(``tp``). SP, PP and MoE come with the rest of ROADMAP Queue A item 8."""
+(``tp``); sequence parallelism's differentiable hops and all-to-alls
+are in ``dist``. PP and MoE come with ROADMAP Queue A items 8d and 8c."""
 
 from tpunet_torch.parallel.dist import (all_reduce, all_reduce_sum,  # noqa: F401
                                         destroy, initialize_distributed,

@@ -13,8 +13,10 @@ them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
         --preset distributed --device cpu ...
 
 Every collective of the port goes through :func:`all_reduce`,
-:func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_max` or
-:func:`fetch_rows` (mixup's partner rows), which count their calls
+:func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_max`,
+:func:`fetch_rows` (mixup's partner rows), :func:`ppermute` (the ring's
+neighbour hop) or :func:`all_to_all` (Ulysses' re-sharding), which
+count their calls
 (``all_reduce.calls``, ...) and the host seconds spent inside them
 (``all_reduce.seconds``, ...; NCCL returns once the collective is
 queued, gloo when it is done), as the kernel wrappers count their
@@ -29,6 +31,16 @@ Tensor parallelism's two Megatron operators are here too:
 gradient backward: a replicated activation entering a column-parallel
 layer) and :func:`reduce_from_group` (an all-reduce forward, the
 identity backward: a row-parallel layer's partial sums).
+
+Sequence parallelism's differentiable collectives (tpunet's
+``lax.ppermute`` and ``lax.all_to_all`` under ``shard_map``):
+:func:`ring_pass` (every block of a ring of neighbour hops, the
+gradients sent back the other way) and :func:`all_to_all` (split one
+dim, concatenate another; its backward is the inverse all-to-all). Both
+move data with ``all_to_all_single``, which NCCL runs card to card and
+gloo runs on CPU and CUDA tensors alike; gloo stages a CUDA tensor
+through pinned host memory inside the collective, so on gloo their
+counted host seconds include those copies.
 
 :func:`agree_any` is the preemption path's stop agreement without a
 device collective: a cross-process OR of a host flag through the
@@ -249,14 +261,11 @@ reduce_scatter.seconds = 0.0
 
 def collective_counts() -> dict:
     """{wrapper name: (calls, host seconds)} of every counted collective."""
-    return {f.__name__: (f.calls, f.seconds)
-            for f in (all_reduce, all_reduce_max, all_gather, reduce_scatter,
-                      fetch_rows)}
+    return {f.__name__: (f.calls, f.seconds) for f in _COUNTED}
 
 
 def reset_collective_counts() -> None:
-    for f in (all_reduce, all_reduce_max, all_gather, reduce_scatter,
-              fetch_rows):
+    for f in _COUNTED:
         f.calls, f.seconds = 0, 0.0
 
 
@@ -305,6 +314,117 @@ def fetch_rows(tensors: Sequence[torch.Tensor], perm: torch.Tensor,
 
 fetch_rows.calls = 0
 fetch_rows.seconds = 0.0
+
+
+def ppermute(t: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """What the rank ``shift`` places before this one in ``group`` holds:
+    every rank sends ``t`` to its neighbour ``shift`` ranks on (around
+    the ring) and receives its other neighbour's; counted in
+    ``ppermute.calls``. One ``all_to_all_single`` with one nonzero
+    split each way, so gloo and NCCL run the same call and no unbatched
+    send can deadlock the ring. Not differentiable (:func:`ring_pass`
+    is). One rank: ``t``."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    me = dist.get_rank(group)
+    flat = t.contiguous().reshape(-1)
+    out = torch.empty_like(flat)
+    send, recv = [0] * n, [0] * n
+    send[(me + shift) % n] = recv[(me - shift) % n] = flat.numel()
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, flat, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    _counted(ppermute, t0)
+    return out.view(t.shape)
+
+
+ppermute.calls = 0
+ppermute.seconds = 0.0
+
+
+class _RingPass(torch.autograd.Function):
+    """All n blocks of a ring: block s is what the rank s places before
+    this one holds, after s hops of ``ppermute(shift=1)``. The backward
+    sends the gradients back the other way: n - 1 hops of
+    ``ppermute(shift=-1)``, each adding the block one step nearer home.
+    One node for the whole ring, so every rank runs all n - 1 backward
+    hops even when it used only some blocks (a causal ring skips the
+    blocks from later ranks); a hop per node would leave such a rank out
+    of the others' backward hops."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        blocks = [t.view_as(t)]
+        for _ in range(group_size(group) - 1):
+            blocks.append(ppermute(blocks[-1], group, 1))
+        return tuple(blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = grads[-1]
+        for g in reversed(grads[:-1]):
+            acc = ppermute(acc, ctx.group, -1) + g
+        return acc, None
+
+
+def ring_pass(t: torch.Tensor, group=None) -> Tuple[torch.Tensor, ...]:
+    """The ``group_size(group)`` blocks a ring of neighbour hops brings
+    to this rank, its own first: block s came from the rank s before it
+    (index ``(me - s) % n``). Differentiable: each block's gradient goes
+    back to the rank it came from (tpunet's ``ppermute`` under
+    ``shard_map``). ``n - 1`` hops forward and ``n - 1`` backward, none
+    after the last block. ``(t,)`` on a group of one."""
+    if group_size(group) == 1:
+        return (t,)
+    return _RingPass.apply(t, group)
+
+
+def _all_to_all(t: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = group_size(group)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} "
+                         f"does not split over {n} ranks")
+    # [n (destination), ...]: piece j of the split dim goes to rank j.
+    send = t.unflatten(split_dim, (n, -1)).movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(recv, send, group=group)
+    _counted(all_to_all, t0)
+    # recv[j] is rank j's piece: concatenated in rank order.
+    return recv.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _all_to_all(t, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(t: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """tpunet's tiled ``lax.all_to_all``: ``t``'s dim ``split_dim`` cut
+    into ``n`` equal pieces, piece j sent to rank j of ``group``, and
+    the pieces received concatenated along ``concat_dim`` in rank order
+    (that dim grows n-fold, ``split_dim`` shrinks as much). One
+    ``all_to_all_single``, counted in ``all_to_all.calls``;
+    differentiable, the backward being the inverse all-to-all. ``t`` on
+    a group of one."""
+    if group_size(group) == 1:
+        return t
+    return _AllToAll.apply(t, group, split_dim, concat_dim)
+
+
+all_to_all.calls = 0
+all_to_all.seconds = 0.0
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -377,6 +497,10 @@ def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return t
     return _ReduceFromGroup.apply(t, group)
+
+
+_COUNTED = (all_reduce, all_reduce_max, all_gather, reduce_scatter, fetch_rows,
+            ppermute, all_to_all)
 
 
 def agree_any(tag: str, flag: bool,

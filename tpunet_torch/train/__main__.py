@@ -15,6 +15,9 @@
     torchrun --standalone --nproc-per-node 4 -m tpunet_torch.train \
         --preset distributed --model vit_base --mesh-model 2 --fsdp
                                             # data 2 x model 2, FSDP
+    torchrun --standalone --nproc-per-node 8 -m tpunet_torch.train \
+        --preset distributed --model lm --dataset synthetic_lm \
+        --attention ring --mesh-data 2 --mesh-seq 4   # data 2 x seq 4
 
 Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
 (128 a rank: data parallelism, the reference's MPI script). Under
@@ -26,8 +29,11 @@ batch is that times the axis (the world divided by ``--mesh-model``);
 rank 0 materialises the dataset while the others wait; the group is
 left on exit. ``--mesh-data``/``--mesh-model`` lay the ranks out as
 tpunet's mesh, ``--zero1`` and ``--fsdp`` shard the state over 'data',
-``--vocab-ce`` picks the LM's loss; ``--mesh-seq`` and ``--mesh-pipe``
-above 1 are refused with the ROADMAP item that ports them. SIGTERM stops a run at a step boundary with its
+``--vocab-ce`` picks the LM's loss; ``--mesh-seq S`` with ``--attention
+ring`` or ``ulysses`` (and ``--attention-core``) is sequence parallelism:
+the S ranks of a 'seq' group read the same rows and each holds T / S of
+the positions; ``--mesh-pipe`` above 1 is refused with the ROADMAP item
+that ports it. SIGTERM stops a run at a step boundary with its
 state saved (every rank at the same step) and exits 0; ``--resume``
 re-runs the interrupted epoch. Any other flag of tpunet's CLI is refused
 with an error, never ignored.
@@ -138,11 +144,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--attention", default=None,
                    choices=["auto", "dense", "blockwise", "flash", "ring",
                             "ulysses"],
-                   help="ViT attention core: auto and flash run the "
-                        "hand-written flash kernels on the card")
+                   help="ViT/LM attention core: auto and flash run the "
+                        "hand-written flash kernels on the card; ring and "
+                        "ulysses are sequence-parallel over the mesh "
+                        "'seq' axis")
     p.add_argument("--attention-block", type=int, default=None,
                    help="K/V chunk for --attention blockwise; the TPU "
                         "block size of --attention flash")
+    p.add_argument("--attention-core", default=None,
+                   choices=["auto", "flash", "blockwise"],
+                   help="local core inside --attention ring/ulysses: auto "
+                        "and flash run the flash kernels on the card, "
+                        "blockwise the plain online softmax")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize encoder blocks (less activation "
                         "memory, ~1/3 more backward FLOPs)")
@@ -352,7 +365,7 @@ def _config(args: argparse.Namespace):
                             ("block_remat", "block_remat")) + tuple(
             (f, f) for f in ("vit_patch", "vit_hidden", "vit_depth",
                              "vit_heads", "vit_mlp_ratio", "attention",
-                             "attention_block")):
+                             "attention_block", "attention_core")):
         val = getattr(args, dest)
         if val is not None:
             fields[obj_field] = val

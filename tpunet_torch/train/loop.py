@@ -30,7 +30,10 @@ On a mesh (``MeshConfig``: ``--mesh-data``, ``--mesh-model``,
 model's tensor-parallel leaves for its 'model' rank, and lays the state
 out as ``tpunet_torch.parallel.tp.layout`` says (``TrainState.sharding``).
 The batch is split over the 'data' axis only: the ranks of a 'model'
-group read the same rows. Eval runs on whole (gathered) FSDP weights,
+group read the same rows, and so do the ranks of a 'seq' group
+(sequence parallelism, ``--mesh-seq`` with ``--attention ring`` or
+``ulysses``), each computing its share of the positions, in training
+and in eval alike. Eval runs on whole (gathered) FSDP weights,
 and checkpoints hold the whole state, so ``--resume`` may take another
 mesh. The LM's CE is vocab-parallel when ``vocab_ce`` resolves to
 ``sharded``.
@@ -163,6 +166,9 @@ class Trainer:
                                   else sharding.masters, cfg.optim),
             self._schedule, clip_norm=cfg.optim.clip_norm,
             ema_decay=cfg.optim.ema_decay, sharding=sharding)
+        # The LM's 'seq' ranks count their own positions; the ViT's hold
+        # the whole logits after the pool, which count once.
+        self._metric_axes = ("data", "seq") if cfg.is_lm else ("data",)
         if cfg.is_lm:
             sharded_ce = resolve_vocab_ce(cfg.model.vocab_ce,
                                           axis_size("model"),
@@ -390,7 +396,7 @@ class Trainer:
                 # otherwise the trace bleeds across eval/checkpoint.
                 obs.profiler.on_step(self.state.global_step, sync)
             if every and self.state.global_step % every == 0:
-                sm = M.summarize(m)
+                sm = M.summarize(m, self._metric_axes)
                 # The loss is a host float here anyway — feed the
                 # watchdog's NaN/spike detector at no extra sync cost.
                 obs.observe_loss(self.state.global_step, sm["loss"])
@@ -399,7 +405,8 @@ class Trainer:
                      f"loss {sm['loss']:.4f} acc {sm['accuracy']:.4f} "
                      f"lr {lr:.3e}")
         return M.summarize(acc if acc is not None
-                           else M.zeros_metrics(self.device))
+                           else M.zeros_metrics(self.device),
+                           self._metric_axes)
 
     def evaluate(self) -> Dict[str, float]:
         """One pass over the test set, with the EMA weights and BN
@@ -421,7 +428,8 @@ class Trainer:
                                    self._to_device(bm))
                 acc = m if acc is None else M.accumulate(acc, m)
         return M.summarize(acc if acc is not None
-                           else M.zeros_metrics(self.device))
+                           else M.zeros_metrics(self.device),
+                           self._metric_axes)
 
     def evaluate_checkpoint(self) -> Dict[str, float]:
         """``--eval-only``: load the best weights when present (what

@@ -4,7 +4,8 @@ Every metric is a (loss_sum, correct, count) triple of sums over the
 batch; they stay on the device while they are accumulated and are read
 once, by :func:`summarize`, which sums them over the ranks of the
 mesh's 'data' axis first (the ranks of a 'model' group hold the same
-rows), so every rank reads the global numbers.
+rows; the LM's also over 'seq', whose ranks count their own positions),
+so every rank reads the global numbers.
 """
 
 from __future__ import annotations
@@ -34,13 +35,15 @@ def accumulate(acc: Metrics, new: Metrics) -> Metrics:
     return {k: acc[k] + new[k] for k in acc}
 
 
-def summarize(acc: Metrics) -> Dict[str, float]:
+def summarize(acc: Metrics, axes=("data",)) -> Dict[str, float]:
     """Device scalars -> python floats {loss, accuracy, count} of the
-    global batch: one all-reduce over the ranks, one read from the
-    device."""
-    loss_sum, correct, n = all_reduce(torch.stack(
-        [acc["loss_sum"], acc["correct"], acc["count"]]),
-        axis_group("data")).tolist()
+    global batch: one all-reduce over each mesh axis of ``axes`` (the
+    LM's 'seq' ranks count their own positions, so its sums take
+    ``("data", "seq")``), one read from the device."""
+    sums = torch.stack([acc["loss_sum"], acc["correct"], acc["count"]])
+    for axis in axes:
+        sums = all_reduce(sums, axis_group(axis))
+    loss_sum, correct, n = sums.tolist()
     count = max(n, 1.0)
     return {"loss": loss_sum / count, "accuracy": correct / count,
             "count": n}

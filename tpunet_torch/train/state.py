@@ -27,7 +27,9 @@ the parameter at rest: the model's tensor is empty between steps,
 over 'data' for all of them), and it is emptied again after the update;
 the EMA copies follow the masters, so they rest sharded too. Under
 ZeRO-1 the parameter stays whole and is refreshed from the updated
-masters by one all-gather. The gradients are reduced over 'data' only:
+masters by one all-gather. Under sequence parallelism each rank's
+gradients are partial sums over its tokens: they are summed over 'seq'
+first (:func:`sum_over_seq`). The gradients are then reduced over 'data':
 one all-reduce for the leaves whose moments are whole, one
 reduce-scatter for the split ones, each in one flat buffer a dtype;
 before them, on a 'model' axis, one all-reduce averages the replicated
@@ -173,16 +175,33 @@ def mean_over_group(grads: List[torch.Tensor], group, n: int,
     return out
 
 
+def sum_over_seq(grads: List[torch.Tensor]) -> None:
+    """Sequence parallelism: each rank of a 'seq' group holds the
+    gradient of its share of the tokens (a partial sum, not a copy), so
+    the group's gradients are summed in place, one flat all-reduce a
+    dtype. Nothing to do without a 'seq' axis."""
+    if axis_size("seq") == 1:
+        return
+    for ids in _flat_groups(grads).values():
+        gs = [grads[j] for j in ids]
+        flat = dist.all_reduce(torch.cat([g.reshape(-1) for g in gs]),
+                               axis_group("seq"))
+        torch._foreach_copy_(gs, [c.view_as(g) for c, g in zip(
+            flat.split([g.numel() for g in gs]), gs)])
+
+
 def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
     """Replace every gradient by its mean over the ranks of the 'data'
     axis: one all-reduce of one flat buffer a dtype, divided by their
     number (each rank's gradient is that of its rows' mean loss, so the
-    mean over equal shards is the global batch's). Nothing to do without
-    a process group."""
+    mean over equal shards is the global batch's), after the sum over
+    'seq' (:func:`sum_over_seq`). Nothing to do without a process
+    group."""
     if not dist.is_initialized():
         return
-    mean_over_group([p.grad for p in params if p.grad is not None],
-                    axis_group("data"), axis_size("data"))
+    grads = [p.grad for p in params if p.grad is not None]
+    sum_over_seq(grads)
+    mean_over_group(grads, axis_group("data"), axis_size("data"))
 
 
 class Sharding:
@@ -307,7 +326,10 @@ class Sharding:
         reduce-scatter for the pieces (one flat buffer a dtype each); the
         whole gradients of split parameters are then dropped. First, on
         a 'model' axis, the replicated leaves' gradients are made equal
-        on its ranks (:meth:`_agree_over_model`)."""
+        on its ranks (:meth:`_agree_over_model`); before that, the
+        partial gradients of a 'seq' group are summed
+        (:func:`sum_over_seq`)."""
+        sum_over_seq([p.grad for p in self.params if p.grad is not None])
         if axis_size("model") > 1:
             self._agree_over_model()
         n = self.n

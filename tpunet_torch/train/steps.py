@@ -85,6 +85,7 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
     smoothing = optim_cfg.label_smoothing
+    seq = axis_size("seq")
     state.zero_grad()
     state.begin_step()
     loss_sum = correct = 0
@@ -99,7 +100,11 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
             lam = torch.tensor(lam, dtype=torch.float32, device=ce.device)
             ce = lam * ce + (1.0 - lam) * _ce_loss(logits, y_b, smoothing)
         loss = ce.mean()
-        (loss / accum).backward()
+        # Under sequence parallelism every rank of a 'seq' group holds
+        # the whole logits (the ViT's pool sums over the group): each
+        # takes 1/S of the loss, so that the gradients summed over 'seq'
+        # are the loss's.
+        (loss / (accum * seq)).backward()
         loss_sum = loss_sum + loss.detach() * y.shape[0]
         correct = correct + (logits.detach().argmax(-1) == y).sum()
     state.reduce_gradients()
@@ -130,18 +135,32 @@ def _packed_target_weights(segs: torch.Tensor) -> torch.Tensor:
     return ((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] != 0)).float()
 
 
+def _targets(model: torch.nn.Module, t: int) -> slice:
+    """The next-token targets of this rank's positions among a row's
+    T - 1 (positions 0..T-2 predict tokens 1..T-1): all of them, or
+    under sequence parallelism those of shard r of n. Every rank holds
+    the whole row, so rank r's last position predicts the first token
+    of rank r + 1's shard, and only the row's last position has none."""
+    n, r = model.seq_shard()
+    lo = r * (t // n)
+    return slice(lo, min(lo + t // n, t - 1))
+
+
 def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
                 smoothing: float, sharded_ce: bool = False, **kw):
-    """Per-target CE [B, T-1] and whether the argmax hits, of the logits
-    at positions 0..T-2 against the tokens at 1..T-1; ``sharded_ce``:
-    vocab-parallel over the 'model' axis from the hidden states."""
+    """Per-target CE [B, targets] and whether the argmax hits, of the
+    logits at this rank's positions (:func:`_targets`; 0..T-2 on one
+    rank) against the next tokens; ``sharded_ce``: vocab-parallel over
+    the 'model' axis from the hidden states."""
+    sl = _targets(model, tokens.shape[1])
+    n_tgt = sl.stop - sl.start
+    nxt = tokens[:, 1:][:, sl]
     if sharded_ce:
         h = model(tokens, segment_ids=segs, return_hidden=True, **kw)
-        return vocab_parallel_ce(h[:, :-1], model.embed.weight,
-                                 tokens[:, 1:], axis_group("model"),
-                                 smoothing=smoothing)
-    logits = model(tokens, segment_ids=segs, **kw)[:, :-1]
-    tgt = tokens[:, 1:].long()
+        return vocab_parallel_ce(h[:, :n_tgt], model.embed.weight, nxt,
+                                 axis_group("model"), smoothing=smoothing)
+    logits = model(tokens, segment_ids=segs, **kw)[:, :n_tgt]
+    tgt = nxt.long()
     ce = _ce_loss(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
                   smoothing).view_as(tgt)
     return ce, logits.detach().argmax(-1) == tgt
@@ -166,9 +185,12 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
     state.zero_grad()
     state.begin_step()
     if packed:
+        # Every rank of a 'seq' group holds the whole rows: the global
+        # count needs a sum over 'data' alone.
         total = all_reduce(_packed_target_weights(labels).sum(),
                            axis_group("data"))
         scale = axis_size("data") / total.clamp_min(1.0)
+    sl = _targets(state.model, tokens.shape[1])
     loss_sum = correct = count = 0
     for i in range(accum):
         x = tokens[i::accum]
@@ -176,16 +198,19 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
         ce, hit = _next_token(state.model, x, segs, smoothing, sharded_ce,
                               train=True, generator=generator)
         if packed:
-            wt = _packed_target_weights(segs)
+            wt = _packed_target_weights(segs)[:, sl]
             ce_sum = (ce * wt).sum()
             (ce_sum * scale).backward()
             loss_sum = loss_sum + ce_sum.detach()
             correct = correct + (hit * wt).sum()
             count = count + wt.sum()
         else:
-            loss = ce.mean()
+            # The mean over the row's T - 1 targets: a 'seq' rank's sum
+            # over its own divided by the row's count.
+            row_targets = x.shape[0] * (x.shape[1] - 1)
+            loss = ce.sum() / row_targets
             (loss / accum).backward()
-            loss_sum = loss_sum + loss.detach() * ce.numel()
+            loss_sum = loss_sum + loss.detach() * row_targets
             correct = correct + hit.sum()
             count = count + ce.numel()
     state.reduce_gradients()
@@ -223,7 +248,8 @@ def make_lm_eval_step(packed: bool = False,
                                       sharded_ce)
             wt = mask[:, None]
             if packed:
-                wt = wt * _packed_target_weights(labels)
+                wt = wt * _packed_target_weights(labels)[
+                    :, _targets(model, tokens.shape[1])]
             count = wt.sum() if packed else wt.sum() * losses.shape[1]
             return M.from_batch((losses * wt).sum(), (hit * wt).sum(), count)
 
