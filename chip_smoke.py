@@ -112,7 +112,8 @@ Phases, each of which must pass:
      against the no-cache forward's (12 flash launches), and in f32 the
      cache and no-cache tokens equal;
  13. serve_engine: the LM serving engine (``tpunet_torch.serve``) at
-     phase 12's widths in bf16 behind its HTTP server with the
+     phase 12's widths cut to 6 blocks (SERVE_DEPTH, as in phases 14
+     and 15) in bf16 behind its HTTP server with the
      ServeConfig defaults (8 slots, prefill buckets 32/128/512, paged KV
      of 16-token pages, the prefix cache, device sampling): 8
      closed-loop clients send 48 /v1/generate requests (prompts of
@@ -133,7 +134,7 @@ Phases, each of which must pass:
      answers, finishes an in-flight stream through SIGTERM while new
      requests get 503 with Retry-After, exits 0 and leaves obs_serve
      records;
- 14. serve_item5: the rest of the serving engine at phase 12's widths.
+ 14. serve_item5: the rest of the serving engine at phase 13's LM.
      int8 KV pages: quantize_kv_rows on the card equal to the CPU's
      (codes, bit-equal scales) on 4,096 seeded bf16 rows of [12, 64]
      with an all-zero and an outlier row; the int8 paged attend (8
@@ -157,7 +158,7 @@ Phases, each of which must pass:
      --chaos kill@tokens=5`` as a subprocess streams exactly 5 tokens
      and dies by SIGKILL. No kernel launches on this path;
  15. router: ``python -m tpunet_torch.router --spawn 2`` in front of two
-     replicas of phase 12's LM (``--checkpoint-dir ""``, the seeded
+     replicas of phase 13's LM (``--checkpoint-dir ""``, the seeded
      init; the ServeConfig defaults; on this card), twice. Fleet 1:
      both replicas healthy before a deadline (boot seconds each), a
      greedy request through the router equal to the same request on
@@ -208,6 +209,7 @@ Phases, each of which must pass:
      part), 2 ranks sharing the card over gloo, each rank a subprocess
      of this script (``--dp-worker shard``) running the CLI in its
      process, float32, dropout 0, 3 steps a run: the LM of phase 12
+     and ViT-B/16, both cut to 4 blocks (SHARD_DEPTH), the LM
      with ``--mesh-model 2`` (tensor parallelism, 6 heads a rank, the
      vocab-parallel CE) and with ``--fsdp`` (data 2), ViT-B/16 with
      ``--mesh-model 2``, each against the same run at one rank in this
@@ -219,7 +221,7 @@ Phases, each of which must pass:
      but the leaves whose gradient in that run is 0 to rounding, which
      must be the projection BNs' betas); in every run the replicated
      leaves equal to the bit on both ranks and their gradients within
-     1e-4 of the 'model' group's mean before it is taken, 12 + 12 + 12
+     1e-4 of the 'model' group's mean before it is taken, 4 + 4 + 4
      flash launches or 17 + 17 + 33 + 33 a rank-step; per-rank peak
      memory, the train state's resident bytes, step time and the host
      ms inside each collective as readings; the LM at a 32,768-token vocabulary under
@@ -227,17 +229,40 @@ Phases, each of which must pass:
      logits (losses within 1e-5, the peaks as readings);
  18. seq_trainer: sequence parallelism (ROADMAP Queue A item 8b):
      the CLI with ``--mesh-seq 2``, 2 ranks sharing the card over gloo
-     as in phase 17, 3 steps a run, each against the same run at one
+     as in phase 17 (4 blocks), 3 steps a run, each against the same
+     run at one
      rank in this process: in float32 the LM under ``--attention ring``
      and ``ulysses``, the packed LM (the corpus's first 54 rows) under
      ``ulysses``, ViT-B/16 under ``ring``, with phase 17's gates and the
      parameters equal to the bit on both ranks; the LM ring in bf16,
      its loss within 2^-7 relative of one rank's; the flash trio's
-     launches a rank-step: the causal ring 12 on rank 0 (the diagonal;
-     the future block skipped) and 24 on rank 1, the ViT's ring 24,
-     Ulysses 12; per-rank peak memory against one rank's, the step and
+     launches a rank-step: the causal ring 4 on rank 0 (the diagonal;
+     the future block skipped) and 8 on rank 1, the ViT's ring 8,
+     Ulysses 4; per-rank peak memory against one rank's, the step and
      the host ms inside the hops and all-to-alls as readings;
- 19. print the kernel list and the card's name and power limit.
+ 19. moe_trainer: MoE and expert parallelism (ROADMAP Queue A item 8c) on
+     the repo's MoE example at tpunet's defaults (8 experts, top-2, every
+     second block, capacity 1.25, aux 0.01): ViT-B/16 MoE (batch 128) and
+     the MoE LM (phase 12's LM, batch 16) through the CLI, 3 steps a run:
+     in float32 each on the flash kernels, replaying the routing of the
+     same run on the library path (``--attention dense``; a near-tie that
+     rounding routes apart would send two free runs apart), with phase 17's
+     gates against it, and as readings the choices the kernel run's own
+     top-k makes apart from the replayed ones, by how much, and the router
+     probabilities' and attention outputs' largest differences; in bf16
+     beside the dense model, 12 + 12 + 12 flash launches a step, and as
+     readings the step against the dense model's, the share of pairs
+     dropped and the peak memory; the MoE LM (cut to 4 blocks as in phase
+     17) at ``--mesh-model 2`` on 2 gloo ranks sharing the card under
+     ``--moe-dispatch replicated`` and ``alltoall`` (capacity 4 = E/k, so a
+     half of the tokens routed a rank drops nothing) against one rank,
+     replaying its routing, gated as above; the serving engine answering 16
+     greedy requests of the MoE LM (float32, capacity 8) with request 0's
+     stream equal to ``generate``'s first 16 tokens (the first divergence
+     printed); the port's obs CLIs (``python -m
+     tpunet_torch.obs.cli.timeline/compare/dashboard``) on the router
+     phase's failover fleet and the bf16 runs;
+ 20. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -248,7 +273,8 @@ mixup's partner fetch over NCCL, one rank a card, runs
 item-2b options, the sharded_trainer phase's LM and ViT-B/16 at
 data 2 x model 2 with ``--fsdp`` over NCCL against one card, and the
 seq_trainer phase's LM at ``--mesh-seq 4`` under ring and at data 1 x
-seq 2 x model 2 under Ulysses (readings).
+seq 2 x model 2 under Ulysses, and the moe_trainer phase's LM at data 2
+x model 2 under ``alltoall`` (readings).
 """
 
 from __future__ import annotations
@@ -2788,9 +2814,9 @@ LM_DIR = ROOT / "build" / "tpunet_torch"
 LM_CORPUS_SOURCES = ("README.md", "SURVEY.md", "docs/*.md")
 
 
-def lm_config(dtype="bfloat16", dropout_rate=0.2):
+def lm_config(dtype="bfloat16", dropout_rate=0.2, depth=LM_LAYERS):
     from tpunet_torch.config import ModelConfig
-    return ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=LM_LAYERS,
+    return ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=depth,
                        vit_heads=LM_HEADS, vocab_size=LM_VOCAB,
                        max_seq_len=LM_T,
                        dtype=dtype, dropout_rate=dropout_rate)
@@ -3274,6 +3300,10 @@ def phase_lm_generate(torch) -> dict:
     return res["bfloat16"]
 
 
+# The LM of the serving phases (serve_engine, serve_item5, router) at
+# full width cut to 6 blocks: their time is decode steps, host-bound at a
+# block's launches a block.
+SERVE_DEPTH = 6
 SERVE_REQUESTS = 48      # /v1/generate requests of the serve_engine phase
 SERVE_CLIENTS = 8        # closed-loop generate clients (= the engine's slots)
 SERVE_CLASSIFY_CLIENTS = 2
@@ -3774,9 +3804,11 @@ def phase_serve_engine(torch) -> dict:
 
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator().manual_seed(SEED + 900)
-    state = create_model(lm_config("float32", 0.0), device="cpu",
+    state = create_model(lm_config("float32", 0.0, SERVE_DEPTH),
+                         device="cpu",
                          generator=gen).state_dict()
-    model = create_model(lm_config("bfloat16", 0.0), device="cuda")
+    model = create_model(lm_config("bfloat16", 0.0, SERVE_DEPTH),
+                         device="cuda")
     model.load_state_dict(state)
     bodies, rows, prefix = serve_prompts()
 
@@ -3831,7 +3863,8 @@ def phase_serve_engine(torch) -> dict:
     emit("serve_decode_profile", **decode)
     del model
     torch.cuda.empty_cache()
-    model32 = create_model(lm_config("float32", 0.0), device="cuda")
+    model32 = create_model(lm_config("float32", 0.0, SERVE_DEPTH),
+                           device="cuda")
     model32.load_state_dict(state)
     with torch.inference_mode():
         buf = generate(model32, torch.from_numpy(np.stack(prompts8)).cuda(),
@@ -4072,7 +4105,8 @@ def item5_prefix_store(torch, model, prefix, rows) -> dict:
         d = SERVE_DIR / f"prefix_store_{kv}"
         shutil.rmtree(d, ignore_errors=True)
         cfg = ServeConfig(emit_every_s=0.0, kv_dtype=kv)
-        store = build_prefix_store(str(d), lm_config("bfloat16", 0.0), cfg,
+        store = build_prefix_store(str(d), lm_config("bfloat16", 0.0,
+                                                     SERVE_DEPTH), cfg,
                                    device="cuda")
         first = Engine(model, cfg, prefix_store=store).start()
         try:
@@ -4176,7 +4210,8 @@ def phase_serve_item5(torch, serve) -> dict:
 
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED + 900)
-    state = create_model(lm_config("float32", 0.0), device="cpu",
+    state = create_model(lm_config("float32", 0.0, SERVE_DEPTH),
+                         device="cpu",
                          generator=gen).state_dict()
     bodies, rows, prefix = serve_prompts()
     prompts8 = [np.concatenate([prefix, rows[40 + i, :SERVE_PARITY_SUFFIX]])
@@ -4184,7 +4219,8 @@ def phase_serve_item5(torch, serve) -> dict:
     reset_launch_counts()
     int8 = item5_int8_gates(torch)
     emit("serve_item5_int8_gates", **int8)
-    model32 = create_model(lm_config("float32", 0.0), device="cuda")
+    model32 = create_model(lm_config("float32", 0.0, SERVE_DEPTH),
+                           device="cuda")
     model32.load_state_dict(state)
     with torch.inference_mode():
         buf = generate(model32, torch.from_numpy(np.stack(prompts8)).cuda(),
@@ -4194,7 +4230,8 @@ def phase_serve_item5(torch, serve) -> dict:
     emit("serve_item5_spec_f32", **spec32)
     del model32
     torch.cuda.empty_cache()
-    model = create_model(lm_config("bfloat16", 0.0), device="cuda")
+    model = create_model(lm_config("bfloat16", 0.0, SERVE_DEPTH),
+                         device="cuda")
     model.load_state_dict(state)
     readings = item5_int8_readings(torch, model, prompts8)
     emit("serve_item5_int8", **readings)
@@ -4231,7 +4268,9 @@ def router_fleet(tag, extra=()) -> dict:
          "--probe-interval-s", "0.2", "--unhealthy-after", "2",
          "--respawn-backoff-s", "0.2", "--min-replicas", "2",
          "--max-replicas", "2", *extra, "--", "--checkpoint-dir", "",
-         *LM_FLAGS[2:8], "--vocab-size", str(LM_VOCAB), "--max-seq-len",
+         "--vit-hidden", str(LM_HIDDEN), "--vit-depth", str(SERVE_DEPTH),
+         "--vit-heads", str(LM_HEADS), "--vocab-size", str(LM_VOCAB),
+         "--max-seq-len",
          str(LM_T)],
         cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
     out.close()
@@ -5165,13 +5204,30 @@ SHARD_DIR = ROOT / "build" / "tpunet_torch" / "smoke_shard"
 SHARD_RUN_STEPS = 3          # train steps of each sharded and SP run
 SHARD_F32 = ("--dtype", "float32", "--dropout-rate", "0", "--epochs", "1",
              "--no-obs", "--seed", str(SEED + 15))
-SHARD_LM = ("--model", "lm", "--dataset", "synthetic_lm", "--vit-hidden",
-            str(LM_HIDDEN), "--vit-depth", str(LM_LAYERS), "--vit-heads",
+# The LM and ViT-B/16 at full width, 3 steps of synthetic data; the
+# sharded and SP phases cut their depth to SHARD_DEPTH blocks (their
+# time is collectives through the host, a block's worth a block), the
+# MoE phase keeps all 12.
+SHARD_DEPTH = 4
+
+
+def lm_run_flags(depth: int = LM_LAYERS) -> tuple:
+    return ("--model", "lm", "--dataset", "synthetic_lm", "--vit-hidden",
+            str(LM_HIDDEN), "--vit-depth", str(depth), "--vit-heads",
             str(LM_HEADS), "--seq-len", str(LM_T), "--max-seq-len", str(LM_T),
             "--vocab-size", str(LM_VOCAB),
             "--synthetic-size", str(LM_BATCH * SHARD_RUN_STEPS))
-SHARD_VIT = ("--model", "vit_base", "--dataset", "synthetic",
-             "--synthetic-size", str(TRAIN_BATCH * SHARD_RUN_STEPS))
+
+
+def vit_run_flags(depth: int = VIT_LAYERS) -> tuple:
+    """ViT-B/16's widths (patch 16, 768, 12 heads) at ``depth`` blocks."""
+    return ("--model", "vit", "--vit-patch", "16", "--vit-hidden", "768",
+            "--vit-depth", str(depth), "--vit-heads", "12", "--dataset",
+            "synthetic", "--synthetic-size", str(TRAIN_BATCH * SHARD_RUN_STEPS))
+
+
+SHARD_LM = lm_run_flags(SHARD_DEPTH)
+SHARD_VIT = vit_run_flags(SHARD_DEPTH)
 SHARD_MNV2 = ("--dataset", "synthetic", "--pallas-depthwise",
               "--synthetic-size", str(TRAIN_BATCH * SHARD_RUN_STEPS),
               "--batch-size", str(TRAIN_BATCH // 2))
@@ -5204,7 +5260,8 @@ SHARD_ZERO_GRAD_RATIO = 7e-6
 SHARD_TIMEOUT_S = 600
 
 
-def shard_recorded(torch, flags, world) -> dict:
+def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
+                   attn=0) -> dict:
     """``python -m tpunet_torch.train`` (the CLI in this process) with a
     record of each train step (wall ms after a sync, the kernels'
     launches, the collectives' calls and host seconds, the peak memory
@@ -5214,13 +5271,33 @@ def shard_recorded(torch, flags, world) -> dict:
     the 'model' group's mean before it is averaged
     (``Sharding.replicated_gaps``), and whether the replicated leaves
     are equal to the bit on every rank; the epoch record and the whole
-    state rank 0 saved."""
+    state rank 0 saved. ``in_memory``: the checkpoints are neither
+    copied to the host nor written (an MoE model's state with its Adam
+    moments is GBs a save, and a card's machine may write 45 GiB a
+    call); the model part of the state rank 0 would have saved is
+    returned under ``state``. An MoE run's routing is read by
+    :class:`MoeRoutes` (``moe_ref`` the record it replays, ``attn`` the
+    blocks whose attention outputs it records or compares) under
+    ``moe``."""
+    from tpunet_torch import ckpt
     from tpunet_torch.parallel import dist
     from tpunet_torch.train import __main__ as cli
     from tpunet_torch.train import loop
 
     steps, seen = [], {}
     real_step, real_close = loop.Trainer._step, loop.Trainer.close
+    real_save = ckpt.Checkpointer._save
+
+    def save(self, obj, name, timeout=None):
+        if name == ckpt.STATE and dist.process_index() == 0:
+            seen["state"] = {k: v.detach().cpu()
+                             for k, v in obj["model"].items()}
+        return None
+    # An MoE run's routing: the kept and total (token, slot) pairs; a
+    # float32 run records its routing, or replays a reference's.
+    routes = (MoeRoutes(torch, keep="float32" in flags and moe_ref is None,
+                        replay=moe_ref, attn=attn)
+              if "--moe-experts" in flags else None)
 
     def step(self, bx, by, gen):
         torch.cuda.synchronize()
@@ -5232,6 +5309,8 @@ def shard_recorded(torch, flags, world) -> dict:
         m = real_step(self, bx, by, gen)
         torch.cuda.synchronize()
         steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          loss=float(m["loss_sum"]) / max(float(m["count"]),
+                                                          1.0),
                           launches=launch_counts(),
                           collectives=dist.collective_counts(),
                           peak_bytes=torch.cuda.max_memory_allocated()))
@@ -5265,11 +5344,123 @@ def shard_recorded(torch, flags, world) -> dict:
         real_close(self)
 
     loop.Trainer._step, loop.Trainer.close = step, close
+    if in_memory:
+        ckpt.Checkpointer._save = save
     try:
-        trainer = cli.run(list(flags))
+        if routes is not None:
+            with routes:
+                trainer = cli.run(list(flags))
+            seen["moe"] = routes.summary()
+        else:
+            trainer = cli.run(list(flags))
     finally:
         loop.Trainer._step, loop.Trainer.close = real_step, real_close
+        ckpt.Checkpointer._save = real_save
     return dict(steps=steps, history=trainer.history, **seen)
+
+
+class MoeRoutes:
+    """While entered, ``tpunet_torch.models.moe.route`` (which every MoE
+    block's forward calls) is wrapped to count the (token, slot) pairs
+    and the kept ones on the card (no sync). ``keep``: record each
+    call's choices, [k, n] int8 slot-major, and router probabilities
+    [n, E], and the attention outputs of the first ``attn`` calls of
+    ``Encoder._attention`` (the first forward's blocks), on the card.
+    ``replay``: such a record of another run; each call then routes by
+    the record's choices for its tokens (``moe.place``: the gates, the
+    positions and the kept pairs from those choices), so that two
+    float32 runs take one routing path and their parameters can be held
+    to each other's, and reads, a call: how many choices this run's own
+    top-k makes apart from the record's, the largest gap between the
+    probabilities of its own and the record's choice where they differ,
+    the largest |probs - the record's|, and of the first ``attn``
+    attention outputs the largest |output - the record's|. A rank's
+    tokens are the record's slice j of ``parts``: all of them, or its
+    'data' shard, or under alltoall its (data, model) slice."""
+
+    def __init__(self, torch, keep=False, replay=None, attn=0):
+        self.torch, self.keep, self.replay, self.attn = torch, keep, \
+            replay, attn
+        self.pairs, self.kept, self.calls, self.attn_calls = 0, None, 0, 0
+        self.choices, self.probs, self.attn_out = [], [], []
+        self.apart, self.gap, self.dprobs, self.dattn = [], [], [], []
+
+    def _slice(self, n, total) -> slice:
+        from tpunet_torch.parallel.mesh import axis_index, axis_size
+        parts, d, m = total // n, axis_index("data"), axis_index("model")
+        if parts * n != total or parts not in (
+                1, axis_size("data"), axis_size("data") * axis_size("model")):
+            raise ValueError(f"replay: {n} tokens a call against the "
+                             f"record's {total}")
+        j = 0 if parts == 1 else d if parts == axis_size("data") else \
+            d * axis_size("model") + m
+        return slice(j * n, (j + 1) * n)
+
+    def __enter__(self):
+        import tpunet_torch.models.moe as moe
+        from tpunet_torch.models.vit import Encoder
+        self.moe, self.real = moe, moe.route
+        self.enc, self.real_attn = Encoder, Encoder._attention
+        torch = self.torch
+
+        def route(probs, k, e, cap):
+            i, self.calls = self.calls, self.calls + 1
+            if self.replay is None:
+                r = self.real(probs, k, e, cap)
+            else:
+                rec = self.replay["choices"][i]
+                at = self._slice(probs.shape[0], rec.shape[1])
+                want = rec[:, at].to(probs.device).t().long()
+                r = moe.place(probs, want, e, cap)
+                p = probs.detach()
+                own = torch.topk(p, k, dim=-1).indices
+                apart = own != want
+                gap = (p.gather(1, own) - p.gather(1, want)).abs()
+                self.apart.append(apart.sum())
+                self.gap.append(torch.where(apart, gap, 0.0).max())
+                self.dprobs.append((p - self.replay["probs"][i][at].to(
+                    p.device)).abs().max())
+            self.pairs += r.kept.numel()
+            kept = r.kept.sum()
+            self.kept = kept if self.kept is None else self.kept + kept
+            if self.keep:
+                self.choices.append(r.expert.to(torch.int8).view(k, -1))
+                self.probs.append(probs.detach())
+            return r
+
+        def attention(enc, *args, **kwargs):
+            y = self.real_attn(enc, *args, **kwargs)
+            j, self.attn_calls = self.attn_calls, self.attn_calls + 1
+            if j < self.attn:
+                if self.keep:
+                    self.attn_out.append(y.detach())
+                elif self.replay is not None:
+                    self.dattn.append(
+                        (y.detach() - self.replay["attn"][j]).abs().max())
+            return y
+        moe.route, Encoder._attention = route, attention
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.enc._attention = self.real, self.real_attn
+
+    def summary(self) -> dict:
+        kept = 0 if self.kept is None else int(self.kept)
+        out = dict(pairs=self.pairs, kept=kept, calls=self.calls,
+                   dropped_share=1.0 - kept / max(self.pairs, 1))
+        if self.keep:
+            out["record"] = dict(choices=self.choices, probs=self.probs,
+                                 attn=self.attn_out)
+        if self.replay is not None:
+            apart = [int(a) for a in self.apart]
+            out["replayed"] = dict(
+                record_calls=len(self.replay["choices"]),
+                own_apart=sum(apart), own_apart_per_call=apart,
+                pairs_per_call=self.pairs // max(self.calls, 1),
+                own_gap_max=max((float(g) for g in self.gap), default=0.0),
+                probs_diff_max_per_call=[float(d) for d in self.dprobs],
+                attn_diff_max_per_block=[float(d) for d in self.dattn])
+        return out
 
 
 def shard_vocab_memory(torch) -> dict:
@@ -5287,7 +5478,7 @@ def shard_vocab_memory(torch) -> dict:
     from tpunet_torch.train.steps import fit_lm_batch
 
     mesh = make_mesh(MeshConfig(model=2))
-    cfg = ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=LM_LAYERS,
+    cfg = ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=SHARD_DEPTH,
                       vit_heads=LM_HEADS, vocab_size=SHARD_VOCAB,
                       max_seq_len=LM_T, dtype="float32", dropout_rate=0.0)
     model = create_model(cfg, device="cuda",
@@ -5325,7 +5516,7 @@ def shard_vocab_memory(torch) -> dict:
 _SHARD_REFERENCES = {}
 
 
-def shard_reference(torch, flags, directory: Path) -> dict:
+def shard_reference(torch, flags, directory: Path, in_memory=False) -> dict:
     """The one-rank run of ``flags`` (``--preset single``, SHARD_F32,
     recorded by :func:`shard_recorded`) with its saved whole parameters
     under ``state``; the sharded_trainer and seq_trainer phases share
@@ -5334,8 +5525,9 @@ def shard_reference(torch, flags, directory: Path) -> dict:
     if key not in _SHARD_REFERENCES:
         run = shard_recorded(torch, list(SHARD_F32) + list(flags) + [
             "--preset", "single", "--device", "cuda", "--checkpoint-dir",
-            str(directory)], 1)
-        run["state"] = torch.load(directory / "state.pt")["model"]
+            str(directory)], 1, in_memory)
+        if not in_memory:
+            run["state"] = torch.load(directory / "state.pt")["model"]
         _SHARD_REFERENCES[key] = run
         torch.cuda.empty_cache()
     return _SHARD_REFERENCES[key]
@@ -5345,7 +5537,8 @@ def shard_worker(world: int, rank: int, backend: str,
                  directory: Path = SHARD_DIR) -> int:
     """One rank of the sharded_trainer and seq_trainer phases
     (``--dp-worker shard``): the runs of ``directory``/runs.json in
-    turn, each in a new process group of ``world`` ranks over
+    turn (an MoE run replaying the routing record that its ``replay``
+    entry names), each in a new process group of ``world`` ranks over
     ``backend`` (gloo: ranks sharing the card; NCCL: a card a rank),
     then, when asked, the vocab-32,768 steps. Writes
     ``directory``/shard_rank<rank>.pt."""
@@ -5369,9 +5562,12 @@ def shard_worker(world: int, rank: int, backend: str,
         dist.initialize_distributed(
             init_method=(directory / f"store_{name}").as_uri(),
             world_size=world, rank=rank, backend=backend)
+        replay = spec.get("replay", {}).get(name)
         out[name] = shard_recorded(torch, flags + [
             "--preset", "distributed", "--device", "cuda",
-            "--checkpoint-dir", str(directory / f"ck_{name}")], world)
+            "--checkpoint-dir", str(directory / f"ck_{name}")], world,
+            spec.get("in_memory", False),
+            moe_ref=replay and torch.load(directory / replay))
         torch.cuda.empty_cache()
     if spec.get("vocab"):
         dist.initialize_distributed(
@@ -5475,7 +5671,8 @@ def phase_sharded_trainer(torch, backend="gloo", world=2,
     every rank, and each one's gradient within 1e-4 (relative to its
     largest entry) of the 'model' group's mean before the ranks average
     it; the
-    flash trio's launches a rank-step 12 each (6 heads a rank under TP),
+    flash trio's launches a rank-step SHARD_DEPTH each (6 heads a rank
+    under TP),
     kernels 1-4's 17, 17, 33, 33; per-rank peak memory, the train
     state's resident bytes, step time and the host milliseconds inside
     collectives as readings; the LM at a 32,768-token vocabulary, its
@@ -5517,9 +5714,9 @@ def phase_sharded_trainer(torch, backend="gloo", world=2,
     torch.backends.cudnn.deterministic = False
     res = {"card": card_line(), "world": world, "backend": backend,
            "workers_s": workers_s}
-    want_flash = {"flash_attention_forward": LM_LAYERS,
-                  "flash_attention_dq": LM_LAYERS,
-                  "flash_attention_dkv": LM_LAYERS}
+    want_flash = {"flash_attention_forward": SHARD_DEPTH,
+                  "flash_attention_dq": SHARD_DEPTH,
+                  "flash_attention_dkv": SHARD_DEPTH}
     want_mnv2 = {"depthwise_conv3x3": 17, "depthwise_conv3x3_backward": 17,
                  "fused_ir_forward": 33, "fused_ir_backward": 33}
     for name in runs:
@@ -5653,10 +5850,10 @@ def seq_flash_launches(name: str, rank: int, seq: int) -> int:
     all ``seq`` when not (the ViT); Ulysses runs one local core a layer
     over the whole sequence."""
     if "ulysses" in name:
-        return LM_LAYERS
+        return SHARD_DEPTH
     if name.startswith("vit"):
-        return VIT_LAYERS * seq
-    return LM_LAYERS * (rank + 1)
+        return SHARD_DEPTH * seq
+    return SHARD_DEPTH * (rank + 1)
 
 
 def seq_packed_flags() -> tuple:
@@ -5678,7 +5875,9 @@ def seq_packed_flags() -> tuple:
             rows = 0
         lo, hi = (mid + 1, hi) if rows < SEQ_PACKED_ROWS else (lo, mid)
     path.write_bytes(b"\n".join(lines[:lo]))
-    return (*LM_FLAGS, "--dataset", "text_lm", "--pack-docs", "--text-file",
+    flags = list(LM_FLAGS)
+    flags[flags.index("--vit-depth") + 1] = str(SHARD_DEPTH)
+    return (*flags, "--dataset", "text_lm", "--pack-docs", "--text-file",
             str(path), "--batch-size", str(LM_BATCH))
 
 
@@ -5809,6 +6008,403 @@ def phase_seq_trainer(torch, backend="gloo", world=2, runs=None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# MoE and expert parallelism: ViT-B/16 MoE and the MoE LM
+# ---------------------------------------------------------------------------
+
+MOE_DIR = ROOT / "build" / "tpunet_torch" / "smoke_moe"
+# The repo's MoE example at tpunet's defaults: 8 experts, top-2, every
+# second block (6 of 12), capacity factor 1.25, aux weight 0.01.
+MOE_EXPERTS = 8
+MOE_FLAGS = ("--moe-experts", str(MOE_EXPERTS))
+MOE_VIT = vit_run_flags() + MOE_FLAGS + ("--batch-size", str(TRAIN_BATCH))
+MOE_LM = lm_run_flags() + MOE_FLAGS + ("--batch-size", str(LM_BATCH))
+# A capacity factor of E / k: the capacity is every token (an expert takes
+# a token once), nothing drops, so a lowering that routes each half of
+# the tokens at the half's capacity (alltoall) computes one rank's step.
+MOE_TOP_K = 2
+MOE_NO_DROP = ("--moe-capacity-factor", str(MOE_EXPERTS / MOE_TOP_K))
+# bf16 main-path runs (obs on, for the obs CLIs), beside the dense models.
+MOE_BF16 = ("--dtype", "bfloat16", "--dropout-rate", "0", "--epochs", "1",
+            "--seed", str(SEED + 15))
+# 2 gloo ranks sharing the card: the experts over 'model' under each
+# lowering, against one rank (the replicated lowering routes all tokens
+# on every rank, so it holds at the default capacity; alltoall routes a
+# half a rank, so it is held at MOE_NO_DROP), the LM cut to SHARD_DEPTH
+# blocks as in the sharded and SP phases.
+MOE_EP_LM = lm_run_flags(SHARD_DEPTH) + MOE_FLAGS + ("--batch-size",
+                                                     str(LM_BATCH))
+MOE_RUNS = {
+    "lm_rep": MOE_EP_LM + ("--mesh-model", "2", "--moe-dispatch",
+                           "replicated"),
+    "lm_a2a": MOE_EP_LM + MOE_NO_DROP + ("--mesh-model", "2",
+                                         "--moe-dispatch", "alltoall"),
+}
+# --four-cards, a card a rank over NCCL: data 2 x model 2 under alltoall.
+MOE_RUNS_FOUR = {
+    "lm_a2a_d2m2": lm_run_flags() + MOE_FLAGS + MOE_NO_DROP + (
+        "--batch-size", str(LM_BATCH // 2), "--mesh-data", "2",
+        "--mesh-model", "2", "--moe-dispatch", "alltoall")}
+MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 16, 64, 16
+def moe_gate_against(torch, gate, tag, run, ref, state, ref_state) -> dict:
+    """sharded_trainer's gates of ``run``, which replayed ``ref``'s
+    routing (:class:`MoeRoutes`), against ``ref``: every routing call
+    replayed, the train loss within SHARD_LOSS_TOL, the test accuracy
+    within 1e-6, the parameters within rtol SHARD_PARAM_RTOL / atol
+    SHARD_PARAM_ATOL (but the qkv key bias). Readings: the first step's
+    loss, and ``run``'s replay readings (its own choices apart from the
+    replayed ones a call, by how much, the router probabilities' and the
+    attention outputs' largest differences)."""
+    rec, base = run["history"][0], ref["history"][0]
+    close = shard_params_close(torch, state, ref_state)
+    replayed = run["moe"]["replayed"]
+    row = dict(train_loss_diff=rec["train_loss"] - base["train_loss"],
+               test_accuracy_diff=rec["test_accuracy"] - base["test_accuracy"],
+               first_step_loss_diff=(run["steps"][0]["loss"]
+                                     - ref["steps"][0]["loss"]),
+               params=close, replayed=replayed)
+    gate(run["moe"]["calls"] == replayed["record_calls"],
+         f"{tag}: {run['moe']['calls']} routing calls, the reference "
+         f"{replayed['record_calls']}")
+    gate(abs(row["train_loss_diff"]) <= SHARD_LOSS_TOL,
+         f"{tag}: train loss {rec['train_loss']} vs {base['train_loss']}")
+    gate(abs(row["test_accuracy_diff"]) <= 1e-6,
+         f"{tag}: test accuracy {rec['test_accuracy']} vs "
+         f"{base['test_accuracy']}")
+    gate(close["excess"] <= 0.0,
+         f"{tag}: {close['excess_key']} beyond rtol {SHARD_PARAM_RTOL} / "
+         f"atol {SHARD_PARAM_ATOL} by {close['excess']:.3g}")
+    return row
+
+
+def moe_ep_runs(torch, gate, backend="gloo", world=2, runs=None) -> dict:
+    """The MoE LM with its experts over 'model' (``--dp-worker shard``,
+    ``world`` ranks over ``backend``), SHARD_RUN_STEPS float32 steps a
+    run with cuDNN's deterministic algorithms, each replaying the
+    routing of the same flags at one rank in this process (run first)
+    and held to it by :func:`moe_gate_against`, with the replicated
+    leaves (the routers among them) equal on every rank, each one's
+    gradient within SHARD_GAP_TOL of the 'model' mean, and the flash
+    trio's launches a rank-step one a block. Readings: step ms, host ms
+    in the all-to-alls and the other collectives, peak memory, and the
+    replay readings a rank."""
+    runs = MOE_RUNS if runs is None else runs
+    edir = MOE_DIR / f"ep_{backend}_{world}"
+    shutil.rmtree(edir, ignore_errors=True)
+    edir.mkdir(parents=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True     # as in shard_worker
+    refs = {}
+    for name, flags in runs.items():
+        ref_flags = tuple(flags)
+        for axis in ("--mesh-data", "--mesh-model", "--moe-dispatch"):
+            if axis in ref_flags:
+                i = ref_flags.index(axis)
+                ref_flags = ref_flags[:i] + ref_flags[i + 2:]
+        i = ref_flags.index("--batch-size")
+        ref_flags = ref_flags[:i] + ("--batch-size", str(LM_BATCH)) + \
+            ref_flags[i + 2:]
+        refs[name] = shard_reference(torch, ref_flags,
+                                     MOE_DIR / f"ck_ref_{name}", True)
+        rec = refs[name]["moe"]["record"]
+        torch.save({k: [t.cpu() for t in rec[k]]
+                    for k in ("choices", "probs")}, edir / f"replay_{name}.pt")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    (edir / "runs.json").write_text(json.dumps(
+        {"runs": {k: list(SHARD_F32) + list(v) for k, v in runs.items()},
+         "replay": {k: f"replay_{k}.pt" for k in runs},
+         "vocab": False, "in_memory": True}))
+    me = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    run_workers([(f"moe_rank{r}", [sys.executable, me, "--dp-worker",
+                                   "shard", str(world), str(r), backend,
+                                   str(edir)])
+                 for r in range(world)],
+                env={f"moe_rank{r}": {"LOCAL_RANK": str(
+                    r if backend == "nccl" else 0)} for r in range(world)},
+                log_dir=edir, timeout=SHARD_TIMEOUT_S)
+    res = {"world": world, "backend": backend,
+           "workers_s": time.perf_counter() - t0}
+    outs = [torch.load(edir / f"shard_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    for name, flags in runs.items():
+        ref = refs[name]
+        depth = int(flags[flags.index("--vit-depth") + 1])
+        state = outs[0][name]["state"]
+        row = {f"rank{r}": shard_summary(o[name]) for r, o in enumerate(outs)}
+        for r, o in enumerate(outs):
+            s = row[f"rank{r}"]
+            coll = s["collectives_calls_and_host_ms_per_step"]
+            s["all_to_all_host_ms_per_step"] = coll["all_to_all"][1]
+            s["dropped_share"] = o[name]["moe"]["dropped_share"]
+            s["replayed"] = o[name]["moe"]["replayed"]
+            gaps = o[name].get("replicated_gaps") or {}
+            s["replicated_gaps"] = {k: v for k, v in sorted(
+                gaps.items(), key=lambda kv: -kv[1]) if v > 0}
+            big = {k: v for k, v in gaps.items() if v > SHARD_GAP_TOL}
+            gate(not big, f"moe {name} rank {r}: replicated gradients "
+                          f"apart from the 'model' mean by {big}")
+            gate(s["steps"] == SHARD_RUN_STEPS,
+                 f"moe {name} rank {r}: {s['steps']} steps")
+            for k in SEQ_FLASH:
+                got = [st["launches"][k] for st in o[name]["steps"]]
+                gate(all(g == depth for g in got),
+                     f"moe {name} rank {r}: {k} launches a step {got}")
+        row["replicated_equal"] = outs[0][name].get("replicated_equal")
+        gate(row["replicated_equal"] is True,
+             f"moe {name}: the replicated leaves differ between the ranks")
+        # A rank's step loss is its 'data' shard's mean (the ranks of a
+        # 'model' group repeat it): their mean is the global batch's.
+        first = dict(outs[0][name]["steps"][0], loss=statistics.mean(
+            o[name]["steps"][0]["loss"] for o in outs))
+        row.update(moe_gate_against(
+            torch, gate, f"moe {name}", dict(outs[0][name], steps=[first]),
+            ref, state, ref["state"]))
+        row["reference_step_ms_p50"] = statistics.median(
+            st["ms"] for st in (ref["steps"][1:] or ref["steps"]))
+        row["reference_peak_bytes"] = max(st["peak_bytes"]
+                                          for st in ref["steps"])
+        res[name] = row
+    return res
+
+
+def moe_serve(torch) -> dict:
+    """The serving engine on the MoE LM (float32, the seeded init,
+    capacity factor E so that nothing drops): MOE_SERVE_REQUESTS greedy
+    requests of MOE_SERVE_PROMPT tokens from the corpus, each answered
+    with MOE_SERVE_NEW tokens; request 0's stream against ``generate``'s
+    first MOE_SERVE_NEW tokens (tpunet's MoE path: the whole forward for
+    every token, the flash trio 12 launches a forward)."""
+    import numpy as np
+
+    from tpunet_torch.config import ModelConfig, ServeConfig
+    from tpunet_torch.models import create_model
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.serve import Engine
+
+    cfg = ModelConfig(name="lm", vit_hidden=LM_HIDDEN, vit_depth=LM_LAYERS,
+                      vit_heads=LM_HEADS, vocab_size=LM_VOCAB,
+                      max_seq_len=LM_T, dtype="float32", dropout_rate=0.0,
+                      moe_experts=MOE_EXPERTS,
+                      moe_capacity_factor=float(MOE_EXPERTS))
+    model = create_model(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED + 17))
+    data = np.frombuffer(lm_corpus().read_bytes(), np.uint8)
+    prompts = [data[i * 997:i * 997 + MOE_SERVE_PROMPT].astype(np.int32)
+               for i in range(MOE_SERVE_REQUESTS)]
+    eng = Engine(model, ServeConfig(
+        slots=8, prefill_buckets=(MOE_SERVE_PROMPT,), emit_every_s=0.0,
+        default_max_new_tokens=MOE_SERVE_NEW)).start()
+    t0 = time.perf_counter()
+    try:
+        reqs = [eng.submit(p, max_new_tokens=MOE_SERVE_NEW) for p in prompts]
+        streams = [r.result(timeout=300) for r in reqs]
+    finally:
+        eng.stop()
+    wall = time.perf_counter() - t0
+    reset_launch_counts()
+    want = generate(model, torch.from_numpy(prompts[0][None]).cuda(),
+                    MOE_SERVE_NEW)[0, MOE_SERVE_PROMPT:].tolist()
+    torch.cuda.synchronize()
+    gen_launches = launch_counts()
+    first = next((i for i, (a, b) in enumerate(zip(streams[0], want))
+                  if a != b), None)
+    print(f"moe_serve: request 0 against generate: first divergence at "
+          f"{first}", flush=True)
+    check(all(len(s) == MOE_SERVE_NEW for s in streams),
+          f"moe_serve: stream lengths {[len(s) for s in streams]}")
+    check(streams[0] == want, f"moe_serve: the engine's greedy stream "
+          f"{streams[0]} against generate's {want} (first divergence at "
+          f"{first})")
+    del model
+    torch.cuda.empty_cache()
+    return dict(requests=len(streams), new_tokens=MOE_SERVE_NEW,
+                first_divergence=first, wall_s=wall,
+                generated_tokens_per_s=sum(map(len, streams)) / wall,
+                generate_flash_launches={k: gen_launches[k]
+                                         for k in SEQ_FLASH})
+
+
+def moe_obs_clis(bf16_dirs) -> dict:
+    """The port's obs CLIs on this run's directories, with no JAX: the
+    timeline of the router phase's failover fleet (the router and its
+    replicas' rings, when that phase ran here) or else of the MoE LM's
+    bf16 run; the regression compare of the MoE LM's bf16 run against
+    the dense LM's run (lm_trainer's epoch, when that phase ran here);
+    the fleet dashboard over both."""
+    out = {}
+    fleet = ROUTER_DIR / "failover"
+    if (fleet / "metrics.jsonl").exists():
+        dirs = [fleet] + sorted(fleet.glob("replica-*"))
+        argv = [a for d in dirs for a in ("--metrics-dir", str(d))]
+        out["timeline_of"] = "router failover fleet"
+    else:
+        argv = [str(bf16_dirs["lm_moe"])]
+        out["timeline_of"] = "lm_moe bf16 run"
+    trace = MOE_DIR / "timeline.json"
+    tl = subprocess.run([sys.executable, "-m", "tpunet_torch.obs.cli.timeline",
+                         *argv, "-o", str(trace)], cwd=ROOT,
+                        capture_output=True, text=True, timeout=120)
+    check(tl.returncode == 0, f"obs timeline exited {tl.returncode}: "
+                              f"{tl.stderr[-1500:]}")
+    events = json.loads(trace.read_text())["traceEvents"]
+    out["timeline"] = dict(events=len(events),
+                           processes=len({e["pid"] for e in events}),
+                           printed=tl.stdout.strip()[-300:])
+    check(events, "obs timeline: no events")
+    cmp = subprocess.run(
+        [sys.executable, "-m", "tpunet_torch.obs.cli.compare",
+         str(bf16_dirs["lm_dense"]), str(bf16_dirs["lm_moe"]), "--json",
+         "--allow-fingerprint-mismatch"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    check(cmp.returncode in (0, 3), f"obs compare exited {cmp.returncode}: "
+                                    f"{cmp.stderr[-1500:]}")
+    verdict = json.loads(cmp.stdout)
+    out["compare"] = dict(rc=cmp.returncode, verdict=verdict["verdict"],
+                          metrics={m["metric"]: [m.get("a"), m.get("b"),
+                                                 m["verdict"]]
+                                   for m in verdict["metrics"]})
+    dash = subprocess.run(
+        [sys.executable, "-m", "tpunet_torch.obs.cli.dashboard",
+         str(bf16_dirs["lm_dense"] / "metrics.jsonl"),
+         str(bf16_dirs["lm_moe"] / "metrics.jsonl"), "--once", "--html",
+         str(MOE_DIR / "fleet.html")], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    check(dash.returncode == 0 and "fleet dashboard" in dash.stdout,
+          f"obs dashboard exited {dash.returncode}: {dash.stderr[-1500:]}")
+    out["dashboard_lines"] = len(dash.stdout.splitlines())
+    return out
+
+
+def phase_moe_trainer(torch, dense_step_ms=None) -> dict:
+    """moe_trainer: ViT-B/16 MoE and the MoE LM (MOE_EXPERTS experts,
+    top-2, every second block, capacity 1.25, aux 0.01) through
+    ``python -m tpunet_torch.train``, SHARD_RUN_STEPS steps a run.
+
+    - float32 (cuDNN deterministic), each model on the flash kernels,
+      replaying the routing of the same run on the library path
+      (``--attention dense``, no kernel, run first), held to it by
+      :func:`moe_gate_against`; the flash trio's 12 launches a step on
+      the kernel path and none on the library path;
+    - bf16, the main path: the flash trio's 12 launches a step gated;
+      readings: step ms p50 against the dense model's (``dense_step_ms``,
+      {"vit": ms, "lm": ms} of this script's train phases, else the
+      dense model's same run here), the share of (token, slot) pairs
+      dropped, the peak memory;
+    - the MoE LM at ``--mesh-model 2`` on 2 gloo ranks sharing the card
+      under ``replicated`` and ``alltoall`` (:func:`moe_ep_runs`);
+    - the serving engine on the MoE LM (:func:`moe_serve`);
+    - the obs CLIs on this run's directories (:func:`moe_obs_clis`).
+    Returns the readings with what failed the gates (``failed``)."""
+    fails = []
+
+    def gate(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    MOE_DIR.mkdir(parents=True)
+    res = {"card": card_line()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    f32 = {}
+    for fam, flags in (("vit", MOE_VIT), ("lm", MOE_LM)):
+        depth = int(flags[flags.index("--vit-depth") + 1])
+
+        def run(tag, extra, record=None):
+            out = shard_recorded(
+                torch, list(SHARD_F32) + list(flags) + extra + [
+                    "--preset", "single", "--device", "cuda",
+                    "--checkpoint-dir", str(MOE_DIR / f"ck_{tag}_{fam}")],
+                1, in_memory=True, moe_ref=record, attn=depth)
+            torch.cuda.empty_cache()
+            return out
+        lib = run("library", ["--attention", "dense"])
+        kern = run("kernel", [], lib["moe"].pop("record"))
+        for tag, run, want in (("kernel", kern, LM_LAYERS),
+                               ("library", lib, 0)):
+            gate(len(run["steps"]) == SHARD_RUN_STEPS,
+                 f"moe f32 {fam} {tag}: {len(run['steps'])} steps")
+            for k in SEQ_FLASH:
+                got = [st["launches"][k] for st in run["steps"]]
+                gate(all(g == want for g in got),
+                     f"moe f32 {fam} {tag}: {k} launches a step {got}, "
+                     f"want {want}")
+        row = moe_gate_against(torch, gate, f"moe f32 {fam}", kern, lib,
+                               kern["state"], lib["state"])
+        row.update(step_ms_p50=shard_summary(kern)["step_ms_p50"],
+                   library_step_ms_p50=shard_summary(lib)["step_ms_p50"],
+                   dropped_share=kern["moe"]["dropped_share"])
+        f32[fam] = row
+    res["f32_kernel_vs_library"] = f32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    bf16, dirs = {}, {}
+    for fam, base, n_units in (
+            ("vit", vit_run_flags() + ("--batch-size", str(TRAIN_BATCH)),
+             TRAIN_BATCH),
+            ("lm", lm_run_flags() + ("--batch-size", str(LM_BATCH)),
+             LM_BATCH * LM_T)):
+        rows = {}
+        kinds = (("moe", MOE_FLAGS),) if dense_step_ms else (
+            ("dense", ()), ("moe", MOE_FLAGS))
+        for kind, extra in kinds:
+            d = MOE_DIR / f"ck_bf16_{fam}_{kind}"
+            dirs[f"{fam}_{kind}"] = d
+            run = shard_recorded(torch, list(MOE_BF16) + list(base) + list(
+                extra) + ["--preset", "single", "--device", "cuda",
+                          "--checkpoint-dir", str(d)], 1, in_memory=True)
+            s = shard_summary(run)
+            rows[kind] = dict(step_ms_p50=s["step_ms_p50"],
+                              step_ms=s["step_ms"], peak_bytes=s["peak_bytes"],
+                              units_per_s=n_units / s["step_ms_p50"] * 1e3,
+                              train_loss=s["train_loss"],
+                              launches_per_step={
+                                  k: s["launches_per_step"][k]
+                                  for k in SEQ_FLASH})
+            check(math.isfinite(s["train_loss"]),
+                  f"moe bf16 {fam} {kind}: loss {s['train_loss']}")
+            for k in SEQ_FLASH:
+                got = [st["launches"][k] for st in run["steps"]]
+                gate(all(g == LM_LAYERS for g in got),
+                     f"moe bf16 {fam} {kind}: {k} launches a step {got}")
+            if kind == "moe":
+                rows[kind]["dropped_share"] = run["moe"]["dropped_share"]
+            torch.cuda.empty_cache()
+        if dense_step_ms:
+            # The dense model's bf16 step of this script's train phase.
+            rows["dense"] = dict(step_ms_p50=dense_step_ms[fam],
+                                 of="the train phase's step")
+            if fam == "lm":
+                dirs["lm_dense"] = LM_DIR / "smoke_lm_synthetic_lm"
+        rows["step_vs_dense"] = (rows["moe"]["step_ms_p50"]
+                                 / rows["dense"]["step_ms_p50"])
+        if "peak_bytes" in rows["dense"]:
+            rows["peak_vs_dense"] = (rows["moe"]["peak_bytes"]
+                                     / rows["dense"]["peak_bytes"])
+        bf16[fam] = rows
+    res["bf16"] = bf16
+    emit("moe_trainer_single", **res)
+    res["ep"] = moe_ep_runs(torch, gate)
+    emit("moe_trainer_ep", **res["ep"])
+    res["serve"] = moe_serve(torch)
+    res["obs_clis"] = moe_obs_clis(dirs)
+    res["s"] = time.perf_counter() - t0
+    res["failed"] = fails
+    emit("moe_trainer", serve=res["serve"], obs_clis=res["obs_clis"],
+         s=res["s"], failed=fails,
+         step_vs_dense={f: r["step_vs_dense"] for f, r in bf16.items()},
+         dropped_share={f: r["moe"]["dropped_share"]
+                        for f, r in bf16.items()},
+         peak_bytes={f: r["moe"]["peak_bytes"] for f, r in bf16.items()})
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5910,6 +6506,12 @@ def main() -> int:
         seqp = timed(phase_seq_trainer, torch)
         check(not seqp["failed"], "seq_trainer: " + "; ".join(
             seqp["failed"][:6]))
+        torch.cuda.empty_cache()
+        moe = timed(phase_moe_trainer, torch, dense_step_ms={
+            "vit": TRAIN_BATCH / vit_images_per_s * 1e3,
+            "lm": LM_BATCH * LM_T / lm_tokens_per_s * 1e3})
+        check(not moe["failed"], "moe_trainer: " + "; ".join(
+            moe["failed"][:6]))
     except PhaseError as e:
         emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -5986,6 +6588,13 @@ def main() -> int:
         entry["seq_trainer"] = {
             run: [seqp[run][f"rank{r}"]["launches_per_step"][name]
                   for r in range(2)] for run in SEQ_RUNS}
+        # A step of the MoE main path (bf16, moe_trainer), and a
+        # rank-step of the MoE LM's experts over 'model' (2 ranks).
+        entry["moe_trainer"] = {
+            **{f"{fam}_moe_bf16": moe["bf16"][fam]["moe"][
+                "launches_per_step"][name] for fam in ("vit", "lm")},
+            **{run: [moe["ep"][run][f"rank{r}"]["launches_per_step"][name]
+                     for r in range(2)] for run in MOE_RUNS}}
         kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
          serve_depthwise_launches=serve_launches,
@@ -6002,7 +6611,12 @@ def main() -> int:
          router_kill_to_end_s=router["failover"]["kill_to_end_s"],
          router_respawn_s=router["failover"]["respawn_s"],
          router_s=router["s"], trainer_item2b_s=item2b["s"],
-         sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"])
+         sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"],
+         moe_trainer_s=moe["s"],
+         moe_step_vs_dense={f: r["step_vs_dense"]
+                            for f, r in moe["bf16"].items()},
+         moe_dropped_share={f: r["moe"]["dropped_share"]
+                            for f, r in moe["bf16"].items()})
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6074,6 +6688,15 @@ def four_cards() -> int:
                                  runs=SEQ_RUNS_FOUR)
     except PhaseError as e:
         seqp = {"failed": [str(e)]}
+    # Expert parallelism over NCCL, a card a rank: the MoE LM at data 2 x
+    # model 2 under alltoall against one card (readings, as above).
+    moe_fails = []
+    try:
+        moe = moe_ep_runs(torch, lambda c, m: c or moe_fails.append(m),
+                          backend="nccl", world=4, runs=MOE_RUNS_FOUR)
+        moe["failed"] = moe_fails
+    except PhaseError as e:
+        moe = {"failed": [str(e)]}
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
@@ -6087,7 +6710,8 @@ def four_cards() -> int:
                       "tolerance": {"loss_rel": dpc.LOSS_RTOL,
                                     "accuracy": dpc.ACC_TOL},
                       "sharded_trainer_nccl": shard,
-                      "seq_trainer_nccl": seqp, "ok": ok}),
+                      "seq_trainer_nccl": seqp, "moe_trainer_nccl": moe,
+                      "ok": ok}),
           flush=True)
     return 0 if ok else 1
 

@@ -32,6 +32,10 @@ it computed to ``DIR/<case>_rank<RANK>.pt``:
   flash ring in bf16; and on 'seq' 2 the errors of an unknown core,
   indivisible heads, Ulysses on cross-length inputs and the flash core
   on a causal cross-length ring;
+- ``moe_m2``/``moe_d2m2`` (tests/test_torch_moe.py): on a mesh of
+  'model' 2 (2 ranks) or 'data' 2 x 'model' 2 (4 ranks), ``moe_apply``
+  on the rank's experts (and rows) of ``moe_ep.npz`` under each
+  lowering: the output, the aux term and the gradients;
 - ``seq_vit_grad``: the tiny ViT of ``vit.pt`` with ring attention over
   a 'seq' axis of WORLD ranks, one train-mode forward/backward (dropout
   0) on ``images.npz`` with the loss split over the ranks and the
@@ -170,6 +174,40 @@ def case_seq_vit_grad(d, world, rank):
                 grads={k: p.grad for k, p in model.named_parameters()})
 
 
+# The expert-parallel meshes of tests/test_torch_moe.py.
+MOE_MESHES = {"moe_m2": dict(model=2), "moe_d2m2": dict(data=2, model=2)}
+
+
+def case_moe(d, world, rank, name):
+    """``moe_apply`` on the rank's experts of ``moe_ep.npz`` (and under
+    'data' its rows of the tokens), each lowering, at each capacity
+    factor of the file: the output, the aux term and the gradients of
+    sum(y^2) + 0.01 * aux / data (the aux's share of a 'data' rank)."""
+    from tpunet_torch.models.moe import moe_apply
+    mesh = make_mesh(MeshConfig(**MOE_MESHES[name]))
+    dd, di = mesh.shape["data"], mesh.coords["data"]
+    m, j = mesh.shape["model"], mesh.coords["model"]
+    inputs = dict(np.load(os.path.join(d, "moe_ep.npz")))
+    n, e = inputs["x"].shape[0], inputs["rw"].shape[0]
+    out = {}
+    for impl in ("replicated", "alltoall"):
+        for cf in inputs["factors"].tolist():
+            t = {k: torch.from_numpy(inputs[k]).requires_grad_()
+                 for k in ("x", "rw", "rb", "wi", "bi", "wo", "bo")}
+            x = t["x"][di * n // dd:(di + 1) * n // dd]
+            experts = [t[k][j * e // m:(j + 1) * e // m]
+                       for k in ("wi", "bi", "wo", "bo")]
+            y, aux = moe_apply(x, t["rw"], t["rb"], *experts, num_experts=e,
+                               top_k=2, capacity_factor=cf,
+                               dtype=torch.float32,
+                               ep_group=axis_group("model"), ep_impl=impl)
+            ((y ** 2).sum() + 0.01 * aux / dd).backward()
+            out[(impl, cf)] = dict(
+                y=y.detach(), aux=aux.detach(),
+                grads={k: v.grad for k, v in t.items()})
+    return out
+
+
 def case_cli(d, world, rank, name):
     flags = json.load(open(os.path.join(d, "flags.json")))[name]
     seen = {}
@@ -222,7 +260,8 @@ def case_cli(d, world, rank, name):
 def main() -> int:
     d, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
     dist.initialize_distributed(
-        init_method="file://" + os.path.join(d, f"store_w{world}"),
+        init_method="file://" + os.path.join(
+            d, f"store_w{world}{os.environ.get('TPUNET_GANG_TAG', '')}"),
         world_size=world, rank=rank, device="cpu")
     assert dist.backend_name() == "gloo"
     for case in sys.argv[4:]:
@@ -232,6 +271,8 @@ def main() -> int:
             out = case_vit_grad(d, world, rank)
         elif case in SEQ_MESHES:
             out = case_seq(d, world, rank, case)
+        elif case in MOE_MESHES:
+            out = case_moe(d, world, rank, case)
         elif case == "seq_vit_grad":
             out = case_seq_vit_grad(d, world, rank)
         else:

@@ -66,7 +66,16 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.models.mobilenetv2", "tpunet_torch.models.vit",
                 "tpunet_torch.train.state", "tpunet_torch.train.steps",
                 "tpunet_torch.parallel.mesh", "tpunet_torch.parallel.tp",
-                "tpunet_torch.ops.vocab_ce"):
+                "tpunet_torch.ops.vocab_ce", "tpunet_torch.models.moe",
+                "tpunet_torch.obs.agg", "tpunet_torch.obs.agg.alerts",
+                "tpunet_torch.obs.agg.merge", "tpunet_torch.obs.agg.receiver",
+                "tpunet_torch.obs.agg.rollup", "tpunet_torch.obs.history",
+                "tpunet_torch.obs.history.compare",
+                "tpunet_torch.obs.history.store",
+                "tpunet_torch.obs.history.timeline",
+                "tpunet_torch.obs.cli", "tpunet_torch.obs.cli.compare",
+                "tpunet_torch.obs.cli.timeline",
+                "tpunet_torch.obs.cli.dashboard"):
         assert mod in res["mods"]
     assert res["bad"] == []
 
@@ -93,6 +102,28 @@ def test_router_cli_runs_on_a_host_without_jax():
     assert out.stdout.startswith("usage: python -m tpunet_torch.router")
 
 
+def test_obs_clis_and_moe_run_on_a_host_without_jax():
+    """With JAX and tpunet unimportable, the MoE module imports, and the
+    fleet history and aggregation CLIs print their usage."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
+        "import tpunet_torch.models.moe, tpunet_torch.obs.agg\n"
+        "import tpunet_torch.obs.history\n"
+        "sys.argv = ['dashboard', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tpunet_torch.obs.cli.dashboard',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=_torch_threads.child_env())
+    assert out.returncode == 0, out.stderr
+    for flag in ("--fleet", "--straggler-factor", "--html", "--listen"):
+        assert flag in out.stdout, flag
+
+
 def test_sharded_modules_and_train_help_without_jax():
     """With JAX and tpunet unimportable, the mesh, the rule table and the
     vocab-parallel CE import, and the training CLI's usage lists
@@ -109,7 +140,8 @@ def test_sharded_modules_and_train_help_without_jax():
                          env=_torch_threads.child_env())
     assert out.returncode == 0, out.stderr
     for flag in ("--mesh-data", "--mesh-seq", "--mesh-pipe", "--mesh-model",
-                 "--zero1", "--fsdp", "--vocab-ce"):
+                 "--zero1", "--fsdp", "--vocab-ce", "--moe-experts",
+                 "--moe-dispatch"):
         assert flag in out.stdout, flag
 
 

@@ -287,7 +287,7 @@ def test_generate_cli_bytes_prompt(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--model", "lm_pp"], "item 8"),
     (["--mesh-model", "2"], "item 8"),
-    (["--moe-experts", "4"], "item 8"),
+    (["--model", "lm_pp", "--moe-experts", "4"], "item 8d"),
     (["--top-k", "3"], "temperature"),
     (["--tokens", "2000"], "exceeds --max-seq-len"),
     (["--vocab-size", "64", "--prompt-format", "bytes"], "vocab-size 256"),

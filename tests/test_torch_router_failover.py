@@ -14,8 +14,9 @@ test: two ``python -m tpunet_torch.serve --device cpu`` children with
 ``--chaos kill@tokens=12:replica=0``, a real SIGKILL after first bytes
 reached the client, the stream held to the port's ``generate`` (greedy)
 and to an uninterrupted port engine (sampled), with one trace id across
-both replicas. The reference's timeline join (``obs/history``) is not
-ported yet, so its part of that test stays with tests/test_failover.py.
+both replicas, and the timeline join of the port's ``obs/history``: one
+causal track across the router and both replicas, the trace equal to
+the one tpunet's ``build_timeline`` makes of the same run dirs.
 """
 
 import json
@@ -455,3 +456,25 @@ def test_midstream_sigkill_failover_real_http(tmp_path, monkeypatch):
     assert resumed["role"] == "replica" and resumed["hop"] >= 2
     assert resumed["resume_offset"] + resumed["tokens"] == 24
     assert resumed["finish_reason"] == "length"
+
+    # -- the timeline join renders one causal track --------------------
+    from tpunet.obs.history.timeline import build_timeline as jax_timeline
+    from tpunet_torch.obs.history.timeline import build_timeline
+    dirs = [str(tmp_path)] + [str(d) for d
+                              in sorted(tmp_path.glob("replica-*"))]
+    trace = build_timeline(dirs)
+    assert json.dumps(trace, sort_keys=True) == json.dumps(
+        jax_timeline(dirs), sort_keys=True)
+    joined = [e for e in trace["traceEvents"]
+              if e.get("args", {}).get("trace_id") == trace_id
+              and e["pid"] == 1]
+    names = {e["name"] for e in joined}
+    assert "relay" in names, "router relay span missing from the join"
+    assert "seam" in names, "failover seam missing from the join"
+    assert any(e.get("args", {}).get("force_closed") == "failover_seam"
+               for e in joined), "first hop never force-closed"
+    reps = {e["args"]["replica"] for e in joined
+            if e.get("args", {}).get("replica")}
+    assert len(reps) >= 2, f"trace does not span both replicas: {reps}"
+    assert any(e.get("args", {}).get("process") for e in joined), \
+        "no replica-side crumbs joined the track"

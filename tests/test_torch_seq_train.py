@@ -2,8 +2,8 @@
 tpunet_torch.train --preset distributed --mesh-seq 2 --attention
 ring|ulysses``) against tpunet, on the CPU.
 
-One gang of 2 gloo ranks (``tests/_torch_shard_worker.py``, the CLI in
-each rank's process) runs one epoch a case, float32:
+Three gangs of 2 gloo ranks (``tests/_torch_shard_worker.py``, the CLI
+in each rank's process) run one epoch a case, two cases a gang, float32:
 
 - the LM (hidden 64, depth 2, 4 heads, vocab 32, T 32, batch 8, from
   tpunet's initial weights through ``--pretrained``) under ring and
@@ -144,7 +144,12 @@ def gang(tmp_path_factory):
         "lm_drop": LM_FLAGS + SEQ + ["--attention", "ring",
                                      "--dropout-rate", "0.2"]}
     (d / "flags.json").write_text(json.dumps(flags))
-    procs = _torch_gang.start(d, WORLD, list(flags))
+    # Three gangs of two cases, started together before the references'
+    # epochs, each with its own deadline (tests/_torch_gang.py).
+    gangs = [_torch_gang.start(d, WORLD, cases, tag=f"g{i}")
+             for i, cases in enumerate((["lm_ring", "lm_remat"],
+                                        ["lm_ulysses", "lmpk_ulysses"],
+                                        ["vit_ring", "lm_drop"]))]
     want = {name: jax_epoch(t) for name, t in refs.items()}
     # The ViT's augmentation and the dropout masks draw from torch's
     # generators: their references are the port's one-process epochs.
@@ -152,7 +157,8 @@ def gang(tmp_path_factory):
     assert LM_FLAGS[:2] == ["--preset", "distributed"]
     want["lm_drop"] = port_epoch(LM_FLAGS[2:] + [
         "--batch-size", "8", "--dropout-rate", "0.2"], d, "lm_drop_w1")
-    _torch_gang.wait(d, WORLD, procs)
+    for gang in gangs:
+        _torch_gang.wait(d, WORLD, gang)
     got = {name: [torch.load(d / f"{name}_rank{r}.pt")
                   for r in range(WORLD)] for name in flags}
     return dict(d=d, want=want, got=got)

@@ -335,7 +335,8 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
             "--prefill-buckets", "16"]
     for extra, item in ((["--mesh-model", "2"], "item 8"),
                         (["--model", "lm_pp"], "item 8"),
-                        (["--moe-experts", "4"], "item 8"),
+                        (["--model", "lm_pp", "--moe-experts", "4"],
+                         "item 8d"),
                         (["--aot-cache", "d"], "out of scope"),
                         (["--chaos", "boom@tokens=1"], "unknown kind")):
         with pytest.raises(SystemExit) as e:

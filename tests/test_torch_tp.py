@@ -219,9 +219,13 @@ def test_rules_registry():
     assert rules_for(ModelConfig(name="vit_tiny")) == VIT_TP_RULES
     assert rules_for(ModelConfig(**LM)) == VIT_TP_RULES
     assert rules_for(ModelConfig(name="mobilenet_v2")) == ()
-    # The same four projections as tpunet's dense rules, weight and bias.
+    # The same four projections as tpunet's dense rules, weight and bias,
+    # and its four expert leaves in one rule.
     jax_dense = [rx for rx, _ in JAX_VIT_TP_RULES if "moe" not in rx]
-    assert len(jax_dense) == 6 and len(VIT_TP_RULES) == 4
+    jax_moe = [rx for rx, _ in JAX_VIT_TP_RULES if "moe" in rx]
+    port_moe = [rx for rx, _ in VIT_TP_RULES if "moe" in rx]
+    assert len(jax_dense) == 6 and len(VIT_TP_RULES) - len(port_moe) == 4
+    assert len(jax_moe) == 4 and len(port_moe) == 1
     # Pruned on a mesh without a 'model' axis.
     assert rules_for(ModelConfig(**VIT), {"data": 4, "model": 1}) == ()
 

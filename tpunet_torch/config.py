@@ -30,8 +30,9 @@ CIFAR10_CLASSES: Tuple[str, ...] = (
 # Model names of the JAX package that the port does not build yet, and
 # the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "vit_pp": "Queue A item 8 (parallelism beyond DP)",
-    "lm_pp": "Queue A item 8 (parallelism beyond DP)",
+    "vit_pp": "Queue A item 8d (pipeline parallelism)",
+    "lm_pp": "Queue A item 8d (pipeline parallelism, its MoE stacks "
+             "included)",
 }
 VIT_NAMES = ("vit", "vit_tiny", "vit_small", "vit_base")
 IMAGE_DATASETS = ("cifar10", "synthetic")
@@ -160,8 +161,13 @@ class ModelConfig:
     MobileNetV2 inverted-residual block's BN/ReLU6 epilogues from the
     saved conv outputs and (C,) statistics. ``param_dtype`` is the
     storage dtype of the parameters and the optimizer state (float32 or
-    bfloat16; the BN running statistics stay float32). MoE waits for
-    its ROADMAP item and raises when set. ``vocab_ce``
+    bfloat16; the BN running statistics stay float32). ``moe_experts`` >
+    0 makes every ``moe_every``-th block of the ViT family and the LM a
+    top-``moe_top_k`` MoE block (``tpunet_torch.models.moe``) of
+    ``moe_capacity_factor``, its load-balance term weighted by
+    ``moe_aux_weight`` in the loss, its experts split over the mesh's
+    'model' axis under ``moe_dispatch`` (``auto``/``alltoall``/
+    ``replicated``). ``vocab_ce``
     (``auto``/``sharded``/``full``) is resolved against the mesh by
     ``tpunet_torch.ops.vocab_ce.resolve_vocab_ce``.
     """
@@ -222,14 +228,19 @@ class ModelConfig:
         if self.attention_block < 1:
             raise ValueError(f"attention_block must be >= 1, got "
                              f"{self.attention_block}")
-        moe = "Queue A item 8 (MoE and expert parallelism)"
         if self.param_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown param_dtype {self.param_dtype!r}; "
                              "expected float32|bfloat16")
-        _refuse_unported(self, {
-            "moe_experts": moe, "moe_every": moe, "moe_top_k": moe,
-            "moe_capacity_factor": moe, "moe_aux_weight": moe,
-            "moe_dispatch": moe})
+        if self.moe_dispatch not in ("auto", "alltoall", "replicated"):
+            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}; "
+                             "expected auto|alltoall|replicated")
+        if self.moe_experts < 0:
+            raise ValueError(f"moe_experts must be >= 0, got "
+                             f"{self.moe_experts}")
+        if self.moe_experts > 0 and self.name == "mobilenet_v2":
+            raise ValueError("ModelConfig.moe_experts is a field of the ViT "
+                             "family and the LM; model 'mobilenet_v2' does "
+                             "not read it")
         if self.name != "mobilenet_v2":
             for f in ("width_mult", "use_pallas_depthwise", "fused_ir"):
                 default = next(x.default for x in dataclasses.fields(self)

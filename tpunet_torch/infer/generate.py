@@ -9,9 +9,12 @@ token ids.
     python -m tpunet_torch.infer.generate --checkpoint-dir ckpt \\
         --prompt "The " --tokens 256 --temperature 0.8
 
-Runs on the card unless ``--device cpu``. The pipelined LM (``--model
-lm_pp``), tensor-parallel serving (``--mesh-model``) and MoE
-checkpoints (``--moe-*``) are refused until ROADMAP Queue A item 8.
+Runs on the card unless ``--device cpu``. An MoE checkpoint
+(``--moe-experts`` and the other ``--moe-*`` flags of its training run)
+decodes by tpunet's MoE path: the whole forward over the tokens so far
+for every new token, no cache. The pipelined LM (``--model lm_pp``) and
+tensor-parallel serving (``--mesh-model``) are refused until ROADMAP
+Queue A items 8d and 8e.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from tpunet_torch.models import create_model
 from tpunet_torch.models.convert import load_state_dict_file
 from tpunet_torch.models.lm import TransformerLM, generate
 
-_ITEM8 = "comes with ROADMAP Queue A item 8 (parallelism beyond DP, MoE)"
+_ITEM8D = "comes with ROADMAP Queue A item 8d (pipeline parallelism)"
+_ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
+           "and serving)")
 
 
 def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
@@ -114,11 +119,9 @@ def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     if args.model == "lm_pp" or args.train_pipe:
         raise SystemExit(f"--model lm_pp (pipeline-trained checkpoints) "
-                         f"{_ITEM8}")
+                         f"{_ITEM8D}")
     if args.mesh_model:
-        raise SystemExit(f"--mesh-model (tensor-parallel serving) {_ITEM8}")
-    if args.moe_experts:
-        raise SystemExit(f"--moe-experts (MoE checkpoints) {_ITEM8}")
+        raise SystemExit(f"--mesh-model (tensor-parallel serving) {_ITEM8E}")
     byte_prompt = (args.vocab_size == 256 if args.prompt_format == "auto"
                    else args.prompt_format == "bytes")
     if byte_prompt and args.vocab_size != 256:
@@ -135,9 +138,10 @@ def main(argv=None) -> None:
                           vit_depth=args.vit_depth, vit_heads=args.vit_heads,
                           vocab_size=args.vocab_size,
                           max_seq_len=args.max_seq_len, dropout_rate=0.0,
+                          moe_experts=args.moe_experts,
                           moe_every=args.moe_every, moe_top_k=args.moe_top_k,
                           moe_capacity_factor=args.moe_capacity_factor)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
     if byte_prompt:
         prompt_len = len(args.prompt.encode("utf-8"))

@@ -9,7 +9,9 @@ Port of the parts of ``tpunet/models/convert.py`` the port needs:
 - :func:`vit_state_dict_from_jax`: a Flax ViT ``params`` tree -> the
   port's ViT state dict (the patch kernel HWIO -> OIHW, Dense kernels
   transposed to ``weight`` [out, in], LayerNorm ``scale`` -> ``weight``;
-  the qkv columns keep their (3, heads, head_dim) order);
+  the qkv columns keep their (3, heads, head_dim) order; an MoE block's
+  router kernel [d, E] becomes ``moe.router.weight`` [E, d] and its
+  experts ``wi``/``bi``/``wo``/``bo`` keep their layouts);
 - :func:`lm_state_dict_from_jax`: a Flax LM ``params`` tree -> the
   port's LM state dict (``embed.embedding`` -> ``embed.weight``, the
   blocks as the ViT's, no classifier: the head is tied), and
@@ -44,6 +46,11 @@ from tpunet_torch.models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS
 from tpunet_torch.parallel import dist
 from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 from tpunet_torch.parallel.tp import Shard, join, piece
+
+
+# An MoE block's expert leaves: the same names and layouts in both
+# packages (wi [E, d, h], bi [E, h], wo [E, h, d], bo [E, d]).
+MOE_EXPERT_LEAVES = ("wi", "bi", "wo", "bo")
 
 
 def _block_specs() -> Tuple[Tuple[str, int, bool], ...]:
@@ -129,16 +136,20 @@ def _blocks(sd: Dict[str, torch.Tensor], params: Mapping) -> None:
     i = 0
     while f"block{i:02d}" in params:
         blk, key = params[f"block{i:02d}"], f"blocks.{i}"
-        if "moe" in blk:
-            raise NotImplementedError(
-                "MoE blocks are not ported to tpunet_torch yet; they come "
-                "with ROADMAP Queue A item 8")
         _ln(sd, f"{key}.ln1", blk["ln1"])
         _dense(sd, f"{key}.attn.qkv", blk["attn"]["qkv"])
         _dense(sd, f"{key}.attn.out", blk["attn"]["out"])
         _ln(sd, f"{key}.ln2", blk["ln2"])
-        _dense(sd, f"{key}.mlp.fc1", blk["mlp"]["fc1"])
-        _dense(sd, f"{key}.mlp.fc2", blk["mlp"]["fc2"])
+        if "moe" in blk:
+            # The router's kernel [d, E] becomes its weight [E, d]; the
+            # experts keep tpunet's layouts.
+            moe = blk["moe"]
+            _dense(sd, f"{key}.moe.router", moe["router"])
+            for name in MOE_EXPERT_LEAVES:
+                sd[f"{key}.moe.{name}"] = _t(moe[name])
+        else:
+            _dense(sd, f"{key}.mlp.fc1", blk["mlp"]["fc1"])
+            _dense(sd, f"{key}.mlp.fc2", blk["mlp"]["fc2"])
         i += 1
 
 
@@ -149,8 +160,9 @@ def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     final LayerNorm; the head is the embedding."""
     if "blocks_qkv_k" in params:
         raise NotImplementedError(
-            "lm_pp (pipeline-stacked) checkpoints are not ported to "
-            "tpunet_torch yet; they come with ROADMAP Queue A item 8")
+            "lm_pp (pipeline-stacked) checkpoints, their MoE stacks "
+            "included, are not ported to tpunet_torch yet; they come with "
+            "ROADMAP Queue A item 8d")
     sd = {"embed.weight": _t(params["embed"]["embedding"]),
           "pos_embed": _t(params["pos_embed"])}
     _blocks(sd, params)
@@ -178,13 +190,18 @@ def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     i = 0
     while f"blocks.{i}.ln1.weight" in state_dict:
         key = f"blocks.{i}"
-        params[f"block{i:02d}"] = {
+        blk = params[f"block{i:02d}"] = {
             "ln1": ln(f"{key}.ln1"),
             "attn": {"qkv": dense(f"{key}.attn.qkv"),
                      "out": dense(f"{key}.attn.out")},
-            "ln2": ln(f"{key}.ln2"),
-            "mlp": {"fc1": dense(f"{key}.mlp.fc1"),
-                    "fc2": dense(f"{key}.mlp.fc2")}}
+            "ln2": ln(f"{key}.ln2")}
+        if f"{key}.moe.router.weight" in state_dict:
+            blk["moe"] = {"router": dense(f"{key}.moe.router"),
+                          **{n: a(f"{key}.moe.{n}")
+                             for n in MOE_EXPERT_LEAVES}}
+        else:
+            blk["mlp"] = {"fc1": dense(f"{key}.mlp.fc1"),
+                          "fc2": dense(f"{key}.mlp.fc2")}
         i += 1
     return params
 

@@ -44,8 +44,14 @@ LayerNorm stay replicated. Under sequence parallelism (``attention``
 ``ring`` or ``ulysses`` over the mesh's 'seq' axis of S ranks) a forward
 without a cache takes the whole rows and computes rank r's positions
 ``r*T/S`` to ``(r+1)*T/S``: their tokens, ``pos_embed`` rows and segment
-ids, and logits (or hidden states) for those positions only. Not ported:
-MoE blocks and ``lm_pp`` (ROADMAP Queue A items 8c and 8d).
+ids, and logits (or hidden states) for those positions only. With
+``moe_experts`` (and the other ``moe_*`` keyword arguments of
+:func:`tpunet_torch.models.vit.make_blocks`) every ``moe_every``-th block
+holds the sparse MLP of ``tpunet_torch.models.moe``; :func:`generate`
+then runs tpunet's MoE path (the whole forward over the tokens so far
+for every new token, no cache), and the serving engine runs the MoE
+blocks on its decode and prefill calls, routing each call's tokens. Not
+ported: ``lm_pp`` (ROADMAP Queue A item 8d).
 """
 
 from __future__ import annotations
@@ -57,9 +63,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpunet_torch.config import SEQ_ATTENTIONS
-from tpunet_torch.models.vit import (AttnFn, Dense, Encoder, EncoderBlock,
-                                     KVCache, LayerNorm, PagedKV, ServeStep,
-                                     _lecun_normal_, make_attn_fn)
+from tpunet_torch.models.vit import (AttnFn, Dense, Encoder, KVCache,
+                                     LayerNorm, PagedKV, ServeStep,
+                                     _lecun_normal_, init_moe, make_attn_fn,
+                                     make_blocks, moe_kwargs)
 from tpunet_torch.ops.attention import dense_attention
 
 
@@ -80,7 +87,7 @@ class TransformerLM(Encoder):
                  depth: int = 6, heads: int = 3, mlp_ratio: float = 4.0,
                  max_len: int = 1024, dropout_rate: float = 0.0,
                  attn_fn: Optional[AttnFn] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, **moe):
         super().__init__(heads, dropout_rate,
                          attn_fn if attn_fn is not None else dense_attention,
                          dtype)
@@ -93,9 +100,14 @@ class TransformerLM(Encoder):
         self.max_len = max_len
         self.embed = Embed(vocab_size, hidden)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, hidden))
-        self.blocks = nn.ModuleList(
-            EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
+        self.moe_cfg = dict(moe)
+        self.blocks = make_blocks(hidden, int(hidden * mlp_ratio), depth,
+                                  **moe)
         self.ln = LayerNorm(hidden)
+
+    @property
+    def moe_experts(self) -> int:
+        return self.moe_cfg.get("moe_experts", 0)
 
     def clone(self, **overrides) -> "TransformerLM":
         """A model of this one's configuration with ``overrides`` (keyword
@@ -106,7 +118,7 @@ class TransformerLM(Encoder):
                   depth=len(self.blocks), heads=self.heads,
                   mlp_ratio=self.mlp_ratio, max_len=self.max_len,
                   dropout_rate=self.dropout_rate, attn_fn=self.attn_fn,
-                  dtype=self.dtype)
+                  dtype=self.dtype, **self.moe_cfg)
         kw.update(overrides)
         return TransformerLM(**kw)
 
@@ -210,6 +222,7 @@ def init_lm(model: TransformerLM, generator: torch.Generator) -> None:
             if isinstance(m, Dense):
                 _lecun_normal_(m.weight, m.weight.shape[1], generator)
                 m.bias.zero_()
+        init_moe(model, generator)
         model.embed.weight.normal_(0.0, 0.02, generator=generator)
         model.pos_embed.normal_(0.0, 0.02, generator=generator)
 
@@ -224,7 +237,7 @@ def create_lm(cfg, generator: torch.Generator) -> TransformerLM:
                           max_len=cfg.max_seq_len,
                           dropout_rate=cfg.dropout_rate,
                           attn_fn=make_attn_fn(cfg, causal=True),
-                          dtype=getattr(torch, cfg.dtype))
+                          dtype=getattr(torch, cfg.dtype), **moe_kwargs(cfg))
     model.remat = cfg.remat
     model.seq_parallel = cfg.attention in SEQ_ATTENTIONS
     init_lm(model, generator)
@@ -270,8 +283,11 @@ def generate(model: TransformerLM, prompt: torch.Tensor, n_new: int, *,
     token at i and writes its prediction at i + 1 unless that slot holds
     prompt). ``use_cache=False``: the full forward over a fixed-size
     buffer for every new token (causality makes the unwritten tail
-    irrelevant). New token j draws the j-th sample from ``generator``
-    (on the model's device; seeded 0 when None) on both paths."""
+    irrelevant). An MoE model runs tpunet's MoE path whatever
+    ``use_cache`` says: the whole forward over the tokens so far for
+    every new token. New token j draws the j-th sample from
+    ``generator`` (on the model's device; seeded 0 when None) on every
+    path."""
     device = model.pos_embed.device
     prompt = prompt.to(device=device, dtype=torch.long)
     b, t0 = prompt.shape
@@ -291,6 +307,14 @@ def generate(model: TransformerLM, prompt: torch.Tensor, n_new: int, *,
 
     buf = torch.zeros((b, total), dtype=torch.long, device=device)
     buf[:, :t0] = prompt
+    if model.moe_experts > 0:
+        # tpunet's MoE path: the whole forward over the tokens so far for
+        # every new token, no cache (the routing and the capacity are
+        # those of the call's tokens, so an unwritten tail would change
+        # them).
+        for cur in range(t0, total):
+            buf[:, cur] = pick(model(buf[:, :cur])[:, -1])
+        return buf
     if use_cache:
         cache = model.init_cache(b, total)
         for i in range(total - 1):

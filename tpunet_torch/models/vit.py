@@ -80,8 +80,17 @@ sequence's shape from the generator that the group's ranks share and
 sliced, so the group draws one rank's masks (remat's fork too). The
 ViT's mean pool sums the rank's tokens and then sums over the group
 (``all_reduce_sum``, differentiable) before it divides by T, so every
-rank holds the whole logits. Not ported: MoE blocks (ROADMAP Queue A
-item 8c); the config refuses them.
+rank holds the whole logits.
+
+MoE (``moe_experts`` > 0, :func:`make_blocks`): every ``moe_every``-th
+block's MLP is the sparse MLP of ``tpunet_torch.models.moe`` (the
+router ``blocks.<i>.moe.router``, the experts ``moe.wi``/``bi``/``wo``/
+``bo``), after the same dropout. A training forward collects the blocks'
+load-balance terms, which :meth:`Encoder.moe_aux_loss` hands to the
+step (under remat each is an output of the checkpointed block). Under
+tensor parallelism an MoE block is not Megatron-split: its experts are
+this rank's share of the 'model' axis (expert parallelism) and its
+router is whole.
 """
 
 from __future__ import annotations
@@ -97,12 +106,13 @@ import torch.utils.checkpoint
 from torch import nn
 
 from tpunet_torch.config import SEQ_ATTENTIONS
+from tpunet_torch.models.moe import MoeMlp, moe_apply, resolve_moe_dispatch
 from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
                                         dense_attention, ring_self_attention,
                                         ulysses_self_attention)
 from tpunet_torch.ops.flash import flash_attention
 from tpunet_torch.parallel.dist import (all_reduce_sum, copy_to_group,
-                                        reduce_from_group)
+                                        group_size, reduce_from_group)
 from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 
 AttnFn = Callable[..., torch.Tensor]  # (q, k, v) BTHD -> BTHD
@@ -149,14 +159,44 @@ class MlpBlock(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: x + Attn(LN(x)); x + Mlp(LN(x))."""
+    """Pre-LN block: x + Attn(LN(x)); x + Mlp(LN(x)). With ``moe`` (a
+    dict of :class:`tpunet_torch.models.moe.MoeMlp`'s keyword arguments)
+    the MLP is the sparse ``moe`` in place of ``mlp``."""
 
-    def __init__(self, c: int, mlp_dim: int):
+    def __init__(self, c: int, mlp_dim: int, moe: Optional[dict] = None):
         super().__init__()
         self.ln1 = LayerNorm(c)
         self.attn = Attention(c)
         self.ln2 = LayerNorm(c)
-        self.mlp = MlpBlock(c, mlp_dim)
+        if moe:
+            self.moe = MoeMlp(c, mlp_dim, **moe)
+        else:
+            self.mlp = MlpBlock(c, mlp_dim)
+
+
+def make_blocks(hidden: int, mlp_dim: int, depth: int, moe_experts: int = 0,
+                moe_every: int = 2, moe_top_k: int = 2,
+                moe_capacity_factor: float = 1.25,
+                moe_dispatch: str = "auto") -> nn.ModuleList:
+    """``depth`` blocks, ViT-MoE's placement (tpunet's): with experts, the
+    sparse MLP in block i when ``i % moe_every == moe_every - 1`` (the
+    later block of each pair at the default 2), dense elsewhere."""
+    if moe_experts > 0 and moe_every < 1:
+        raise ValueError(f"moe_every must be >= 1, got {moe_every}")
+    moe = dict(num_experts=moe_experts, top_k=moe_top_k,
+               capacity_factor=moe_capacity_factor, dispatch=moe_dispatch)
+    return nn.ModuleList(
+        EncoderBlock(hidden, mlp_dim, moe if moe_experts > 0
+                     and i % moe_every == moe_every - 1 else None)
+        for i in range(depth))
+
+
+def moe_kwargs(cfg) -> dict:
+    """:func:`make_blocks`' MoE arguments of a ModelConfig."""
+    return dict(moe_experts=cfg.moe_experts, moe_every=cfg.moe_every,
+                moe_top_k=cfg.moe_top_k,
+                moe_capacity_factor=cfg.moe_capacity_factor,
+                moe_dispatch=cfg.moe_dispatch)
 
 
 class PatchEmbed(nn.Module):
@@ -507,6 +547,15 @@ class Encoder(nn.Module):
         self.seq_parallel = False
         # id(parameter) -> (source state, parameter, cast copy); eval only.
         self._consts: Dict[int, tuple] = {}
+        # The MoE load-balance terms of the last training forward.
+        self._aux: list = []
+
+    def moe_aux_loss(self) -> Optional[torch.Tensor]:
+        """The sum of the MoE blocks' load-balance terms of the last
+        training forward (tpunet's sown 'losses'), None without MoE
+        blocks; read once: the terms are dropped."""
+        aux, self._aux = self._aux, []
+        return sum(aux) if aux else None
 
     def _cast(self, t: torch.Tensor, train: bool) -> torch.Tensor:
         """``t`` in the activation dtype. In eval mode the cast is made
@@ -612,34 +661,66 @@ class Encoder(nn.Module):
                    approximate="tanh")
         return self._row_linear(mlp.fc2, y, train)
 
+    def _moe(self, moe: MoeMlp, x: torch.Tensor, train: bool,
+             aux: Optional[list]) -> torch.Tensor:
+        """The sparse MLP over the rank's tokens of ``x`` [B, T, C]; under
+        tensor parallelism its experts are this rank's of the 'model'
+        group (expert parallelism) and its router is whole. Routing and
+        capacity are per call (a decode step routes its own tokens).
+        Appends the load-balance term to ``aux`` when given."""
+        b, t, c = x.shape
+        ep = group_size(self.tp_group) if self.tensor_parallel else 1
+        y, term = moe_apply(
+            x.reshape(b * t, c), moe.router.weight, moe.router.bias,
+            *(self._cast(w, train) for w in (moe.wi, moe.bi, moe.wo,
+                                             moe.bo)),
+            num_experts=moe.num_experts, top_k=moe.top_k,
+            capacity_factor=moe.capacity_factor, dtype=self.dtype,
+            ep_group=self.tp_group, ep_impl=resolve_moe_dispatch(
+                moe.dispatch, ep=ep, n_tokens=b * t,
+                n_experts=moe.num_experts),
+            aux=aux is not None)
+        if term is not None:
+            aux.append(term)
+        return y.view(b, t, c)
+
     def _block(self, blk: "EncoderBlock", x: torch.Tensor, train: bool,
                drop: "Dropout", segment_ids: Optional[torch.Tensor],
-               attend: Optional[AttnFn]) -> torch.Tensor:
-        """One block: x + drop(Attn(LN(x))); x + drop(Mlp(LN(x)))."""
+               attend: Optional[AttnFn],
+               aux: Optional[list] = None) -> torch.Tensor:
+        """One block: x + drop(Attn(LN(x))); x + drop(Mlp(LN(x))), the
+        MLP sparse in an MoE block (its load-balance term appended to
+        ``aux`` when given)."""
         x = x + drop(self._attention(blk.attn, self._norm(blk.ln1, x, train),
                                      train, segment_ids, attend))
-        return x + drop(self._mlp(blk.mlp, self._norm(blk.ln2, x, train),
-                                  train))
+        h = self._norm(blk.ln2, x, train)
+        moe = getattr(blk, "moe", None)
+        y = (self._mlp(blk.mlp, h, train) if moe is None
+             else self._moe(moe, h, train, aux))
+        return x + drop(y)
 
     def _remat_block(self, blk: "EncoderBlock", x: torch.Tensor,
-                     drop: "Dropout",
-                     segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                     drop: "Dropout", segment_ids: Optional[torch.Tensor],
+                     aux: list) -> torch.Tensor:
         """A training block under ``torch.utils.checkpoint``: only its
         input is kept, and the backward runs its forward again (the
         attention core included). The block's dropout masks come from a
         generator forked at the step generator's state before the block,
         so the recompute draws the masks the forward drew, and the step's
-        generator then moves on as it would without remat."""
+        generator then moves on as it would without remat. An MoE block's
+        load-balance term is an output of the checkpointed function (the
+        recompute's is dropped)."""
         start, end = drop.state(), {}
 
         def run(x):
-            d = drop.fork(start)
-            y = self._block(blk, x, True, d, segment_ids, None)
+            d, terms = drop.fork(start), []
+            y = self._block(blk, x, True, d, segment_ids, None, terms)
             end["state"] = d.state()
-            return y
-        y = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+            return (y, *terms)
+        out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
         drop.set_state(end["state"])
-        return y
+        aux.extend(out[1:])
+        return out[0]
 
     def _encode(self, x: torch.Tensor, train: bool, drop: "Dropout",
                 segment_ids: Optional[torch.Tensor] = None,
@@ -651,13 +732,17 @@ class Encoder(nn.Module):
         step (a ``cache``) never does."""
         remat = (self.remat and train and cache is None
                  and torch.is_grad_enabled())
+        # A training forward collects the MoE blocks' load-balance terms.
+        aux = [] if train else None
         for i, blk in enumerate(self.blocks):
             if remat:
-                x = self._remat_block(blk, x, drop, segment_ids)
+                x = self._remat_block(blk, x, drop, segment_ids, aux)
             else:
                 attend = (None if cache is None
                           else _layer_attend(cache, i, step))
-                x = self._block(blk, x, train, drop, segment_ids, attend)
+                x = self._block(blk, x, train, drop, segment_ids, attend,
+                                aux)
+        self._aux = aux or []
         return x
 
 
@@ -671,7 +756,7 @@ class ViT(Encoder):
                  heads: int = 3, mlp_ratio: float = 4.0,
                  dropout_rate: float = 0.0,
                  attn_fn: AttnFn = dense_attention,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, **moe):
         super().__init__(heads, dropout_rate, attn_fn, dtype)
         if image_size % patch_size:
             raise ValueError(f"image {image_size} not divisible by patch "
@@ -684,8 +769,8 @@ class ViT(Encoder):
         tokens = (image_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(hidden, patch_size)
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden))
-        self.blocks = nn.ModuleList(
-            EncoderBlock(hidden, int(hidden * mlp_ratio)) for _ in range(depth))
+        self.blocks = make_blocks(hidden, int(hidden * mlp_ratio), depth,
+                                  **moe)
         self.ln = LayerNorm(hidden)
         self.classifier = Dense(hidden, num_classes)
 
@@ -768,8 +853,16 @@ def init_vit(model: ViT, generator: torch.Generator) -> None:
             elif isinstance(m, PatchEmbed):
                 _lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 m.bias.zero_()
+        init_moe(model, generator)
         model.pos_embed.normal_(0.0, 0.02, generator=generator)
         model.classifier.weight.zero_()
+
+
+def init_moe(model: nn.Module, generator: torch.Generator) -> None:
+    """tpunet's MoE initialisers over every MoE block of ``model``."""
+    for m in model.modules():
+        if isinstance(m, MoeMlp):
+            m.init_(generator)
 
 
 def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
@@ -780,7 +873,8 @@ def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
     model = ViT(num_classes=cfg.num_classes, image_size=image_size,
                 patch_size=patch, hidden=hidden, depth=depth, heads=heads,
                 mlp_ratio=cfg.vit_mlp_ratio, dropout_rate=cfg.dropout_rate,
-                attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype))
+                attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype),
+                **moe_kwargs(cfg))
     model.remat = cfg.remat
     model.seq_parallel = cfg.attention in SEQ_ATTENTIONS
     init_vit(model, generator)

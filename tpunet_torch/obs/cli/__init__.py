@@ -1,0 +1,10 @@
+"""The port's obs command lines, counterparts of the reference's scripts
+with the same flags and the same output, run as ``python -m``:
+
+- ``tpunet_torch.obs.cli.compare``   — ``scripts/obs_compare.py``;
+- ``tpunet_torch.obs.cli.timeline``  — ``scripts/obs_timeline.py``;
+- ``tpunet_torch.obs.cli.dashboard`` — ``scripts/obs_dashboard.py``.
+
+They import no JAX, so the card's host runs them on a run directory of
+the port (or of tpunet: the records are the same).
+"""

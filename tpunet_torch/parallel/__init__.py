@@ -2,8 +2,10 @@
 device binding, barriers and the counted collectives (``dist``, port of
 ``tpunet/parallel/dist.py``), the process mesh and its axis groups
 (``mesh``) and the rule table of tensor parallelism, ZeRO-1 and FSDP
-(``tp``); sequence parallelism's differentiable hops and all-to-alls
-are in ``dist``. PP and MoE come with ROADMAP Queue A items 8d and 8c."""
+(``tp``, expert parallelism's rules included); sequence parallelism's
+differentiable hops and all-to-alls, and expert parallelism's
+``gather_from_group``, are in ``dist``. PP comes with ROADMAP Queue A
+item 8d."""
 
 from tpunet_torch.parallel.dist import (all_reduce, all_reduce_sum,  # noqa: F401
                                         destroy, initialize_distributed,

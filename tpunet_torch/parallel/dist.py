@@ -480,6 +480,39 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    """Every rank's piece concatenated on dim 0 forward (each rank then
+    holds the same whole), this rank's piece of the gradient backward
+    (every rank holds the same loss)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.piece = (axis_rank(group), t.shape[0])
+        return all_gather(t, group).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.piece
+        return g[r * n:(r + 1) * n], None
+
+
+def axis_rank(group) -> int:
+    """This rank's index in ``group`` (0 alone)."""
+    if group is SELF or not is_initialized():
+        return 0
+    return dist.get_group_rank(group, dist.get_rank()) \
+        if group is not None else dist.get_rank()
+
+
+def gather_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """Rank-specific pieces [n, ...] becoming one replicated whole
+    [ranks * n, ...] in rank order (an all-gather), the gradient of this
+    rank's piece backward; ``t`` itself on a group of one."""
+    if group_size(group) == 1:
+        return t
+    return _GatherFromGroup.apply(t, group)
+
+
 def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
     """A replicated activation entering rank-specific work (a
     column-parallel layer): ``t`` forward, the gradient all-reduced over

@@ -20,7 +20,11 @@ after the reduce). tpunet cuts ``qkv``'s 3C columns contiguously, which
 GSPMD can compute from; an explicit split must give each rank whole
 heads of each of q, k and v, so the qkv shard has ``interleave`` 3: the
 3C rows are (q, k, v) x heads x head_dim, and rank r takes its heads of
-each of the three. MobileNetV2 takes no TP rule (``rules_for`` gives
+each of the three. An MoE block's experts (``moe.wi``/``bi``/``wo``/
+``bo``, [E, ...]) split their expert dim over 'model' (expert
+parallelism) and its router stays replicated, as in tpunet; with FSDP
+they keep that split and FSDP takes the rest, with 'model' of 1 FSDP
+splits them as any leaf. MobileNetV2 takes no TP rule (``rules_for`` gives
 ``()``, as tpunet's does: at 2.2M parameters a CNN gains nothing).
 
 ZeRO-1 (``ZERO1_RULES``) splits the moments on dim 0 over 'data'; FSDP
@@ -60,6 +64,7 @@ VIT_TP_RULES: Rules = (
     (r"attn\.out\.weight$", Shard(1, "model")),              # row parallel
     (r"mlp\.fc1\.(weight|bias)$", Shard(0, "model")),        # column parallel
     (r"mlp\.fc2\.weight$", Shard(1, "model")),               # row parallel
+    (r"moe\.(wi|bi|wo|bo)$", Shard(0, "model")),             # expert parallel
 )
 
 ZERO1_RULES: Rules = (

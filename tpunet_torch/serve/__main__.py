@@ -23,7 +23,9 @@ import sys
 import threading
 
 _PROG = "python -m tpunet_torch.serve"
-_ITEM8 = "comes with ROADMAP Queue A item 8 (parallelism beyond DP, MoE)"
+_ITEM8D = "comes with ROADMAP Queue A item 8d (pipeline parallelism)"
+_ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
+           "and serving)")
 
 
 def parse_prefill_buckets(spec, max_seq_len: int):
@@ -214,7 +216,7 @@ def build_argparser():
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
     p.add_argument("--mesh-model", type=int, default=0,
                    help="tensor-parallel serving (not ported yet: "
-                        "ROADMAP Queue A item 8)")
+                        "ROADMAP Queue A item 8e)")
     p.add_argument("--train-pipe", type=int, default=0)
     p.add_argument("--pp-virtual", type=int, default=2)
     # Optional classifier endpoint.
@@ -234,10 +236,9 @@ def build_server(args):
     loads."""
     buckets = parse_prefill_buckets(args.prefill_buckets,
                                     args.max_seq_len)
-    for flag, value, item in (("--mesh-model", args.mesh_model > 1, _ITEM8),
+    for flag, value, item in (("--mesh-model", args.mesh_model > 1, _ITEM8E),
                               ("--model lm_pp", args.model == "lm_pp"
-                               or args.train_pipe, _ITEM8),
-                              ("--moe-experts", args.moe_experts, _ITEM8)):
+                               or args.train_pipe, _ITEM8D)):
         if value:
             raise _usage(f"{flag} is not ported to tpunet_torch yet; it "
                          f"{item}")
@@ -290,10 +291,10 @@ def build_server(args):
             name="lm", vit_hidden=args.vit_hidden,
             vit_depth=args.vit_depth, vit_heads=args.vit_heads,
             vocab_size=args.vocab_size, max_seq_len=args.max_seq_len,
-            dropout_rate=0.0, moe_every=args.moe_every,
-            moe_top_k=args.moe_top_k,
+            dropout_rate=0.0, moe_experts=args.moe_experts,
+            moe_every=args.moe_every, moe_top_k=args.moe_top_k,
             moe_capacity_factor=args.moe_capacity_factor)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise _usage(str(e))
     model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
                     device=args.device)

@@ -58,8 +58,15 @@ spans that also land in the flight recorder's ring, and a periodic
 injection (``--chaos``, ``tpunet_torch/serve/chaos.py``) hooks token
 production, prefill dispatch and the engine loop.
 
+An MoE LM's blocks run on every call as tpunet's engine runs them: the
+``[slots, 1]`` decode steps and each prefill route their own tokens,
+inactive slots and a bucket's padding included, at that call's capacity
+(``tpunet_torch.models.moe``); with a capacity factor of at least the
+expert count nothing is dropped and a row's tokens do not depend on its
+batch partners.
+
 Not here: the AOT warm start (out of scope, ``config.AOT_CACHE_SCOPED_OUT``)
-and tensor-parallel serving (ROADMAP Queue A item 8).
+and tensor-parallel serving (ROADMAP Queue A item 8e).
 """
 
 from __future__ import annotations

@@ -18,6 +18,10 @@
     torchrun --standalone --nproc-per-node 8 -m tpunet_torch.train \
         --preset distributed --model lm --dataset synthetic_lm \
         --attention ring --mesh-data 2 --mesh-seq 4   # data 2 x seq 4
+    torchrun --standalone --nproc-per-node 8 -m tpunet_torch.train \
+        --preset distributed --model vit --attention ring \
+        --moe-experts 8 --mesh-data 2 --mesh-seq 2 --mesh-model 2
+                                            # ViT-MoE, experts over 'model'
 
 Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
 (128 a rank: data parallelism, the reference's MPI script). Under
@@ -29,7 +33,11 @@ batch is that times the axis (the world divided by ``--mesh-model``);
 rank 0 materialises the dataset while the others wait; the group is
 left on exit. ``--mesh-data``/``--mesh-model`` lay the ranks out as
 tpunet's mesh, ``--zero1`` and ``--fsdp`` shard the state over 'data',
-``--vocab-ce`` picks the LM's loss; ``--mesh-seq S`` with ``--attention
+``--vocab-ce`` picks the LM's loss; ``--moe-experts E`` (with
+``--moe-top-k``, ``--moe-every``, ``--moe-capacity-factor``,
+``--moe-aux-weight`` and ``--moe-dispatch``) makes every second block of
+the ViT family and the LM an MoE block, its experts split over
+``--mesh-model``; ``--mesh-seq S`` with ``--attention
 ring`` or ``ulysses`` (and ``--attention-core``) is sequence parallelism:
 the S ranks of a 'seq' group read the same rows and each holds T / S of
 the positions; ``--mesh-pipe`` above 1 is refused with the ROADMAP item
@@ -173,6 +181,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "logits never materialize) vs the full-logits "
                         "path (auto shards when the axis divides the "
                         "vocab)")
+    p.add_argument("--moe-experts", type=int, default=None,
+                   help="experts per MoE block (vit/lm); 0 = dense MLPs")
+    p.add_argument("--moe-top-k", type=int, default=None)
+    p.add_argument("--moe-every", type=int, default=None)
+    p.add_argument("--moe-capacity-factor", type=float, default=None)
+    p.add_argument("--moe-aux-weight", type=float, default=None)
+    p.add_argument("--moe-dispatch", default=None,
+                   choices=["auto", "alltoall", "replicated"],
+                   help="expert-parallel token dispatch: GShard "
+                        "all_to_all capacity buffers vs replicated "
+                        "routing + psum (auto prefers alltoall when "
+                        "shapes divide)")
     p.add_argument("--mesh-data", type=int, default=None)
     p.add_argument("--mesh-seq", type=int, default=None,
                    help="sequence-parallel axis size (ring/ulysses "
@@ -365,7 +385,10 @@ def _config(args: argparse.Namespace):
                             ("block_remat", "block_remat")) + tuple(
             (f, f) for f in ("vit_patch", "vit_hidden", "vit_depth",
                              "vit_heads", "vit_mlp_ratio", "attention",
-                             "attention_block", "attention_core")):
+                             "attention_block", "attention_core",
+                             "moe_experts", "moe_top_k", "moe_every",
+                             "moe_capacity_factor", "moe_aux_weight",
+                             "moe_dispatch")):
         val = getattr(args, dest)
         if val is not None:
             fields[obj_field] = val

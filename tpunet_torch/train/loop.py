@@ -173,16 +173,17 @@ class Trainer:
             sharded_ce = resolve_vocab_ce(cfg.model.vocab_ce,
                                           axis_size("model"),
                                           cfg.model.vocab_size) == "sharded"
-            self.train_step = make_lm_train_step(cfg.optim,
-                                                 cfg.data.pack_docs,
-                                                 sharded_ce)
+            self.train_step = make_lm_train_step(
+                cfg.optim, cfg.data.pack_docs, sharded_ce,
+                cfg.model.moe_aux_weight)
             self.eval_step = make_lm_eval_step(cfg.data.pack_docs,
                                                sharded_ce)
             # Token rows and segment ids go to the device as int32; the
             # image labels as int64 (cross_entropy's class index type).
             self._label_dtype = None
         else:
-            self.train_step = make_train_step(cfg.data, cfg.optim)
+            self.train_step = make_train_step(cfg.data, cfg.optim,
+                                              cfg.model.moe_aux_weight)
             self.eval_step = make_eval_step(cfg.data)
             self._label_dtype = torch.int64
         # Observability (tpunet_torch/obs/): per-step timing + stall

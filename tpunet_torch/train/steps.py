@@ -72,14 +72,27 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor,
                            label_smoothing=smoothing)
 
 
+def _aux_term(model: torch.nn.Module, weight: float):
+    """``weight`` times the MoE load-balance terms of ``model``'s last
+    training forward (tpunet's ``_aux_term``), 0.0 without MoE blocks or
+    at weight 0. The term is the global batch's on every rank."""
+    read = getattr(model, "moe_aux_loss", None)
+    terms = read() if read is not None else None
+    if terms is None or weight <= 0:
+        return 0.0
+    return weight * terms
+
+
 def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
               generator: torch.Generator, optim_cfg: OptimConfig,
-              mix: Optional[Callable] = None) -> M.Metrics:
+              mix: Optional[Callable] = None,
+              aux_weight: float = 0.0) -> M.Metrics:
     """Forward/backward over ``optim_cfg.grad_accum`` strided microbatches
     of the float images [B,S,S,3] (this rank's rows), the gradients
     reduced over the ranks, one update; returns this rank's metric sums.
     The microbatches draw their mixing (``mix``, from ``make_mix``) and
-    dropout masks from ``generator`` in turn."""
+    dropout masks from ``generator`` in turn. An MoE model's loss (and
+    its metric) adds ``aux_weight`` times the load-balance terms."""
     accum, n = optim_cfg.grad_accum, labels.shape[0]
     if n % accum:
         raise ValueError(f"batch of {n} rows does not split into "
@@ -99,7 +112,7 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         if mix is not None:
             lam = torch.tensor(lam, dtype=torch.float32, device=ce.device)
             ce = lam * ce + (1.0 - lam) * _ce_loss(logits, y_b, smoothing)
-        loss = ce.mean()
+        loss = ce.mean() + _aux_term(state.model, aux_weight)
         # Under sequence parallelism every rank of a 'seq' group holds
         # the whole logits (the ViT's pool sums over the group): each
         # takes 1/S of the loss, so that the gradients summed over 'seq'
@@ -112,10 +125,12 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     return M.from_batch(loss_sum, correct, n, labels.device)
 
 
-def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig) -> Callable:
+def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig,
+                    aux_weight: float = 0.0) -> Callable:
     """train_step(state, images_u8 [B,32,32,3] uint8, labels [B] int64,
     generator) -> metrics; the images and labels (this rank's rows of
-    the global batch) on the model's device."""
+    the global batch) on the model's device; ``aux_weight`` weighs an
+    MoE model's load-balance terms."""
     augment = make_train_augment(data_cfg)
     mix = make_mix(data_cfg)
 
@@ -123,7 +138,7 @@ def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig) -> Callable:
                    labels: torch.Tensor, generator: torch.Generator
                    ) -> M.Metrics:
         return fit_batch(state, augment(generator, images_u8), labels,
-                         generator, optim_cfg, mix)
+                         generator, optim_cfg, mix, aux_weight)
 
     return train_step
 
@@ -169,14 +184,23 @@ def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
 def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
                  labels: torch.Tensor, generator: torch.Generator,
                  optim_cfg: OptimConfig, packed: bool = False,
-                 sharded_ce: bool = False) -> M.Metrics:
+                 sharded_ce: bool = False,
+                 aux_weight: float = 0.0) -> M.Metrics:
     """The LM's :func:`fit_batch`: forward/backward over
     ``optim_cfg.grad_accum`` strided microbatches of the token rows
     [B, T] (this rank's), the gradients reduced over the ranks, one
     update; returns this rank's metric sums. ``packed``: ``labels``
     are the rows' segment ids; each microbatch's CE sum is divided by
     the global valid-target count (summed over the ranks first) and
-    multiplied by the world size."""
+    multiplied by the world size.
+
+    An MoE model's weighted load-balance term ``aux`` (the global
+    batch's, alike on every rank) joins each microbatch's loss as
+    tpunet's does: ``ce.mean() + aux`` unpacked, ``ce_sum / total +
+    aux / accum`` packed; a 'seq' rank takes 1/S of it, since the 'seq'
+    ranks' losses are summed. The metric's loss sum carries it as
+    tpunet's: ``aux`` times the targets (unpacked), ``aux * total /
+    accum`` (packed)."""
     accum, n = optim_cfg.grad_accum, tokens.shape[0]
     if n % accum:
         raise ValueError(f"batch of {n} rows does not split into "
@@ -191,16 +215,21 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
                            axis_group("data"))
         scale = axis_size("data") / total.clamp_min(1.0)
     sl = _targets(state.model, tokens.shape[1])
+    seq = axis_size("seq")
     loss_sum = correct = count = 0
     for i in range(accum):
         x = tokens[i::accum]
         segs = labels[i::accum] if packed else None
         ce, hit = _next_token(state.model, x, segs, smoothing, sharded_ce,
                               train=True, generator=generator)
+        aux = _aux_term(state.model, aux_weight)
         if packed:
             wt = _packed_target_weights(segs)[:, sl]
             ce_sum = (ce * wt).sum()
-            (ce_sum * scale).backward()
+            (ce_sum * scale + aux / (accum * seq)).backward()
+            if torch.is_tensor(aux):
+                ce_sum = ce_sum + aux * total / (
+                    accum * seq * axis_size("data"))
             loss_sum = loss_sum + ce_sum.detach()
             correct = correct + (hit * wt).sum()
             count = count + wt.sum()
@@ -208,7 +237,7 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
             # The mean over the row's T - 1 targets: a 'seq' rank's sum
             # over its own divided by the row's count.
             row_targets = x.shape[0] * (x.shape[1] - 1)
-            loss = ce.sum() / row_targets
+            loss = ce.sum() / row_targets + aux / seq
             (loss / accum).backward()
             loss_sum = loss_sum + loss.detach() * row_targets
             correct = correct + hit.sum()
@@ -219,16 +248,18 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
 
 
 def make_lm_train_step(optim_cfg: OptimConfig, packed: bool = False,
-                       sharded_ce: bool = False) -> Callable:
+                       sharded_ce: bool = False,
+                       aux_weight: float = 0.0) -> Callable:
     """train_step(state, tokens [B,T] int, labels, generator) -> metrics
     for the LM: ``labels`` are [B, T] segment ids when ``packed``, else
-    unread; ``sharded_ce``: the vocab-parallel CE."""
+    unread; ``sharded_ce``: the vocab-parallel CE; ``aux_weight`` weighs
+    an MoE model's load-balance terms."""
 
     def train_step(state: TrainState, tokens: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator
                    ) -> M.Metrics:
         return fit_lm_batch(state, tokens, labels, generator, optim_cfg,
-                            packed, sharded_ce)
+                            packed, sharded_ce, aux_weight)
 
     return train_step
 

@@ -77,3 +77,70 @@ class MetricsLogger:
             # record but never interleave two (append-mode writes of a
             # single buffer are atomic for sane line sizes).
             f.write(json.dumps(record) + "\n")
+
+    @classmethod
+    def tail_records(cls, path: str, offset: int = 0) -> tuple:
+        """Incremental read for live consumers: parse complete records
+        appended since ``offset`` and return
+        ``(records, new_offset, reset)``.
+
+        The trailing partial line (a write in flight, or a torn write
+        after a crash) is NOT consumed — the returned offset points at
+        its start, so the next poll re-reads it once it is complete.
+        A file that shrank below ``offset`` (fresh run truncated it)
+        restarts from the beginning and reports ``reset=True`` so the
+        caller can discard state derived from the old run's records —
+        the check lives HERE, on the same stat the read uses, so no
+        caller-side check can race it. A malformed *complete* line is
+        skipped, not fatal: a live dashboard must outlive one bad
+        record."""
+        import json
+        import os as _os
+        records = []
+        reset = False
+        try:
+            size = _os.path.getsize(path)
+        except OSError:
+            return records, 0, offset > 0
+        if size < offset:
+            offset = 0          # truncated underneath us: new run
+            reset = True
+        if size == offset:
+            return records, offset, reset
+        with open(path, "rb") as f:
+            f.seek(offset)
+            chunk = f.read()
+        end = chunk.rfind(b"\n")
+        if end < 0:
+            return records, offset, reset   # only a partial line so far
+        for line in chunk[:end].splitlines():
+            if not line.strip():
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+        return records, offset + end + 1, reset
+
+    @classmethod
+    def read_records(cls, path: str) -> list:
+        """Parse a ``metrics.jsonl`` back into dicts, tolerating a
+        truncated trailing line (the crash/preemption artifact the
+        append-per-record format can leave). A malformed line anywhere
+        *else* is real corruption and raises."""
+        import json
+        records = []
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for i, line in enumerate(lines):
+            if not line.strip():
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                if i == len(lines) - 1:
+                    break  # torn trailing write: drop it
+                raise ValueError(
+                    f"{path}:{i + 1}: malformed record mid-file (only "
+                    f"the final line may be truncated)")
+        return records
