@@ -112,7 +112,7 @@ Phases, each of which must pass:
      against the no-cache forward's (12 flash launches), and in f32 the
      cache and no-cache tokens equal;
  13. serve_engine: the LM serving engine (``tpunet_torch.serve``) at
-     phase 12's widths cut to 6 blocks (SERVE_DEPTH, as in phases 14
+     phase 12's widths cut to 4 blocks (SERVE_DEPTH, as in phases 14
      and 15) in bf16 behind its HTTP server with the
      ServeConfig defaults (8 slots, prefill buckets 32/128/512, paged KV
      of 16-token pages, the prefix cache, device sampling): 8
@@ -162,9 +162,9 @@ Phases, each of which must pass:
      init; the ServeConfig defaults; on this card), twice. Fleet 1:
      both replicas healthy before a deadline (boot seconds each), a
      greedy request through the router equal to the same request on
-     each replica's own port, then phase 13's 48 requests from 8 and
-     from 16 closed-loop clients, each against replica r1 alone and then
-     through the router: every request 200 with 128 tokens, both
+     each replica's own port, then phase 13's 48 requests from 16
+     closed-loop clients (both replicas' slots), against replica r1 alone
+     and then through the router: every request 200 with 128 tokens, both
      replicas taking requests (the router's split equal to the
      replicas' own serve_requests_total); generated tokens/s, TTFT and
      per-token p50; then SIGTERM: exit 0, no child left. Fleet 2, with
@@ -244,7 +244,8 @@ Phases, each of which must pass:
      the repo's MoE example at tpunet's defaults (8 experts, top-2, every
      second block, capacity 1.25, aux 0.01): ViT-B/16 MoE (batch 128) and
      the MoE LM (phase 12's LM, batch 16) through the CLI, 3 steps a run:
-     in float32 each on the flash kernels, replaying the routing of the
+     in float32 (at 4 blocks, SHARD_DEPTH) each on the
+     flash kernels, replaying the routing of the
      same run on the library path (``--attention dense``; a near-tie that
      rounding routes apart would send two free runs apart), with phase 17's
      gates against it, and as readings the choices the kernel run's own
@@ -262,7 +263,25 @@ Phases, each of which must pass:
      printed); the port's obs CLIs (``python -m
      tpunet_torch.obs.cli.timeline/compare/dashboard``) on the router
      phase's failover fleet and the bf16 runs;
- 20. print the kernel list and the card's name and power limit.
+ 20. pipe_trainer: pipeline parallelism (ROADMAP Queue A item 8d):
+     the CLI with ``--model lm_pp``/``vit_pp`` and ``--mesh-pipe 2``, 2
+     ranks sharing the card over gloo as in phase 17, 3 steps a run,
+     each against the same run at one rank in this process (``--model
+     lm``/``vit`` at the same seed: the same weights): in float32 the
+     LM (4 blocks, batch 16, ``--pp-microbatches 4``, the flash kernels)
+     under gpipe, 1f1b and interleaved v 2, ViT-B/16 (4 blocks, batch
+     128) and the packed LM under 1f1b, the MoE LM at one microbatch
+     replaying the one-rank run's routing (each stage's calls mapped to
+     the record's), with phase 17's gates; the LM's 1f1b in bf16, its
+     loss within 2^-7 relative of one rank's; the leaves every stage
+     holds equal to the bit on both ranks; the flash trio's launches a
+     rank-step L / S x M (8; the MoE run's 2); the interleaved run's
+     checkpoint through ``python -m tpunet_torch.infer.generate --model
+     lm_pp``, its 16 greedy tokens equal to ``--model lm``'s; readings:
+     the step and peak a rank against one rank's, gpipe's peak against
+     1f1b's, the host ms in the hops (``pipe_hop``), ticks, busy ticks
+     and live graphs a stage;
+ 21. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -273,8 +292,12 @@ mixup's partner fetch over NCCL, one rank a card, runs
 item-2b options, the sharded_trainer phase's LM and ViT-B/16 at
 data 2 x model 2 with ``--fsdp`` over NCCL against one card, and the
 seq_trainer phase's LM at ``--mesh-seq 4`` under ring and at data 1 x
-seq 2 x model 2 under Ulysses, and the moe_trainer phase's LM at data 2
-x model 2 under ``alltoall`` (readings).
+seq 2 x model 2 under Ulysses, the moe_trainer phase's LM at data 2
+x model 2 under ``alltoall``, and pipe_trainer's LM at 12 blocks over 4
+stages (M 8) under 1f1b and interleaved v 3, at pipe 2 x seq 2 under
+Ulysses and the MoE LM at pipe 2 x model 2 under ``alltoall`` (one
+microbatch, capacity E / k), each against one card with its ideal step
+(one card's step / 4 x (1 + (S - 1) / (v M))) beside it (readings).
 """
 
 from __future__ import annotations
@@ -1960,8 +1983,8 @@ def dp_worker(role: str, world: int, rank: int) -> int:
       after them;
     - ``time``: one process, 30 bf16 steps at batch 128 on one repeated
       batch in turns without a process group and at world 1 over NCCL
-      (none, NCCL, NCCL, none): the wall times, the NCCL runs'
-      collective calls and launches, the host time inside the
+      (without, then NCCL, one run each): the
+      wall times, the NCCL run's collective calls and launches, the host time inside the
       all-reduces over 10 more steps, and one profiled step;
     - ``stop``: :func:`item2b_stop_worker`;
     - ``fetch``: one rank a card over NCCL, mixup's partner fetch
@@ -2082,7 +2105,6 @@ def dp_worker(role: str, world: int, rank: int) -> int:
         runs["nccl_a"] = p50_ms()
         out["collectives"] = dist.all_reduce.calls - calls
         out["launches"] = launch_counts()
-        runs["nccl_b"] = p50_ms()
         # Host time inside the all-reduces (NCCL returns once the call
         # is queued), over 10 more steps, outside the timed runs.
         spent = [0.0]
@@ -2108,7 +2130,6 @@ def dp_worker(role: str, world: int, rank: int) -> int:
                 "nccl", "depthwise3x3_fwd", "depthwise3x3_bwd",
                 "fused_ir_fwd", "fused_ir_bwd"))
         dist.destroy()
-        runs["none_b"] = p50_ms()
         out["runs"] = runs
     torch.save(out, DP_DIR / f"{role}_rank{rank}.pt")
     dist.destroy()
@@ -2292,8 +2313,7 @@ def phase_dp_trainer(torch, single_epoch, single_step_ms) -> None:
     timed = torch.load(DP_DIR / "time_rank0.pt", weights_only=False)
     prof, runs = timed["profile"], timed["runs"]
     nccl_ms = prof.get("hand_kernel_ms", {}).get("nccl")
-    p50 = statistics.median([runs["nccl_a"][0], runs["nccl_b"][0]])
-    none = statistics.median([runs["none_a"][0], runs["none_b"][0]])
+    p50, none = runs["nccl_a"][0], runs["none_a"][0]
     emit("dp_trainer", backend=timed["backend"], epoch_record=rec,
          single_epoch_record={k: single_epoch[k] for k in keys},
          epoch_diff=diff, epoch_bit_equal=bit_equal,
@@ -3301,9 +3321,10 @@ def phase_lm_generate(torch) -> dict:
 
 
 # The LM of the serving phases (serve_engine, serve_item5, router) at
-# full width cut to 6 blocks: their time is decode steps, host-bound at a
+# full width cut to 4 blocks, which leaves the script time for the
+# parallelism phases: their time is decode steps, host-bound at a
 # block's launches a block.
-SERVE_DEPTH = 6
+SERVE_DEPTH = 4
 SERVE_REQUESTS = 48      # /v1/generate requests of the serve_engine phase
 SERVE_CLIENTS = 8        # closed-loop generate clients (= the engine's slots)
 SERVE_CLASSIFY_CLIENTS = 2
@@ -3326,7 +3347,7 @@ ROUTER_DIR = LM_DIR / "smoke_router"
 ROUTER_KILL_TOKENS = 12  # the failover fleet's replica 0 dies at this token
 ROUTER_STREAM_NEW = 64   # new tokens of the failover stream
 ROUTER_BOOT_S = 300      # deadline of a fleet's boot and of a respawn
-ROUTER_CLIENTS = (SERVE_CLIENTS, 2 * SERVE_CLIENTS)  # one fleet's slots, two
+ROUTER_CLIENTS = (2 * SERVE_CLIENTS,)  # both replicas' slots
 
 
 def http_call(base, path, body=None, timeout=300.0):
@@ -4375,9 +4396,9 @@ def fleet_metrics(wall, answers) -> dict:
 
 def router_traffic_fleet(bodies, rows) -> dict:
     """Fleet 1 (no chaos): boot, greedy parity (the router against each
-    replica's own port), phase 13's traffic from 8 and then 16 clients,
-    each against replica r1 alone and then through the router, the
-    split between the replicas, and the SIGTERM drain."""
+    replica's own port), phase 13's traffic from ROUTER_CLIENTS clients,
+    against replica r1 alone and then through the router, the split
+    between the replicas, and the SIGTERM drain."""
     fleet = router_fleet("fleet")
     try:
         reps = router_rows(fleet)
@@ -5261,7 +5282,7 @@ SHARD_TIMEOUT_S = 600
 
 
 def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
-                   attn=0) -> dict:
+                   attn=0, moe_layers=0) -> dict:
     """``python -m tpunet_torch.train`` (the CLI in this process) with a
     record of each train step (wall ms after a sync, the kernels'
     launches, the collectives' calls and host seconds, the peak memory
@@ -5278,7 +5299,10 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
     returned under ``state``. An MoE run's routing is read by
     :class:`MoeRoutes` (``moe_ref`` the record it replays, ``attn`` the
     blocks whose attention outputs it records or compares) under
-    ``moe``."""
+    ``moe``; ``moe_layers`` (a pipeline stage's run): the whole model's
+    MoE layers, whose record's calls the stage's own map to. A pipelined
+    run's equality covers the leaves every stage holds, and its plan
+    (layers, ticks, hops, live graphs) lands under ``pp``."""
     from tpunet_torch import ckpt
     from tpunet_torch.parallel import dist
     from tpunet_torch.train import __main__ as cli
@@ -5296,7 +5320,7 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
     # An MoE run's routing: the kept and total (token, slot) pairs; a
     # float32 run records its routing, or replays a reference's.
     routes = (MoeRoutes(torch, keep="float32" in flags and moe_ref is None,
-                        replay=moe_ref, attn=attn)
+                        replay=moe_ref, attn=attn, layers=moe_layers)
               if "--moe-experts" in flags else None)
 
     def step(self, bx, by, gen):
@@ -5329,12 +5353,18 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
                                   for t in tensors)
         if sh is not None:
             seen["replicated_gaps"] = sh.replicated_gaps()
+        pp = getattr(st.model, "pp", None)
+        if pp is not None:
+            seen["pp"] = dict(layers=pp.layers[pp.s], max_live=pp.max_live,
+                              stats=dict(pp.stats), stage=pp.s)
         if world > 1:
             if sh is not None:
                 sh.gather()
             rep = torch.cat([p.detach().reshape(-1) for n, p in
                              st.model.named_parameters()
-                             if sh is None or sh.model_spec(n) is None])
+                             if (sh is None or sh.model_spec(n) is None)
+                             and not (pp is not None
+                                      and n.startswith("blocks."))])
             got = dist.all_gather(rep)
             seen["replicated_equal"] = all(torch.equal(got[0], got[r])
                                            for r in range(1, world))
@@ -5376,11 +5406,16 @@ class MoeRoutes:
     the largest |probs - the record's|, and of the first ``attn``
     attention outputs the largest |output - the record's|. A rank's
     tokens are the record's slice j of ``parts``: all of them, or its
-    'data' shard, or under alltoall its (data, model) slice."""
+    'data' shard, or under alltoall its (data, model) slice.
+    ``layers`` (a pipeline stage replaying a one-rank record): the
+    record's forward makes ``layers`` calls and the stage's its own
+    share of them in order, so stage s's k-th call is the record's
+    (k // n) * layers + s * n + k % n (n = layers / stages)."""
 
-    def __init__(self, torch, keep=False, replay=None, attn=0):
+    def __init__(self, torch, keep=False, replay=None, attn=0, layers=0):
         self.torch, self.keep, self.replay, self.attn = torch, keep, \
             replay, attn
+        self.layers = layers
         self.pairs, self.kept, self.calls, self.attn_calls = 0, None, 0, 0
         self.choices, self.probs, self.attn_out = [], [], []
         self.apart, self.gap, self.dprobs, self.dattn = [], [], [], []
@@ -5408,6 +5443,12 @@ class MoeRoutes:
             if self.replay is None:
                 r = self.real(probs, k, e, cap)
             else:
+                if self.layers:
+                    from tpunet_torch.parallel.mesh import (axis_index,
+                                                            axis_size)
+                    n = self.layers // axis_size("pipe")
+                    i = ((i // n) * self.layers + axis_index("pipe") * n
+                         + i % n)
                 rec = self.replay["choices"][i]
                 at = self._slice(probs.shape[0], rec.shape[1])
                 want = rec[:, at].to(probs.device).t().long()
@@ -5567,7 +5608,8 @@ def shard_worker(world: int, rank: int, backend: str,
             "--preset", "distributed", "--device", "cuda",
             "--checkpoint-dir", str(directory / f"ck_{name}")], world,
             spec.get("in_memory", False),
-            moe_ref=replay and torch.load(directory / replay))
+            moe_ref=replay and torch.load(directory / replay),
+            moe_layers=spec.get("moe_layers", {}).get(name, 0))
         torch.cuda.empty_cache()
     if spec.get("vocab"):
         dist.initialize_distributed(
@@ -6017,8 +6059,12 @@ MOE_DIR = ROOT / "build" / "tpunet_torch" / "smoke_moe"
 # second block (6 of 12), capacity factor 1.25, aux weight 0.01.
 MOE_EXPERTS = 8
 MOE_FLAGS = ("--moe-experts", str(MOE_EXPERTS))
-MOE_VIT = vit_run_flags() + MOE_FLAGS + ("--batch-size", str(TRAIN_BATCH))
-MOE_LM = lm_run_flags() + MOE_FLAGS + ("--batch-size", str(LM_BATCH))
+# The float32 kernel-against-library runs at SHARD_DEPTH blocks (their
+# time goes to pipe_trainer); the bf16 main path keeps 12.
+MOE_VIT = vit_run_flags(SHARD_DEPTH) + MOE_FLAGS + ("--batch-size",
+                                                     str(TRAIN_BATCH))
+MOE_LM = lm_run_flags(SHARD_DEPTH) + MOE_FLAGS + ("--batch-size",
+                                                   str(LM_BATCH))
 # A capacity factor of E / k: the capacity is every token (an expert takes
 # a token once), nothing drops, so a lowering that routes each half of
 # the tokens at the half's capacity (alltoall) computes one rank's step.
@@ -6325,7 +6371,7 @@ def phase_moe_trainer(torch, dense_step_ms=None) -> dict:
             return out
         lib = run("library", ["--attention", "dense"])
         kern = run("kernel", [], lib["moe"].pop("record"))
-        for tag, run, want in (("kernel", kern, LM_LAYERS),
+        for tag, run, want in (("kernel", kern, depth),
                                ("library", lib, 0)):
             gate(len(run["steps"]) == SHARD_RUN_STEPS,
                  f"moe f32 {fam} {tag}: {len(run['steps'])} steps")
@@ -6402,6 +6448,280 @@ def phase_moe_trainer(torch, dense_step_ms=None) -> dict:
          dropped_share={f: r["moe"]["dropped_share"]
                         for f, r in bf16.items()},
          peak_bytes={f: r["moe"]["peak_bytes"] for f, r in bf16.items()})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: vit_pp and lm_pp over the 'pipe' axis
+# ---------------------------------------------------------------------------
+
+PIPE_DIR = ROOT / "build" / "tpunet_torch" / "smoke_pipe"
+PIPE_MICRO = 4
+
+
+def pipe_flags(flags, name) -> tuple:
+    """``flags`` of an lm/vit run with ``--model`` set to ``name``."""
+    flags = list(flags)
+    flags[flags.index("--model") + 1] = name
+    return tuple(flags)
+
+
+# 2 gloo ranks sharing the card: data 1 x pipe 2, the LM (phase 12's
+# widths at SHARD_DEPTH blocks, batch 16) under each schedule, ViT-B/16 and
+# the packed LM under 1f1b, the MoE LM at one microbatch (each stage routes
+# the whole batch, as one rank does), and the LM's 1f1b in bf16; the packed
+# flags are filled in by phase_pipe_trainer.
+PIPE_LM = pipe_flags(SHARD_LM, "lm_pp") + (
+    "--attention", "flash", "--mesh-pipe", "2", "--pp-microbatches",
+    str(PIPE_MICRO), "--batch-size", str(LM_BATCH))
+PIPE_RUNS = {
+    "lm_gpipe": PIPE_LM + ("--pp-schedule", "gpipe"),
+    "lm_1f1b": PIPE_LM + ("--pp-schedule", "1f1b"),
+    "lm_ileave": PIPE_LM + ("--pp-schedule", "interleaved",
+                            "--pp-virtual", "2"),
+    "vit_1f1b": pipe_flags(SHARD_VIT, "vit_pp") + (
+        "--attention", "flash", "--mesh-pipe", "2", "--pp-microbatches",
+        str(PIPE_MICRO), "--pp-schedule", "1f1b", "--batch-size",
+        str(TRAIN_BATCH)),
+    "lmpk_1f1b": ("--mesh-pipe", "2", "--pp-microbatches", str(PIPE_MICRO),
+                  "--pp-schedule", "1f1b"),
+    "lmmoe_m1": pipe_flags(MOE_EP_LM, "lm_pp") + (
+        "--mesh-pipe", "2", "--pp-microbatches", "1"),
+    "lmbf_1f1b": PIPE_LM + ("--pp-schedule", "1f1b", "--dtype", "bfloat16"),
+}
+# --four-cards, a card a rank over NCCL: the LM at 12 blocks over 4 stages
+# (M 8) under 1f1b and interleaved v 3, pipe 2 x seq 2 under Ulysses, and
+# pipe 2 x model 2 with the MoE LM's experts over 'model' under alltoall
+# (one microbatch, capacity E / k: the routing of one card).
+PIPE_LM12 = pipe_flags(lm_run_flags(), "lm_pp") + (
+    "--attention", "flash", "--mesh-pipe", "4", "--pp-microbatches", "8",
+    "--batch-size", str(LM_BATCH))
+PIPE_RUNS_FOUR = {
+    "lm12_1f1b": PIPE_LM12 + ("--pp-schedule", "1f1b"),
+    "lm12_ileave": PIPE_LM12 + ("--pp-schedule", "interleaved",
+                                "--pp-virtual", "3"),
+    "lm_ulysses_pp": pipe_flags(SHARD_LM, "lm_pp") + (
+        "--attention", "ulysses", "--mesh-seq", "2", "--mesh-pipe", "2",
+        "--pp-microbatches", str(PIPE_MICRO), "--pp-schedule", "1f1b",
+        "--batch-size", str(LM_BATCH)),
+    "lmmoend_ep_pp": pipe_flags(MOE_EP_LM, "lm_pp") + MOE_NO_DROP + (
+        "--mesh-pipe", "2", "--mesh-model", "2", "--moe-dispatch",
+        "alltoall", "--pp-microbatches", "1")}
+# The one-rank reference of each family (the same seed draws the same
+# weights for lm_pp/vit_pp as for lm/vit); "lmpk" is seq_trainer's.
+PIPE_REFS = {"lm": SHARD_LM + ("--batch-size", str(LM_BATCH)),
+             "vit": SHARD_VIT + ("--batch-size", str(TRAIN_BATCH)),
+             "lmmoe": MOE_EP_LM,
+             "lmmoend": MOE_EP_LM + MOE_NO_DROP,
+             "lmbf": SEQ_REFS["lmbf"],
+             "lm12": lm_run_flags() + ("--batch-size", str(LM_BATCH))}
+PIPE_GEN_TOKENS = 16
+
+
+def pipe_flash_launches(name, flags) -> int:
+    """Each of the flash trio's launches a rank-step: a stage's blocks
+    times the microbatches (L / S * M)."""
+    f = list(flags)
+    depth = int(f[f.index("--vit-depth") + 1]) if "--vit-depth" in f \
+        else SHARD_DEPTH
+    return (depth // int(f[f.index("--mesh-pipe") + 1])
+            * int(f[f.index("--pp-microbatches") + 1]))
+
+
+def pipe_generate(torch, ckdir) -> dict:
+    """The interleaved run's checkpoint through ``python -m
+    tpunet_torch.infer.generate`` (in this process) as ``--model lm_pp``
+    and as ``--model lm``: PIPE_GEN_TOKENS greedy tokens each."""
+    import contextlib
+    import io
+
+    from tpunet_torch.infer import generate as gen_cli
+
+    out = {}
+    base = ["--checkpoint-dir", str(ckdir), "--vit-hidden", str(LM_HIDDEN),
+            "--vit-depth", str(SHARD_DEPTH), "--vit-heads", str(LM_HEADS),
+            "--vocab-size", str(LM_VOCAB), "--max-seq-len", str(LM_T),
+            "--prompt-format", "ids", "--prompt", "5 9 2 33 101 7",
+            "--tokens", str(PIPE_GEN_TOKENS), "--device", "cuda"]
+    for model in ("lm_pp", "lm"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gen_cli.main(["--model", model] + base)
+        out[model] = [int(t) for t in buf.getvalue().split()]
+    return out
+
+
+def phase_pipe_trainer(torch, backend="gloo", world=2, runs=None) -> dict:
+    """pipe_trainer: ``python -m tpunet_torch.train --preset distributed``
+    with ``--model lm_pp``/``vit_pp`` and ``--mesh-pipe`` (ROADMAP Queue A
+    item 8d), ``world`` ranks over ``backend`` (on one card 2 ranks
+    sharing it over gloo), SHARD_RUN_STEPS steps at dropout 0 with cuDNN's
+    deterministic algorithms, each against the same run at one rank in
+    this process (``--model lm``/``vit`` at the same seed: the same
+    weights). In float32 (the LM under gpipe, 1f1b and interleaved v 2,
+    ViT-B/16 and the packed LM under 1f1b, the MoE LM at one microbatch
+    replaying the one-rank run's routing): phase 17's gates (loss within
+    1e-4, test accuracy within 1e-6, parameters within rtol 2e-4 / atol
+    2e-5 but the qkv key bias); in bf16 (the LM's 1f1b) the loss within
+    2^-7 relative of one rank's. Every run: the leaves every stage holds
+    equal to the bit on every rank, and the flash trio's launches a
+    rank-step L / S x M (:func:`pipe_flash_launches`: 8 at 4 blocks, 2
+    stages, 4 microbatches). The interleaved run's checkpoint gives the
+    same PIPE_GEN_TOKENS greedy tokens through ``generate --model lm_pp``
+    as through ``--model lm``. Readings: step ms and peak memory a rank
+    against one rank's, gpipe's peak against 1f1b's, the host ms in the
+    hops (``pipe_hop``) a step, ticks, busy ticks and live graphs a
+    stage. Returns them with what failed the gates (``failed``)."""
+    runs = dict(PIPE_RUNS if runs is None else runs)
+    fails = []
+    t_phase = time.perf_counter()
+
+    def gate(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    refs_flags = dict(PIPE_REFS)
+    if "lmpk_1f1b" in runs:
+        packed = seq_packed_flags()
+        runs["lmpk_1f1b"] = pipe_flags(packed, "lm_pp") + tuple(
+            runs["lmpk_1f1b"])
+        refs_flags["lmpk"] = packed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True     # as in shard_worker
+    refs, replay, moe_layers = {}, {}, {}
+    families = {name.split("_")[0] for name in runs}
+    for family, flags in refs_flags.items():
+        if family not in families:
+            continue
+        moe = "--moe-experts" in flags
+        refs[family] = shard_reference(torch, flags,
+                                       PIPE_DIR / f"ck_ref_{family}", moe)
+    for name in runs:
+        family = name.split("_")[0]
+        if "moe" in family:
+            rec = refs[family]["moe"]["record"]
+            torch.save({k: [t.cpu() for t in rec[k]]
+                        for k in ("choices", "probs")},
+                       PIPE_DIR / f"replay_{name}.pt")
+            replay[name] = f"replay_{name}.pt"
+            f = list(runs[name])
+            moe_layers[name] = (int(f[f.index("--vit-depth") + 1])
+                                // int(dict(zip(f, f[1:])).get(
+                                    "--moe-every", "2")))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    (PIPE_DIR / "runs.json").write_text(json.dumps(
+        {"runs": {k: list(SHARD_F32) + list(v) for k, v in runs.items()},
+         "replay": replay, "moe_layers": moe_layers, "vocab": False}))
+    me = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    run_workers([(f"pipe_rank{r}", [sys.executable, me, "--dp-worker",
+                                    "shard", str(world), str(r), backend,
+                                    str(PIPE_DIR)])
+                 for r in range(world)],
+                env={f"pipe_rank{r}": {"LOCAL_RANK": str(
+                    r if backend == "nccl" else 0)} for r in range(world)},
+                log_dir=PIPE_DIR, timeout=SHARD_TIMEOUT_S)
+    workers_s = time.perf_counter() - t0
+    outs = [torch.load(PIPE_DIR / f"shard_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+    res = {"card": card_line(), "world": world, "backend": backend,
+           "workers_s": workers_s}
+    for name, flags in runs.items():
+        family = name.split("_")[0]
+        ref = refs[family]
+        row = {f"rank{r}": shard_summary(o[name]) for r, o in enumerate(outs)}
+        for r, o in enumerate(outs):
+            s = row[f"rank{r}"]
+            coll = s["collectives_calls_and_host_ms_per_step"]
+            s["hop_calls_and_host_ms_per_step"] = coll["pipe_hop"]
+            s["pp"] = o[name]["pp"]
+            st = s["pp"]["stats"]
+            s["bubble_share"] = 1.0 - st["busy_ticks"] / st["ticks"]
+            s.pop("replicated_gaps", None)
+        row["replicated_equal"] = outs[0][name].get("replicated_equal")
+        gate(row["replicated_equal"] is True,
+             f"{name}: the leaves every stage holds differ between ranks")
+        want = pipe_flash_launches(name, flags)
+        for r, o in enumerate(outs):
+            gate(row[f"rank{r}"]["steps"] == SHARD_RUN_STEPS,
+                 f"{name} rank {r}: {row[f'rank{r}']['steps']} steps")
+            for k in SEQ_FLASH:
+                got = [st["launches"][k] for st in o[name]["steps"]]
+                gate(all(g == want for g in got),
+                     f"{name} rank {r}: {k} launches a step {got}, "
+                     f"want {want}")
+        rec, base = outs[0][name]["history"][0], ref["history"][0]
+        row.update(
+            reference="world 1",
+            train_loss_diff=rec["train_loss"] - base["train_loss"],
+            test_accuracy_diff=rec["test_accuracy"] - base["test_accuracy"],
+            reference_peak_bytes=max(st["peak_bytes"] for st in ref["steps"]),
+            reference_step_ms_p50=statistics.median(
+                st["ms"] for st in (ref["steps"][1:] or ref["steps"])))
+        row["peak_vs_reference"] = [row[f"rank{r}"]["peak_bytes"]
+                                    / row["reference_peak_bytes"]
+                                    for r in range(world)]
+        row["step_vs_reference"] = [row[f"rank{r}"]["step_ms_p50"]
+                                    / row["reference_step_ms_p50"]
+                                    for r in range(world)]
+        if "bfloat16" in flags:
+            gate(abs(row["train_loss_diff"])
+                 <= SEQ_BF16_LOSS_RTOL * abs(base["train_loss"]),
+                 f"{name}: bf16 train loss {rec['train_loss']} vs "
+                 f"{base['train_loss']}")
+        else:
+            state = torch.load(PIPE_DIR / f"ck_{name}" / "state.pt")["model"]
+            close = shard_params_close(torch, state, ref["state"])
+            row["params"] = close
+            gate(abs(row["train_loss_diff"]) <= SHARD_LOSS_TOL,
+                 f"{name}: train loss {rec['train_loss']} vs "
+                 f"{base['train_loss']}")
+            gate(abs(row["test_accuracy_diff"]) <= 1e-6,
+                 f"{name}: test accuracy {rec['test_accuracy']} vs "
+                 f"{base['test_accuracy']}")
+            gate(close["excess"] <= 0.0,
+                 f"{name}: {close['excess_key']} beyond rtol "
+                 f"{SHARD_PARAM_RTOL} / atol {SHARD_PARAM_ATOL} by "
+                 f"{close['excess']:.3g}")
+        if name in replay:
+            calls = [o[name]["moe"]["calls"] for o in outs]
+            rcalls = outs[0][name]["moe"]["replayed"]["record_calls"]
+            row["moe"] = {f"rank{r}": o[name]["moe"]["replayed"]
+                          for r, o in enumerate(outs)}
+            gate(sum(calls) == rcalls * world // int(
+                list(flags)[list(flags).index("--mesh-pipe") + 1]),
+                 f"{name}: routing calls {calls}, the record's {rcalls}")
+        res[name] = row
+    if "lm_gpipe" in res and "lm_1f1b" in res:
+        res["gpipe_peak_vs_1f1b"] = [
+            res["lm_gpipe"][f"rank{r}"]["peak_bytes"]
+            / res["lm_1f1b"][f"rank{r}"]["peak_bytes"] for r in range(world)]
+    if "lm_ileave" in runs:
+        gen = pipe_generate(torch, PIPE_DIR / "ck_lm_ileave")
+        res["generate"] = gen
+        gate(len(gen["lm_pp"]) == 6 + PIPE_GEN_TOKENS
+             and gen["lm_pp"] == gen["lm"],
+             f"generate --model lm_pp {gen['lm_pp']} vs lm {gen['lm']}")
+    for name in runs:
+        if not name.startswith("lm12"):
+            continue
+        # The yardstick: one card's f32 step over 4 cards, times the
+        # bubble's (1 + (S - 1) / (v M)).
+        f = list(runs[name])
+        stages = int(f[f.index("--mesh-pipe") + 1])
+        micro = int(f[f.index("--pp-microbatches") + 1])
+        v = int(f[f.index("--pp-virtual") + 1]) if "--pp-virtual" in f \
+            else 1
+        res[name]["ideal_step_ms"] = (res[name]["reference_step_ms_p50"]
+                                      / stages * (1 + (stages - 1)
+                                                  / (v * micro)))
+    res["s"] = time.perf_counter() - t_phase
+    res["failed"] = fails
+    emit("pipe_trainer", **res)
     return res
 
 
@@ -6512,6 +6832,10 @@ def main() -> int:
             "lm": LM_BATCH * LM_T / lm_tokens_per_s * 1e3})
         check(not moe["failed"], "moe_trainer: " + "; ".join(
             moe["failed"][:6]))
+        torch.cuda.empty_cache()
+        pipe = timed(phase_pipe_trainer, torch)
+        check(not pipe["failed"], "pipe_trainer: " + "; ".join(
+            pipe["failed"][:6]))
     except PhaseError as e:
         emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -6595,6 +6919,11 @@ def main() -> int:
                 "launches_per_step"][name] for fam in ("vit", "lm")},
             **{run: [moe["ep"][run][f"rank{r}"]["launches_per_step"][name]
                      for r in range(2)] for run in MOE_RUNS}}
+        # A rank-step of each pipeline run (pipe_trainer, 2 stages): a
+        # stage's blocks times the microbatches.
+        entry["pipe_trainer"] = {
+            run: [pipe[run][f"rank{r}"]["launches_per_step"][name]
+                  for r in range(2)] for run in PIPE_RUNS}
         kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
          serve_depthwise_launches=serve_launches,
@@ -6612,7 +6941,7 @@ def main() -> int:
          router_respawn_s=router["failover"]["respawn_s"],
          router_s=router["s"], trainer_item2b_s=item2b["s"],
          sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"],
-         moe_trainer_s=moe["s"],
+         moe_trainer_s=moe["s"], pipe_trainer_s=pipe["s"],
          moe_step_vs_dense={f: r["step_vs_dense"]
                             for f, r in moe["bf16"].items()},
          moe_dropped_share={f: r["moe"]["dropped_share"]
@@ -6634,7 +6963,9 @@ def four_cards() -> int:
     item-2b options, then the LM and ViT-B/16 at data 2 x model 2 with
     ``--fsdp`` over NCCL (phase_sharded_trainer) against one card, then
     the LM's ring at ``--mesh-seq 4`` and Ulysses at data 1 x seq 2 x
-    model 2 (phase_seq_trainer, readings) against one card.
+    model 2 (phase_seq_trainer, readings) against one card, the MoE LM's
+    alltoall at data 2 x model 2, and the pipeline runs of
+    PIPE_RUNS_FOUR (phase_pipe_trainer, readings and its gates).
     Prints the card line and one JSON object; exits 0 when all hold."""
     import importlib.util
 
@@ -6697,13 +7028,23 @@ def four_cards() -> int:
         moe["failed"] = moe_fails
     except PhaseError as e:
         moe = {"failed": [str(e)]}
+    # Pipeline parallelism over NCCL, a card a rank, against one card: the
+    # LM at 12 blocks over 4 stages (1f1b, interleaved v 3), pipe 2 x seq 2
+    # under Ulysses, pipe 2 x model 2 with the experts over 'model'
+    # (readings, and pipe_trainer's gates: any failed gate, or a worker
+    # that dies, fails the run).
+    try:
+        pipe = phase_pipe_trainer(torch, backend="nccl", world=4,
+                                  runs=PIPE_RUNS_FOUR)
+    except PhaseError as e:
+        pipe = {"failed": [str(e)]}
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
               for k in ("train_loss", "test_loss"))
           and all(abs(diff[k]) <= dpc.ACC_TOL
                   for k in ("train_accuracy", "test_accuracy"))
-          and "failed" not in shard)
+          and "failed" not in shard and not pipe["failed"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"mix_fetch_nccl": fetch, "options": ITEM2B_OPTIONS,
                       "world_4": many, "world_1": one, "diff": diff,
@@ -6711,6 +7052,7 @@ def four_cards() -> int:
                                     "accuracy": dpc.ACC_TOL},
                       "sharded_trainer_nccl": shard,
                       "seq_trainer_nccl": seqp, "moe_trainer_nccl": moe,
+                      "pipe_trainer_nccl": pipe,
                       "ok": ok}),
           flush=True)
     return 0 if ok else 1

@@ -39,7 +39,16 @@ it computed to ``DIR/<case>_rank<RANK>.pt``:
 - ``seq_vit_grad``: the tiny ViT of ``vit.pt`` with ring attention over
   a 'seq' axis of WORLD ranks, one train-mode forward/backward (dropout
   0) on ``images.npz`` with the loss split over the ranks and the
-  gradients summed over 'seq', as the train step does.
+  gradients summed over 'seq', as the train step does;
+- ``pp_toy`` (tests/test_torch_pp.py): a 'pipe' axis of WORLD stages
+  over the toy stack of ``pp_toy.npz`` (tanh(x @ w) layers), each
+  schedule at each microbatch count of the file: the last stage's
+  outputs of a forward-only run, then a training run's weight
+  gradients (this stage's layers), the input's gradient (stage 0) and
+  the most graphs a stage kept; an interleaved run whose microbatches
+  the stages do not divide gives its error. The CLI runs of
+  tests/test_torch_{vitpp,lmpp}.py add each rank's pipeline plan
+  (layers, ``max_live``, the last run's ticks and hops).
 
 Imports no JAX and nothing of the tpunet package.
 """
@@ -208,6 +217,55 @@ def case_moe(d, world, rank, name):
     return out
 
 
+def case_pp_toy(d, world, rank):
+    from tpunet_torch.parallel.pp import PipePlan, StageWork
+    make_mesh(MeshConfig(pipe=world))
+    inputs = np.load(os.path.join(d, "pp_toy.npz"))
+    weights = torch.from_numpy(inputs["w"])
+    out = {}
+    for m_count in inputs["micro"].tolist():
+        for sched in ("gpipe", "1f1b", "interleaved"):
+            try:
+                plan = PipePlan(weights.shape[0], world, rank, m_count,
+                                sched, 2, axis_group("pipe"))
+                plan.table(True)
+            except ValueError as e:
+                out[(sched, m_count)] = dict(error=str(e))
+                continue
+            w = {i: torch.nn.Parameter(weights[i].clone())
+                 for i in plan.layers[rank]}
+            x = torch.from_numpy(inputs["x"]).requires_grad_()
+            xs = list(x.split(x.shape[0] // m_count))
+            dys = list(torch.from_numpy(inputs["dy"]).split(
+                x.shape[0] // m_count))
+
+            class Toy(StageWork):
+                def __init__(self, train):
+                    self.train = train
+
+                def first(self, m):
+                    return xs[m]
+
+                def chunk(self, j, h, m):
+                    for i in plan.chunks[j]:
+                        h = torch.tanh(h @ w[i])
+                    return h, None
+
+                def last(self, m, y):
+                    return (y * dys[m]).sum() if self.train else y
+
+            act = (x.shape[0] // m_count,) + tuple(x.shape[1:])
+            ys = plan.run(Toy(False), False, act, torch.float32, "cpu")
+            plan.run(Toy(True), True, act, torch.float32, "cpu")
+            out[(sched, m_count)] = dict(
+                y=(torch.cat([ys[m] for m in range(m_count)]).detach()
+                   if ys else None),
+                grads={i: p.grad for i, p in w.items()},
+                dx=x.grad if rank == 0 else None, max_live=plan.max_live)
+    set_mesh(None)
+    return out
+
+
 def case_cli(d, world, rank, name):
     flags = json.load(open(os.path.join(d, "flags.json")))[name]
     seen = {}
@@ -225,6 +283,10 @@ def case_cli(d, world, rank, name):
         names = [n for n, _ in self.state.model.named_parameters()]
         seen["moments"] = {names[i]: {k: v.clone() for k, v in st.items()}
                            for i, st in opt.items()}
+        pp = getattr(self.state.model, "pp", None)
+        if pp is not None:
+            seen["pp"] = dict(layers=pp.layers[pp.s], max_live=pp.max_live,
+                              stats=dict(pp.stats))
         if sh is not None:
             # As plain tuples (dim, axis, interleave): torch.load's
             # weights_only unpickler takes no other class.
@@ -275,9 +337,15 @@ def main() -> int:
             out = case_moe(d, world, rank, case)
         elif case == "seq_vit_grad":
             out = case_seq_vit_grad(d, world, rank)
+        elif case == "pp_toy":
+            out = case_pp_toy(d, world, rank)
         else:
             out = case_cli(d, world, rank, case)
         torch.save(out, os.path.join(d, f"{case}_rank{rank}.pt"))
+    # Every rank has joined the last group before any leaves it: a rank
+    # that left at once could close its pair while another's gloo
+    # connection to it was still being made.
+    dist.sync_hosts("done")
     dist.destroy()
     return 0
 

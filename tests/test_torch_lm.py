@@ -34,7 +34,8 @@ from tpunet_torch.config import DataConfig, ModelConfig
 from tpunet_torch.data import lm as port_data
 from tpunet_torch.infer import generate as gen_cli
 from tpunet_torch.models import create_model, num_params
-from tpunet_torch.models.convert import (lm_state_dict_from_jax,
+from tpunet_torch.models.convert import (lm_params_to_jax,
+                                         lm_state_dict_from_jax,
                                          load_state_dict)
 from tpunet_torch.models.lm import filter_logits, generate
 from tpunet_torch.models.vit import PagedKV
@@ -66,8 +67,14 @@ def test_weights_carry_across(params):
     np.testing.assert_array_equal(
         model.blocks[1].attn.qkv.weight.detach().numpy(),
         params["block01"]["attn"]["qkv"]["kernel"].T)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lm_state_dict_from_jax({"blocks_qkv_k": None})
+    # lm_pp's stacked tree of the same weights (ROADMAP Queue A item 8d)
+    # reads back as the same state dict.
+    stacked = lm_params_to_jax(sd, stacked=True)
+    assert stacked["blocks_qkv_k"].shape[0] == len(model.blocks)
+    back = lm_state_dict_from_jax(stacked)
+    assert back.keys() == sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(back[k], v), k
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["causal", "segments"])
@@ -285,9 +292,10 @@ def test_generate_cli_bytes_prompt(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "lm_pp"], "item 8"),
+    (["--model", "lm_pp", "--mesh-model", "2"], "item 8e"),
     (["--mesh-model", "2"], "item 8"),
-    (["--model", "lm_pp", "--moe-experts", "4"], "item 8d"),
+    (["--model", "lm_pp", "--moe-experts", "4", "--mesh-model", "2"],
+     "item 8e"),
     (["--top-k", "3"], "temperature"),
     (["--tokens", "2000"], "exceeds --max-seq-len"),
     (["--vocab-size", "64", "--prompt-format", "bytes"], "vocab-size 256"),

@@ -182,8 +182,8 @@ def test_train_mode_and_unported_models_raise():
     out = model(torch.randn(2, 3, SIZE, SIZE), train=True,
                 generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(name="lm_pp")       # the pipelined LM: item 8
+    with pytest.raises(ValueError, match="unknown pp_schedule"):
+        ModelConfig(name="lm_pp", pp_schedule="zigzag")
     with pytest.raises(ValueError):
         ModelConfig(name="resnet50")
     assert dataclasses.asdict(ModelConfig()) == {

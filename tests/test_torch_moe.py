@@ -312,8 +312,10 @@ def test_moe_config_refusals():
         ModelConfig(name="vit", moe_dispatch="dense")
     with pytest.raises(ValueError, match="mobilenet_v2"):
         ModelConfig(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        ModelConfig(name="lm_pp", moe_experts=4)
+    with pytest.raises(ValueError, match="whole\nsuper-layers|whole "
+                       "super-layers"):
+        create_model(ModelConfig(name="lm_pp", moe_experts=4, vit_depth=3,
+                                 vit_hidden=32, vit_heads=2), device="cpu")
     with pytest.raises(ValueError, match="moe_every must be >= 1"):
         create_model(ModelConfig(moe_every=0, **VIT_MOE), device="cpu",
                      image_size=SIZE)

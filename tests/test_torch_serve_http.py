@@ -334,9 +334,10 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
     base = ["--checkpoint-dir", "", "--device", "cpu", "--max-seq-len", "64",
             "--prefill-buckets", "16"]
     for extra, item in ((["--mesh-model", "2"], "item 8"),
-                        (["--model", "lm_pp"], "item 8"),
-                        (["--model", "lm_pp", "--moe-experts", "4"],
-                         "item 8d"),
+                        (["--model", "lm_pp", "--mesh-model", "2"],
+                         "item 8e"),
+                        (["--model", "lm_pp", "--moe-experts", "4",
+                          "--mesh-model", "2"], "item 8e"),
                         (["--aot-cache", "d"], "out of scope"),
                         (["--chaos", "boom@tokens=1"], "unknown kind")):
         with pytest.raises(SystemExit) as e:

@@ -291,10 +291,9 @@ def test_qkv_split_gives_whole_heads_of_tpunet_kernel():
 
 
 def test_cli_parses_tpunet_mesh_flags_and_refuses_seq_pipe():
-    """The mesh flags map as tpunet's do; --mesh-pipe is refused with its
-    item. --mesh-seq, refused until sequence parallelism was ported
-    (ROADMAP Queue A item 8b), now gives tpunet's mesh with ring or
-    Ulysses attention."""
+    """The mesh flags map as tpunet's do. --mesh-seq and --mesh-pipe,
+    refused until sequence and pipeline parallelism were ported (ROADMAP
+    Queue A items 8b and 8d), now give tpunet's mesh."""
     from tpunet.config import config_from_args as jax_config_from_args
     cfg, _ = cli.config_from_args(["--model", "lm", "--dataset",
                                    "synthetic_lm", "--mesh-data", "2",
@@ -302,9 +301,10 @@ def test_cli_parses_tpunet_mesh_flags_and_refuses_seq_pipe():
                                    "--vocab-ce", "sharded"])
     assert (cfg.mesh.data, cfg.mesh.model, cfg.mesh.zero1) == (2, 2, True)
     assert cfg.mesh.shape(4) == (2, 1, 1, 2)
-    with pytest.raises(NotImplementedError,
-                       match="item 8 \\(pipeline parallelism"):
-        cli.config_from_args(["--mesh-pipe", "2"])
+    pipe = ["--model", "lm_pp", "--dataset", "synthetic_lm", "--mesh-pipe",
+            "2"]
+    cfg, _ = cli.config_from_args(pipe)
+    assert cfg.mesh.pipe == jax_config_from_args(pipe).mesh.pipe == 2
     argv = ["--model", "lm", "--dataset", "synthetic_lm", "--mesh-seq", "2",
             "--mesh-model", "2", "--attention", "ring"]
     cfg, _ = cli.config_from_args(argv)

@@ -40,8 +40,8 @@ from tpunet.models import init_variables
 from tpunet.models.convert import export_torch_state_dict, load_pretrained
 from tpunet.train.state import lr_schedule as jax_lr_schedule
 from tpunet_torch.config import (CheckpointConfig, DataConfig, MeshConfig,
-                                 ModelConfig, OptimConfig, TrainConfig,
-                                 preset)
+                                 ModelConfig, ObsConfig, OptimConfig,
+                                 TrainConfig, preset)
 from tpunet_torch.models import create_model
 from tpunet_torch.models.convert import load_state_dict, state_dict_from_jax
 from tpunet_torch.train import __main__ as cli
@@ -530,15 +530,16 @@ def test_presets_and_defaults_match_tpunet():
 
 @pytest.mark.parametrize("make", [
     lambda: ModelConfig(pretrained_path="auto"),
-    lambda: ModelConfig(name="lm_pp", moe_experts=4),
-    lambda: MeshConfig(pipe=2),
-    lambda: ModelConfig(name="vit_pp")],
+    lambda: ObsConfig(evict_on_straggler=True),
+    lambda: ModelConfig(name="lm_pp", pretrained_path="auto"),
+    lambda: ModelConfig(name="vit_pp", pretrained_path="auto")],
     ids=["auto_weights", "moe", "mesh_pipe", "vit_pp"])
 def test_unported_fields_raise_with_their_roadmap_item(make):
     """What the port still refuses: the download of ``pretrained='auto'``
-    and what is left of Queue A item 8 (pipeline parallelism, MoE on
-    the pipelined models; MoE itself is ported,
-    tests/test_torch_moe.py). Item
+    (for every model, the pipelined ones too) and the elastic agent's
+    eviction (Queue A item 9). Pipeline parallelism and MoE on the
+    pipelined models are ported (tests/test_torch_{pp,vitpp,lmpp}.py),
+    and so is MoE itself (tests/test_torch_moe.py). Item
     2b's fields are ported (tests/test_torch_{mixup,ema,native,
     preemption,remat}.py), and so are the mesh's 'data'/'model' axes,
     ZeRO-1, FSDP, the vocab-parallel CE (tests/test_torch_{tp,fsdp,
@@ -610,12 +611,16 @@ def test_cli_maps_flags_and_refuses_the_rest():
                                     "--vocab-ce", "sharded"])
     assert mesh.mesh == MeshConfig(data=2, model=2, zero1=True, fsdp=True)
     assert mesh.model.vocab_ce == "sharded"
-    for flag in (["--pp-microbatches", "4"], ["--pp-schedule", "1f1b"],
-                 ["--optimizer", "lamb"]):
-        with pytest.raises(SystemExit):
-            cli.config_from_args(flag)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.config_from_args(["--mesh-pipe", "2"])
+    with pytest.raises(SystemExit):
+        cli.config_from_args(["--optimizer", "lamb"])
+    # Pipeline parallelism (ROADMAP Queue A item 8d): the flags map.
+    pp, _ = cli.config_from_args(["--model", "lm_pp", "--dataset",
+                                  "synthetic_lm", "--mesh-pipe", "2",
+                                  "--pp-microbatches", "8", "--pp-schedule",
+                                  "interleaved", "--pp-virtual", "3"])
+    assert pp.mesh == MeshConfig(pipe=2)
+    assert (pp.model.pp_microbatches, pp.model.pp_schedule,
+            pp.model.pp_virtual) == (8, "interleaved", 3)
     # Sequence parallelism (ROADMAP Queue A item 8b): the flags map, and
     # --mesh-seq shards the tokens of a ViT or the LM under ring/ulysses.
     seq, _ = cli.config_from_args(["--model", "lm", "--dataset",

@@ -204,16 +204,21 @@ def test_predictor_probs_match_tpunet(jax_vit):
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: ModelConfig(name="vit_pp", moe_experts=4), "item 8d"),
-    (lambda: ModelConfig(name="vit_pp", moe_top_k=1), "item 8d"),
-    (lambda: ModelConfig(name="lm_pp", moe_dispatch="alltoall"), "item 8d"),
-    (lambda: ModelConfig(name="lm_pp", moe_experts=4), "item 8d"),
-    (lambda: ModelConfig(name="lm_pp"), "item 8"),
-    (lambda: ModelConfig(name="vit_pp"), "item 8")],
+    (lambda: ModelConfig(name="vit_pp", moe_experts=4), None),
+    (lambda: ModelConfig(name="vit_pp", moe_top_k=1), None),
+    (lambda: ModelConfig(name="lm_pp", moe_dispatch="alltoall"), None),
+    (lambda: ModelConfig(name="lm_pp", moe_experts=4), None),
+    (lambda: ModelConfig(name="lm_pp", pretrained_path="auto"), "item 2b"),
+    (lambda: ModelConfig(name="vit_pp", pretrained_path="auto"), "item 2b")],
     ids=["moe", "moe_top_k", "moe_dispatch", "lm", "lm_pp", "vit_pp"])
 def test_config_refusals_name_their_roadmap_item(make, item):
-    """MoE is ported (tests/test_torch_moe.py); on the pipelined models,
-    which are not, it is refused with their item, 8d."""
+    """MoE and the pipelined models are ported (tests/test_torch_moe.py,
+    tests/test_torch_{vitpp,lmpp}.py): their configs construct (the
+    checks that need the mesh run when the model is built, with tpunet's
+    messages); what is still refused names its item."""
+    if item is None:
+        make()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A {item}"):
         make()

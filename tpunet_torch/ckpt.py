@@ -5,6 +5,10 @@
   in torchvision's key layout. It loads into the port with
   ``tpunet_torch.models.convert.load_state_dict_file``, and a
   MobileNetV2's into tpunet with ``tpunet.models.convert.load_pretrained``.
+- ``best_meta.json`` (the trainer's): the model name and tpunet's
+  pipeline metadata (``pp_schedule``, ``pp_layout_pipe``,
+  ``pp_layout_virtual``): the port's files hold the whole model in
+  plain layer order under any schedule, tpunet's layout [0, 0].
 - ``state.pt``: the full state after the last completed epoch (model,
   optimizer, ``global_step``, epoch, ``best_acc``, the EMA copies when
   EMA is on) for ``--resume``; after a preemption the state of the cut
@@ -34,6 +38,7 @@ holds it for all of its write), so ``obs_epoch`` carries both.
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 import threading
@@ -48,6 +53,7 @@ from tpunet_torch.parallel.dist import sync_hosts
 from tpunet_torch.utils.logging import is_coordinator
 
 BEST = "best.pth"
+BEST_META = "best_meta.json"
 STATE = "state.pt"
 
 
@@ -115,10 +121,27 @@ class Checkpointer:
                 time.perf_counter() - t0)
         return None if self.abandoned else self._path(name)
 
-    def save_best(self, state_dict: Dict[str, Any]) -> Optional[str]:
+    def save_best(self, state_dict: Dict[str, Any],
+                  meta: Optional[Dict[str, Any]] = None) -> Optional[str]:
         """Write ``best.pth``: a model's whole state dict (torchvision's
-        layout for MobileNetV2)."""
-        return self._save(state_dict, BEST)
+        layout for MobileNetV2); with ``meta``, rank 0 then writes it to
+        ``best_meta.json`` beside it (tpunet's sidecar: the model name and
+        its pipeline layout)."""
+        path = self._save(state_dict, BEST)
+        if path is not None and meta is not None and is_coordinator():
+            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".part")
+            with os.fdopen(fd, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, self._path(BEST_META))
+        return path
+
+    def best_meta(self) -> Optional[Dict[str, Any]]:
+        """``best_meta.json``, or None when there is none."""
+        path = self._path(BEST_META)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
 
     def save_state(self, payload: Dict[str, Any],
                    timeout: Optional[float] = None) -> Optional[str]:

@@ -27,14 +27,12 @@ CIFAR10_CLASSES: Tuple[str, ...] = (
     "dog", "frog", "horse", "ship", "truck",
 )
 
-# Model names of the JAX package that the port does not build yet, and
-# the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "vit_pp": "Queue A item 8d (pipeline parallelism)",
-    "lm_pp": "Queue A item 8d (pipeline parallelism, its MoE stacks "
-             "included)",
-}
 VIT_NAMES = ("vit", "vit_tiny", "vit_small", "vit_base")
+# The pipelined models (tpunet's ``vit_pp`` and ``lm_pp``): the ViT's and
+# the LM's blocks split into stages over the mesh's 'pipe' axis.
+PIPE_NAMES = ("vit_pp", "lm_pp")
+LM_NAMES = ("lm", "lm_pp")
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
 IMAGE_DATASETS = ("cifar10", "synthetic")
 TOKEN_DATASETS = ("synthetic_lm", "text_lm")
 ATTENTIONS = ("auto", "dense", "blockwise", "flash", "ring", "ulysses")
@@ -167,12 +165,16 @@ class ModelConfig:
     ``moe_capacity_factor``, its load-balance term weighted by
     ``moe_aux_weight`` in the loss, its experts split over the mesh's
     'model' axis under ``moe_dispatch`` (``auto``/``alltoall``/
-    ``replicated``). ``vocab_ce``
+    ``replicated``). ``vit_pp`` and ``lm_pp`` are the ViT and the LM
+    with their blocks split into stages over the mesh's 'pipe' axis
+    (``tpunet_torch.models.vit_pp``/``lm_pp``): ``pp_microbatches``
+    microbatches a step under ``pp_schedule`` (``gpipe``, ``1f1b`` or
+    ``interleaved`` with ``pp_virtual`` chunks a stage). ``vocab_ce``
     (``auto``/``sharded``/``full``) is resolved against the mesh by
     ``tpunet_torch.ops.vocab_ce.resolve_vocab_ce``.
     """
 
-    name: str = "mobilenet_v2"  # mobilenet_v2 | vit | vit_{tiny,small,base}
+    name: str = "mobilenet_v2"  # mobilenet_v2 | vit | vit_{tiny,small,base} | vit_pp | lm | lm_pp
     num_classes: int = 10
     width_mult: float = 1.0
     dropout_rate: float = 0.2
@@ -197,18 +199,26 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     moe_dispatch: str = "auto"
+    # Pipeline parallelism (vit_pp, lm_pp): microbatches a step, the
+    # schedule, and the chunks a stage of the interleaved schedule.
+    pp_microbatches: int = 4
+    pp_schedule: str = "gpipe"
+    pp_virtual: int = 2
     remat: bool = False
     vocab_size: int = 256
     max_seq_len: int = 1024
     vocab_ce: str = "auto"
 
     def __post_init__(self):
-        if self.name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model {self.name!r} is not ported to tpunet_torch yet; "
-                f"it comes with ROADMAP {_NOT_PORTED[self.name]}")
-        if self.name not in ("mobilenet_v2", "lm") + VIT_NAMES:
+        if self.name not in ("mobilenet_v2",) + LM_NAMES + VIT_NAMES + (
+                "vit_pp",):
             raise ValueError(f"unknown model {self.name!r}")
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError(f"unknown pp_schedule {self.pp_schedule!r}; "
+                             "expected gpipe|1f1b|interleaved")
+        if self.pp_microbatches < 1:
+            raise ValueError(f"pp_microbatches must be >= 1, got "
+                             f"{self.pp_microbatches}")
         if self.vocab_ce not in ("auto", "full", "sharded"):
             raise ValueError(f"unknown vocab_ce {self.vocab_ce!r}; expected "
                              "auto|full|sharded")
@@ -289,11 +299,6 @@ class OptimConfig:
             raise ValueError(f"clip_norm must be >= 0, got {self.clip_norm}")
 
 
-# What is left of ROADMAP Queue A item 8, named by the refusal of the axis
-# that needs it.
-PIPE_PARALLEL = "Queue A item 8 (pipeline parallelism: vit_pp/lm_pp)"
-
-
 @dataclass(frozen=True)
 class MeshConfig:
     """The process mesh, tpunet's ``MeshConfig``: axes ``('data', 'seq',
@@ -305,7 +310,8 @@ class MeshConfig:
     copies over 'data' and subsumes ``zero1``. ``seq`` > 1 is sequence
     parallelism (ring or Ulysses attention: the ranks of a 'seq' group
     read the same rows and each holds ``T / seq`` of the positions).
-    ``pipe`` > 1 waits for ROADMAP Queue A item 8 and raises."""
+    ``pipe`` > 1 is pipeline parallelism (``vit_pp``/``lm_pp``: each
+    rank of a 'pipe' group holds one stage's blocks)."""
 
     data: int = -1                    # -1 -> all remaining processes
     seq: int = 1                      # sequence/context-parallel axis
@@ -315,14 +321,11 @@ class MeshConfig:
     fsdp: bool = False
 
     def __post_init__(self):
-        if self.pipe > 1:
-            raise NotImplementedError(
-                f"MeshConfig.pipe={self.pipe} is not ported to tpunet_torch "
-                f"yet; it comes with ROADMAP {PIPE_PARALLEL}")
-        if self.data == 0 or self.data < -1 or self.model < 1 or self.seq < 1:
+        if (self.data == 0 or self.data < -1 or self.model < 1
+                or self.seq < 1 or self.pipe < 1):
             raise ValueError(f"mesh axes must be >= 1 (data may be -1), "
                              f"got data={self.data} seq={self.seq} "
-                             f"model={self.model}")
+                             f"pipe={self.pipe} model={self.model}")
 
     def shape(self, n_devices: int) -> Tuple[int, int, int, int]:
         """(data, seq, pipe, model) for ``n_devices`` processes."""
@@ -753,7 +756,7 @@ class TrainConfig:
 
     def __post_init__(self):
         # tpunet's cross-checks (tpunet/train/loop.py:55-66, 159-176).
-        is_lm = self.model.name == "lm"
+        is_lm = self.model.name in LM_NAMES
         if is_lm != (self.data.dataset in TOKEN_DATASETS):
             raise ValueError(
                 f"model {self.model.name!r} and dataset "
@@ -783,7 +786,11 @@ class TrainConfig:
 
     @property
     def is_lm(self) -> bool:
-        return self.model.name == "lm"
+        return self.model.name in LM_NAMES
+
+    @property
+    def is_pipelined(self) -> bool:
+        return self.model.name in PIPE_NAMES
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

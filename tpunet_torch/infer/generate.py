@@ -12,46 +12,70 @@ token ids.
 Runs on the card unless ``--device cpu``. An MoE checkpoint
 (``--moe-experts`` and the other ``--moe-*`` flags of its training run)
 decodes by tpunet's MoE path: the whole forward over the tokens so far
-for every new token, no cache. The pipelined LM (``--model lm_pp``) and
-tensor-parallel serving (``--mesh-model``) are refused until ROADMAP
-Queue A items 8d and 8e.
+for every new token, no cache. A pipeline-trained checkpoint
+(``--model lm_pp``, any ``--pp-schedule``) holds the LM's keys in plain
+layer order and decodes as the LM; a ``best.pth`` holding tpunet's
+stacked ``lm_pp`` tree (``blocks_*`` leaves) is unstacked first, and
+``--train-pipe P --pp-virtual v`` (or a ``best_meta.json`` that gives
+them) undo an interleaved run's chunk permutation, as tpunet's
+``--train-pipe`` does. Tensor-parallel serving (``--mesh-model``) is
+refused until ROADMAP Queue A item 8e.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from tpunet_torch.ckpt import BEST
-from tpunet_torch.config import ModelConfig
+from tpunet_torch.ckpt import BEST, Checkpointer
+from tpunet_torch.config import CheckpointConfig, ModelConfig
 from tpunet_torch.models import create_model
-from tpunet_torch.models.convert import load_state_dict_file
+from tpunet_torch.models.convert import (load_state_dict,
+                                         lm_state_dict_from_jax,
+                                         state_dict_file)
 from tpunet_torch.models.lm import TransformerLM, generate
 
-_ITEM8D = "comes with ROADMAP Queue A item 8d (pipeline parallelism)"
 _ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
            "and serving)")
 
 
 def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
-            device: str = "cuda") -> TransformerLM:
+            device: str = "cuda", train_pipe: int = 0) -> TransformerLM:
     """The LM of ``model_cfg`` on ``device`` with the weights of
     ``<checkpoint_dir>/best.pth``; an empty ``checkpoint_dir`` serves the
     seeded random init (``create_model``'s generator seeded with 0), as
-    tpunet's ``load_lm`` serves its ``PRNGKey(0)`` init."""
-    if model_cfg.name != "lm":
-        raise ValueError(f"generation needs the 'lm' model, got "
-                         f"{model_cfg.name!r}")
-    model = create_model(model_cfg, device=device)
+    tpunet's ``load_lm`` serves its ``PRNGKey(0)`` init. ``lm_pp``
+    (tpunet's ``load_lm``): the LM decodes the pipeline-trained weights;
+    a stacked tree is unstacked (``train_pipe`` > 0 with the config's
+    ``pp_virtual``, or the sidecar's layout, marks an interleaved run's
+    chunk-permuted stacks)."""
+    if model_cfg.name not in ("lm", "lm_pp"):
+        raise ValueError(f"generation needs the 'lm' (or 'lm_pp') "
+                         f"model, got {model_cfg.name!r}")
+    model = create_model(dataclasses.replace(model_cfg, name="lm"),
+                         device=device)
     if checkpoint_dir:
         path = os.path.join(checkpoint_dir, BEST)
         if not os.path.exists(path):
             raise FileNotFoundError(f"no best checkpoint under "
                                     f"{checkpoint_dir!r}")
-        load_state_dict_file(path, model)
+        sd = state_dict_file(path)
+        if model_cfg.name == "lm_pp" and "blocks_qkv_k" in sd:
+            virtual = model_cfg.pp_virtual
+            meta = Checkpointer(CheckpointConfig(
+                directory=checkpoint_dir)).best_meta()
+            # tpunet's sidecar gives an interleaved run's layout.
+            if not train_pipe and meta and meta.get("pp_layout_pipe", 0):
+                train_pipe = int(meta["pp_layout_pipe"])
+                virtual = int(meta["pp_layout_virtual"])
+            kw = ({"pipe": train_pipe, "virtual": virtual} if train_pipe
+                  else {})
+            sd = lm_state_dict_from_jax(sd, **kw)
+        load_state_dict(model, sd)
     return model
 
 
@@ -117,9 +141,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    if args.model == "lm_pp" or args.train_pipe:
-        raise SystemExit(f"--model lm_pp (pipeline-trained checkpoints) "
-                         f"{_ITEM8D}")
     if args.mesh_model:
         raise SystemExit(f"--mesh-model (tensor-parallel serving) {_ITEM8E}")
     byte_prompt = (args.vocab_size == 256 if args.prompt_format == "auto"
@@ -134,13 +155,14 @@ def main(argv=None) -> None:
                          "--temperature > 0 (temperature 0 is greedy "
                          "decoding and would silently ignore them)")
     try:
-        cfg = ModelConfig(name="lm", vit_hidden=args.vit_hidden,
+        cfg = ModelConfig(name=args.model, vit_hidden=args.vit_hidden,
                           vit_depth=args.vit_depth, vit_heads=args.vit_heads,
                           vocab_size=args.vocab_size,
                           max_seq_len=args.max_seq_len, dropout_rate=0.0,
                           moe_experts=args.moe_experts,
                           moe_every=args.moe_every, moe_top_k=args.moe_top_k,
-                          moe_capacity_factor=args.moe_capacity_factor)
+                          moe_capacity_factor=args.moe_capacity_factor,
+                          pp_virtual=args.pp_virtual)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
     if byte_prompt:
@@ -167,7 +189,7 @@ def main(argv=None) -> None:
         raise SystemExit(f"prompt+tokens = {prompt_len + args.tokens} "
                          f"exceeds --max-seq-len {cfg.max_seq_len}")
     model = load_lm(cfg, checkpoint_dir=args.checkpoint_dir,
-                    device=args.device)
+                    device=args.device, train_pipe=args.train_pipe)
     if byte_prompt:
         text = generate_text(model, args.prompt, args.tokens,
                              temperature=args.temperature, top_k=args.top_k,

@@ -2,8 +2,10 @@
 
 Dispatches on ``ModelConfig.name`` as ``tpunet/models/__init__.py``
 does: MobileNetV2, the ViT family (``vit`` from the ``vit_*`` fields, or
-the ``vit_tiny``/``vit_small``/``vit_base`` presets) and the LM
-(``lm``); the config refuses the names that are not ported. Weights are drawn from an
+the ``vit_tiny``/``vit_small``/``vit_base`` presets), the LM (``lm``)
+and the pipelined ViT and LM (``vit_pp``, ``lm_pp``: the same weights,
+this rank's stage of the blocks on the current mesh's 'pipe' axis).
+Weights are drawn from an
 explicit ``torch.Generator`` on the CPU and then moved, so one seed
 gives the same weights on every device. MobileNetV2 follows
 torchvision's initialisation (kaiming-normal fan_out convs, N(0, 0.01)
@@ -57,6 +59,12 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
         init_weights(model, generator)
     elif cfg.name == "lm":
         model = create_lm(cfg, generator)
+    elif cfg.name == "lm_pp":
+        from tpunet_torch.models.lm_pp import create_lm_pp
+        model = create_lm_pp(cfg, generator)
+    elif cfg.name == "vit_pp":
+        from tpunet_torch.models.vit_pp import create_vit_pp
+        model = create_vit_pp(cfg, image_size, generator)
     else:
         model = create_vit(cfg, image_size, generator)
     model = model.to(device=device)
@@ -70,4 +78,8 @@ def create_model(cfg: ModelConfig, device: str = "cuda",
 
 
 def num_params(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
+    """The model's parameter count (a pipeline stage's: the whole
+    model's)."""
+    full = getattr(model, "n_params_full", None)
+    return full if full is not None else sum(
+        p.numel() for p in model.parameters())

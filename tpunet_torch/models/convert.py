@@ -17,6 +17,14 @@ Port of the parts of ``tpunet/models/convert.py`` the port needs:
   blocks as the ViT's, no classifier: the head is tied), and
   :func:`lm_params_to_jax`, its inverse (the serving drafter's npz is
   written in tpunet's layout, ``tpunet_torch/serve/spec.py``);
+- tpunet's pipelined trees (``vit_pp``/``lm_pp``: every block leaf
+  stacked on a leading layer dim, ``blocks_*``, MoE stacks of one entry
+  a super-layer, chunk-permuted by an interleaved run): both
+  ``*_from_jax`` unstack them (:func:`unstack_blocks`, tpunet's
+  ``to_transformer_lm_params`` with its ``pipe``/``virtual``), and
+  ``lm_params_to_jax``/``vit_params_to_jax`` stack them back
+  (:func:`stack_blocks`). The port's own ``vit_pp``/``lm_pp`` files hold
+  the plain ``vit``/``lm`` keys in layer order under any schedule;
 - :func:`load_state_dict` / :func:`load_state_dict_file` load such a
   dict into any of the models (bare, or under ``state_dict``/``model``/
   ``params``; ``module.`` prefixes stripped) and, like
@@ -115,11 +123,17 @@ def _ln(sd: Dict[str, torch.Tensor], key: str, node: Mapping) -> None:
     sd[f"{key}.bias"] = _t(node["bias"])
 
 
-def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def vit_state_dict_from_jax(params: Mapping, pipe: Optional[int] = None,
+                            virtual: Optional[int] = None
+                            ) -> Dict[str, torch.Tensor]:
     """Flax ViT ``params`` tree (numpy-convertible leaves) -> the port's
     ViT state dict, CPU float32 tensors. The Dense kernel [in, out]
     becomes ``weight`` [out, in] with its output index unchanged, so the
-    qkv projection's (3, heads, head_dim) column order is kept."""
+    qkv projection's (3, heads, head_dim) column order is kept. A
+    ``vit_pp`` tree (stacked ``blocks_*`` leaves) is unstacked first
+    (:func:`unstack_blocks`; ``pipe`` and ``virtual`` for an interleaved
+    run's)."""
+    params = unstack_blocks(params, pipe, virtual)
     pe = params["patch_embed"]
     sd = {"patch_embed.weight": _t(np.asarray(pe["kernel"],
                                               np.float32).transpose(3, 2, 0, 1)),
@@ -153,16 +167,17 @@ def _blocks(sd: Dict[str, torch.Tensor], params: Mapping) -> None:
         i += 1
 
 
-def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def lm_state_dict_from_jax(params: Mapping, pipe: Optional[int] = None,
+                           virtual: Optional[int] = None
+                           ) -> Dict[str, torch.Tensor]:
     """Flax LM ``params`` tree (numpy-convertible leaves) -> the port's
     LM state dict, CPU float32 tensors: the token table, the position
     table, the blocks as :func:`vit_state_dict_from_jax` maps them, the
-    final LayerNorm; the head is the embedding."""
-    if "blocks_qkv_k" in params:
-        raise NotImplementedError(
-            "lm_pp (pipeline-stacked) checkpoints, their MoE stacks "
-            "included, are not ported to tpunet_torch yet; they come with "
-            "ROADMAP Queue A item 8d")
+    final LayerNorm; the head is the embedding. An ``lm_pp`` tree
+    (stacked ``blocks_*`` leaves, MoE stacks included) is unstacked first
+    (:func:`unstack_blocks`; ``pipe`` and ``virtual`` for an interleaved
+    run's)."""
+    params = unstack_blocks(params, pipe, virtual)
     sd = {"embed.weight": _t(params["embed"]["embedding"]),
           "pos_embed": _t(params["pos_embed"])}
     _blocks(sd, params)
@@ -170,11 +185,38 @@ def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                     stacked: bool = False, pipe: Optional[int] = None,
+                     virtual: Optional[int] = None) -> dict:
     """The port's LM state dict -> tpunet's Flax LM ``params`` tree of
     float32 numpy arrays, the inverse of :func:`lm_state_dict_from_jax`
     (``weight`` [out, in] -> ``kernel`` [in, out], LayerNorm ``weight``
-    -> ``scale``)."""
+    -> ``scale``); ``stacked``: ``lm_pp``'s tree (:func:`stack_blocks`,
+    chunk-permuted for ``pipe`` x ``virtual`` when given)."""
+    a, dense, ln = _jax_leaves(state_dict)
+    params = {"embed": {"embedding": a("embed.weight")},
+              "pos_embed": a("pos_embed"), "ln": ln("ln")}
+    _blocks_to_jax(state_dict, params)
+    return stack_blocks(params, pipe, virtual) if stacked else params
+
+
+def vit_params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                      stacked: bool = False, pipe: Optional[int] = None,
+                      virtual: Optional[int] = None) -> dict:
+    """The port's ViT state dict -> tpunet's Flax ViT ``params`` tree, the
+    inverse of :func:`vit_state_dict_from_jax` (the patch kernel OIHW ->
+    HWIO); ``stacked``: ``vit_pp``'s tree."""
+    a, dense, ln = _jax_leaves(state_dict)
+    params = {"patch_embed": {"kernel": np.ascontiguousarray(
+                  a("patch_embed.weight").transpose(2, 3, 1, 0)),
+                  "bias": a("patch_embed.bias")},
+              "pos_embed": a("pos_embed"), "ln": ln("ln"),
+              "classifier": dense("classifier")}
+    _blocks_to_jax(state_dict, params)
+    return stack_blocks(params, pipe, virtual) if stacked else params
+
+
+def _jax_leaves(state_dict):
     def a(key):
         return state_dict[key].detach().cpu().float().numpy()
 
@@ -184,9 +226,13 @@ def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
 
     def ln(key):
         return {"scale": a(f"{key}.weight"), "bias": a(f"{key}.bias")}
+    return a, dense, ln
 
-    params = {"embed": {"embedding": a("embed.weight")},
-              "pos_embed": a("pos_embed"), "ln": ln("ln")}
+
+def _blocks_to_jax(state_dict, params) -> None:
+    """``blocks.{i}`` -> the Flax tree's ``block{i:02d}``, into
+    ``params``."""
+    a, dense, ln = _jax_leaves(state_dict)
     i = 0
     while f"blocks.{i}.ln1.weight" in state_dict:
         key = f"blocks.{i}"
@@ -203,7 +249,122 @@ def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             blk["mlp"] = {"fc1": dense(f"{key}.mlp.fc1"),
                           "fc2": dense(f"{key}.mlp.fc2")}
         i += 1
-    return params
+
+
+# -- tpunet's stacked pipeline trees (vit_pp, lm_pp) ------------------------
+
+_LN = (("ln1s", "ln1", "scale"), ("ln1b", "ln1", "bias"),
+       ("ln2s", "ln2", "scale"), ("ln2b", "ln2", "bias"))
+_ATTN = (("qkv_k", "qkv", "kernel"), ("qkv_b", "qkv", "bias"),
+         ("out_k", "out", "kernel"), ("out_b", "out", "bias"))
+_FC = (("fc1_k", "fc1", "kernel"), ("fc1_b", "fc1", "bias"),
+       ("fc2_k", "fc2", "kernel"), ("fc2_b", "fc2", "bias"))
+
+
+def _layer_orders(L: int, G: int, pipe, virtual) -> Dict[int, list]:
+    """Storage index -> semantic index of each stack length: the blocks'
+    [L], the MoE stacks' [G] (whole super-layers a chunk) and the dense
+    MLPs' [G * (L/G - 1)], chunk-permuted as tpunet's interleaved runs
+    store them (``interleaved_layer_order``); identity without
+    ``pipe``."""
+    from tpunet_torch.parallel.pp import interleaved_layer_order
+    if (pipe is None) != (virtual is None):
+        raise ValueError("pass pipe and virtual together (both from "
+                         "the interleaved training run) or neither")
+    if pipe is None:
+        return {n: list(range(n)) for n in {L, G, G * (L // G - 1)}}
+    orders = {L: interleaved_layer_order(L, pipe, virtual)}
+    if G != L:
+        og = interleaved_layer_order(G, pipe, virtual)
+        orders[G] = og
+        me = L // G
+        if me > 1:
+            orders[G * (me - 1)] = [g * (me - 1) + o for g in og
+                                    for o in range(me - 1)]
+    return orders
+
+
+def unstack_blocks(params: Mapping, pipe: Optional[int] = None,
+                   virtual: Optional[int] = None) -> Mapping:
+    """tpunet's ``to_transformer_lm_params`` (``tpunet/models/lm_pp.py:544``)
+    for both pipelined models: a tree with stacked ``blocks_*`` leaves
+    (``vit_pp``/``lm_pp``, MoE stacks ``blocks_moe_*`` of one entry a
+    super-layer included) -> the same tree with ``block{i:02d}``
+    subtrees in semantic layer order; a tree without stacks is returned
+    as it is. ``pipe`` and ``virtual``: the interleaved run's, whose
+    stacks are chunk-permuted."""
+    if "blocks_qkv_k" not in params:
+        if pipe is not None or virtual is not None:
+            raise ValueError("pipe/virtual unpermute stacked (blocks_*) "
+                             "trees; this tree holds no stacks")
+        return params
+    L = np.shape(params["blocks_qkv_k"])[0]
+    moe = "blocks_moe_wi" in params
+    G = np.shape(params["blocks_moe_wi"])[0] if moe else L
+    me = L // G if moe else 1
+    orders = _layer_orders(L, G, pipe, virtual)
+    inv = {n: np.argsort(o) for n, o in orders.items()}
+
+    def at(name, i):
+        v = np.asarray(params[f"blocks_{name}"])
+        return v[inv[v.shape[0]][i]]
+
+    out = {k: v for k, v in params.items() if not k.startswith("blocks_")}
+    for i in range(L):
+        blk = {"ln1": {}, "ln2": {}, "attn": {"qkv": {}, "out": {}}}
+        for stack, node, leaf in _LN:
+            blk[node][leaf] = at(stack, i)
+        for stack, node, leaf in _ATTN:
+            blk["attn"][node][leaf] = at(stack, i)
+        if moe and i % me == me - 1:
+            g = i // me
+            blk["moe"] = {"router": {"kernel": at("moe_rk", g),
+                                     "bias": at("moe_rb", g)},
+                          **{n: at(f"moe_{n}", g)
+                             for n in MOE_EXPERT_LEAVES}}
+        else:
+            fi = (i // me) * (me - 1) + i % me if moe else i
+            blk["mlp"] = {"fc1": {}, "fc2": {}}
+            for stack, node, leaf in _FC:
+                blk["mlp"][node][leaf] = at(stack, fi)
+        out[f"block{i:02d}"] = blk
+    return out
+
+
+def stack_blocks(params: Mapping, pipe: Optional[int] = None,
+                 virtual: Optional[int] = None) -> dict:
+    """The inverse of :func:`unstack_blocks`: ``block{i:02d}`` subtrees ->
+    tpunet's stacked ``blocks_*`` leaves (chunk-permuted for an
+    interleaved run's ``pipe`` and ``virtual``)."""
+    L = 0
+    while f"block{L:02d}" in params:
+        L += 1
+    blocks = [params[f"block{i:02d}"] for i in range(L)]
+    moe_at = [i for i, b in enumerate(blocks) if "moe" in b]
+    G = len(moe_at) or L
+    orders = _layer_orders(L, G, pipe, virtual)
+    out = {k: v for k, v in params.items() if not k.startswith("block")}
+
+    def stack(name, rows):
+        rows = [np.asarray(r, np.float32) for r in rows]
+        out[f"blocks_{name}"] = np.stack(
+            [rows[j] for j in orders[len(rows)]])
+
+    for name, node, leaf in _LN:
+        stack(name, [b[node][leaf] for b in blocks])
+    for name, node, leaf in _ATTN:
+        stack(name, [b["attn"][node][leaf] for b in blocks])
+    dense = [b for b in blocks if "mlp" in b]
+    if dense:
+        for name, node, leaf in _FC:
+            stack(name, [b["mlp"][node][leaf] for b in dense])
+    if moe_at:
+        moes = [blocks[i]["moe"] for i in moe_at]
+        stack("moe_rk", [m["router"]["kernel"] for m in moes])
+        stack("moe_rb", [m["router"]["bias"] for m in moes])
+        for n in MOE_EXPERT_LEAVES:
+            stack(f"moe_{n}", [m[n] for m in moes])
+    return out
 
 
 def _unwrap(obj: Mapping) -> Dict[str, torch.Tensor]:
@@ -295,7 +456,10 @@ def shard_model(model: torch.nn.Module, table, cfg) -> bool:
             continue
         cut = True
         p.data = shard_tensor(p.data, spec).contiguous()
-    if cut:
+    if cut and cfg.name in ("vit_pp", "lm_pp"):
+        # Only the experts split (EP x PP): the blocks compute whole.
+        model.set_expert_parallel(axis_group("model"))
+    elif cut:
         n = axis_size("model")
         heads = getattr(model, "heads", 0)
         if heads % n:

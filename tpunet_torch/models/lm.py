@@ -50,8 +50,9 @@ ids, and logits (or hidden states) for those positions only. With
 holds the sparse MLP of ``tpunet_torch.models.moe``; :func:`generate`
 then runs tpunet's MoE path (the whole forward over the tokens so far
 for every new token, no cache), and the serving engine runs the MoE
-blocks on its decode and prefill calls, routing each call's tokens. Not
-ported: ``lm_pp`` (ROADMAP Queue A item 8d).
+blocks on its decode and prefill calls, routing each call's tokens.
+``lm_pp`` (``tpunet_torch.models.lm_pp``) is this model with its blocks
+split into pipeline stages.
 """
 
 from __future__ import annotations
@@ -227,11 +228,11 @@ def init_lm(model: TransformerLM, generator: torch.Generator) -> None:
         model.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 
-def create_lm(cfg, generator: torch.Generator) -> TransformerLM:
+def create_lm(cfg, generator: torch.Generator, cls=None) -> TransformerLM:
     """The LM of ``cfg``: ``vit_hidden``/``vit_depth``/``vit_heads``
     blocks over ``vocab_size`` tokens and ``max_seq_len`` positions, a
-    causal core."""
-    model = TransformerLM(vocab_size=cfg.vocab_size, hidden=cfg.vit_hidden,
+    causal core; ``cls`` the class (``lm_pp``'s)."""
+    model = (cls or TransformerLM)(vocab_size=cfg.vocab_size, hidden=cfg.vit_hidden,
                           depth=cfg.vit_depth, heads=cfg.vit_heads,
                           mlp_ratio=cfg.vit_mlp_ratio,
                           max_len=cfg.max_seq_len,

@@ -208,16 +208,18 @@ def resolve_moe_dispatch(dispatch: str, *, ep: int, n_tokens: int,
 
 
 def _global_aux(counts: torch.Tensor, prob_sum: torch.Tensor, n: int,
-                e: int, model_group=SELF) -> torch.Tensor:
-    """``e * sum(frac * mean_prob)`` of statistics summed over 'data' and
-    'seq' (and over ``model_group``, whose ranks routed disjoint slices;
-    ``SELF`` when they routed the same tokens): ``counts`` [e] kept
+                e: int, model_group=SELF,
+                axes=("data", "seq")) -> torch.Tensor:
+    """``e * sum(frac * mean_prob)`` of statistics summed over the mesh
+    ``axes`` ('data' and 'seq'; none for a pipeline stage's microbatch)
+    and over ``model_group``, whose ranks routed disjoint slices
+    (``SELF`` when they routed the same tokens): ``counts`` [e] kept
     pairs, ``prob_sum`` [e] summed probabilities of this rank's ``n``
     tokens."""
     counts = all_reduce(counts.clone(), model_group)
     prob_sum = reduce_from_group(prob_sum, model_group)
     ranks = group_size(model_group)
-    for g in (axis_group("data"), axis_group("seq")):
+    for g in (axis_group(a) for a in axes):
         counts = all_reduce(counts, g)
         prob_sum = all_reduce_sum(prob_sum, g)
         ranks *= group_size(g)
@@ -229,7 +231,8 @@ def moe_apply(tokens: torch.Tensor, router_w: torch.Tensor,
               router_b: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor,
               wo: torch.Tensor, bo: torch.Tensor, *, num_experts: int,
               top_k: int, capacity_factor: float, dtype: torch.dtype,
-              ep_group=None, ep_impl: str = "replicated", aux: bool = True
+              ep_group=None, ep_impl: str = "replicated", aux: bool = True,
+              aux_axes=("data", "seq")
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MoE core, tpunet's ``moe_apply``: ``tokens`` [n, d] -> ([n, d]
     in ``dtype``, aux or None). ``router_w`` [E, d] and ``router_b`` [E]
@@ -239,7 +242,9 @@ def moe_apply(tokens: torch.Tensor, router_w: torch.Tensor,
     whose ranks hold the same tokens; ``ep_impl`` picks the lowering
     (module docstring), as :func:`resolve_moe_dispatch` resolved it.
     ``aux``: compute the load-balance term (a training forward), its
-    statistics summed over 'data' and 'seq'."""
+    statistics summed over ``aux_axes`` ('data' and 'seq'; a pipeline
+    stage routes each microbatch-shard on its own, tpunet's scope
+    inside its pipeline's ``shard_map``)."""
     n, d = tokens.shape
     e = num_experts
     e_local = wi.shape[0]
@@ -249,7 +254,7 @@ def moe_apply(tokens: torch.Tensor, router_w: torch.Tensor,
         return _moe_apply_a2a(tokens, router_w, router_b, wi, bi, wo, bo,
                               e=e, k=k,
                               capacity_factor=capacity_factor, dtype=dtype,
-                              group=ep_group, aux=aux)
+                              group=ep_group, aux=aux, aux_axes=aux_axes)
     probs = torch.softmax(F.linear(tokens.float(), router_w.float(),
                                    router_b.float()), dim=-1)
     aux_term = None
@@ -262,7 +267,8 @@ def moe_apply(tokens: torch.Tensor, router_w: torch.Tensor,
     else:
         r = route(probs, k, e, cap)
     if aux:
-        aux_term = _global_aux(r.counts, probs.sum(0), n, e)
+        aux_term = _global_aux(r.counts, probs.sum(0), n, e,
+                               axes=aux_axes)
     row, gate, rows = r.rows(axis_index("model") * e_local if ep > 1 else 0,
                              e_local)
     xin = dispatch(tokens.to(dtype).index_select(0, r.token), row, rows)
@@ -274,7 +280,8 @@ def moe_apply(tokens: torch.Tensor, router_w: torch.Tensor,
 
 
 def _moe_apply_a2a(tokens, router_w, router_b, wi, bi, wo, bo, *, e, k,
-                   capacity_factor, dtype, group, aux):
+                   capacity_factor, dtype, group, aux,
+                   aux_axes=("data", "seq")):
     """The GShard capacity-buffer ``all_to_all`` dispatch over ``group``
     (tpunet's ``_moe_apply_a2a``): ``tokens`` [n, d] alike on its ranks;
     returns ([n, d] alike on its ranks, aux)."""
@@ -293,8 +300,8 @@ def _moe_apply_a2a(tokens, router_w, router_b, wi, bi, wo, bo, *, e, k,
         copy_to_group(router_b.float(), group)), dim=-1)
     cap = capacity(k, n_l, e, capacity_factor)
     r = route(probs, k, e, cap)
-    aux_term = (_global_aux(r.counts, probs.sum(0), n_l, e, group)
-                if aux else None)
+    aux_term = (_global_aux(r.counts, probs.sum(0), n_l, e, group,
+                            aux_axes) if aux else None)
     # Buffer rows [o*e_local*cap, (o+1)*e_local*cap) go to expert owner
     # o; what arrives is indexed (source rank, local expert).
     row, gate, rows = r.rows()

@@ -538,9 +538,15 @@ class Encoder(nn.Module):
         # ModelConfig.remat: checkpoint each block of a training forward.
         self.remat = False
         # Tensor parallelism over the 'model' axis group (None is the
-        # whole world).
+        # whole world); expert parallelism alone (the pipelined models:
+        # the MoE blocks' experts over the group, the rest whole).
         self.tensor_parallel = False
+        self.expert_parallel = False
         self.tp_group = None
+        # The mesh axes the MoE load-balance statistics are summed over
+        # (the pipelined models' stages route each microbatch-shard on
+        # its own: none).
+        self.aux_axes = ("data", "seq")
         # A sequence-parallel core (ring/Ulysses): a training or eval
         # forward computes this rank's share of the tokens on the mesh's
         # 'seq' axis (seq_shard).
@@ -576,6 +582,12 @@ class Encoder(nn.Module):
         """Compute as one rank of the tensor-parallel ``group``: the
         blocks' TP leaves must hold this rank's pieces."""
         self.tensor_parallel, self.tp_group = True, group
+
+    def set_expert_parallel(self, group) -> None:
+        """Compute the MoE blocks as one rank of the expert-parallel
+        ``group`` (their experts must be this rank's); everything else
+        whole."""
+        self.expert_parallel, self.tp_group = True, group
 
     def seq_shard(self) -> Tuple[int, int]:
         """(n, r): this rank computes token shard r of n of a forward
@@ -669,7 +681,8 @@ class Encoder(nn.Module):
         capacity are per call (a decode step routes its own tokens).
         Appends the load-balance term to ``aux`` when given."""
         b, t, c = x.shape
-        ep = group_size(self.tp_group) if self.tensor_parallel else 1
+        ep = (group_size(self.tp_group) if self.tensor_parallel
+              or self.expert_parallel else 1)
         y, term = moe_apply(
             x.reshape(b * t, c), moe.router.weight, moe.router.bias,
             *(self._cast(w, train) for w in (moe.wi, moe.bi, moe.wo,
@@ -679,7 +692,7 @@ class Encoder(nn.Module):
             ep_group=self.tp_group, ep_impl=resolve_moe_dispatch(
                 moe.dispatch, ep=ep, n_tokens=b * t,
                 n_experts=moe.num_experts),
-            aux=aux is not None)
+            aux=aux is not None, aux_axes=self.aux_axes)
         if term is not None:
             aux.append(term)
         return y.view(b, t, c)
@@ -776,6 +789,12 @@ class ViT(Encoder):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self._embed(x, train)
+        drop = self._dropout(train, generator, x.device)
+        return self._head(self._encode(drop(x), train, drop), train)
+
+    def _embed(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """Images [N,C,H,W] -> the rank's patch tokens plus positions."""
         n, ch, h, w = x.shape
         p = self.patch_size
         if h % p or w % p:
@@ -790,9 +809,12 @@ class ViT(Encoder):
         x = F.linear(x, self._cast(pe.weight, train).reshape(pe.weight.shape[0],
                                                              -1),
                      self._cast(pe.bias, train))
-        x = self._seq_slice(x + self._cast(self.pos_embed, train))
-        drop = self._dropout(train, generator, x.device)
-        x = self._norm(self.ln, self._encode(drop(x), train, drop), train)
+        return self._seq_slice(x + self._cast(self.pos_embed, train))
+
+    def _head(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The blocks' output -> float32 logits: final LayerNorm, the mean
+        pool over the tokens, the classifier."""
+        x = self._norm(self.ln, x, train)
         if self.seq_shard()[0] == 1:
             x = x.mean(dim=1)  # mean pool over tokens
         else:
@@ -865,12 +887,14 @@ def init_moe(model: nn.Module, generator: torch.Generator) -> None:
             m.init_(generator)
 
 
-def create_vit(cfg, image_size: int, generator: torch.Generator) -> ViT:
+def create_vit(cfg, image_size: int, generator: torch.Generator,
+               cls=None) -> ViT:
     """The ViT of ``cfg``: a preset's (patch, hidden, depth, heads), or
-    the ``vit_*`` fields for ``vit``."""
+    the ``vit_*`` fields for ``vit`` (and ``vit_pp``, whose class
+    ``cls`` is)."""
     patch, hidden, depth, heads = VIT_PRESETS.get(cfg.name, (
         cfg.vit_patch, cfg.vit_hidden, cfg.vit_depth, cfg.vit_heads))
-    model = ViT(num_classes=cfg.num_classes, image_size=image_size,
+    model = (cls or ViT)(num_classes=cfg.num_classes, image_size=image_size,
                 patch_size=patch, hidden=hidden, depth=depth, heads=heads,
                 mlp_ratio=cfg.vit_mlp_ratio, dropout_rate=cfg.dropout_rate,
                 attn_fn=make_attn_fn(cfg), dtype=getattr(torch, cfg.dtype),

@@ -15,7 +15,8 @@ them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
 Every collective of the port goes through :func:`all_reduce`,
 :func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_max`,
 :func:`fetch_rows` (mixup's partner rows), :func:`ppermute` (the ring's
-neighbour hop) or :func:`all_to_all` (Ulysses' re-sharding), which
+neighbour hop), :func:`all_to_all` (Ulysses' re-sharding) or
+:func:`pipe_hop` (a pipeline tick's stage-to-stage hops), which
 count their calls
 (``all_reduce.calls``, ...) and the host seconds spent inside them
 (``all_reduce.seconds``, ...; NCCL returns once the collective is
@@ -343,6 +344,50 @@ ppermute.calls = 0
 ppermute.seconds = 0.0
 
 
+def pipe_hop(send: Optional[Tuple[int, torch.Tensor]],
+             recv_from: Sequence[int], shape: Sequence[int],
+             dtype: torch.dtype, device, group=None) -> dict:
+    """One tick of a pipeline's hops over ``group`` (the mesh's 'pipe'
+    group): this rank sends ``send[1]`` to the rank of index ``send[0]``
+    in the group (or nothing: ``send`` None) and receives one tensor of
+    ``shape`` and ``dtype`` from each index in ``recv_from``; returns
+    {source index: tensor}. Every rank of the group calls it at the same
+    tick with sizes that agree (each rank reads them from the same
+    schedule table), so it is one ``all_to_all_single`` with one split
+    of ``numel`` or 0 each way: gloo (CPU and CUDA tensors) and NCCL run
+    the same call, a rank that neither sends nor receives still takes
+    part, and no unpaired send can deadlock. Counted in
+    ``pipe_hop.calls``."""
+    n = group_size(group)
+    numel = 1
+    for d in shape:
+        numel *= int(d)
+    send_split, recv_split = [0] * n, [0] * n
+    if send is not None:
+        send_split[send[0]] = numel
+        flat = send[1].contiguous().reshape(-1)
+        if flat.numel() != numel or flat.dtype != dtype:
+            raise ValueError(f"pipe_hop: sending {tuple(send[1].shape)} "
+                             f"{send[1].dtype}, the hop carries "
+                             f"{tuple(shape)} {dtype}")
+    else:
+        flat = torch.empty(0, dtype=dtype, device=device)
+    for r in recv_from:
+        recv_split[r] = numel
+    out = torch.empty(numel * len(recv_from), dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, flat, output_split_sizes=recv_split,
+                           input_split_sizes=send_split, group=group)
+    _counted(pipe_hop, t0)
+    got = out.split(numel)
+    return {r: got[i].view(tuple(shape))
+            for i, r in enumerate(sorted(recv_from))}
+
+
+pipe_hop.calls = 0
+pipe_hop.seconds = 0.0
+
+
 class _RingPass(torch.autograd.Function):
     """All n blocks of a ring: block s is what the rank s places before
     this one holds, after s hops of ``ppermute(shift=1)``. The backward
@@ -533,7 +578,7 @@ def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
 
 
 _COUNTED = (all_reduce, all_reduce_max, all_gather, reduce_scatter, fetch_rows,
-            ppermute, all_to_all)
+            ppermute, all_to_all, pipe_hop)
 
 
 def agree_any(tag: str, flag: bool,

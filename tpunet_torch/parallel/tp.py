@@ -67,6 +67,16 @@ VIT_TP_RULES: Rules = (
     (r"moe\.(wi|bi|wo|bo)$", Shard(0, "model")),             # expert parallel
 )
 
+# The pipelined models (vit_pp, lm_pp): a stage's blocks are the modules
+# its rank holds (tpunet's P('pipe') on the stacked leading dim is module
+# ownership here, ``tpunet_torch.parallel.pp.PipePlan``); on a 'model'
+# axis only the MoE experts split (tpunet's P('pipe', 'model') expert
+# stacks, EP x PP), and the routers and every dense leaf stay whole on
+# every 'model' rank (tpunet/parallel/tp.py:53-74).
+PP_RULES: Rules = (
+    (r"moe\.(wi|bi|wo|bo)$", Shard(0, "model")),             # expert parallel
+)
+
 ZERO1_RULES: Rules = (
     (r"^(mu|nu)/", Shard(0, "data")),
 )
@@ -93,11 +103,13 @@ def _fsdp_spec(shape: Sequence[int], n: int) -> Optional[Shard]:
 def rules_for(cfg, mesh_shape: Optional[Dict[str, int]] = None,
               zero1: bool = False, fsdp: bool = False) -> Rules:
     """The rules of the model of ``cfg`` (a ModelConfig): the Megatron
-    rules for the ViT family and the LM, none for MobileNetV2.
+    rules for the ViT family and the LM, the expert split alone for the
+    pipelined models, none for MobileNetV2.
     ``mesh_shape`` prunes rules whose axis has size 1; ``fsdp`` appends
     FSDP_RULES, else ``zero1`` ZERO1_RULES (FSDP subsumes ZeRO-1)."""
     name = cfg.name
-    rules: Rules = (VIT_TP_RULES if name == "lm" or name.startswith("vit")
+    rules: Rules = (PP_RULES if name in ("vit_pp", "lm_pp") else
+                    VIT_TP_RULES if name == "lm" or name.startswith("vit")
                     else ())
     if mesh_shape is not None:
         rules = tuple((rx, s) for rx, s in rules

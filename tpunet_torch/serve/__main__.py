@@ -10,20 +10,22 @@ exporters, and serves until SIGTERM/SIGINT, which drains gracefully
 (stop admitting, finish in-flight, flush telemetry) rather than dropping
 connections. Flags and exit-2 usage errors are tpunet's, plus
 ``--device`` (``cuda`` by default; ``cpu`` is the only way to serve on
-the CPU). The flags of what is not ported yet exit 2 naming their
+the CPU). ``--model lm_pp`` serves a pipeline-trained checkpoint as the
+LM (``--train-pipe``/``--pp-virtual`` as ``infer.generate`` reads
+them). The flags of what is not ported yet exit 2 naming their
 ROADMAP item; ``--aot-cache`` exits 2 with the reason it is out of
 scope.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import sys
 import threading
 
 _PROG = "python -m tpunet_torch.serve"
-_ITEM8D = "comes with ROADMAP Queue A item 8d (pipeline parallelism)"
 _ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
            "and serving)")
 
@@ -236,12 +238,9 @@ def build_server(args):
     loads."""
     buckets = parse_prefill_buckets(args.prefill_buckets,
                                     args.max_seq_len)
-    for flag, value, item in (("--mesh-model", args.mesh_model > 1, _ITEM8E),
-                              ("--model lm_pp", args.model == "lm_pp"
-                               or args.train_pipe, _ITEM8D)):
-        if value:
-            raise _usage(f"{flag} is not ported to tpunet_torch yet; it "
-                         f"{item}")
+    if args.mesh_model > 1:
+        raise _usage(f"--mesh-model is not ported to tpunet_torch yet; it "
+                     f"{_ITEM8E}")
     if args.chaos:
         # Like the bucket list: a typo'd chaos spec is a loud exit 2
         # BEFORE the model loads, not a mid-serve raise.
@@ -288,16 +287,19 @@ def build_server(args):
             spec_draft_width_mult=args.spec_draft_width_mult,
             spec_draft_checkpoint=args.spec_draft_checkpoint)
         model_cfg = ModelConfig(
-            name="lm", vit_hidden=args.vit_hidden,
+            name=args.model, vit_hidden=args.vit_hidden,
             vit_depth=args.vit_depth, vit_heads=args.vit_heads,
             vocab_size=args.vocab_size, max_seq_len=args.max_seq_len,
             dropout_rate=0.0, moe_experts=args.moe_experts,
             moe_every=args.moe_every, moe_top_k=args.moe_top_k,
-            moe_capacity_factor=args.moe_capacity_factor)
+            moe_capacity_factor=args.moe_capacity_factor,
+            pp_virtual=args.pp_virtual)
     except (NotImplementedError, ValueError) as e:
         raise _usage(str(e))
     model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
-                    device=args.device)
+                    device=args.device, train_pipe=args.train_pipe)
+    # The engine serves the LM whatever the checkpoint's training model.
+    model_cfg = dataclasses.replace(model_cfg, name="lm")
     prefix_store = None
     if cfg.prefix_store and cfg.prefix_cache and cfg.paged_kv:
         prefix_store = build_prefix_store(cfg.prefix_store, model_cfg, cfg,

@@ -22,6 +22,10 @@
         --preset distributed --model vit --attention ring \
         --moe-experts 8 --mesh-data 2 --mesh-seq 2 --mesh-model 2
                                             # ViT-MoE, experts over 'model'
+    torchrun --standalone --nproc-per-node 2 -m tpunet_torch.train \
+        --preset distributed --model lm_pp --dataset synthetic_lm \
+        --mesh-pipe 2 --pp-schedule 1f1b --pp-microbatches 4
+                                            # two pipeline stages
 
 Presets: ``serial`` (batch 64), ``single`` (batch 128), ``distributed``
 (128 a rank: data parallelism, the reference's MPI script). Under
@@ -40,8 +44,11 @@ the ViT family and the LM an MoE block, its experts split over
 ``--mesh-model``; ``--mesh-seq S`` with ``--attention
 ring`` or ``ulysses`` (and ``--attention-core``) is sequence parallelism:
 the S ranks of a 'seq' group read the same rows and each holds T / S of
-the positions; ``--mesh-pipe`` above 1 is refused with the ROADMAP item
-that ports it. SIGTERM stops a run at a step boundary with its
+the positions; ``--mesh-pipe P`` with ``--model vit_pp`` or ``lm_pp``
+is pipeline parallelism (``--pp-microbatches``, ``--pp-schedule
+gpipe|1f1b|interleaved``, ``--pp-virtual``): the P ranks of a 'pipe'
+group read the same rows and each holds one stage of the blocks.
+SIGTERM stops a run at a step boundary with its
 state saved (every rank at the same step) and exits 0; ``--resume``
 re-runs the interrupted epoch. Any other flag of tpunet's CLI is refused
 with an error, never ignored.
@@ -144,6 +151,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model", default=None,
                    choices=["mobilenet_v2", "vit", "vit_tiny", "vit_small",
                             "vit_base", "vit_pp", "lm", "lm_pp"])
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="GPipe microbatches per step (vit_pp)")
+    p.add_argument("--pp-schedule", default=None,
+                   choices=["gpipe", "1f1b", "interleaved"],
+                   help="pipeline schedule: gpipe (AD backward), 1f1b "
+                        "(manual-VJP backward, bounded activation "
+                        "memory), or interleaved (virtual stages: "
+                        "--pp-virtual chunks per device, ~v-fold "
+                        "smaller bubble at 1F1B-style memory)")
+    p.add_argument("--pp-virtual", type=int, default=None,
+                   help="chunks per device for --pp-schedule "
+                        "interleaved (depth must divide pipe x v)")
     p.add_argument("--vit-patch", type=int, default=None)
     p.add_argument("--vit-hidden", type=int, default=None)
     p.add_argument("--vit-depth", type=int, default=None)
@@ -198,7 +217,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="sequence-parallel axis size (ring/ulysses "
                         "attention)")
     p.add_argument("--mesh-pipe", type=int, default=None,
-                   help="pipeline-parallel axis size (vit_pp model)")
+                   help="pipeline-parallel axis size (vit_pp/lm_pp)")
     p.add_argument("--mesh-model", type=int, default=None,
                    help="tensor-parallel axis size")
     p.add_argument("--block-remat", default=None,
@@ -388,7 +407,8 @@ def _config(args: argparse.Namespace):
                              "attention_block", "attention_core",
                              "moe_experts", "moe_top_k", "moe_every",
                              "moe_capacity_factor", "moe_aux_weight",
-                             "moe_dispatch")):
+                             "moe_dispatch", "pp_microbatches",
+                             "pp_schedule", "pp_virtual")):
         val = getattr(args, dest)
         if val is not None:
             fields[obj_field] = val

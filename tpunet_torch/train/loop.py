@@ -36,7 +36,12 @@ group read the same rows, and so do the ranks of a 'seq' group
 and in eval alike. Eval runs on whole (gathered) FSDP weights,
 and checkpoints hold the whole state, so ``--resume`` may take another
 mesh. The LM's CE is vocab-parallel when ``vocab_ce`` resolves to
-``sharded``.
+``sharded``. With ``--mesh-pipe`` the pipelined models (``vit_pp``,
+``lm_pp``) keep their stage's blocks on each rank of a 'pipe' group,
+whose ranks read the same rows; the step runs the pipeline schedule
+(``tpunet_torch.train.steps.fit_lm_batch``), and the checkpoints
+hold the whole model in plain layer order with tpunet's pipeline
+metadata beside it (``state.pt``'s entries, ``best_meta.json``).
 
 Observability (``tpunet_torch.obs``) is threaded through as tpunet's
 Trainer does it: per-step host laps, the data-wait split, the profile
@@ -79,7 +84,7 @@ from tpunet_torch.data import (eval_batches, get_dataset,
                                host_index_sequence, steps_per_epoch,
                                timed_batches, train_batches)
 from tpunet_torch.models import create_model, num_params
-from tpunet_torch.models.convert import (load_state_dict_file, shard_model,
+from tpunet_torch.models.convert import (load_state_dict, shard_model,
                                          state_dict_file)
 from tpunet_torch.obs import JsonlSink, Observability, RunUnhealthyError
 from tpunet_torch.obs import flightrec
@@ -95,7 +100,7 @@ from tpunet_torch.parallel.mesh import (axis_index, axis_size, make_mesh,
 from tpunet_torch.parallel.tp import layout
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import (Sharding, TrainState, lr_schedule,
-                                      make_optimizer)
+                                      make_optimizer, select_stage)
 from tpunet_torch.train.steps import (make_eval_step, make_lm_eval_step,
                                       make_lm_train_step, make_train_step)
 from tpunet_torch.utils.logging import (MetricsLogger, epoch_line, log0,
@@ -145,15 +150,33 @@ class Trainer:
         self.spe = steps_per_epoch(len(self.train_x), cfg.data.batch_size)
         if self.spe == 0:
             raise ValueError("batch size larger than training set")
+        accum = cfg.optim.grad_accum
+        if (cfg.is_pipelined and accum > 1
+                and axis_size("pipe") > 1):
+            # Time-microbatching (accum) wraps stage-microbatching: each
+            # accum slice must still split into pp_microbatches per data
+            # shard (tpunet/train/loop.py:137-149).
+            npipe_mb = cfg.model.pp_microbatches
+            per_shard = cfg.data.batch_size // accum // self.data_ranks
+            if per_shard % npipe_mb:
+                raise ValueError(
+                    f"grad_accum x pipeline: per-data-shard microbatch "
+                    f"{per_shard} (batch {cfg.data.batch_size} / accum "
+                    f"{accum} / data {self.data_ranks}) is not divisible "
+                    f"by pp_microbatches {npipe_mb}")
         model = create_model(cfg.model, device=str(self.device),
                              generator=torch.Generator().manual_seed(cfg.seed),
                              image_size=cfg.data.image_size)
         if cfg.model.pretrained_path:
-            load_state_dict_file(cfg.model.pretrained_path, model)
+            sd = state_dict_file(cfg.model.pretrained_path)
+            if getattr(model, "pp", None) is not None:
+                sd = select_stage(sd, model.pp)     # this stage's blocks
+            load_state_dict(model, sd)
         self.n_params = num_params(model)
         sharding = None
         if self.mesh.size > 1 and (cfg.mesh.zero1 or cfg.mesh.fsdp
-                                   or axis_size("model") > 1):
+                                   or axis_size("model") > 1
+                                   or getattr(model, "pp", None)):
             table = layout({k: tuple(p.shape) for k, p
                             in model.named_parameters()}, cfg.model,
                            self.mesh.shape, zero1=cfg.mesh.zero1,
@@ -259,10 +282,21 @@ class Trainer:
                    # False marks a mid-epoch (preemption) save: resume
                    # re-runs that epoch instead of skipping its remaining
                    # data; the step counter goes on either way.
-                   "completed": completed}
+                   "completed": completed, **self._pp_meta()}
         if self.state.ema is not None:
             payload["ema"] = self.state.full_ema()
         return payload
+
+    def _pp_meta(self) -> Dict:
+        """tpunet's pipeline metadata (``tpunet/train/loop.py:784-795``):
+        the schedule, and the [pipe, virtual] layout of the stored
+        stacks, which tpunet sets for an interleaved run's chunk-permuted
+        stacks. The port's files hold the whole model in plain layer
+        order whatever the schedule, which is tpunet's unpermuted layout
+        [0, 0]; so a resume or ``generate`` reads them under any
+        ``--mesh-pipe``/``--pp-virtual`` and nothing here is guarded."""
+        return {"pp_schedule": self.cfg.model.pp_schedule,
+                "pp_layout_pipe": 0, "pp_layout_virtual": 0}
 
     def _try_resume(self) -> bool:
         restored = self.ckpt.restore_state()
@@ -520,7 +554,10 @@ class Trainer:
                     # With EMA on, the test accuracy was measured on the
                     # EMA weights and BN statistics: save that pair.
                     with self.state.eval_weights():
-                        self.ckpt.save_best(self.state.full_model_state())
+                        self.ckpt.save_best(
+                            self.state.full_model_state(),
+                            meta={"model": cfg.model.name,
+                                  **self._pp_meta()})
                 self.start_epoch = epoch + 1
                 self.ckpt.save_state(self._payload(epoch))
                 # After the save so this epoch's own checkpoint shows in

@@ -40,6 +40,22 @@ norm sums the squares of the pieces over their axis and counts a
 replicated leaf once. The checkpoint's model, optimizer and EMA
 entries are gathered whole (:meth:`TrainState.full_model_state` ...) and
 cut again on load, so a resume may take another mesh.
+
+Pipeline parallelism (the 'pipe' axis, ``vit_pp``/``lm_pp``): a rank's
+model holds its stage's blocks (the model's ``pp`` plan), and its
+optimizer, moments and EMA copies only those and the leaves every stage
+keeps (embeddings, positions, the final LayerNorm, the head). Those
+replicated leaves get their gradient on some stages only (the LM's tied
+table on stage 0 and the last stage), so their gradients are summed over
+'pipe' (zeros where a stage has none, one flat all-reduce a dtype)
+before the 'data' reduction, and every stage updates the same values
+(:meth:`Sharding.replicated_gaps` holds the 'model' copies alike, as
+before). The clip's global norm adds each stage's block leaves over
+'pipe'. ZeRO-1 and FSDP split a stage's leaves over the 'data' ranks of
+that stage. The checkpoint's entries are gathered from every stage into
+the whole model's state in plain layer order (one all-gather over 'pipe'
+a dtype, every stage holding the same shapes) and a restore keeps this
+stage's part, so a pipeline checkpoint reads as an unpipelined one.
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import torch
@@ -175,19 +192,24 @@ def mean_over_group(grads: List[torch.Tensor], group, n: int,
     return out
 
 
-def sum_over_seq(grads: List[torch.Tensor]) -> None:
-    """Sequence parallelism: each rank of a 'seq' group holds the
-    gradient of its share of the tokens (a partial sum, not a copy), so
-    the group's gradients are summed in place, one flat all-reduce a
-    dtype. Nothing to do without a 'seq' axis."""
-    if axis_size("seq") == 1:
-        return
+def sum_over_group(grads: List[torch.Tensor], group) -> None:
+    """Sum ``grads`` over the ranks of ``group`` in place, one flat
+    all-reduce a dtype."""
     for ids in _flat_groups(grads).values():
         gs = [grads[j] for j in ids]
         flat = dist.all_reduce(torch.cat([g.reshape(-1) for g in gs]),
-                               axis_group("seq"))
+                               group)
         torch._foreach_copy_(gs, [c.view_as(g) for c, g in zip(
             flat.split([g.numel() for g in gs]), gs)])
+
+
+def sum_over_seq(grads: List[torch.Tensor]) -> None:
+    """Sequence parallelism: each rank of a 'seq' group holds the
+    gradient of its share of the tokens (a partial sum, not a copy), so
+    the group's gradients are summed in place. Nothing to do without a
+    'seq' axis."""
+    if axis_size("seq") > 1:
+        sum_over_group(grads, axis_group("seq"))
 
 
 def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
@@ -204,6 +226,58 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
     mean_over_group(grads, axis_group("data"), axis_size("data"))
 
 
+_BLOCK_KEY = re.compile(r"^blocks\.(\d+)\.(.*)$")
+
+
+def _stage_local(name: str) -> bool:
+    """Whether a pipelined model's parameter is one stage's (a block's)."""
+    return _BLOCK_KEY.match(name) is not None
+
+
+def gather_stages(named: Dict[str, torch.Tensor], pp) -> Dict[str, torch.Tensor]:
+    """Every stage's block entries from this stage's: ``named`` holds
+    this stage's ``blocks.<i>.<rest>`` entries (``rest`` may carry a
+    suffix, e.g. ``#exp_avg``) and the entries every stage holds alike;
+    the result holds every layer's entries and the others as they are.
+    The stages hold the same shapes position by position, so the
+    tensors of each dtype travel in one all-gather over 'pipe'; a 0-d
+    entry (Adam's step count, the same for every parameter) is copied
+    from this stage's entry at the same position."""
+    pos = {i: p for p, i in enumerate(pp.layers[pp.s])}
+    local, out = [], {}
+    for k, v in named.items():
+        mt = _BLOCK_KEY.match(k)
+        if mt is None:
+            out[k] = v
+        else:
+            local.append((pos[int(mt[1])], mt[2], v))
+    local.sort(key=lambda e: (e[0], e[1]))
+    big = [e for e in local if torch.is_tensor(e[2]) and e[2].dim() > 0]
+    for p, rest, v in local:
+        if not (torch.is_tensor(v) and v.dim() > 0):
+            for r in range(pp.S):
+                out[f"blocks.{pp.layers[r][p]}.{rest}"] = v
+    for ids in _flat_groups([e[2] for e in big]).values():
+        entries = [big[j] for j in ids]
+        got = dist.all_gather(torch.cat([e[2].reshape(-1) for e in entries]),
+                              axis_group("pipe"))
+        for r in range(pp.S):
+            off = 0
+            for p, rest, v in entries:
+                out[f"blocks.{pp.layers[r][p]}.{rest}"] = \
+                    got[r, off:off + v.numel()].view_as(v).clone()
+                off += v.numel()
+    return out
+
+
+def select_stage(named: Dict[str, torch.Tensor], pp) -> Dict[str, torch.Tensor]:
+    """This stage's part of a whole state: its layers' block entries and
+    every other entry."""
+    mine = set(pp.layers[pp.s])
+    return {k: v for k, v in named.items()
+            if (mt := _BLOCK_KEY.match(k)) is None or int(mt[1]) in mine}
+
+
 class Sharding:
     """Where a model's parameters and optimizer state rest on the mesh
     (see the module docstring). ``table``: the layout of every
@@ -218,6 +292,11 @@ class Sharding:
         self.params = [p for _, p in model.named_parameters()]
         self.group, self.n = axis_group("data"), axis_size("data")
         self.rank = axis_index("data")
+        # A pipeline stage's model: its block leaves are its own, the
+        # others every stage holds (their gradients summed over 'pipe').
+        self.pp = getattr(model, "pp", None)
+        self.local = [self.pp is not None and _stage_local(n)
+                      for n in self.names]
         # Per parameter: the 'data' split of its moments (None: whole).
         self.split: List[Optional[Shard]] = []
         self.fsdp: List[bool] = []
@@ -320,6 +399,18 @@ class Sharding:
             return {}
         return dict(zip(self._gap_names, self._gaps.tolist()))
 
+    def _sum_over_pipe(self) -> None:
+        """The leaves every stage holds: each stage's gradient is its part
+        (stage 0's embedding, the last stage's head; none on the others:
+        zeros), so they are summed over 'pipe', one flat all-reduce a
+        dtype, and every stage then holds the same gradient."""
+        idx = [i for i, loc in enumerate(self.local) if not loc]
+        for i in idx:
+            p = self.params[i]
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        sum_over_group([self.params[i].grad for i in idx], axis_group("pipe"))
+
     def reduce_gradients(self) -> None:
         """Every master's gradient := the mean over 'data' of the whole
         parameter's: an all-reduce for the whole masters, a
@@ -328,8 +419,11 @@ class Sharding:
         a 'model' axis, the replicated leaves' gradients are made equal
         on its ranks (:meth:`_agree_over_model`); before that, the
         partial gradients of a 'seq' group are summed
-        (:func:`sum_over_seq`)."""
+        (:func:`sum_over_seq`), and on a 'pipe' axis the stages' parts of
+        the leaves they all hold (:meth:`_sum_over_pipe`)."""
         sum_over_seq([p.grad for p in self.params if p.grad is not None])
+        if self.pp is not None:
+            self._sum_over_pipe()
         if axis_size("model") > 1:
             self._agree_over_model()
         n = self.n
@@ -352,33 +446,35 @@ class Sharding:
                 self.params[i].grad = None
 
     def global_norm(self) -> torch.Tensor:
-        """The L2 norm of the whole gradient: each piece's squares summed
-        over its axis ('data' pieces, tensor-parallel leaves over
-        'model'), each replicated leaf once."""
-        parts = {"data": [], "model": [], None: []}
+        """The L2 norm of the whole gradient: each leaf's squares summed
+        over the axes it is split over ('data' pieces, tensor- and
+        expert-parallel leaves over 'model', a stage's blocks over
+        'pipe'), each replicated leaf once. The squares sit in one vector
+        by kind of leaf; each axis of more than one rank reduces the
+        kinds split over it in one all-reduce (the other kinds are the
+        same on its ranks), every rank calling the same collectives."""
+        axes = ("data", "model", "pipe")
+        kinds = [(d, m, p) for d in (0, 1) for m in (0, 1) for p in (0, 1)]
+        parts: Dict[tuple, List[torch.Tensor]] = {k: [] for k in kinds}
         for i, m in enumerate(self.masters):
             if m.grad is None:
                 continue
             lay = self.table[self.names[i]]
-            axis = ("data" if self.split[i] is not None else
-                    "model" if lay.param is not None
-                    and lay.param.axis == "model" else None)
-            parts[axis].append(m.grad)
+            parts[(int(self.split[i] is not None),
+                   int(lay.param is not None and lay.param.axis == "model"),
+                   int(self.local[i]))].append(m.grad)
         dev = self.masters[0].device
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for axis, gs in parts.items():
-            if not gs:
-                sq = torch.zeros((), dtype=torch.float32, device=dev)
-            else:
-                sq = torch.stack([n.float() for n in
-                                  torch._foreach_norm(gs)]).square().sum()
-            if axis is not None:
-                # Every rank calls the same collectives, even with no
-                # leaf of this kind.
-                sq = dist.all_reduce(sq, axis_group(axis)) \
-                    if axis_size(axis) > 1 else sq
-            total = total + sq
-        return total.sqrt()
+        sq = torch.stack([
+            torch.stack([n.float() for n in torch._foreach_norm(gs)]
+                        ).square().sum() if gs else
+            torch.zeros((), dtype=torch.float32, device=dev)
+            for gs in parts.values()])
+        for a, axis in enumerate(axes):
+            if axis_size(axis) == 1:
+                continue
+            mask = torch.tensor([float(k[a]) for k in kinds], device=dev)
+            sq = dist.all_reduce(sq * mask, axis_group(axis)) + sq * (1 - mask)
+        return sq.sum().sqrt()
 
     def after_update(self) -> None:
         """ZeRO-1: the whole parameters from the updated pieces (one
@@ -528,18 +624,27 @@ class TrainState:
 
     # -- whole state (checkpoints): collectives on every rank ----------
 
+    @property
+    def pp(self):
+        """The model's pipeline plan (None without a 'pipe' axis)."""
+        return getattr(self.model, "pp", None)
+
     def full_model_state(self) -> Dict[str, torch.Tensor]:
         """The model's whole state dict (parameters and buffers), on
-        every rank."""
+        every rank; a pipeline's gathered from every stage."""
         sh = self.sharding
         if sh is None:
             return self.model.state_dict()
         with _gathered(sh):
             sd = self.model.state_dict()
-            return gather_state_dict(sd, {k: sh.model_spec(k) for k in sd})
+            sd = gather_state_dict(sd, {k: sh.model_spec(k) for k in sd})
+        return sd if self.pp is None else gather_stages(sd, self.pp)
 
     def load_full_model_state(self, sd: Dict[str, torch.Tensor]) -> None:
-        """Load a whole state dict (another mesh's, or one process's)."""
+        """Load a whole state dict (another mesh's, or one process's); a
+        pipeline stage takes its part."""
+        if self.pp is not None:
+            sd = select_stage(sd, self.pp)
         sh = self.sharding
         if sh is None:
             load_state_dict(self.model, sd)
@@ -551,7 +656,8 @@ class TrainState:
 
     def full_optimizer_state(self) -> dict:
         """The optimizer's state dict with every moment whole, in the
-        form of an unsharded run's."""
+        form of an unsharded run's (a pipeline's indexed by the whole
+        model's parameters)."""
         sd = self.optimizer.state_dict()
         sh = self.sharding
         if sh is None:
@@ -561,10 +667,30 @@ class TrainState:
             spec = sh.moment_spec(i)
             state[i] = {k: (gather_tensor(v, spec) if _is_moment(v, sh, i)
                             else v) for k, v in st.items()}
-        return {**sd, "state": state}
+        if self.pp is None:
+            return {**sd, "state": state}
+        full = gather_stages({f"{sh.names[i]}#{k}": v
+                              for i, st in state.items()
+                              for k, v in st.items()}, self.pp)
+        index = {n: i for i, n in enumerate(self.model.full_param_names)}
+        whole: Dict[int, dict] = {}
+        for key, v in full.items():
+            name, k = key.split("#")
+            whole.setdefault(index[name], {})[k] = v
+        return {"state": dict(sorted(whole.items())),
+                "param_groups": [{**g, "params": list(range(len(index)))}
+                                 for g in sd["param_groups"]]}
 
     def load_full_optimizer_state(self, sd: dict) -> None:
         sh = self.sharding
+        if self.pp is not None:
+            index = {n: i for i, n in
+                     enumerate(self.model.full_param_names)}
+            got = {int(i): st for i, st in sd["state"].items()}
+            sd = {"state": {j: got[index[n]] for j, n in enumerate(sh.names)
+                            if index[n] in got},
+                  "param_groups": [{**g, "params": list(range(len(sh.names)))}
+                                   for g in sd["param_groups"]]}
         if sh is not None:
             state = {}
             for i, st in sd["state"].items():
@@ -579,17 +705,26 @@ class TrainState:
         self.optimizer.load_state_dict(sd)
 
     def full_ema(self) -> Optional[List[torch.Tensor]]:
-        """The EMA copies, each whole (None when EMA is off)."""
+        """The EMA copies, each whole (None when EMA is off); a
+        pipeline's in the whole model's parameter order."""
         if self.ema is None or self.sharding is None:
             return self.ema
         sh = self.sharding
         n = len(sh.params)
-        return [gather_tensor(e, sh.moment_spec(i) if sh.fsdp[i]
-                              else sh.model_spec(sh.names[i]))
-                if i < n else e for i, e in enumerate(self.ema)]
+        out = [gather_tensor(e, sh.moment_spec(i) if sh.fsdp[i]
+                             else sh.model_spec(sh.names[i]))
+               if i < n else e for i, e in enumerate(self.ema)]
+        if self.pp is None:
+            return out
+        full = gather_stages(dict(zip(sh.names, out[:n])), self.pp)
+        return [full[k] for k in self.model.full_param_names] + out[n:]
 
     def load_full_ema(self, ema: List[torch.Tensor]) -> None:
         sh = self.sharding
+        if self.pp is not None:
+            names = self.model.full_param_names
+            got = dict(zip(names, ema))
+            ema = [got[k] for k in sh.names] + list(ema[len(names):])
         for i, (e, r) in enumerate(zip(self.ema, ema)):
             if sh is not None and i < len(sh.params):
                 spec = (sh.moment_spec(i) if sh.fsdp[i]

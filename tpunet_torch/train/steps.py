@@ -45,6 +45,20 @@ the step's start (``begin_step``), reduce-scatters the split gradients
 'model' axis that divides the vocab) the LM returns its hidden states
 and the CE runs vocab-parallel against the tied embedding
 (``tpunet_torch.ops.vocab_ce``): the [B, T, V] logits never exist whole.
+
+A pipelined model (``vit_pp``/``lm_pp`` on a 'pipe' axis, the model's
+``pp`` plan) goes through the same :func:`fit_batch` / :func:`fit_lm_batch`:
+each accumulation microbatch (the strided rows above) is one run of the
+pipeline schedule over ``pp_microbatches`` contiguous microbatches
+(gradient accumulation wraps the whole pipeline), the loss of a
+microbatch (:func:`_cls_loss`, :func:`_lm_microbatch_loss`, as without
+a pipeline) is computed on the last stage inside the schedule (its
+backward starts there), and each MoE term of a stage's chunk joins its
+microbatch's backward weighted ``moe_aux_weight / (M * seq * accum)``
+(tpunet's sum over stages and mean over microbatches and shards). The
+metric sums are the last stage's (each stage adds its own MoE terms'
+share) and are summed over 'pipe' at the step's end, so every rank holds
+the same numbers as an unpipelined step's.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from tpunet_torch.data.augment import (make_eval_preprocess, make_mix,
 from tpunet_torch.ops.vocab_ce import vocab_parallel_ce
 from tpunet_torch.parallel.dist import all_reduce
 from tpunet_torch.parallel.mesh import axis_group, axis_size
+from tpunet_torch.parallel.pp import split_micro
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import TrainState
 
@@ -83,6 +98,39 @@ def _aux_term(model: torch.nn.Module, weight: float):
     return weight * terms
 
 
+def _mixed(mix: Optional[Callable], generator: torch.Generator,
+           x: torch.Tensor, y: torch.Tensor):
+    """``(x, mixed)``: the microbatch mixed by ``mix`` (from ``make_mix``)
+    with ``mixed`` its partner labels and ``lam`` as a tensor, or ``x``
+    as given and None without ``mix``."""
+    if mix is None:
+        return x, None
+    x, y_b, lam = mix(generator, x, y)
+    return x, (y_b, torch.tensor(lam, dtype=torch.float32, device=x.device))
+
+
+def _cls_loss(logits: torch.Tensor, y: torch.Tensor, mixed,
+              smoothing: float):
+    """Per-example CE of ``logits`` against ``y`` (``lam * CE(y) + (1 -
+    lam) * CE(y_b)`` when ``mixed``) and the hits against ``y``; the one
+    loss of :func:`fit_batch`, pipelined or not."""
+    ce = _ce_loss(logits, y, smoothing)
+    if mixed is not None:
+        y_b, lam = mixed
+        ce = lam * ce + (1.0 - lam) * _ce_loss(logits, y_b, smoothing)
+    return ce, (logits.detach().argmax(-1) == y).sum()
+
+
+def _pipe_metrics(loss_sum, correct, count, device) -> M.Metrics:
+    """A pipelined step's metric sums, summed over 'pipe' (the last
+    stage's loss, hits and count; every stage's MoE share)."""
+    sums = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device)
+                        for v in (loss_sum, correct, count)])
+    loss_sum, correct, count = all_reduce(sums, axis_group("pipe")).unbind()
+    return M.from_batch(loss_sum, correct, count, device)
+
+
 def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
               generator: torch.Generator, optim_cfg: OptimConfig,
               mix: Optional[Callable] = None,
@@ -92,36 +140,55 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     reduced over the ranks, one update; returns this rank's metric sums.
     The microbatches draw their mixing (``mix``, from ``make_mix``) and
     dropout masks from ``generator`` in turn. An MoE model's loss (and
-    its metric) adds ``aux_weight`` times the load-balance terms."""
+    its metric) adds ``aux_weight`` times the load-balance terms. A
+    pipelined model (``vit_pp``, no MoE blocks) runs each microbatch as
+    one pipeline run, the same loss on the last stage (module
+    docstring)."""
     accum, n = optim_cfg.grad_accum, labels.shape[0]
     if n % accum:
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
     smoothing = optim_cfg.label_smoothing
     seq = axis_size("seq")
+    model = state.model
+    pp = getattr(model, "pp", None)
     state.zero_grad()
     state.begin_step()
     loss_sum = correct = 0
     for i in range(accum):
         x, y = images[i::accum], labels[i::accum]
-        if mix is not None:
-            x, y_b, lam = mix(generator, x, y)
-        logits = state.model(x.permute(0, 3, 1, 2), train=True,
-                             generator=generator)
-        ce = _ce_loss(logits, y, smoothing)
-        if mix is not None:
-            lam = torch.tensor(lam, dtype=torch.float32, device=ce.device)
-            ce = lam * ce + (1.0 - lam) * _ce_loss(logits, y_b, smoothing)
-        loss = ce.mean() + _aux_term(state.model, aux_weight)
+        x, mixed = _mixed(mix, generator, x, y)
+        if pp is not None:
+            ys = split_micro(y, pp.M)
+            mixes = ([None] * pp.M if mixed is None else
+                     [(y_b, mixed[1]) for y_b in split_micro(mixed[0], pp.M)])
+            rows = y.shape[0]
+
+            def loss_fn(m, logits):
+                nonlocal loss_sum, correct
+                ce, hits = _cls_loss(logits, ys[m], mixes[m], smoothing)
+                loss_sum = loss_sum + ce.detach().sum()
+                correct = correct + hits
+                return ce.sum() / (rows * accum)
+
+            model.pipe_train(x.permute(0, 3, 1, 2), generator, loss_fn)
+            continue
+        logits = model(x.permute(0, 3, 1, 2), train=True,
+                       generator=generator)
+        ce, hits = _cls_loss(logits, y, mixed, smoothing)
+        loss = ce.mean() + _aux_term(model, aux_weight)
         # Under sequence parallelism every rank of a 'seq' group holds
         # the whole logits (the ViT's pool sums over the group): each
         # takes 1/S of the loss, so that the gradients summed over 'seq'
         # are the loss's.
         (loss / (accum * seq)).backward()
         loss_sum = loss_sum + loss.detach() * y.shape[0]
-        correct = correct + (logits.detach().argmax(-1) == y).sum()
+        correct = correct + hits
     state.reduce_gradients()
     state.apply_gradients()
+    if pp is not None:
+        return _pipe_metrics(loss_sum, correct,
+                             n if pp.s == pp.S - 1 else 0, labels.device)
     return M.from_batch(loss_sum, correct, n, labels.device)
 
 
@@ -161,24 +228,47 @@ def _targets(model: torch.nn.Module, t: int) -> slice:
     return slice(lo, min(lo + t // n, t - 1))
 
 
-def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
-                smoothing: float, sharded_ce: bool = False, **kw):
+def _lm_ce(model: torch.nn.Module, out: torch.Tensor, tokens: torch.Tensor,
+           smoothing: float, sharded_ce: bool = False):
     """Per-target CE [B, targets] and whether the argmax hits, of the
-    logits at this rank's positions (:func:`_targets`; 0..T-2 on one
-    rank) against the next tokens; ``sharded_ce``: vocab-parallel over
-    the 'model' axis from the hidden states."""
+    model's output ``out`` at this rank's positions (:func:`_targets`;
+    0..T-2 on one rank) against the next tokens of ``tokens``: ``out``
+    is the logits, or under ``sharded_ce`` the hidden states, whose CE
+    runs vocab-parallel over the 'model' axis."""
     sl = _targets(model, tokens.shape[1])
     n_tgt = sl.stop - sl.start
     nxt = tokens[:, 1:][:, sl]
     if sharded_ce:
-        h = model(tokens, segment_ids=segs, return_hidden=True, **kw)
-        return vocab_parallel_ce(h[:, :n_tgt], model.embed.weight, nxt,
+        return vocab_parallel_ce(out[:, :n_tgt], model.embed.weight, nxt,
                                  axis_group("model"), smoothing=smoothing)
-    logits = model(tokens, segment_ids=segs, **kw)[:, :n_tgt]
+    logits = out[:, :n_tgt]
     tgt = nxt.long()
     ce = _ce_loss(logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
                   smoothing).view_as(tgt)
     return ce, logits.detach().argmax(-1) == tgt
+
+
+def _next_token(model: torch.nn.Module, tokens: torch.Tensor, segs,
+                smoothing: float, sharded_ce: bool = False, **kw):
+    """:func:`_lm_ce` of the model's forward over ``tokens``."""
+    if sharded_ce:
+        kw["return_hidden"] = True
+    out = model(tokens, segment_ids=segs, **kw)
+    return _lm_ce(model, out, tokens, smoothing, sharded_ce)
+
+
+def _lm_microbatch_loss(model: torch.nn.Module, out: torch.Tensor,
+                        tokens: torch.Tensor, segs, smoothing: float,
+                        sharded_ce: bool):
+    """One microbatch's CE sum (in the graph) and its metric's hits and
+    targets, from the model's output ``out`` (:func:`_lm_ce`): over
+    every target, or with ``segs`` (packed) over the valid ones. The one
+    loss of :func:`fit_lm_batch`, pipelined or not."""
+    ce, hit = _lm_ce(model, out, tokens, smoothing, sharded_ce)
+    if segs is None:
+        return ce.sum(), hit.sum(), ce.numel()
+    wt = _packed_target_weights(segs)[:, _targets(model, tokens.shape[1])]
+    return (ce * wt).sum(), (hit * wt).sum(), wt.sum()
 
 
 def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
@@ -200,50 +290,82 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
     aux / accum`` packed; a 'seq' rank takes 1/S of it, since the 'seq'
     ranks' losses are summed. The metric's loss sum carries it as
     tpunet's: ``aux`` times the targets (unpacked), ``aux * total /
-    accum`` (packed)."""
+    accum`` (packed).
+
+    A pipelined model (``lm_pp``) runs each microbatch as one pipeline
+    run over ``pp_microbatches`` pieces, each piece's loss (the same
+    :func:`_lm_microbatch_loss`, scaled alike) on the last stage, and
+    each stage's MoE terms join the backward and the metric (module
+    docstring)."""
     accum, n = optim_cfg.grad_accum, tokens.shape[0]
     if n % accum:
         raise ValueError(f"batch of {n} rows does not split into "
                          f"{accum} microbatches")
     smoothing = optim_cfg.label_smoothing
+    model = state.model
+    pp = getattr(model, "pp", None)
     state.zero_grad()
     state.begin_step()
+    seq = axis_size("seq")
+    # ``norm`` makes a microbatch's CE sum its share of the batch's
+    # mean. Packed: divided by the global batch's valid-target count
+    # (summed over 'data' alone: every rank of a 'seq' group holds the
+    # whole rows) and multiplied by the 'data' ranks, which the
+    # reduction divides out. Unpacked: divided by the microbatch rows'
+    # T - 1 targets (a 'seq' rank sums over its own) and by accum. An
+    # MoE term weighs ``targets / S`` in the metric's loss sum.
+    row_targets = (n // accum) * (tokens.shape[1] - 1)
     if packed:
-        # Every rank of a 'seq' group holds the whole rows: the global
-        # count needs a sum over 'data' alone.
         total = all_reduce(_packed_target_weights(labels).sum(),
                            axis_group("data"))
         scale = axis_size("data") / total.clamp_min(1.0)
-    sl = _targets(state.model, tokens.shape[1])
-    seq = axis_size("seq")
+        targets = total / (accum * axis_size("data"))
+
+        def norm(ce_sum):
+            return ce_sum * scale
+    else:
+        targets = row_targets
+
+        def norm(ce_sum):
+            return ce_sum / row_targets / accum
+    moe = getattr(model, "moe_experts", 0) > 0
     loss_sum = correct = count = 0
     for i in range(accum):
         x = tokens[i::accum]
         segs = labels[i::accum] if packed else None
-        ce, hit = _next_token(state.model, x, segs, smoothing, sharded_ce,
-                              train=True, generator=generator)
-        aux = _aux_term(state.model, aux_weight)
-        if packed:
-            wt = _packed_target_weights(segs)[:, sl]
-            ce_sum = (ce * wt).sum()
-            (ce_sum * scale + aux / (accum * seq)).backward()
-            if torch.is_tensor(aux):
-                ce_sum = ce_sum + aux * total / (
-                    accum * seq * axis_size("data"))
+        if pp is None:
+            out = model(x, segment_ids=segs, train=True,
+                        generator=generator,
+                        **({"return_hidden": True} if sharded_ce else {}))
+            ce_sum, hits, cnt = _lm_microbatch_loss(model, out, x, segs,
+                                                    smoothing, sharded_ce)
+            aux = _aux_term(model, aux_weight)
+            (norm(ce_sum) + aux / (accum * seq)).backward()
+            loss_sum = loss_sum + (ce_sum + aux * targets / seq).detach()
+            correct, count = correct + hits, count + cnt
+            continue
+        xs, ss = split_micro(x, pp.M), split_micro(segs, pp.M)
+
+        def loss_fn(m, out):
+            nonlocal loss_sum, correct, count
+            ce_sum, hits, cnt = _lm_microbatch_loss(model, out, xs[m], ss[m],
+                                                    smoothing, sharded_ce)
             loss_sum = loss_sum + ce_sum.detach()
-            correct = correct + (hit * wt).sum()
-            count = count + wt.sum()
-        else:
-            # The mean over the row's T - 1 targets: a 'seq' rank's sum
-            # over its own divided by the row's count.
-            row_targets = x.shape[0] * (x.shape[1] - 1)
-            loss = ce.sum() / row_targets + aux / seq
-            (loss / accum).backward()
-            loss_sum = loss_sum + loss.detach() * row_targets
-            correct = correct + hit.sum()
-            count = count + ce.numel()
+            correct, count = correct + hits, count + cnt
+            return norm(ce_sum)
+
+        model.pipe_train(x, segs, generator, loss_fn,
+                         aux_weight / (pp.M * seq * accum) if moe else 0.0,
+                         return_hidden=sharded_ce)
+        aux = model.moe_aux_loss()
+        if aux is not None and aux_weight > 0:
+            # This stage's share: its terms summed over the pipeline's
+            # M pieces, each weighed as one unpipelined microbatch's.
+            loss_sum = loss_sum + aux_weight * aux * targets / (pp.M * seq)
     state.reduce_gradients()
     state.apply_gradients()
+    if pp is not None:
+        return _pipe_metrics(loss_sum, correct, count, tokens.device)
     return M.from_batch(loss_sum, correct, count, tokens.device)
 
 
