@@ -281,7 +281,25 @@ Phases, each of which must pass:
      the step and peak a rank against one rank's, gpipe's peak against
      1f1b's, the host ms in the hops (``pipe_hop``), ticks, busy ticks
      and live graphs a stage;
- 21. print the kernel list and the card's name and power limit.
+ 21. tp_serve: tensor-parallel generation and serving at the LM's full
+     width (12 blocks) on 2 gloo ranks sharing the card: ``torchrun ...
+     -m tpunet_torch.infer.generate --mesh-model 2`` in float32, its
+     greedy tokens equal to one card's; each rank's shard through
+     ``load_lm`` (float32 greedy tokens with and without the KV cache
+     equal to one card's, no flash launch in the decode,
+     12 flash launches a no-cache forward a rank; bf16 teacher-forced
+     decode logits against the rank's no-cache forward within
+     LM_DECODE_BF16_TOL); ``python -m tpunet_torch.serve --mesh-model 2``
+     in float32 serving 16 greedy requests from 4 clients, their tokens
+     equal to the one-card engine's, a rank's pool at half one card's
+     bytes a token, then SIGTERM to both ranks: a clean drain, exit 0;
+     readings: generated tokens/s, TTFT, per-token p50, the decode
+     iteration's ms, the host ms in broadcasts and all-reduces a decode
+     step. The trainer phases' profile windows (MobileNetV2, ViT-B/16,
+     the LM) print their device time by phase
+     (``tpunet_torch.obs.trace_phase``), which must sum to the window's
+     device time;
+ 22. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -297,7 +315,9 @@ x model 2 under ``alltoall``, and pipe_trainer's LM at 12 blocks over 4
 stages (M 8) under 1f1b and interleaved v 3, at pipe 2 x seq 2 under
 Ulysses and the MoE LM at pipe 2 x model 2 under ``alltoall`` (one
 microbatch, capacity E / k), each against one card with its ideal step
-(one card's step / 4 x (1 + (S - 1) / (v M))) beside it (readings).
+(one card's step / 4 x (1 + (S - 1) / (v M))) beside it (readings),
+and tp_serve at --mesh-model 2 and 4 over NCCL, a card a rank, with its
+gates against one card.
 """
 
 from __future__ import annotations
@@ -1808,10 +1828,28 @@ def check_window(tag, ckdir, kernels) -> dict:
              for k in kernels}
     check(all(found.values()), f"{tag}: hand kernels in the window's trace "
           f"{found}")
+    # Device time by phase (tpunet_torch.obs.trace_phase): the phases
+    # must sum to the window's device time, and the step's fwd, bwd and
+    # optimizer hold some of it.
+    from tpunet_torch.obs.trace_phase import (DEVICE_CATS, kernel_rows,
+                                              phase_times)
+    rows = kernel_rows([e for e in events if e.get("ph") == "X"
+                        and "dur" in e])
+    phases = phase_times(rows)
+    device_us = sum(e["dur"] for e in events if e.get("ph") == "X"
+                    and e.get("cat") in DEVICE_CATS)
+    emit("phase_times", window=tag, device_us=device_us, phases=phases)
+    check(abs(sum(r["us"] for r in phases.values()) - device_us)
+          <= 0.05 * len(phases) + 1e-3,
+          f"{tag}: phases {phases} do not sum to the window's "
+          f"{device_us} us")
+    check(all(phases.get(ph, {}).get("us", 0) > 0
+              for ph in ("fwd", "bwd", "optimizer")),
+          f"{tag}: phase times {phases}")
     return dict(trace=str(traces[0].relative_to(ROOT)),
                 trace_bytes=traces[0].stat().st_size,
                 train_regions=len(steps), kernels=sum(labels.values()),
-                hand_kernels=found)
+                hand_kernels=found, phase_times=phases)
 
 
 def check_syncs(tag, on, off, window) -> dict:
@@ -6725,6 +6763,358 @@ def phase_pipe_trainer(torch, backend="gloo", world=2, runs=None) -> dict:
     return res
 
 
+# -- tp_serve: tensor-parallel generation and serving (Queue A item 8e) ----
+
+TP_DIR = ROOT / "build" / "tpunet_torch" / "smoke_tp"
+# Short streams: on 2 gloo ranks sharing the card every decode step
+# pays 24 row-parallel all-reduces through gloo's host copies (~2.7 ms
+# each on an H100 host), so the phase's time is decode steps.
+TP_GEN_BATCH, TP_GEN_PROMPT, TP_GEN_NEW = 4, 32, 32   # the ranks' generate
+TP_CLI_NEW = 32          # new tokens of the torchrun generate CLI
+TP_SERVE_REQUESTS = 16   # /v1/generate requests to the TP server
+TP_SERVE_CLIENTS = 4     # closed-loop clients
+TP_SERVE_NEW = 32        # greedy new tokens a request
+TP_TIMEOUT_S = 600       # a rank's deadline (process start to exit)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_rank_env(world: int, rank: int, port: int) -> dict:
+    """The variables torchrun gives rank ``rank`` of ``world``."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "WORLD_SIZE": str(world), "RANK": str(rank),
+            "LOCAL_RANK": str(rank)}
+
+
+def tp_prompts(torch):
+    """The ranks' generate prompts [TP_GEN_BATCH, TP_GEN_PROMPT] (seeded
+    synthetic_lm rows)."""
+    from tpunet_torch.data.lm import synthetic_lm
+    return torch.from_numpy(synthetic_lm(
+        TP_GEN_BATCH, 1, seq_len=TP_GEN_PROMPT, vocab=LM_VOCAB,
+        seed=5)[0]).long()
+
+
+def tp_worker(world: int, rank: int, backend: str) -> int:
+    """One rank of tp_serve's generation checks (``--dp-worker tp``),
+    torchrun's variables in its environment: the mesh data 1 x model
+    ``world`` over ``backend``, the seeded LM's shard through ``load_lm``
+    on its card; in float32 the greedy tokens through the KV cache (no
+    flash launch) and without it, and one no-cache forward's flash
+    launches; in bf16 the teacher-forced decode logits against the
+    rank's no-cache forward, and the decode's new tokens a second.
+    Writes TP_DIR/tp_<backend><world>_rank<rank>.pt."""
+    import torch
+
+    from tpunet_torch.infer.generate import init_tensor_parallel, load_lm
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, device = init_tensor_parallel(world, "cuda", backend)
+    prompt = tp_prompts(torch).to(device)
+    total = TP_GEN_PROMPT + TP_GEN_NEW
+    out = {"device": str(device)}
+    model = load_lm(lm_config("float32", 0.0), "", device=str(device),
+                    mesh=mesh)
+    out["qkv_rows"] = model.blocks[0].attn.qkv.weight.shape[0]
+    with torch.inference_mode():
+        reset_launch_counts()
+        buf = generate(model, prompt, TP_GEN_NEW)
+        out["cache_launches"] = launch_counts()
+        nocache = generate(model, prompt, TP_GEN_NEW, use_cache=False)
+        reset_launch_counts()
+        model(buf[:, :total - 1])
+        out["forward_launches"] = launch_counts()
+    out["f32_tokens"] = buf.cpu()
+    out["f32_nocache_equal"] = bool(torch.equal(buf, nocache))
+    del model
+    model = load_lm(lm_config("bfloat16", 0.0), "", device=str(device),
+                    mesh=mesh)
+    with torch.inference_mode():
+        generate(model, prompt[:, :8], 8)                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bbuf = generate(model, prompt, TP_GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full = model(bbuf[:, :total - 1])
+        cache = model.init_cache(TP_GEN_BATCH, total)
+        steps = []
+        for i in range(total - 1):
+            lg, cache = model(bbuf[:, i:i + 1], pos_offset=i, cache=cache)
+            steps.append(lg)
+        dec = torch.cat(steps, 1)
+    err = (dec - full).abs()
+    out["bf16"] = dict(
+        decode_s=wall, new_tokens_per_s=TP_GEN_BATCH * TP_GEN_NEW / wall,
+        ms_per_step=wall / (total - 1) * 1e3,
+        logits_err_of_max=(err.max() / full.abs().max()).item(),
+        argmax_agreement=(dec.argmax(-1) == full.argmax(-1)
+                          ).float().mean().item())
+    out["collectives"] = {k: [c, s * 1e3] for k, (c, s) in
+                          dist.collective_counts().items() if c}
+    torch.save(out, TP_DIR / f"tp_{backend}{world}_rank{rank}.pt")
+    dist.destroy()
+    return 0
+
+
+def tp_one_card(torch) -> dict:
+    """The one-card references of tp_serve on this process's card: the
+    float32 greedy tokens of the ranks' prompts and of the CLI's prompt,
+    and the float32 engine's greedy tokens of the server's requests."""
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.models.lm import generate
+    from tpunet_torch.serve import Engine
+
+    prompt = tp_prompts(torch)
+    model = load_lm(lm_config("float32", 0.0), "", device="cuda")
+    with torch.inference_mode():
+        toks = generate(model, prompt, TP_GEN_NEW).cpu()
+        cli = generate(model, prompt[:1, :32], TP_CLI_NEW)[0].tolist()
+    bodies = tp_bodies()
+    eng = Engine(model, ServeConfig(slots=8, emit_every_s=0.0)).start()
+    try:
+        reqs = [eng.submit(b["tokens"], max_new_tokens=b["max_new_tokens"])
+                for b in bodies]
+        engine = [r.result(timeout=600) for r in reqs]
+        # The one-card decode iteration (its [8, 1] step whatever the
+        # slots in use, as the TP server's), without the HTTP front end;
+        # read before the stop, whose final record resets the window.
+        decode_ms = eng.registry.snapshot()["serve_decode_iter_s_p50"] * 1e3
+    finally:
+        eng.stop()
+    kv = eng.kv_bytes_per_token()
+    del model, eng
+    torch.cuda.empty_cache()
+    return dict(tokens=toks, cli=cli, engine=engine, kv_bytes_per_token=kv,
+                decode_iter_p50_ms=decode_ms)
+
+
+def tp_bodies() -> list:
+    """The TP server's greedy requests: serve_prompts()'s first
+    TP_SERVE_REQUESTS prompts (the even ones share a 256-token prefix),
+    TP_SERVE_NEW new tokens each, every fourth streamed."""
+    bodies = serve_prompts()[0][:TP_SERVE_REQUESTS]
+    return [{"tokens": b["tokens"], "max_new_tokens": TP_SERVE_NEW,
+             "stream": i % 4 == 3} for i, b in enumerate(bodies)]
+
+
+def tp_server(world, backend, want, tag) -> dict:
+    """``python -m tpunet_torch.serve --mesh-model world`` as ``world``
+    rank processes (torchrun's variables; rank 0 binds the port) at the
+    LM's full width in float32: TP_SERVE_REQUESTS greedy requests from
+    TP_SERVE_CLIENTS clients, their tokens against the one-card engine's
+    (``want``), the readings of /metrics and of the final obs_serve
+    record, then SIGTERM to every rank: a clean drain, every rank exit
+    0."""
+    import os
+    import signal
+
+    t_start = time.perf_counter()
+    port, master = free_port(), free_port()
+    mdir = TP_DIR / f"serve_{tag}"
+    shutil.rmtree(mdir, ignore_errors=True)
+    cmd = [sys.executable, "-u", "-m", "tpunet_torch.serve",
+           "--checkpoint-dir", "", *LM_FLAGS[2:8], "--max-seq-len",
+           str(LM_T), "--dtype", "float32", "--slots", "8",
+           "--mesh-model", str(world), "--dist-backend", backend,
+           "--tp-timeout-s", "120", "--port", str(port), "--metrics-dir",
+           str(mdir), "--emit-every-s", "0", "--drain-timeout-s", "60"]
+    procs = []
+    base = f"http://127.0.0.1:{port}"
+    env0 = {k: v for k, v in os.environ.items()
+            if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                         "WORLD_SIZE", "LOCAL_RANK")}
+    try:
+        for r in range(world):
+            log = open(TP_DIR / f"serve_{tag}_rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                env={**env0, **tp_rank_env(world, r, master)}), log))
+        deadline = time.perf_counter() + 300
+        up = False
+        while not up and time.perf_counter() < deadline:
+            for p, _ in procs:
+                check(p.poll() is None, f"{tag}: a rank exited "
+                      f"{p.returncode} while starting")
+            try:
+                up = http_call(base, "/healthz", timeout=2)[0] == 200
+            except OSError:
+                pass
+            if not up:
+                time.sleep(0.2)
+        check(up, f"{tag}: the server never answered /healthz")
+        bodies = tp_bodies()
+        wall, answers, _, _, errors = serve_traffic(
+            base, bodies, (), (), clients=TP_SERVE_CLIENTS)
+        check(not errors, f"{tag}: traffic failed: {errors[:3]}")
+        bad = [i for i, a in enumerate(answers)
+               if a is None or a["status"] != 200
+               or a["tokens"] != want["engine"][i]]
+        metrics = http_call(base, "/metrics")[1]
+        for p, _ in procs:
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=180) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    recs = [json.loads(line) for line in
+            (mdir / "metrics.jsonl").read_text().splitlines()]
+    final = [r for r in recs if r.get("kind") == "obs_serve"][-1]
+    rank0_log = (TP_DIR / f"serve_{tag}_rank0.log").read_text()
+    ttft = sorted(a["ttft_ms"] for a in answers if a["ttft_ms"] is not None)
+    coll = final.get("tp", {}).get("collectives", {})
+    steps = max(1, int(final["decode_steps_total"]))
+    res = dict(
+        s=time.perf_counter() - t_start,
+        ranks=world, backend=backend, requests=len(bodies),
+        clients=TP_SERVE_CLIENTS, new_tokens=TP_SERVE_NEW,
+        greedy_mismatches=bad, exit_codes=rcs,
+        drained_clean="drained (clean)" in rank0_log,
+        generated_tokens_per_s=len(bodies) * TP_SERVE_NEW / wall,
+        wall_s=wall, ttft_p50_ms=ttft[len(ttft) // 2],
+        token_p50_ms=final.get("token_latency_p50_s", 0) * 1e3,
+        decode_iter_p50_ms=metrics.get("serve_decode_iter_s_p50", 0) * 1e3,
+        decode_steps=final["decode_steps_total"],
+        prefills=final["prefills_total"],
+        prefix_hits=final["prefix_hits_total"],
+        kv_bytes_per_token=final["kv_bytes_per_token"],
+        ops=final.get("tp", {}).get("ops"), collectives=coll,
+        host_ms_per_decode_step={
+            k: coll[k][1] / steps for k in ("broadcast", "all_reduce")
+            if k in coll})
+    check(not bad, f"{tag}: greedy tokens of requests {bad[:4]} differ "
+          "from the one-card engine's")
+    check(rcs == [0] * world and res["drained_clean"],
+          f"{tag}: after SIGTERM the ranks exited {rcs}, "
+          f"clean={res['drained_clean']}")
+    check(final.get("final") and res["ops"] and res["ops"]["stop"] == 1,
+          f"{tag}: final record {final.get('tp')}")
+    res["one_card_kv_bytes_per_token"] = want["kv_bytes_per_token"]
+    res["one_card_decode_iter_p50_ms"] = want["decode_iter_p50_ms"]
+    check(abs(res["kv_bytes_per_token"] * world
+              - want["kv_bytes_per_token"]) < 0.05 * world,
+          f"{tag}: a rank's pool holds {res['kv_bytes_per_token']} bytes a "
+          f"token, one card's {want['kv_bytes_per_token']}")
+    return res
+
+
+def tp_generate_ranks(world, backend, want, tag) -> dict:
+    """tp_worker's ranks, and their gates against the one-card
+    ``want``: float32 greedy tokens equal (cache and no cache), no
+    flash launch in the cache path, LM_LAYERS flash launches a no-cache
+    forward a rank, the bf16 teacher-forced logits within
+    LM_DECODE_BF16_TOL of the largest."""
+    t0 = time.perf_counter()
+    me = str(Path(__file__).resolve())
+    master = free_port()
+    run_workers([(f"tp_{tag}_rank{r}", [sys.executable, me, "--dp-worker",
+                                        "tp", str(world), str(r), backend])
+                 for r in range(world)],
+                env={f"tp_{tag}_rank{r}": tp_rank_env(world, r, master)
+                     for r in range(world)},
+                log_dir=TP_DIR, timeout=TP_TIMEOUT_S)
+    import torch
+    ranks = [torch.load(TP_DIR / f"tp_{backend}{world}_rank{r}.pt")
+             for r in range(world)]
+    for r, out in enumerate(ranks):
+        check(torch.equal(out["f32_tokens"], want["tokens"]),
+              f"{tag} rank {r}: f32 greedy tokens differ from one card's")
+        check(out["f32_nocache_equal"], f"{tag} rank {r}: cache and "
+              "no-cache greedy tokens differ")
+        check(all(v == 0 for v in out["cache_launches"].values()),
+              f"{tag} rank {r}: the KV-cache decode launched "
+              f"{out['cache_launches']}")
+        fwd = out["forward_launches"]["flash_attention_forward"]
+        check(fwd == LM_LAYERS, f"{tag} rank {r}: {fwd} flash launches a "
+              f"no-cache forward (want {LM_LAYERS})")
+        check(out["qkv_rows"] == 3 * LM_HIDDEN // world,
+              f"{tag} rank {r}: qkv rows {out['qkv_rows']}")
+        check(out["bf16"]["logits_err_of_max"] <= LM_DECODE_BF16_TOL,
+              f"{tag} rank {r}: bf16 decode logits "
+              f"{out['bf16']['logits_err_of_max']:.3g} of the largest")
+    return dict(
+        s=time.perf_counter() - t0, ranks=world, backend=backend,
+        flash_launches_per_forward=[
+            o["forward_launches"]["flash_attention_forward"] for o in ranks],
+        bf16=[o["bf16"] for o in ranks],
+        collectives=[o["collectives"] for o in ranks])
+
+
+def tp_generate_cli(world, want) -> dict:
+    """``torchrun --standalone --nproc-per-node world -m
+    tpunet_torch.infer.generate --mesh-model world`` (gloo ranks sharing
+    the card) in float32: the printed ids are the prompt and one card's
+    greedy tokens."""
+    import torch
+    prompt = tp_prompts(torch)[0, :32].tolist()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), "-m", "tpunet_torch.infer.generate",
+         "--checkpoint-dir", "", *LM_FLAGS[2:8], "--max-seq-len", str(LM_T),
+         "--dtype", "float32", "--mesh-model", str(world),
+         "--dist-backend", "gloo", "--prompt-format", "ids", "--prompt",
+         " ".join(map(str, prompt)), "--tokens", str(TP_CLI_NEW)],
+        cwd=ROOT, capture_output=True, text=True, timeout=TP_TIMEOUT_S)
+    (TP_DIR / "generate_cli.log").write_text(out.stdout + out.stderr)
+    check(out.returncode == 0, f"torchrun generate exited "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"torchrun generate printed {lines[:3]}")
+    got = [int(t) for t in lines[0].split()]
+    check(got == want["cli"], "torchrun generate's f32 greedy tokens differ "
+          "from one card's")
+    return dict(ranks=world, tokens=len(got) - len(prompt),
+                wall_s=time.perf_counter() - t0)
+
+
+def phase_tp_serve(torch, runs=((2, "gloo"),)) -> dict:
+    """Tensor-parallel generation and serving at the LM's full width (12
+    blocks) on ``runs`` (ranks, backend): for each, tp_worker's ranks
+    (tp_generate_ranks) and the server (tp_server); on the first, also
+    the torchrun generate CLI, launched beside the ranks. All against
+    the one-card references of this process (tp_one_card)."""
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    want = tp_one_card(torch)
+    res = {"one_card_s": time.perf_counter() - t0}
+    for i, (world, backend) in enumerate(runs):
+        tag = f"{backend}{world}"
+        cli = {}
+        th = None
+        if i == 0 and backend == "gloo":
+            def run_cli_ranks():
+                try:
+                    cli.update(tp_generate_cli(world, want))
+                except PhaseError as e:
+                    cli["failed"] = str(e)
+            th = threading.Thread(target=run_cli_ranks)
+            th.start()
+        try:
+            gen = tp_generate_ranks(world, backend, want, tag)
+        finally:
+            if th is not None:
+                th.join()
+        check("failed" not in cli, cli.get("failed", ""))
+        serve = tp_server(world, backend, want, tag)
+        res[tag] = dict(generate=gen, generate_cli=cli or None, serve=serve)
+    res["s"] = time.perf_counter() - t0
+    emit("tp_serve", **res)
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6836,6 +7226,8 @@ def main() -> int:
         pipe = timed(phase_pipe_trainer, torch)
         check(not pipe["failed"], "pipe_trainer: " + "; ".join(
             pipe["failed"][:6]))
+        torch.cuda.empty_cache()
+        tp = timed(phase_tp_serve, torch)
     except PhaseError as e:
         emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -6924,6 +7316,13 @@ def main() -> int:
         entry["pipe_trainer"] = {
             run: [pipe[run][f"rank{r}"]["launches_per_step"][name]
                   for r in range(2)] for run in PIPE_RUNS}
+        if name == "flash_attention_forward":
+            # A rank's launches a no-cache forward of the LM at
+            # --mesh-model 2 (tp_serve; 6 heads a rank); the KV-cache
+            # decode and the engine's steps launch none.
+            entry["tp_serve"] = {
+                "launches_per_no_cache_forward":
+                    tp["gloo2"]["generate"]["flash_launches_per_forward"]}
         kernels.append(entry)
     emit("summary", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
          serve_depthwise_launches=serve_launches,
@@ -6942,6 +7341,9 @@ def main() -> int:
          router_s=router["s"], trainer_item2b_s=item2b["s"],
          sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"],
          moe_trainer_s=moe["s"], pipe_trainer_s=pipe["s"],
+         tp_serve_s=tp["s"],
+         tp_serve_generated_tokens_per_s=tp["gloo2"]["serve"][
+             "generated_tokens_per_s"],
          moe_step_vs_dense={f: r["step_vs_dense"]
                             for f, r in moe["bf16"].items()},
          moe_dropped_share={f: r["moe"]["dropped_share"]
@@ -6965,7 +7367,9 @@ def four_cards() -> int:
     the LM's ring at ``--mesh-seq 4`` and Ulysses at data 1 x seq 2 x
     model 2 (phase_seq_trainer, readings) against one card, the MoE LM's
     alltoall at data 2 x model 2, and the pipeline runs of
-    PIPE_RUNS_FOUR (phase_pipe_trainer, readings and its gates).
+    PIPE_RUNS_FOUR (phase_pipe_trainer, readings and its gates), and
+    tensor-parallel generation and serving at --mesh-model 2 and 4
+    (phase_tp_serve over NCCL, its gates).
     Prints the card line and one JSON object; exits 0 when all hold."""
     import importlib.util
 
@@ -7038,13 +7442,21 @@ def four_cards() -> int:
                                   runs=PIPE_RUNS_FOUR)
     except PhaseError as e:
         pipe = {"failed": [str(e)]}
+    # Tensor-parallel generation and serving over NCCL, a card a rank: the
+    # LM at 12 blocks at --mesh-model 2 and 4 against one card, with
+    # tp_serve's gates (any failed gate fails the run).
+    try:
+        tpn = phase_tp_serve(torch, runs=((2, "nccl"), (4, "nccl")))
+    except PhaseError as e:
+        tpn = {"failed": str(e)}
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
               for k in ("train_loss", "test_loss"))
           and all(abs(diff[k]) <= dpc.ACC_TOL
                   for k in ("train_accuracy", "test_accuracy"))
-          and "failed" not in shard and not pipe["failed"])
+          and "failed" not in shard and not pipe["failed"]
+          and "failed" not in tpn)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"mix_fetch_nccl": fetch, "options": ITEM2B_OPTIONS,
                       "world_4": many, "world_1": one, "diff": diff,
@@ -7053,6 +7465,7 @@ def four_cards() -> int:
                       "sharded_trainer_nccl": shard,
                       "seq_trainer_nccl": seqp, "moe_trainer_nccl": moe,
                       "pipe_trainer_nccl": pipe,
+                      "tp_serve_nccl": tpn,
                       "ok": ok}),
           flush=True)
     return 0 if ok else 1
@@ -7061,6 +7474,8 @@ def four_cards() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--four-cards"]:
         sys.exit(four_cards())
+    if sys.argv[1:3] == ["--dp-worker", "tp"]:
+        sys.exit(tp_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:3] == ["--dp-worker", "shard"]:
         sys.exit(shard_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                               *map(Path, sys.argv[6:7])))

@@ -48,7 +48,17 @@ it computed to ``DIR/<case>_rank<RANK>.pt``:
   the most graphs a stage kept; an interleaved run whose microbatches
   the stages do not divide gives its error. The CLI runs of
   tests/test_torch_{vitpp,lmpp}.py add each rank's pipeline plan
-  (layers, ``max_live``, the last run's ticks and hops).
+  (layers, ``max_live``, the last run's ticks and hops);
+- ``tp_generate``/``tp_int8``/``tp_engine`` (tests/test_torch_tp_serve.py):
+  on a mesh of data 1 x model WORLD, ``load_lm`` of each checkpoint of
+  ``tp_serve.json`` cut for tensor parallelism and ``generate`` (KV
+  cache, no cache, sampled) on its shard; ``quantize_kv_rows`` on the
+  rank's heads of ``tp_int8.npz`` with the absmax over the group, the
+  codes all-gathered; and each engine configuration of the file over
+  its shard, rank 0 serving the prompts while the others follow its op
+  stream (the greedy tokens, the counters, the ops sent, the pool's
+  bytes), then a warm start from the one-card replica's store and the
+  adopted pages read back through the heads' all-gather.
 
 Imports no JAX and nothing of the tpunet package.
 """
@@ -266,6 +276,96 @@ def case_pp_toy(d, world, rank):
     return out
 
 
+TP_LM = dict(vit_hidden=64, vit_depth=2, vit_heads=4, vocab_size=64,
+             max_seq_len=48, dtype="float32", dropout_rate=0.0)
+
+
+def _tp_spec(d):
+    return json.load(open(os.path.join(d, "tp_serve.json")))
+
+
+def case_tp_generate(d, world, rank):
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.models.lm import generate
+    mesh = make_mesh(MeshConfig(data=1, model=world))
+    spec = _tp_spec(d)
+    prompt = torch.tensor(spec["prompt"])
+    n = spec["generate_new"]
+    out = {}
+    for name, entry in spec["generate"].items():
+        cfg = ModelConfig(name=entry["model"], **TP_LM, **entry["moe"])
+        model = load_lm(cfg, os.path.join(d, entry["dir"]), device="cpu",
+                        mesh=mesh)
+        out[name] = dict(
+            cache=generate(model, prompt, n),
+            nocache=generate(model, prompt, n, use_cache=False),
+            sampled=generate(model, prompt, n, temperature=1.5,
+                             generator=torch.Generator().manual_seed(
+                                 rank)),
+            qkv_rows=model.blocks[0].attn.qkv.weight.shape[0],
+            cache_heads=model.init_cache(1, 8).k[0].shape[2])
+    set_mesh(None)
+    return out
+
+
+def case_tp_int8(d, world, rank):
+    from tpunet_torch.models.vit import quantize_kv_rows
+    make_mesh(MeshConfig(data=1, model=world))
+    x = torch.from_numpy(np.load(os.path.join(d, "tp_int8.npz"))["x"])
+    h = x.shape[1] // world
+    codes, scales = quantize_kv_rows(x[:, rank * h:(rank + 1) * h],
+                                     axis_group("model"))
+    every = dist.all_gather(codes, axis_group("model"))
+    set_mesh(None)
+    return dict(codes=torch.cat(list(every.unbind(0)), 1), scales=scales)
+
+
+def case_tp_engine(d, world, rank):
+    from tpunet_torch.config import ServeConfig
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.serve import Engine
+    from tpunet_torch.serve.prefixcache import build_prefix_store
+    mesh = make_mesh(MeshConfig(data=1, model=world))
+    spec = _tp_spec(d)
+    lm_cfg = ModelConfig(name="lm", **TP_LM)
+    model = load_lm(lm_cfg, os.path.join(d, "ck_lm"), device="cpu",
+                    mesh=mesh)
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    out = {}
+    for name, kw in spec["engines"].items():
+        kw = dict(kw)
+        store_dir = kw.pop("store", None)
+        cfg = ServeConfig(**kw)
+        store = (build_prefix_store(os.path.join(d, store_dir), lm_cfg, cfg,
+                                    device="cpu")
+                 if store_dir and rank == 0 else None)
+        eng = Engine(model, cfg, prefix_store=store)
+        row = dict(kv_bytes_per_token=eng.kv_bytes_per_token(),
+                   pool_bytes=eng.kv_pool_bytes())
+        if rank != 0:
+            eng.follow()
+        elif name.startswith("warm"):
+            # The one-card replica's spilled pages through this replica's
+            # warm start (each rank writes its heads), read back whole.
+            eng._warm_start_prefix()
+            row["pages"] = {node.digest: eng._read_page_rows(node.page)
+                            for node in eng._prefix._nodes.values()}
+            eng._stop_followers()
+        else:
+            eng.start()
+            try:
+                reqs = [eng.submit(p, max_new_tokens=spec["new"])
+                        for p in prompts]
+                row["tokens"] = [r.result(timeout=120) for r in reqs]
+            finally:
+                eng.stop()
+            row["snapshot"] = eng.registry.snapshot()
+            row["ops"] = dict(eng.ops_sent)
+        out[name] = row
+    set_mesh(None)
+    return out
+
+
 def case_cli(d, world, rank, name):
     flags = json.load(open(os.path.join(d, "flags.json")))[name]
     seen = {}
@@ -339,6 +439,12 @@ def main() -> int:
             out = case_seq_vit_grad(d, world, rank)
         elif case == "pp_toy":
             out = case_pp_toy(d, world, rank)
+        elif case == "tp_generate":
+            out = case_tp_generate(d, world, rank)
+        elif case == "tp_int8":
+            out = case_tp_int8(d, world, rank)
+        elif case == "tp_engine":
+            out = case_tp_engine(d, world, rank)
         else:
             out = case_cli(d, world, rank, case)
         torch.save(out, os.path.join(d, f"{case}_rank{rank}.pt"))

@@ -75,7 +75,9 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.obs.history.timeline",
                 "tpunet_torch.obs.cli", "tpunet_torch.obs.cli.compare",
                 "tpunet_torch.obs.cli.timeline",
-                "tpunet_torch.obs.cli.dashboard"):
+                "tpunet_torch.obs.cli.dashboard",
+                "tpunet_torch.obs.cli.report",
+                "tpunet_torch.obs.trace_phase"):
         assert mod in res["mods"]
     assert res["bad"] == []
 

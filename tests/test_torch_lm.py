@@ -18,6 +18,8 @@ redrawn from numpy (``_torch_port.lm_params``), carried across with
 - the ``generate`` CLI against tpunet's on the same weights.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -292,15 +294,24 @@ def test_generate_cli_bytes_prompt(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "lm_pp", "--mesh-model", "2"], "item 8e"),
-    (["--mesh-model", "2"], "item 8"),
+    # --mesh-model is ported: the default 3 heads do not split over 2
+    # ranks (exit 2, tpunet's message), and 4 heads need the 2 processes
+    # of a torchrun launch.
+    (["--model", "lm_pp", "--mesh-model", "2"], "^2 --vit-heads 3 not "
+     "divisible by the mesh 'model' axis"),
+    (["--vit-hidden", "32", "--vit-heads", "4", "--mesh-model", "2"],
+     "needs 2 processes, have 1"),
     (["--model", "lm_pp", "--moe-experts", "4", "--mesh-model", "2"],
-     "item 8e"),
+     "^2 --vit-heads 3 not divisible"),
     (["--top-k", "3"], "temperature"),
     (["--tokens", "2000"], "exceeds --max-seq-len"),
     (["--vocab-size", "64", "--prompt-format", "bytes"], "vocab-size 256"),
     (["--prompt-format", "ids", "--prompt", "a b"], "token ids")],
     ids=["lm_pp", "mesh", "moe", "top_k", "too_long", "bytes", "ids"])
-def test_generate_cli_refusals(flags, match):
-    with pytest.raises(SystemExit, match=match):
+def test_generate_cli_refusals(flags, match, capsys):
+    """The refusal's SystemExit (its code or message), then what the CLI
+    said on stderr."""
+    with pytest.raises(SystemExit) as e:
         gen_cli.main(["--device", "cpu", *flags])
+    err = capsys.readouterr().err.split("error: ")[-1]
+    assert re.search(match, f"{e.value.code} {err}")

@@ -297,20 +297,48 @@ def test_drain_under_load_finishes_stream_and_503s_new_requests():
     assert saw_503, "never observed a mid-drain 503 rejection"
 
 
+def _probe_draining(base):
+    """/healthz and /v1/generate both answer 503 "draining" with the
+    drain budget as Retry-After."""
+    for path, body in (("/healthz", None), ("/v1/generate",
+                                            {"prompt": "x"})):
+        data = None if body is None else json.dumps(body).encode()
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(
+                base + path, data), timeout=10)
+        assert e.value.code == 503
+        assert json.loads(e.value.read())["error" if body else "status"] \
+            == "draining"
+        assert int(e.value.headers["Retry-After"]) == 45
+
+
 def test_draining_503_carries_retry_after_header(lm):
     srv = make_server(lm, drain_timeout_s=45.0)
     base = f"http://127.0.0.1:{srv.port}"
     try:
         srv.engine._draining.set()
         srv.engine.queue.close()
-        for path, body in (("/healthz", None), ("/v1/generate",
-                                                {"prompt": "x"})):
-            data = None if body is None else json.dumps(body).encode()
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(urllib.request.Request(
-                    base + path, data), timeout=10)
-            assert e.value.code == 503
-            assert int(e.value.headers["Retry-After"]) == 45
+        # The idle loop may end (draining with no work) before or after
+        # the probe: either way the engine is draining, not dead.
+        _probe_draining(base)
+    finally:
+        srv.drain(timeout=10.0)
+
+
+def test_draining_503_after_the_loop_ended(lm):
+    """The same probes once the engine thread has ended through the drain
+    path (no error): still 503 "draining" with Retry-After, never
+    "unhealthy"."""
+    srv = make_server(lm, drain_timeout_s=45.0)
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        srv.engine._draining.set()
+        srv.engine.queue.close()
+        srv.engine._wake.set()
+        srv.engine._thread.join(timeout=30)
+        assert not srv.engine._thread.is_alive()
+        assert srv.engine.error is None and srv.engine.healthy
+        _probe_draining(base)
     finally:
         srv.drain(timeout=10.0)
 
@@ -333,11 +361,15 @@ def test_serve_cli_argparser_roundtrip_and_refusals(capsys):
         assert e.value.code == 2
     base = ["--checkpoint-dir", "", "--device", "cpu", "--max-seq-len", "64",
             "--prefill-buckets", "16"]
-    for extra, item in ((["--mesh-model", "2"], "item 8"),
+    # --mesh-model is ported: the default 3 heads do not split over 2
+    # ranks (tpunet's message), and 4 heads need torchrun's processes.
+    for extra, item in ((["--mesh-model", "2"], "--vit-heads 3 not "
+                         "divisible by the mesh 'model' axis (2)"),
                         (["--model", "lm_pp", "--mesh-model", "2"],
-                         "item 8e"),
+                         "--vit-heads 3 not divisible"),
                         (["--model", "lm_pp", "--moe-experts", "4",
-                          "--mesh-model", "2"], "item 8e"),
+                          "--mesh-model", "2", "--vit-hidden", "32",
+                          "--vit-heads", "4"], "torchrun"),
                         (["--aot-cache", "d"], "out of scope"),
                         (["--chaos", "boom@tokens=1"], "unknown kind")):
         with pytest.raises(SystemExit) as e:

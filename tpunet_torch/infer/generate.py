@@ -18,15 +18,31 @@ layer order and decodes as the LM; a ``best.pth`` holding tpunet's
 stacked ``lm_pp`` tree (``blocks_*`` leaves) is unstacked first, and
 ``--train-pipe P --pp-virtual v`` (or a ``best_meta.json`` that gives
 them) undo an interleaved run's chunk permutation, as tpunet's
-``--train-pipe`` does. Tensor-parallel serving (``--mesh-model``) is
-refused until ROADMAP Queue A item 8e.
+``--train-pipe`` does.
+
+Tensor parallelism (``--mesh-model M``, tpunet's TP generation): one
+process a rank, ``M`` of them under ``torchrun``, a mesh of data 1 x
+model M; each rank builds and loads the model on the CPU, keeps its
+Megatron shard (``tpunet_torch.parallel.tp``: whole heads, its experts
+of an MoE block) and moves only that to its card, and the generation
+loop runs on every rank over its shard, each new token the first
+rank's (broadcast). Only rank 0 prints. The heads must split evenly
+over M (exit 2 otherwise). NCCL on the card, gloo on the CPU;
+``--dist-backend gloo`` lets ranks share one card.
+
+    torchrun --standalone --nproc-per-node 2 -m tpunet_torch.infer.generate \
+        --checkpoint-dir ckpt --vit-hidden 768 --vit-depth 12 \
+        --vit-heads 12 --mesh-model 2 --prompt "The " --tokens 64
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import os
+import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,13 +54,49 @@ from tpunet_torch.models.convert import (load_state_dict,
                                          lm_state_dict_from_jax,
                                          state_dict_file)
 from tpunet_torch.models.lm import TransformerLM, generate
+from tpunet_torch.parallel import dist
+from tpunet_torch.parallel.mesh import Mesh, make_mesh, set_mesh
 
-_ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
-           "and serving)")
+
+def heads_error(heads: int, model_axis: int) -> Optional[str]:
+    """Why ``heads`` cannot serve over a 'model' axis of ``model_axis``
+    ranks (tpunet's ``load_lm`` check: TP shards attention by head), or
+    None when they split evenly."""
+    if model_axis > 1 and heads % model_axis:
+        return (f"--vit-heads {heads} not divisible by the mesh 'model' "
+                f"axis ({model_axis}) — TP serving shards attention by "
+                "head")
+    return None
+
+
+def init_tensor_parallel(model_axis: int, device: str = "cuda",
+                         backend: Optional[str] = None,
+                         timeout_s: Optional[float] = None
+                         ) -> tuple:
+    """Join this run's process group (``torchrun``'s variables) and lay
+    out the mesh data 1 x model ``model_axis``; returns (the mesh, this
+    rank's device). ``backend`` None: NCCL on the card, gloo on the CPU;
+    ``timeout_s`` bounds every collective. Raises when a rank on the card
+    has no card, or the processes are not ``model_axis``."""
+    from tpunet_torch.config import MeshConfig
+    kind = torch.device(device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--mesh-model on the card: this rank sees no "
+                           "CUDA device (--device cpu runs on the CPU)")
+    dist.initialize_distributed(
+        device=device, backend=backend,
+        timeout=None if timeout_s is None
+        else datetime.timedelta(seconds=timeout_s))
+    mesh = make_mesh(MeshConfig(data=1, model=model_axis))
+    device = dist.local_device(kind)
+    if kind == "cuda":
+        torch.cuda.set_device(device)
+    return mesh, device
 
 
 def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
-            device: str = "cuda", train_pipe: int = 0) -> TransformerLM:
+            device: str = "cuda", train_pipe: int = 0,
+            mesh: Optional[Mesh] = None) -> TransformerLM:
     """The LM of ``model_cfg`` on ``device`` with the weights of
     ``<checkpoint_dir>/best.pth``; an empty ``checkpoint_dir`` serves the
     seeded random init (``create_model``'s generator seeded with 0), as
@@ -52,18 +104,31 @@ def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
     (tpunet's ``load_lm``): the LM decodes the pipeline-trained weights;
     a stacked tree is unstacked (``train_pipe`` > 0 with the config's
     ``pp_virtual``, or the sidecar's layout, marks an interleaved run's
-    chunk-permuted stacks)."""
+    chunk-permuted stacks).
+
+    ``mesh`` with a 'model' axis above 1: tensor-parallel serving. The
+    model is built and loaded on the CPU (the checkpoint mapped, not
+    read, so a rank never holds two whole copies), cut to this rank's
+    Megatron shard (``convert.shard_model``: qkv/fc1 column-, out/fc2
+    row-parallel, an MoE block's experts over 'model' and its router
+    whole), and only the shard moves to ``device``. Raises when the
+    heads do not split evenly."""
     if model_cfg.name not in ("lm", "lm_pp"):
         raise ValueError(f"generation needs the 'lm' (or 'lm_pp') "
                          f"model, got {model_cfg.name!r}")
-    model = create_model(dataclasses.replace(model_cfg, name="lm"),
-                         device=device)
+    lm_cfg = dataclasses.replace(model_cfg, name="lm")
+    tp = mesh is not None and mesh.shape["model"] > 1
+    if tp:
+        why = heads_error(lm_cfg.vit_heads, mesh.shape["model"])
+        if why:
+            raise ValueError(why)
+    model = create_model(lm_cfg, device="cpu" if tp else device)
     if checkpoint_dir:
         path = os.path.join(checkpoint_dir, BEST)
         if not os.path.exists(path):
             raise FileNotFoundError(f"no best checkpoint under "
                                     f"{checkpoint_dir!r}")
-        sd = state_dict_file(path)
+        sd = state_dict_file(path, mmap=tp)
         if model_cfg.name == "lm_pp" and "blocks_qkv_k" in sd:
             virtual = model_cfg.pp_virtual
             meta = Checkpointer(CheckpointConfig(
@@ -76,6 +141,13 @@ def load_lm(model_cfg: ModelConfig, checkpoint_dir: str,
                   else {})
             sd = lm_state_dict_from_jax(sd, **kw)
         load_state_dict(model, sd)
+    if tp:
+        from tpunet_torch.models.convert import shard_model
+        from tpunet_torch.parallel.tp import layout
+        table = layout({k: tuple(p.shape) for k, p in
+                        model.named_parameters()}, lm_cfg, mesh.shape)
+        shard_model(model, table, lm_cfg)
+        model = model.to(device)
     return model
 
 
@@ -122,11 +194,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--vit-heads", type=int, default=3)
     p.add_argument("--vocab-size", type=int, default=256)
     p.add_argument("--max-seq-len", type=int, default=1024)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="activation dtype (the parameters stay float32)")
     p.add_argument("--moe-experts", type=int, default=0)
     p.add_argument("--moe-every", type=int, default=2)
     p.add_argument("--moe-top-k", type=int, default=2)
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
-    p.add_argument("--mesh-model", type=int, default=0)
+    p.add_argument("--mesh-model", type=int, default=0,
+                   help="tensor-parallel generation over this many ranks "
+                        "(one process a rank, under torchrun)")
+    p.add_argument("--dist-backend", choices=("auto", "nccl", "gloo"),
+                   default="auto",
+                   help="--mesh-model's process group: auto = NCCL on "
+                        "the card, gloo on the CPU; gloo lets ranks share "
+                        "one card")
     p.add_argument("--train-pipe", type=int, default=0)
     p.add_argument("--pp-virtual", type=int, default=2)
     p.add_argument("--prompt-format", choices=("auto", "bytes", "ids"),
@@ -141,8 +223,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    if args.mesh_model:
-        raise SystemExit(f"--mesh-model (tensor-parallel serving) {_ITEM8E}")
+    why = heads_error(args.vit_heads, args.mesh_model)
+    if why:
+        print(f"python -m tpunet_torch.infer.generate: error: {why}",
+              file=sys.stderr, flush=True)
+        raise SystemExit(2)
     byte_prompt = (args.vocab_size == 256 if args.prompt_format == "auto"
                    else args.prompt_format == "bytes")
     if byte_prompt and args.vocab_size != 256:
@@ -159,12 +244,14 @@ def main(argv=None) -> None:
                           vit_depth=args.vit_depth, vit_heads=args.vit_heads,
                           vocab_size=args.vocab_size,
                           max_seq_len=args.max_seq_len, dropout_rate=0.0,
+                          dtype=args.dtype,
                           moe_experts=args.moe_experts,
                           moe_every=args.moe_every, moe_top_k=args.moe_top_k,
                           moe_capacity_factor=args.moe_capacity_factor,
                           pp_virtual=args.pp_virtual)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
+    prompt_toks = None
     if byte_prompt:
         prompt_len = len(args.prompt.encode("utf-8"))
         if prompt_len == 0:
@@ -188,19 +275,39 @@ def main(argv=None) -> None:
     if prompt_len + args.tokens > cfg.max_seq_len:
         raise SystemExit(f"prompt+tokens = {prompt_len + args.tokens} "
                          f"exceeds --max-seq-len {cfg.max_seq_len}")
+    if args.mesh_model <= 1:
+        _generate_and_print(args, cfg, args.device, None, prompt_toks)
+        return
+    try:
+        try:
+            mesh, device = init_tensor_parallel(
+                args.mesh_model, args.device,
+                None if args.dist_backend == "auto" else args.dist_backend)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        _generate_and_print(args, cfg, device, mesh, prompt_toks)
+    finally:
+        dist.destroy()
+        set_mesh(None)
+
+
+def _generate_and_print(args, cfg, device, mesh, prompt_toks) -> None:
+    """Load, generate and (rank 0 alone under a mesh) print: the UTF-8
+    continuation of ``--prompt``, or the ids after ``prompt_toks``."""
     model = load_lm(cfg, checkpoint_dir=args.checkpoint_dir,
-                    device=args.device, train_pipe=args.train_pipe)
-    if byte_prompt:
-        text = generate_text(model, args.prompt, args.tokens,
-                             temperature=args.temperature, top_k=args.top_k,
-                             top_p=args.top_p, seed=args.seed)
-        print(args.prompt + text)
+                    device=device, train_pipe=args.train_pipe, mesh=mesh)
+    if prompt_toks is None:
+        out = args.prompt + generate_text(
+            model, args.prompt, args.tokens, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p, seed=args.seed)
     else:
-        out = generate(model, torch.tensor([prompt_toks]), args.tokens,
-                       temperature=args.temperature, top_k=args.top_k,
-                       top_p=args.top_p,
-                       generator=_generator(model, args.seed))
-        print(" ".join(str(t) for t in out[0].tolist()))
+        toks = generate(model, torch.tensor([prompt_toks]), args.tokens,
+                        temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p,
+                        generator=_generator(model, args.seed))
+        out = " ".join(str(t) for t in toks[0].tolist())
+    if dist.process_index() == 0:
+        print(out, flush=True)
 
 
 if __name__ == "__main__":

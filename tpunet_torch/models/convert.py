@@ -398,9 +398,12 @@ def load_state_dict(model: torch.nn.Module, obj: Mapping) -> bool:
     return head_ok
 
 
-def state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of a ``.pth`` file, on the CPU."""
-    return _unwrap(torch.load(path, map_location="cpu", weights_only=True))
+def state_dict_file(path: str, mmap: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``.pth`` file, on the CPU; ``mmap``: its
+    tensors map the file rather than being read into memory."""
+    return _unwrap(torch.load(path, map_location="cpu", weights_only=True,
+                              mmap=mmap))
 
 
 def load_state_dict_file(path: str, model: torch.nn.Module) -> bool:

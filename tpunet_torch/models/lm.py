@@ -69,6 +69,7 @@ from tpunet_torch.models.vit import (AttnFn, Dense, Encoder, KVCache,
                                      _lecun_normal_, init_moe, make_attn_fn,
                                      make_blocks, moe_kwargs)
 from tpunet_torch.ops.attention import dense_attention
+from tpunet_torch.parallel.dist import broadcast
 
 
 class Embed(nn.Module):
@@ -124,20 +125,21 @@ class TransformerLM(Encoder):
         return TransformerLM(**kw)
 
     def init_cache(self, batch: int, total: int) -> KVCache:
-        """An empty decode cache for ``batch`` rows of ``total`` positions,
-        on the parameters' device, in the activation dtype."""
-        hidden = self.pos_embed.shape[-1]
-        return KVCache.zeros(len(self.blocks), batch, total, self.heads,
-                             hidden // self.heads, self.dtype,
-                             self.pos_embed.device)
+        """An empty decode cache for ``batch`` rows of ``total`` positions
+        of this rank's heads (all of them without tensor parallelism:
+        tpunet shards the dense pool's head dim over 'model'), on the
+        parameters' device, in the activation dtype."""
+        return KVCache.zeros(len(self.blocks), batch, total,
+                             self.local_heads, self.hidden // self.heads,
+                             self.dtype, self.pos_embed.device)
 
     def init_paged_cache(self, paged_kv: PagedKV) -> KVCache:
         """An empty shared page pool of ``paged_kv``'s geometry, per layer
-        [pages * page_tokens, heads, head_dim] (and the float32 row scales
-        of int8 pages), on the parameters' device."""
-        hidden = self.pos_embed.shape[-1]
-        return KVCache.paged(len(self.blocks), paged_kv, self.heads,
-                             hidden // self.heads, self.dtype,
+        [pages * page_tokens, heads, head_dim] at this rank's heads (and
+        the float32 row scales of int8 pages, whole on every rank), on
+        the parameters' device."""
+        return KVCache.paged(len(self.blocks), paged_kv, self.local_heads,
+                             self.hidden // self.heads, self.dtype,
                              self.pos_embed.device)
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
@@ -288,7 +290,9 @@ def generate(model: TransformerLM, prompt: torch.Tensor, n_new: int, *,
     ``use_cache`` says: the whole forward over the tokens so far for
     every new token. New token j draws the j-th sample from
     ``generator`` (on the model's device; seeded 0 when None) on every
-    path."""
+    path. Under tensor parallelism every rank of the 'model' group runs
+    this loop over its shard and each new token is the group's first
+    rank's choice (a broadcast a step)."""
     device = model.pos_embed.device
     prompt = prompt.to(device=device, dtype=torch.long)
     b, t0 = prompt.shape
@@ -301,10 +305,14 @@ def generate(model: TransformerLM, prompt: torch.Tensor, n_new: int, *,
 
     def pick(lg: torch.Tensor) -> torch.Tensor:
         if temperature <= 0:
-            return lg.argmax(-1)
-        lg = filter_logits(lg / temperature, top_k=top_k, top_p=top_p)
-        return torch.multinomial(torch.softmax(lg, -1), 1,
-                                 generator=generator)[:, 0]
+            tok = lg.argmax(-1)
+        else:
+            lg = filter_logits(lg / temperature, top_k=top_k, top_p=top_p)
+            tok = torch.multinomial(torch.softmax(lg, -1), 1,
+                                    generator=generator)[:, 0]
+        # Tensor parallelism: the group takes its first rank's choice, so
+        # no two ranks' streams can part over a last bit of the logits.
+        return broadcast(tok, model.tp_group_or_self)
 
     buf = torch.zeros((b, total), dtype=torch.long, device=device)
     buf[:, :t0] = prompt

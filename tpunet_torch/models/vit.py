@@ -111,7 +111,8 @@ from tpunet_torch.ops.attention import (_NEG_INF, blockwise_attention,
                                         dense_attention, ring_self_attention,
                                         ulysses_self_attention)
 from tpunet_torch.ops.flash import flash_attention
-from tpunet_torch.parallel.dist import (all_reduce_sum, copy_to_group,
+from tpunet_torch.parallel.dist import (SELF, all_reduce_max,
+                                        all_reduce_sum, copy_to_group,
                                         group_size, reduce_from_group)
 from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 
@@ -293,7 +294,8 @@ class PagedKV:
         return self.dtype == "int8"
 
 
-def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_rows(x: torch.Tensor, group=SELF
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization of ``x`` [N, H, D] a token row, tpunet's
     ``_quantize_kv_rows`` (``tpunet/models/vit.py:87-96``): each row over
     its own absmax across (H, D) in float32, so one outlier token cannot
@@ -302,9 +304,13 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     even and clamped to +-127. Both divisions are true divisions on both
     devices: CUDA divides by a CPU scalar as a multiply by its reciprocal,
     which rounds differently, so 127 is a tensor on ``x``'s device.
+    Under tensor parallelism ``x`` holds this rank's heads and ``group``
+    is the 'model' group: the absmax is taken over every rank's heads
+    (an all-reduce max, as GSPMD reduces tpunet's over the shards), so
+    the scales are one card's and the codes its heads' codes.
     Returns (int8 codes [N, H, D], float32 scales [N])."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(1, 2))
+    amax = all_reduce_max(xf.abs().amax(dim=(1, 2)), group)
     scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
                         torch.ones_like(amax))
     q = torch.round(xf / scale[:, None, None]).clamp(-127, 127)
@@ -406,8 +412,8 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         page_tokens: int,
                         active: Optional[torch.Tensor] = None,
                         scale_k: Optional[torch.Tensor] = None,
-                        scale_v: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        scale_v: Optional[torch.Tensor] = None,
+                        group=SELF) -> torch.Tensor:
     """Attention of new tokens against a shared page pool, tpunet's
     ``_paged_decode_attend`` (``tpunet/models/vit.py:216-320``).
 
@@ -427,7 +433,8 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32): the new rows are quantized (:func:`quantize_kv_rows`) and
     their scales written by the same indices; the gather dequantizes,
     codes times scale in float32, then casts to q's dtype, as tpunet
-    does."""
+    does; under tensor parallelism ``group`` is the 'model' group the
+    quantizer takes its row absmax over."""
     b, t, h, d = k.shape
     pt = int(page_tokens)
     slots = page_table.shape[1]
@@ -450,7 +457,7 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         for pool, scales, x in ((cached_k, scale_k, k_rows),
                                 (cached_v, scale_v, v_rows)):
-            codes, s = quantize_kv_rows(x)
+            codes, s = quantize_kv_rows(x, group)
             pool.index_copy_(0, flat, codes)
             scales.index_copy_(0, flat, s)
         kf = (cached_k.index_select(0, rows).float()
@@ -462,9 +469,10 @@ def paged_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _masked_attend(q, kf, vf, pos_t)
 
 
-def _layer_attend(cache: KVCache, i: int,
-                  step: Optional[ServeStep]) -> AttnFn:
-    """Layer ``i``'s decode attend against ``cache``."""
+def _layer_attend(cache: KVCache, i: int, step: Optional[ServeStep],
+                  group=SELF) -> AttnFn:
+    """Layer ``i``'s decode attend against ``cache`` (``group``: the
+    tensor-parallel group of int8 pages' quantizer)."""
     ck, cv = cache.k[i], cache.v[i]
     if step is None:
         return functools.partial(decode_attend, cached_k=ck, cached_v=cv,
@@ -472,7 +480,8 @@ def _layer_attend(cache: KVCache, i: int,
     if step.paged_kv is not None:
         scales = {}
         if step.paged_kv.quantized:
-            scales = dict(scale_k=cache.sk[i], scale_v=cache.sv[i])
+            scales = dict(scale_k=cache.sk[i], scale_v=cache.sv[i],
+                          group=group)
         return functools.partial(
             paged_decode_attend, cached_k=ck, cached_v=cv,
             positions=step.positions, page_table=step.page_table,
@@ -582,6 +591,18 @@ class Encoder(nn.Module):
         """Compute as one rank of the tensor-parallel ``group``: the
         blocks' TP leaves must hold this rank's pieces."""
         self.tensor_parallel, self.tp_group = True, group
+
+    @property
+    def tp_group_or_self(self):
+        """The tensor-parallel group, ``dist.SELF`` without tensor
+        parallelism (a group of None is the whole world)."""
+        return self.tp_group if self.tensor_parallel else SELF
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes: its share of the 'model' group
+        under tensor parallelism, all of them otherwise."""
+        return self.heads // group_size(self.tp_group_or_self)
 
     def set_expert_parallel(self, group) -> None:
         """Compute the MoE blocks as one rank of the expert-parallel
@@ -752,7 +773,8 @@ class Encoder(nn.Module):
                 x = self._remat_block(blk, x, drop, segment_ids, aux)
             else:
                 attend = (None if cache is None
-                          else _layer_attend(cache, i, step))
+                          else _layer_attend(cache, i, step,
+                                             self.tp_group_or_self))
                 x = self._block(blk, x, train, drop, segment_ids, attend,
                                 aux)
         self._aux = aux or []

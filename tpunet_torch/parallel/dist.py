@@ -15,8 +15,10 @@ them. The backend follows the device: NCCL for CUDA, gloo for the CPU.
 Every collective of the port goes through :func:`all_reduce`,
 :func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_max`,
 :func:`fetch_rows` (mixup's partner rows), :func:`ppermute` (the ring's
-neighbour hop), :func:`all_to_all` (Ulysses' re-sharding) or
-:func:`pipe_hop` (a pipeline tick's stage-to-stage hops), which
+neighbour hop), :func:`all_to_all` (Ulysses' re-sharding),
+:func:`pipe_hop` (a pipeline tick's stage-to-stage hops) or
+:func:`broadcast` (the tensor-parallel engine's op stream and the
+generation loop's chosen tokens, from the group's first rank), which
 count their calls
 (``all_reduce.calls``, ...) and the host seconds spent inside them
 (``all_reduce.seconds``, ...; NCCL returns once the collective is
@@ -72,7 +74,9 @@ def initialize_distributed(init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
                            rank: Optional[int] = None,
                            backend: Optional[str] = None,
-                           device: str = "cuda") -> None:
+                           device: str = "cuda",
+                           timeout: Optional[datetime.timedelta] = None
+                           ) -> None:
     """Join the process group of this run; a no-op when one exists.
 
     ``world_size`` and ``rank`` default to ``WORLD_SIZE`` (1) and
@@ -81,7 +85,9 @@ def initialize_distributed(init_method: Optional[str] = None,
     without an address takes an in-memory store. ``backend`` defaults to
     NCCL when ``device`` is a CUDA device and gloo otherwise; two ranks
     that share one card pass ``backend="gloo"``, since NCCL refuses
-    them."""
+    them. ``timeout`` bounds every rendezvous and collective (``TIMEOUT``
+    by default): the tensor-parallel server sets its own, so that a dead
+    rank fails the others' collectives in that time."""
     if is_initialized():
         return
     env = os.environ
@@ -93,7 +99,7 @@ def initialize_distributed(init_method: Optional[str] = None,
     kind = torch.device(device).type
     backend = backend or ("nccl" if kind == "cuda" else "gloo")
     kw = {"backend": backend, "world_size": world_size, "rank": rank,
-          "timeout": TIMEOUT}
+          "timeout": TIMEOUT if timeout is None else timeout}
     if init_method is None and env.get("MASTER_ADDR"):
         init_method = "env://"
     if init_method is not None:
@@ -258,6 +264,23 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
 
 reduce_scatter.calls = 0
 reduce_scatter.seconds = 0.0
+
+
+def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` of the first rank of ``group`` (None: all ranks) written
+    into ``t`` on every rank, in place, and returned; counted in
+    ``broadcast.calls``. The identity on a group of one rank. Every rank
+    passes a tensor of the same size and dtype."""
+    if group_size(group) == 1:
+        return t
+    t0 = time.perf_counter()
+    dist.broadcast(t, group=group, group_src=0)
+    _counted(broadcast, t0)
+    return t
+
+
+broadcast.calls = 0
+broadcast.seconds = 0.0
 
 
 def collective_counts() -> dict:
@@ -578,7 +601,7 @@ def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
 
 
 _COUNTED = (all_reduce, all_reduce_max, all_gather, reduce_scatter, fetch_rows,
-            ppermute, all_to_all, pipe_hop)
+            ppermute, all_to_all, pipe_hop, broadcast)
 
 
 def agree_any(tag: str, flag: bool,

@@ -12,9 +12,24 @@ connections. Flags and exit-2 usage errors are tpunet's, plus
 ``--device`` (``cuda`` by default; ``cpu`` is the only way to serve on
 the CPU). ``--model lm_pp`` serves a pipeline-trained checkpoint as the
 LM (``--train-pipe``/``--pp-virtual`` as ``infer.generate`` reads
-them). The flags of what is not ported yet exit 2 naming their
-ROADMAP item; ``--aot-cache`` exits 2 with the reason it is out of
-scope.
+them). ``--aot-cache`` exits 2 with the reason it is out of scope.
+
+Tensor-parallel serving (``--mesh-model M``): one process a rank, M of
+them under ``torchrun``, the mesh data 1 x model M; each rank loads its
+Megatron shard (``infer.generate.load_lm``) and the engine runs in
+lockstep over the group (``serve/engine.py``). Rank 0 binds ``--port``
+and runs the frontend, the optional classify worker, the metrics and
+the flight recorder; the other ranks run no server and follow rank 0's
+op stream until its stop. SIGTERM/SIGINT drain rank 0 (the other ranks
+ignore them: torchrun signals every rank), and its stop ends every rank
+with exit 0. ``--tp-timeout-s`` bounds every collective: a dead rank
+fails the others' within it (rank 0's engine turns unhealthy). The
+heads must split evenly over M (exit 2). NCCL on the card, gloo on the
+CPU; ``--dist-backend gloo`` lets ranks share one card.
+
+    torchrun --standalone --nproc-per-node 2 -m tpunet_torch.serve \
+        --checkpoint-dir ckpt --vit-hidden 768 --vit-depth 12 \
+        --vit-heads 12 --mesh-model 2
 """
 
 from __future__ import annotations
@@ -26,8 +41,6 @@ import sys
 import threading
 
 _PROG = "python -m tpunet_torch.serve"
-_ITEM8E = ("comes with ROADMAP Queue A item 8e (tensor-parallel generation "
-           "and serving)")
 
 
 def parse_prefill_buckets(spec, max_seq_len: int):
@@ -212,13 +225,26 @@ def build_argparser():
     p.add_argument("--vit-heads", type=int, default=3)
     p.add_argument("--vocab-size", type=int, default=256)
     p.add_argument("--max-seq-len", type=int, default=1024)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="activation dtype (the parameters stay float32)")
     p.add_argument("--moe-experts", type=int, default=0)
     p.add_argument("--moe-every", type=int, default=2)
     p.add_argument("--moe-top-k", type=int, default=2)
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
     p.add_argument("--mesh-model", type=int, default=0,
-                   help="tensor-parallel serving (not ported yet: "
-                        "ROADMAP Queue A item 8e)")
+                   help="tensor-parallel serving over this many ranks "
+                        "(one process a rank, under torchrun; the heads "
+                        "must split evenly)")
+    p.add_argument("--dist-backend", choices=("auto", "nccl", "gloo"),
+                   default="auto",
+                   help="--mesh-model's process group: auto = NCCL on "
+                        "the card, gloo on the CPU; gloo lets ranks "
+                        "share one card")
+    p.add_argument("--tp-timeout-s", type=float, default=60.0,
+                   help="--mesh-model: how long a collective waits for "
+                        "the other ranks before it fails (a dead rank "
+                        "turns rank 0's engine unhealthy in this time)")
     p.add_argument("--train-pipe", type=int, default=0)
     p.add_argument("--pp-virtual", type=int, default=2)
     # Optional classifier endpoint.
@@ -232,15 +258,15 @@ def build_argparser():
     return p
 
 
-def build_server(args):
-    """Construct (but do not start) the ServeServer from parsed args —
-    shared by main() and tests. Usage errors exit 2 before the model
-    loads."""
+def _check_usage(args) -> tuple:
+    """The usage errors that exit 2 before anything loads or joins a
+    group; returns the prefill buckets."""
     buckets = parse_prefill_buckets(args.prefill_buckets,
                                     args.max_seq_len)
-    if args.mesh_model > 1:
-        raise _usage(f"--mesh-model is not ported to tpunet_torch yet; it "
-                     f"{_ITEM8E}")
+    from tpunet_torch.infer.generate import heads_error
+    why = heads_error(args.vit_heads, args.mesh_model)
+    if why:
+        raise _usage(why)
     if args.chaos:
         # Like the bucket list: a typo'd chaos spec is a loud exit 2
         # BEFORE the model loads, not a mid-serve raise.
@@ -249,21 +275,12 @@ def build_server(args):
             ServeChaos.parse(args.chaos)
         except ServeChaosError as e:
             raise _usage(str(e))
+    return buckets
 
-    from tpunet_torch.ckpt import BEST
-    from tpunet_torch.config import (DataConfig, ExportConfig, ModelConfig,
-                                     ServeConfig)
-    from tpunet_torch.infer.generate import load_lm
-    from tpunet_torch.infer.predict import Predictor
-    from tpunet_torch.obs import flightrec
-    from tpunet_torch.obs.export import build_exporters
-    from tpunet_torch.obs.registry import JsonlSink
-    from tpunet_torch.serve.classify import ClassifyBatcher
-    from tpunet_torch.serve.engine import Engine
-    from tpunet_torch.serve.frontend import ServeServer
-    from tpunet_torch.serve.prefixcache import build_prefix_store
-    from tpunet_torch.utils.logging import MetricsLogger
 
+def _configs(args, buckets) -> tuple:
+    """(ServeConfig, ModelConfig) of the flags; a bad value exits 2."""
+    from tpunet_torch.config import ModelConfig, ServeConfig
     try:
         cfg = ServeConfig(
             host=args.host, port=args.port, slots=args.slots,
@@ -290,20 +307,49 @@ def build_server(args):
             name=args.model, vit_hidden=args.vit_hidden,
             vit_depth=args.vit_depth, vit_heads=args.vit_heads,
             vocab_size=args.vocab_size, max_seq_len=args.max_seq_len,
-            dropout_rate=0.0, moe_experts=args.moe_experts,
+            dropout_rate=0.0, dtype=args.dtype, moe_experts=args.moe_experts,
             moe_every=args.moe_every, moe_top_k=args.moe_top_k,
             moe_capacity_factor=args.moe_capacity_factor,
             pp_virtual=args.pp_virtual)
     except (NotImplementedError, ValueError) as e:
         raise _usage(str(e))
+    return cfg, model_cfg
+
+
+def build_server(args, device=None, mesh=None):
+    """Construct (but do not start) the ServeServer from parsed args —
+    shared by main() and tests. Usage errors exit 2 before the model
+    loads. ``device`` and ``mesh``: a tensor-parallel rank 0's card and
+    mesh (``main`` joins the group first)."""
+    buckets = _check_usage(args)
+    if args.mesh_model > 1 and mesh is None:
+        raise _usage("--mesh-model runs one process a rank: launch it "
+                     "with torchrun --nproc-per-node "
+                     f"{args.mesh_model}")
+
+    from tpunet_torch.ckpt import BEST
+    from tpunet_torch.config import DataConfig, ExportConfig, ModelConfig
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.infer.predict import Predictor
+    from tpunet_torch.obs import flightrec
+    from tpunet_torch.obs.export import build_exporters
+    from tpunet_torch.obs.registry import JsonlSink
+    from tpunet_torch.serve.classify import ClassifyBatcher
+    from tpunet_torch.serve.engine import Engine
+    from tpunet_torch.serve.frontend import ServeServer
+    from tpunet_torch.serve.prefixcache import build_prefix_store
+    from tpunet_torch.utils.logging import MetricsLogger
+
+    cfg, model_cfg = _configs(args, buckets)
+    device = device or args.device
     model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
-                    device=args.device, train_pipe=args.train_pipe)
+                    device=device, train_pipe=args.train_pipe, mesh=mesh)
     # The engine serves the LM whatever the checkpoint's training model.
     model_cfg = dataclasses.replace(model_cfg, name="lm")
     prefix_store = None
     if cfg.prefix_store and cfg.prefix_cache and cfg.paged_kv:
         prefix_store = build_prefix_store(cfg.prefix_store, model_cfg, cfg,
-                                          device=args.device)
+                                          device=str(device))
     engine = Engine(model, cfg, prefix_store=prefix_store)
     registry = engine.registry
 
@@ -334,7 +380,7 @@ def build_server(args):
                                   dropout_rate=0.0),
             data_cfg=DataConfig(image_size=args.classifier_image_size),
             checkpoint=os.path.join(args.classifier_checkpoint_dir, BEST),
-            device=args.device)
+            device=device)
         batcher = ClassifyBatcher(pred,
                                   batch_max=cfg.classify_batch_max,
                                   window_ms=cfg.classify_window_ms,
@@ -346,14 +392,59 @@ def build_server(args):
                        flight_recorder=recorder)
 
 
+def follow(args, device, mesh) -> int:
+    """A tensor-parallel rank after the first: its shard and pools, then
+    rank 0's op stream until its stop (exit 0); SIGTERM and SIGINT are
+    rank 0's to act on."""
+    from tpunet_torch.infer.generate import load_lm
+    from tpunet_torch.serve.engine import Engine
+
+    cfg, model_cfg = _configs(args, _check_usage(args))
+    # Chaos, metrics and the prefix store are rank 0's: a follower holds
+    # device state only.
+    cfg = dataclasses.replace(cfg, chaos="", prefix_store="")
+    model = load_lm(model_cfg, checkpoint_dir=args.checkpoint_dir,
+                    device=device, train_pipe=args.train_pipe, mesh=mesh)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    Engine(model, cfg).follow()
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    server = build_server(args)
+    if args.mesh_model <= 1:
+        return serve(args)
+    _check_usage(args)
+    from tpunet_torch.infer.generate import init_tensor_parallel
+    from tpunet_torch.parallel import dist
+    try:
+        try:
+            mesh, device = init_tensor_parallel(
+                args.mesh_model, args.device,
+                None if args.dist_backend == "auto" else args.dist_backend,
+                args.tp_timeout_s)
+        except ValueError as e:
+            raise _usage(str(e))
+        if dist.process_index() != 0:
+            return follow(args, device, mesh)
+        return serve(args, device, mesh)
+    finally:
+        dist.destroy()
+
+
+def serve(args, device=None, mesh=None) -> int:
+    """Serve until SIGTERM/SIGINT (or a dead engine), then drain; a
+    tensor-parallel rank 0 with its ``device`` and ``mesh``."""
+    server = build_server(args, device, mesh)
     server.start()
     print(f"tpunet_torch.serve listening on "
           f"http://{args.host}:{server.port} "
           f"(slots={server.engine.slots}, "
-          f"buckets={server.engine.buckets}, device={args.device})",
+          f"buckets={server.engine.buckets}, "
+          f"device={device or args.device}"
+          + (f", mesh model={args.mesh_model}" if mesh is not None
+             else "") + ")",
           flush=True)
 
     stop = threading.Event()

@@ -65,8 +65,32 @@ inactive slots and a bucket's padding included, at that call's capacity
 expert count nothing is dropped and a row's tokens do not depend on its
 batch partners.
 
-Not here: the AOT warm start (out of scope, ``config.AOT_CACHE_SCOPED_OUT``)
-and tensor-parallel serving (ROADMAP Queue A item 8e).
+Tensor parallelism (tpunet's TP serving, a model too big for one card
+served from a 'model' mesh axis): the engine runs in lockstep over the
+group. The model is a Megatron shard (``infer.generate.load_lm`` with a
+mesh) and every pool holds the rank's heads (tpunet shards the dense
+pool's dim 2 and the page pool's dim 1 over 'model'). The group's first
+rank holds all host state (the queue, the scheduler, the page
+allocator, the prefix trie, sampling, obs, chaos) and runs the loop as
+one card does; the others hold only device state (their shard, their
+pools, the drafter) and :meth:`Engine.follow` its op stream. Every
+device operation of the first rank travels as one op before it runs
+there: one broadcast of a fixed-size int64 buffer (a header of op code,
+arguments and part sizes, then the call's host inputs: tokens,
+positions, the active mask, the last index, the page table, the
+sampler's ints) and, when a row samples, one of the sampler's float32
+buffer; the page writes of the warm start as one broadcast of the whole
+rows' bytes (each rank writes its heads); the page reads of a spill as
+one all-gather of the heads (the spill holds whole rows, the bytes a
+one-card replica writes); the copy of a COW page; a ping when idle (so
+an idle follower's wait never reaches the group's timeout, and a dead
+follower fails the ping); and the stop. The logits after the final
+row-parallel all-reduce and the replicated head are the same on every
+rank, so every rank computes the same choices, and only the first
+copies them to the host. A width-1.0 drafter is the TP model with its
+own head-split pool; a narrower one computes whole on every rank.
+
+Not here: the AOT warm start (out of scope, ``config.AOT_CACHE_SCOPED_OUT``).
 """
 
 from __future__ import annotations
@@ -87,6 +111,8 @@ from tpunet_torch.obs import flightrec, tracing
 from tpunet_torch.obs.flightrec.threads import THREADS
 from tpunet_torch.obs.registry import Registry
 from tpunet_torch.obs.spans import span
+from tpunet_torch.parallel.dist import (all_gather, axis_rank, broadcast,
+                                        collective_counts, group_size)
 from tpunet_torch.serve import chaos as serve_chaos
 from tpunet_torch.serve import spec as serve_spec
 from tpunet_torch.serve.prefixcache import PrefixCache
@@ -102,6 +128,19 @@ from tpunet_torch.serve.scheduler import (FINISH_CANCELLED, FINISH_DEADLINE,
 
 class PromptTooLongError(Exception):
     """Prompt exceeds the largest prefill bucket or the KV length."""
+
+
+# The op stream of a tensor-parallel engine (module docstring): the op
+# codes, and the int64 header that leads every op's buffer: [op, parts,
+# float buffer follows, 3 arguments, the sizes of up to 10 parts].
+(OP_STOP, OP_PING, OP_STEP, OP_DRAFT_PREFILL, OP_DRAFT_BURST, OP_VERIFY,
+ OP_COPY_PAGE, OP_READ_PAGE, OP_WRITE_PAGE) = range(9)
+OP_NAMES = ("stop", "ping", "step", "draft_prefill", "draft_burst",
+            "verify", "copy_page", "read_page", "write_page")
+_HEADER = 16
+# An idle first rank pings its followers this often: well inside any
+# group timeout, and a dead follower fails the ping.
+PING_EVERY_S = 1.0
 
 
 @contextlib.contextmanager
@@ -291,6 +330,13 @@ class Engine:
         self.model = model
         self.cfg = cfg
         self.device = model.pos_embed.device
+        # Tensor parallelism: the 'model' group and this rank's place in
+        # it (the first rank drives, the others follow).
+        self.tp_group = model.tp_group_or_self
+        self.tp = group_size(self.tp_group) > 1
+        self.tp_rank = axis_rank(self.tp_group) if self.tp else 0
+        self.ops_sent = dict.fromkeys(OP_NAMES, 0)
+        self._last_op = time.perf_counter()
         self.registry = registry if registry is not None else Registry()
         self.max_seq_len = int(model.max_len)
         self.slots = int(cfg.slots)
@@ -393,6 +439,14 @@ class Engine:
             self._cache = model.init_paged_cache(self._paged_kv)
         else:
             self._cache = model.init_cache(self.slots, self.max_seq_len)
+        # The op buffer's fixed size: the header and the widest call's
+        # parts (a bucket's or a verify's tokens, positions, the active
+        # mask, the last index, the page table, the sampler's ints).
+        width = max(self.buckets[-1], self.spec_k + 1 if self.spec_decode
+                    else 1)
+        table = (self.slots * self.pages_per_slot
+                 if self._paged_kv is not None else 0)
+        self._op_capacity = _HEADER + self.slots * (width + 6) + table
         self._init_kv_gauges()
 
     def _build_drafter(self, drafter_params):
@@ -435,7 +489,8 @@ class Engine:
 
     # -- the device calls -------------------------------------------------
 
-    def _upload(self, parts, sample: bool = False):
+    def _upload(self, parts, sample: bool = False, op: int = OP_STEP,
+                args=()):
         """Host int arrays -> one int64 buffer on the device, split back
         into one view each, in order (one copy for a call's inputs).
         Returns (the views, the sampler's inputs): with ``sample``, the
@@ -443,23 +498,109 @@ class Engine:
         steps), the ints riding the same buffer and the floats one float32
         buffer; None without ``sample`` or when no resident row samples
         (every choice is then the rows' argmax: JAX's
-        ``lax.cond(any(temperature > 0))``, decided on the host)."""
+        ``lax.cond(any(temperature > 0))``, decided on the host). Under
+        tensor parallelism the buffer is the op ``op`` (with up to three
+        int ``args``) of the stream, broadcast to the followers with the
+        float buffer, if any (module docstring)."""
         draw = None
+        parts = list(parts)
         if sample:
             temp, top_k, top_p, seeds, steps = self._sampling_args()
             if (temp > 0).any():
                 draw = np.concatenate([temp, top_p])
-                parts = list(parts) + [top_k, seeds, steps]
-        ints = torch.from_numpy(np.concatenate(
-            [np.asarray(x, np.int64).reshape(-1) for x in parts])
-        ).to(self.device)
-        dev = list(torch.split(ints, [np.asarray(x).size for x in parts]))
-        if draw is None:
+                parts += [top_k, seeds, steps]
+        sizes = [int(np.asarray(x).size) for x in parts]
+        body = np.concatenate([np.asarray(x, np.int64).reshape(-1)
+                               for x in parts] or [np.zeros(0, np.int64)])
+        if self.tp:
+            host = np.zeros(self._op_capacity, np.int64)
+            host[:6] = (op, len(parts), draw is not None, *(
+                tuple(args) + (0, 0, 0))[:3])
+            host[6:6 + len(sizes)] = sizes
+            host[_HEADER:_HEADER + body.size] = body
+            ints = broadcast(torch.from_numpy(host).to(self.device),
+                             self.tp_group)[_HEADER:_HEADER + body.size]
+            fl = None if draw is None else broadcast(
+                torch.from_numpy(draw).to(self.device), self.tp_group)
+            self.ops_sent[OP_NAMES[op]] += 1
+            self._last_op = time.perf_counter()
+        else:
+            ints = torch.from_numpy(body).to(self.device)
+            fl = None if draw is None else torch.from_numpy(draw).to(
+                self.device)
+        return self._split(ints, sizes, fl)
+
+    def _split(self, ints: torch.Tensor, sizes, fl):
+        """(the int parts' views, the sampler's inputs) of a call's
+        buffers (:meth:`_upload`)."""
+        dev = list(torch.split(ints, list(sizes)))
+        if fl is None:
             return dev, None
         n = self.slots
-        fl = torch.from_numpy(draw).to(self.device)
         top_k_d, seeds_d, steps_d = dev[-3:]
         return dev[:-3], (fl[:n], top_k_d, fl[n:], seeds_d, steps_d)
+
+    def _send(self, op: int, *args) -> None:
+        """An op of the stream without host inputs (tensor parallelism
+        only)."""
+        if self.tp:
+            self._upload([], op=op, args=args)
+
+    def _recv(self):
+        """The next op of the first rank's stream (a follower): (op, its
+        int arguments, the parts' views, the sampler's inputs)."""
+        ints = broadcast(torch.empty(self._op_capacity, dtype=torch.int64,
+                                     device=self.device), self.tp_group)
+        head = ints[:_HEADER].tolist()
+        op, n, has_draw = head[0], head[1], head[2]
+        sizes = head[6:6 + n]
+        fl = None
+        if has_draw:
+            fl = broadcast(torch.empty(2 * self.slots, dtype=torch.float32,
+                                       device=self.device), self.tp_group)
+        dev, samp = self._split(
+            ints[_HEADER:_HEADER + sum(sizes)], sizes, fl)
+        return op, head[3:6], dev, samp
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """A follower's loop (tensor parallelism, ranks after the first):
+        replay the first rank's device operations, in its order, until
+        its stop. A failed collective (the first rank died, or went
+        silent past the group's timeout) raises."""
+        if not self.tp or self.tp_rank == 0:
+            raise RuntimeError("follow() is the loop of a tensor-parallel "
+                               "engine's ranks after the first")
+        while True:
+            op, args, dev, samp = self._recv()
+            if op == OP_STOP:
+                return
+            if op == OP_STEP:
+                self._op_step(dev, samp)
+            elif op == OP_DRAFT_PREFILL:
+                self._op_draft_prefill(dev)
+            elif op == OP_DRAFT_BURST:
+                self._op_draft_burst(dev, samp)
+            elif op == OP_VERIFY:
+                self._op_verify(dev, samp)
+            elif op == OP_COPY_PAGE:
+                self._op_copy_page(*args[:2])
+            elif op == OP_READ_PAGE:
+                self._op_read_page(args[0])
+            elif op == OP_WRITE_PAGE:
+                self._op_write_page(args[0], None)
+            elif op != OP_PING:
+                raise RuntimeError(f"unknown engine op {op}")
+
+    def _stop_followers(self) -> None:
+        """The stream's last op, once (the first rank's loop has ended).
+        A failure here is the followers' (they end on their timeout)."""
+        if not self.tp or self.tp_rank != 0 or self.ops_sent["stop"]:
+            return
+        try:
+            self._send(OP_STOP)
+        except Exception as e:  # noqa: BLE001 — a dead follower
+            flightrec.record("serve", f"stop op failed: {e}")
 
     @staticmethod
     def _choose(logits: torch.Tensor, samp, offset: int = 0):
@@ -499,20 +640,29 @@ class Engine:
         if self._paged_kv is not None:
             parts.append(self._page_table)
         dev, samp = self._upload(parts, sample=self.device_sampling)
+        return self._op_step(dev, samp).cpu().numpy()
+
+    def _op_step(self, dev, samp) -> torch.Tensor:
+        """The masked call on the device (every rank): the chosen tokens
+        [slots] (device sampling) or the ``last_idx`` column's logits."""
         table = dev[4] if self._paged_kv is not None else None
         logits = self._forward(self.model, self._cache, self._paged_kv,
                                *dev[:3], table)
         rows = logits[torch.arange(self.slots, device=self.device), dev[3]]
         if not self.device_sampling:
-            return rows.cpu().numpy()
-        return self._choose(rows, samp).cpu().numpy()
+            return rows
+        return self._choose(rows, samp)
 
     @torch.inference_mode()
     def _draft_prefill_step(self, toks: np.ndarray, positions: np.ndarray,
                             active: np.ndarray) -> None:
         """The drafter's write-only masked call over its own pool (the
         main page table)."""
-        dev, _ = self._upload([toks, positions, active, self._page_table])
+        dev, _ = self._upload([toks, positions, active, self._page_table],
+                              op=OP_DRAFT_PREFILL)
+        self._op_draft_prefill(dev)
+
+    def _op_draft_prefill(self, dev) -> None:
         self._forward(self._drafter, self._draft_cache,
                       self._drafter_paged_kv, *dev)
 
@@ -526,8 +676,13 @@ class Engine:
         draft is dropped, but its K/V write keeps the drafter pool gapless
         after a full acceptance. The tokens stay on the device between
         steps. Returns the drafts d_1..d_K [slots, K] on the host."""
-        (tok, pos, act, table), samp = self._upload(
-            [first, positions, active, self._page_table], sample=True)
+        dev, samp = self._upload(
+            [first, positions, active, self._page_table], sample=True,
+            op=OP_DRAFT_BURST)
+        return self._op_draft_burst(dev, samp).cpu().numpy()
+
+    def _op_draft_burst(self, dev, samp) -> torch.Tensor:
+        tok, pos, act, table = dev
         drafts = []
         for j in range(self.spec_k + 1):
             logits = self._forward(self._drafter, self._draft_cache,
@@ -535,7 +690,7 @@ class Engine:
                                    act, table)
             tok = self._choose(logits[:, 0], samp, offset=j)
             drafts.append(tok)
-        return torch.stack(drafts[:-1], 1).cpu().numpy()
+        return torch.stack(drafts[:-1], 1)
 
     @torch.inference_mode()
     def _verify_step(self, toks: np.ndarray, positions: np.ndarray,
@@ -545,10 +700,14 @@ class Engine:
         position, position j at step s0+j. Returns [slots, K+1] on the
         host."""
         dev, samp = self._upload([toks, positions, active,
-                                  self._page_table], sample=True)
+                                  self._page_table], sample=True,
+                                 op=OP_VERIFY)
+        return self._op_verify(dev, samp).cpu().numpy()
+
+    def _op_verify(self, dev, samp) -> torch.Tensor:
         logits = self._forward(self.model, self._cache, self._paged_kv,
                                *dev)
-        return self._choose(logits, samp).cpu().numpy()
+        return self._choose(logits, samp)
 
     def _sampling_args(self):
         """Per-slot sampling parameters for the device sampler:
@@ -578,7 +737,7 @@ class Engine:
     def kv_pool_bytes(self) -> int:
         """Resident bytes of the KV cache (the page pool with the scales
         of int8 pages when paged; the dense [slots, max_seq_len] pool
-        otherwise)."""
+        otherwise): this rank's heads under tensor parallelism."""
         return self._cache.nbytes()
 
     def drafter_pool_bytes(self) -> int:
@@ -589,7 +748,7 @@ class Engine:
 
     def kv_bytes_per_token(self) -> float:
         """KV bytes pinned per cacheable token position across the whole
-        pool."""
+        pool (this rank's pool under tensor parallelism)."""
         if self._paged_kv is not None:
             rows = self._paged_kv.pages * self.page_tokens
         else:
@@ -683,17 +842,83 @@ class Engine:
         """Device-copy one pool page in every layer, its scales too (COW
         at the divergence page: the private copy takes the suffix write,
         the shared source stays immutable)."""
+        self._send(OP_COPY_PAGE, src, dst)
+        self._op_copy_page(src, dst)
+
+    def _op_copy_page(self, src: int, dst: int) -> None:
         pt = self.page_tokens
         for t in self._cache.leaves():
             t[dst * pt:(dst + 1) * pt] = t[src * pt:(src + 1) * pt]
 
+    @torch.inference_mode()
     def _read_page_rows(self, page: int) -> list:
         """One page's rows as host numpy arrays in ``KVCache.leaves()``
         order (the spill payload; bf16 as its int16 bits; the store
-        digest guarantees the reader's pool has the same leaves)."""
+        digest guarantees the reader's pool has the same leaves). Under
+        tensor parallelism the rows are whole: every rank's heads,
+        gathered."""
+        self._send(OP_READ_PAGE, page)
+        return [_host(t) for t in self._op_read_page(page)]
+
+    def _op_read_page(self, page: int) -> list:
+        """The page's whole rows on the device, in leaf order: the K/V
+        leaves' heads all-gathered over the group in one collective (as
+        bytes), the scales of int8 pages as they are (every rank holds
+        the same)."""
         pt = self.page_tokens
-        return [_host(t[page * pt:(page + 1) * pt])
-                for t in self._cache.leaves()]
+        rows = [t[page * pt:(page + 1) * pt] for t in self._cache.leaves()]
+        if not self.tp:
+            return rows
+        kv = [r for r in rows if r.dim() == 3]
+        mine = torch.stack(kv).view(torch.uint8)     # [2L, pt, h, D * b]
+        every = all_gather(mine, self.tp_group)       # [M, 2L, pt, h, ..]
+        whole = every.permute(1, 2, 0, 3, 4).flatten(2, 3)
+        whole = whole.contiguous().view(kv[0].dtype)   # [2L, pt, H, D]
+        it = iter(whole.unbind(0))
+        return [next(it) if r.dim() == 3 else r for r in rows]
+
+    def _page_layout(self) -> list:
+        """(whole-row shape, numpy dtype) of each leaf's page rows, in
+        leaf order: the spill's and the warm start's payload."""
+        m = group_size(self.tp_group)
+        out = []
+        for t in self._cache.leaves():
+            shape = ((self.page_tokens, t.shape[1] * m) + tuple(t.shape[2:])
+                     if t.dim() == 3 else (self.page_tokens,))
+            out.append((shape, _host(t[:0]).dtype))
+        return out
+
+    def _write_page(self, page: int, rows: list) -> None:
+        """Write a page's whole rows (host arrays in leaf order, the
+        spill's payload) into the pool: each rank its heads."""
+        self._send(OP_WRITE_PAGE, page)
+        self._op_write_page(page, rows)
+
+    def _op_write_page(self, page: int, rows: Optional[list]) -> None:
+        """The page write on every rank: under tensor parallelism the
+        rows' bytes travel as one broadcast from the first rank (a
+        follower passes None), and each rank keeps its heads."""
+        layout = self._page_layout()
+        if self.tp:
+            sizes = [int(np.prod(sh)) * np.dtype(dt).itemsize
+                     for sh, dt in layout]
+            if rows is None:
+                flat = torch.empty(sum(sizes), dtype=torch.uint8,
+                                   device=self.device)
+            else:
+                flat = torch.from_numpy(np.concatenate(
+                    [np.ascontiguousarray(r).view(np.uint8).reshape(-1)
+                     for r in rows])).to(self.device)
+            flat = broadcast(flat, self.tp_group)
+            rows = [p.view(torch.from_numpy(np.empty(0, dt)).dtype).view(sh)
+                    for p, (sh, dt) in zip(torch.split(flat, sizes), layout)]
+        pt = self.page_tokens
+        for t, r in zip(self._cache.leaves(), rows):
+            r = _device(r, t) if isinstance(r, np.ndarray) else r
+            if r.dim() == 3 and self.tp:
+                h = t.shape[1]
+                r = r[:, self.tp_rank * h:(self.tp_rank + 1) * h]
+            t[page * pt:(page + 1) * pt] = r.view(t.dtype)
 
     def _spill_prefix_page(self, node, parent_digest: str) -> None:
         """Write-through one freshly-inserted prefix page to the shared
@@ -717,10 +942,7 @@ class Engine:
         list — warm pages are all evictable, so they can never crowd out
         the first real admission. An orphan or a foreign/torn entry is
         skipped, not fatal."""
-        leaves = self._cache.leaves()
-        want = [((self.page_tokens,) + tuple(t.shape[1:]),
-                 _host(t[:0]).dtype) for t in leaves]
-        pt = self.page_tokens
+        want = self._page_layout()
         loaded = 0
         for entry in self._prefix_store.load_all(
                 limit=self._prefix.capacity):
@@ -734,7 +956,7 @@ class Engine:
                 parent = self._prefix.get(entry.get("parent", pk.ROOT))
                 if parent is None or parent.depth != depth - 1:
                     continue      # orphan: its parent didn't make it
-            if not isinstance(rows, list) or len(rows) != len(leaves) \
+            if not isinstance(rows, list) or len(rows) != len(want) \
                     or any(not isinstance(r, np.ndarray)
                            or (r.shape, r.dtype) != w
                            for r, w in zip(rows, want)):
@@ -744,8 +966,7 @@ class Engine:
                 break
             page = self._free_pages.pop()
             self._kv_pages_touched.add(page)
-            for t, r in zip(leaves, rows):
-                t[page * pt:(page + 1) * pt] = _device(r, t)
+            self._write_page(page, rows)
             self._prefix.insert(digest, parent, depth, page)
             loaded += 1
         if loaded:
@@ -838,8 +1059,10 @@ class Engine:
 
     @property
     def healthy(self) -> bool:
+        """No error, and the loop is running, or it ended through the
+        drain path (a drained engine is draining, not dead)."""
         return (self.error is None and self._thread is not None
-                and self._thread.is_alive())
+                and (self._thread.is_alive() or self._draining.is_set()))
 
     @property
     def draining(self) -> bool:
@@ -1020,7 +1243,11 @@ class Engine:
                     handle.beat("idle")
                     self._wake.wait(timeout=0.02)
                     self._wake.clear()
+                    if self.tp and (time.perf_counter() - self._last_op
+                                    >= PING_EVERY_S):
+                        self._send(OP_PING)
             handle.beat("idle")
+            self._stop_followers()      # before the record that counts it
             self._emit_record(final=True)
         except Exception as e:  # noqa: BLE001 — engine death is a
             # liveness event: surface it through /healthz and fail every
@@ -1037,6 +1264,7 @@ class Engine:
             # watchdog in this process for good.
             handle.beat("idle")
         finally:
+            self._stop_followers()
             self._drained.set()
 
     def _iterate(self) -> bool:
@@ -1579,6 +1807,15 @@ class Engine:
             # A record from a chaos-armed replica says so: comparisons
             # must never mistake injected faults for regressions.
             record["chaos"] = self.chaos.render()
+        if self.tp:
+            # Tensor parallelism: the ops this rank sent its followers and
+            # its collectives so far (calls, host ms inside them).
+            record["tp"] = {
+                "ranks": group_size(self.tp_group),
+                "ops": dict(self.ops_sent),
+                "collectives": {
+                    name: [calls, round(sec * 1e3, 3)] for name, (calls, sec)
+                    in collective_counts().items() if calls}}
         # Host-thread gauges ride the serve registry too.
         THREADS.export_gauges(reg)
         reg.emit("obs_serve", record)

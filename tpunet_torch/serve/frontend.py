@@ -16,9 +16,12 @@ Endpoints:
   (or ``{"image_b64": "...", "shape": [H, W, 3]}`` raw RGB bytes),
   optional ``topk``; micro-batched across concurrent requests.
 - ``GET /healthz`` — 200 while the engine loop is alive and admitting;
-  503 (with the error) once the engine thread died or the server is
-  draining — an orchestrator restarts the pod instead of watching a
-  silent hang.
+  503 "unhealthy" (with the error) once the engine thread died, 503
+  "draining" with ``Retry-After`` while the server drains — an
+  orchestrator restarts the pod instead of watching a silent hang. A
+  loop that ended through the drain path with no error is draining,
+  not dead (``Engine.healthy``), whichever of the loop's end and the
+  probe comes first.
 - ``GET /metrics`` — flat JSON snapshot of the serve registry
   (counters, gauges, histogram percentiles).
 

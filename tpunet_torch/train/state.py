@@ -72,6 +72,7 @@ from tpunet_torch.config import OptimConfig
 from tpunet_torch.models.convert import (gather_state_dict, gather_tensor,
                                          load_state_dict, shard_state_dict,
                                          shard_tensor)
+from tpunet_torch.obs.spans import span
 from tpunet_torch.parallel import dist
 from tpunet_torch.parallel.mesh import axis_group, axis_index, axis_size
 from tpunet_torch.parallel.tp import LeafLayout, Shard, join, pieces
@@ -601,23 +602,25 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimizer update at the schedule's rate for this step,
-        after the clip; then the EMA step."""
+        after the clip; then the EMA step (the ``tpunet_optimizer`` and
+        ``tpunet_ema`` ranges of a profiled window)."""
         sh = self.sharding
-        if self.clip_norm > 0:
-            params = sh.masters if sh is not None else \
-                self.model.parameters()
-            clip_by_global_norm([p.grad for p in params
-                                 if p.grad is not None], self.clip_norm,
-                                None if sh is None else sh.global_norm())
-        lr = self.schedule(self.global_step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.global_step += 1
-        if sh is not None:
-            sh.after_update()
+        with span("tpunet_optimizer"):
+            if self.clip_norm > 0:
+                params = sh.masters if sh is not None else \
+                    self.model.parameters()
+                clip_by_global_norm([p.grad for p in params
+                                     if p.grad is not None], self.clip_norm,
+                                    None if sh is None else sh.global_norm())
+            lr = self.schedule(self.global_step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.global_step += 1
+            if sh is not None:
+                sh.after_update()
         if self.ema is not None:
-            with torch.no_grad():
+            with torch.no_grad(), span("tpunet_ema"):
                 torch._foreach_lerp_(
                     self.ema, [t.detach() for t in self.ema_sources()],
                     1.0 - self.ema_decay)

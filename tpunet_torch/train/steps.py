@@ -59,6 +59,14 @@ microbatch's backward weighted ``moe_aux_weight / (M * seq * accum)``
 metric sums are the last stage's (each stage adds its own MoE terms'
 share) and are summed over 'pipe' at the step's end, so every rank holds
 the same numbers as an unpipelined step's.
+
+The steps put tpunet's phase names around their work as
+``record_function`` ranges (``tpunet_torch.obs.spans.span``):
+``tpunet_augment`` (the augment and the mixing), ``tpunet_fwd_bwd``
+(the forwards, the backwards and the gradients' reduction),
+``tpunet_optimizer`` and ``tpunet_ema`` (``TrainState.apply_gradients``)
+and ``tpunet_eval_forward``, which ``tpunet_torch.obs.trace_phase``
+reads from a profiled window.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ import torch.nn.functional as F
 from tpunet_torch.config import DataConfig, OptimConfig
 from tpunet_torch.data.augment import (make_eval_preprocess, make_mix,
                                       make_train_augment)
+from tpunet_torch.obs.spans import span
 from tpunet_torch.ops.vocab_ce import vocab_parallel_ce
 from tpunet_torch.parallel.dist import all_reduce
 from tpunet_torch.parallel.mesh import axis_group, axis_size
@@ -152,39 +161,42 @@ def fit_batch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     seq = axis_size("seq")
     model = state.model
     pp = getattr(model, "pp", None)
-    state.zero_grad()
-    state.begin_step()
-    loss_sum = correct = 0
-    for i in range(accum):
-        x, y = images[i::accum], labels[i::accum]
-        x, mixed = _mixed(mix, generator, x, y)
-        if pp is not None:
-            ys = split_micro(y, pp.M)
-            mixes = ([None] * pp.M if mixed is None else
-                     [(y_b, mixed[1]) for y_b in split_micro(mixed[0], pp.M)])
-            rows = y.shape[0]
+    with span("tpunet_fwd_bwd"):
+        state.zero_grad()
+        state.begin_step()
+        loss_sum = correct = 0
+        for i in range(accum):
+            x, y = images[i::accum], labels[i::accum]
+            with span("tpunet_augment"):
+                x, mixed = _mixed(mix, generator, x, y)
+            if pp is not None:
+                ys = split_micro(y, pp.M)
+                mixes = ([None] * pp.M if mixed is None else
+                         [(y_b, mixed[1])
+                          for y_b in split_micro(mixed[0], pp.M)])
+                rows = y.shape[0]
 
-            def loss_fn(m, logits):
-                nonlocal loss_sum, correct
-                ce, hits = _cls_loss(logits, ys[m], mixes[m], smoothing)
-                loss_sum = loss_sum + ce.detach().sum()
-                correct = correct + hits
-                return ce.sum() / (rows * accum)
+                def loss_fn(m, logits):
+                    nonlocal loss_sum, correct
+                    ce, hits = _cls_loss(logits, ys[m], mixes[m], smoothing)
+                    loss_sum = loss_sum + ce.detach().sum()
+                    correct = correct + hits
+                    return ce.sum() / (rows * accum)
 
-            model.pipe_train(x.permute(0, 3, 1, 2), generator, loss_fn)
-            continue
-        logits = model(x.permute(0, 3, 1, 2), train=True,
-                       generator=generator)
-        ce, hits = _cls_loss(logits, y, mixed, smoothing)
-        loss = ce.mean() + _aux_term(model, aux_weight)
-        # Under sequence parallelism every rank of a 'seq' group holds
-        # the whole logits (the ViT's pool sums over the group): each
-        # takes 1/S of the loss, so that the gradients summed over 'seq'
-        # are the loss's.
-        (loss / (accum * seq)).backward()
-        loss_sum = loss_sum + loss.detach() * y.shape[0]
-        correct = correct + hits
-    state.reduce_gradients()
+                model.pipe_train(x.permute(0, 3, 1, 2), generator, loss_fn)
+                continue
+            logits = model(x.permute(0, 3, 1, 2), train=True,
+                           generator=generator)
+            ce, hits = _cls_loss(logits, y, mixed, smoothing)
+            loss = ce.mean() + _aux_term(model, aux_weight)
+            # Under sequence parallelism every rank of a 'seq' group holds
+            # the whole logits (the ViT's pool sums over the group): each
+            # takes 1/S of the loss, so that the gradients summed over 'seq'
+            # are the loss's.
+            (loss / (accum * seq)).backward()
+            loss_sum = loss_sum + loss.detach() * y.shape[0]
+            correct = correct + hits
+        state.reduce_gradients()
     state.apply_gradients()
     if pp is not None:
         return _pipe_metrics(loss_sum, correct,
@@ -204,8 +216,10 @@ def make_train_step(data_cfg: DataConfig, optim_cfg: OptimConfig,
     def train_step(state: TrainState, images_u8: torch.Tensor,
                    labels: torch.Tensor, generator: torch.Generator
                    ) -> M.Metrics:
-        return fit_batch(state, augment(generator, images_u8), labels,
-                         generator, optim_cfg, mix, aux_weight)
+        with span("tpunet_augment"):
+            images = augment(generator, images_u8)
+        return fit_batch(state, images, labels, generator, optim_cfg, mix,
+                         aux_weight)
 
     return train_step
 
@@ -304,65 +318,66 @@ def fit_lm_batch(state: TrainState, tokens: torch.Tensor,
     smoothing = optim_cfg.label_smoothing
     model = state.model
     pp = getattr(model, "pp", None)
-    state.zero_grad()
-    state.begin_step()
-    seq = axis_size("seq")
-    # ``norm`` makes a microbatch's CE sum its share of the batch's
-    # mean. Packed: divided by the global batch's valid-target count
-    # (summed over 'data' alone: every rank of a 'seq' group holds the
-    # whole rows) and multiplied by the 'data' ranks, which the
-    # reduction divides out. Unpacked: divided by the microbatch rows'
-    # T - 1 targets (a 'seq' rank sums over its own) and by accum. An
-    # MoE term weighs ``targets / S`` in the metric's loss sum.
-    row_targets = (n // accum) * (tokens.shape[1] - 1)
-    if packed:
-        total = all_reduce(_packed_target_weights(labels).sum(),
-                           axis_group("data"))
-        scale = axis_size("data") / total.clamp_min(1.0)
-        targets = total / (accum * axis_size("data"))
+    with span("tpunet_fwd_bwd"):
+        state.zero_grad()
+        state.begin_step()
+        seq = axis_size("seq")
+        # ``norm`` makes a microbatch's CE sum its share of the batch's
+        # mean. Packed: divided by the global batch's valid-target count
+        # (summed over 'data' alone: every rank of a 'seq' group holds the
+        # whole rows) and multiplied by the 'data' ranks, which the
+        # reduction divides out. Unpacked: divided by the microbatch rows'
+        # T - 1 targets (a 'seq' rank sums over its own) and by accum. An
+        # MoE term weighs ``targets / S`` in the metric's loss sum.
+        row_targets = (n // accum) * (tokens.shape[1] - 1)
+        if packed:
+            total = all_reduce(_packed_target_weights(labels).sum(),
+                               axis_group("data"))
+            scale = axis_size("data") / total.clamp_min(1.0)
+            targets = total / (accum * axis_size("data"))
 
-        def norm(ce_sum):
-            return ce_sum * scale
-    else:
-        targets = row_targets
+            def norm(ce_sum):
+                return ce_sum * scale
+        else:
+            targets = row_targets
 
-        def norm(ce_sum):
-            return ce_sum / row_targets / accum
-    moe = getattr(model, "moe_experts", 0) > 0
-    loss_sum = correct = count = 0
-    for i in range(accum):
-        x = tokens[i::accum]
-        segs = labels[i::accum] if packed else None
-        if pp is None:
-            out = model(x, segment_ids=segs, train=True,
-                        generator=generator,
-                        **({"return_hidden": True} if sharded_ce else {}))
-            ce_sum, hits, cnt = _lm_microbatch_loss(model, out, x, segs,
-                                                    smoothing, sharded_ce)
-            aux = _aux_term(model, aux_weight)
-            (norm(ce_sum) + aux / (accum * seq)).backward()
-            loss_sum = loss_sum + (ce_sum + aux * targets / seq).detach()
-            correct, count = correct + hits, count + cnt
-            continue
-        xs, ss = split_micro(x, pp.M), split_micro(segs, pp.M)
+            def norm(ce_sum):
+                return ce_sum / row_targets / accum
+        moe = getattr(model, "moe_experts", 0) > 0
+        loss_sum = correct = count = 0
+        for i in range(accum):
+            x = tokens[i::accum]
+            segs = labels[i::accum] if packed else None
+            if pp is None:
+                out = model(x, segment_ids=segs, train=True,
+                            generator=generator,
+                            **({"return_hidden": True} if sharded_ce else {}))
+                ce_sum, hits, cnt = _lm_microbatch_loss(model, out, x, segs,
+                                                        smoothing, sharded_ce)
+                aux = _aux_term(model, aux_weight)
+                (norm(ce_sum) + aux / (accum * seq)).backward()
+                loss_sum = loss_sum + (ce_sum + aux * targets / seq).detach()
+                correct, count = correct + hits, count + cnt
+                continue
+            xs, ss = split_micro(x, pp.M), split_micro(segs, pp.M)
 
-        def loss_fn(m, out):
-            nonlocal loss_sum, correct, count
-            ce_sum, hits, cnt = _lm_microbatch_loss(model, out, xs[m], ss[m],
-                                                    smoothing, sharded_ce)
-            loss_sum = loss_sum + ce_sum.detach()
-            correct, count = correct + hits, count + cnt
-            return norm(ce_sum)
+            def loss_fn(m, out):
+                nonlocal loss_sum, correct, count
+                ce_sum, hits, cnt = _lm_microbatch_loss(
+                    model, out, xs[m], ss[m], smoothing, sharded_ce)
+                loss_sum = loss_sum + ce_sum.detach()
+                correct, count = correct + hits, count + cnt
+                return norm(ce_sum)
 
-        model.pipe_train(x, segs, generator, loss_fn,
-                         aux_weight / (pp.M * seq * accum) if moe else 0.0,
-                         return_hidden=sharded_ce)
-        aux = model.moe_aux_loss()
-        if aux is not None and aux_weight > 0:
-            # This stage's share: its terms summed over the pipeline's
-            # M pieces, each weighed as one unpipelined microbatch's.
-            loss_sum = loss_sum + aux_weight * aux * targets / (pp.M * seq)
-    state.reduce_gradients()
+            model.pipe_train(x, segs, generator, loss_fn,
+                             aux_weight / (pp.M * seq * accum) if moe else 0.0,
+                             return_hidden=sharded_ce)
+            aux = model.moe_aux_loss()
+            if aux is not None and aux_weight > 0:
+                # This stage's share: its terms summed over the pipeline's
+                # M pieces, each weighed as one unpipelined microbatch's.
+                loss_sum = loss_sum + aux_weight * aux * targets / (pp.M * seq)
+        state.reduce_gradients()
     state.apply_gradients()
     if pp is not None:
         return _pipe_metrics(loss_sum, correct, count, tokens.device)
@@ -395,7 +410,7 @@ def make_lm_eval_step(packed: bool = False,
 
     def eval_step(model: torch.nn.Module, tokens: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor) -> M.Metrics:
-        with torch.no_grad():
+        with torch.no_grad(), span("tpunet_eval_forward"):
             losses, hit = _next_token(model, tokens,
                                       labels if packed else None, 0.0,
                                       sharded_ce)
@@ -416,7 +431,7 @@ def make_eval_step(data_cfg: DataConfig) -> Callable:
 
     def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor) -> M.Metrics:
-        with torch.no_grad():
+        with torch.no_grad(), span("tpunet_eval_forward"):
             logits = model(preprocess(images_u8).permute(0, 3, 1, 2))
             losses = F.cross_entropy(logits, labels, reduction="none")
             correct = (logits.argmax(-1) == labels).float()
