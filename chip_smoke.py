@@ -299,7 +299,32 @@ Phases, each of which must pass:
      the LM) print their device time by phase
      (``tpunet_torch.obs.trace_phase``), which must sum to the window's
      device time;
- 22. print the kernel list and the card's name and power limit.
+ 22. elastic: fault-tolerant training (ROADMAP Queue A items 12 and 9b)
+     at MobileNetV2's full width (1.0, 224 px, bf16, the hand kernels,
+     32 rows a rank, 256 seeded synthetic rows, 3 epochs): agents of
+     ``tpunet_torch.elastic`` (threads of this script) supervise children
+     ``chip_smoke.py --dp-worker elastic -- <train CLI flags>`` that join
+     a gloo group from the agent's variables and run the train CLI in
+     their own process. (a) shrink: two agents, host 1 SIGKILLed entering
+     epoch 2's second step (``--chaos``); host 1's agent exits 2, host
+     0's 0 with the ``done`` marker, one ``shrink`` record 2 -> 1 losing
+     h1, a ``recovered`` record at epoch 2 (data 2 -> 1), one run id,
+     epochs 1-3, p1's crash report; (b) torn write: one agent, two
+     transient IO errors on the first save and a SIGKILL with the
+     second save's write in flight: one ``restart`` (failed),
+     ``recovered`` at epoch 2, plain epochs [1, 2, 2, 3], one
+     ``ckpt_io_retry`` alert and 2 retries in the killed child's ring,
+     the ``.part`` file left, an ``obs_crash`` record. In both, every
+     step of every child launches 17 + 17 + 33 + 33, and each resumed
+     child's restored parameters and optimizer state equal ``state.pt``
+     to the bit. Readings: ``recovery_s`` and each child's start to its
+     first step; and the LM at full width (12 blocks, bf16, phase 12's
+     step) saving its whole state through the asynchronous Checkpointer:
+     the dispatch's ms, ``ckpt_wait_s``, the steps that overlap the write
+     against steps without one, the same save waited for at once, and
+     the snapshot's device bytes. Scenario (c), straggler eviction, runs
+     in tests/test_torch_elastic_e2e.py on the CPU;
+ 23. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -317,12 +342,15 @@ Ulysses and the MoE LM at pipe 2 x model 2 under ``alltoall`` (one
 microbatch, capacity E / k), each against one card with its ideal step
 (one card's step / 4 x (1 + (S - 1) / (v M))) beside it (readings),
 and tp_serve at --mesh-model 2 and 4 over NCCL, a card a rank, with its
-gates against one card.
+gates against one card, and the elastic phase's shrink over NCCL (a
+card a host): its gates, and how long the survivor stays in its
+collective after its peer's SIGKILL before it is stopped (a reading).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1627,15 +1655,13 @@ def phase_trainer(torch, model_cfg=None, cli_flags=("--pallas-depthwise",),
     del again, model
     check(acc == rec["test_accuracy"], f"best.pth evaluates to {acc}, the "
           f"epoch measured {rec['test_accuracy']}")
-    out = subprocess.run(
-        [sys.executable, "-m", "tpunet_torch.train", "--preset", "single",
-         "--dataset", "synthetic", "--synthetic-size", "1024",
-         *cli_flags, "--checkpoint-dir", str(ckdir), "--eval-only"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, f"--eval-only exited {out.returncode}: "
-          f"{out.stderr[-2000:]}")
-    found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out.stdout)
-    check(found is not None, f"--eval-only printed no Eval line: {out.stdout}")
+    # The CLI's entry point in this process (a new process costs about
+    # 20 s on the card's host).
+    out = run_cli_here(torch, [
+        "--preset", "single", "--dataset", "synthetic", "--synthetic-size",
+        "1024", *cli_flags, "--checkpoint-dir", str(ckdir), "--eval-only"])[1]
+    found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out)
+    check(found is not None, f"--eval-only printed no Eval line: {out}")
     cli_acc = float(found.group(2))
     check(abs(cli_acc - rec["test_accuracy"]) < 5e-5,
           f"--eval-only accuracy {cli_acc} vs {rec['test_accuracy']}")
@@ -2318,19 +2344,39 @@ def phase_dp_step(torch, ref) -> None:
                   f"{DP_UPDATES} steps (want {k} a step)")
 
 
+def run_cli_with_env(torch, args, env) -> str:
+    """run_cli_here with the launcher's variables ``env`` set meanwhile:
+    the CLI's process group (NCCL at world 1) in this process, left when
+    the run ends. Its stdout."""
+    import os
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return run_cli_here(torch, args)[1]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_dp_trainer(torch, single_epoch, single_step_ms) -> None:
     """dp_trainer: ``python -m tpunet_torch.train --preset distributed`` at
     world 1 over NCCL, one epoch at phase_trainer's sizes, against its
     epoch; --eval-only of the best.pth; then 30 timed steps against
-    phase_train's single-process step."""
+    phase_train's single-process step (dp_worker's ``time`` role). All
+    in this process, through the CLI's entry point (a new process costs
+    about 20 s on the card's host)."""
     ckdir = DP_DIR / "ck"
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
-    flags = [sys.executable, "-m", "tpunet_torch.train", "--preset",
-             "distributed", "--pallas-depthwise", "--dataset", "synthetic",
-             "--synthetic-size", "1024", "--epochs", "1",
+    flags = ["--preset", "distributed", "--pallas-depthwise", "--dataset",
+             "synthetic", "--synthetic-size", "1024", "--epochs", "1",
              "--checkpoint-dir", str(ckdir)]
     t0 = time.perf_counter()
-    (out,) = run_workers([("trainer", flags)], env={"trainer": env})
+    out = run_cli_with_env(torch, flags, env)
     wall = time.perf_counter() - t0
     check("Processes: 1 (nccl), global batch 128" in out,
           f"the distributed CLI did not report NCCL at world 1: {out[:2000]}")
@@ -2341,13 +2387,12 @@ def phase_dp_trainer(torch, single_epoch, single_step_ms) -> None:
     keys = ("train_loss", "train_accuracy", "test_loss", "test_accuracy")
     diff = {k: rec[k] - single_epoch[k] for k in keys}
     bit_equal = all(rec[k] == single_epoch[k] for k in keys)
-    (ev,) = run_workers([("eval_only", flags + ["--eval-only"])],
-                        env={"eval_only": env})
+    ev = run_cli_with_env(torch, flags + ["--eval-only"], env)
     found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", ev)
     check(found is not None, f"--eval-only printed no Eval line: {ev}")
-    me = str(Path(__file__).resolve())
-    run_workers([("time_rank0", [sys.executable, me, "--dp-worker", "time",
-                                 "1", "0"])])
+    dp_worker("time", 1, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
     timed = torch.load(DP_DIR / "time_rank0.pt", weights_only=False)
     prof, runs = timed["profile"], timed["runs"]
     nccl_ms = prof.get("hand_kernel_ms", {}).get("nccl")
@@ -3157,14 +3202,6 @@ def phase_lm_train(torch) -> dict:
         LM_BATCH * LM_T / p50
 
 
-def run_cli(args, timeout=600) -> str:
-    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=timeout)
-    check(out.returncode == 0, f"{' '.join(args[:3])} exited "
-          f"{out.returncode}: {out.stderr[-2000:]}")
-    return out.stdout
-
-
 def run_cli_here(torch, args) -> tuple:
     """``python -m tpunet_torch.train`` with ``args`` in this process
     (its entry point, ``__main__.run``): (the closed Trainer, its
@@ -3181,12 +3218,13 @@ def run_cli_here(torch, args) -> tuple:
 
 
 def phase_lm_trainer(torch, sync_step_ms=None) -> None:
-    """The training CLI on the LM: one synthetic_lm epoch (1,024 train
-    and 256 test sequences, in this process, obs on: check_obs_epoch)
-    and --eval-only of its best.pth, which must read the epoch's test
-    accuracy; the same epoch with --no-obs and with a 2-step profile
-    window (check_syncs, check_window); one packed text_lm epoch on the
-    corpus; then the generate CLI on that run."""
+    """The training CLI on the LM, each run through its entry point in
+    this process (a new process costs about 20 s on the card's host):
+    one synthetic_lm epoch (1,024 train and 256 test sequences, obs on:
+    check_obs_epoch) and --eval-only of its best.pth, which must read
+    the epoch's test accuracy; the same epoch with --no-obs and with a
+    2-step profile window (check_syncs, check_window); one packed
+    text_lm epoch on the corpus; then the generate CLI on that run."""
     import re
 
     runs, obs = {}, {}
@@ -3207,7 +3245,7 @@ def phase_lm_trainer(torch, sync_step_ms=None) -> None:
                 trainer, out = run_cli_here(torch, [*flags[1:], "--epochs",
                                                     "1"])
         else:
-            out = run_cli([*flags, "--epochs", "1"])
+            out = run_cli_here(torch, [*flags[1:], "--epochs", "1"])[1]
         wall = time.perf_counter() - t0
         check(re.search(r"^Epoch 1/1 Time: ", out, re.M) is not None,
               f"{tag}: no epoch line in {out[-1000:]}")
@@ -3222,7 +3260,7 @@ def phase_lm_trainer(torch, sync_step_ms=None) -> None:
             obs = check_obs_epoch(torch, "lm_trainer", trainer, records)
             del trainer
             summary = summarize_run(records)
-            out = run_cli([*flags, "--eval-only"])
+            out = run_cli_here(torch, [*flags[1:], "--eval-only"])[1]
             found = re.search(r"Eval: Test Loss: (\S+) Test Acc: (\S+)", out)
             check(found is not None and abs(float(found.group(2))
                                             - rec["test_accuracy"]) < 5e-5,
@@ -3261,11 +3299,13 @@ def phase_lm_trainer(torch, sync_step_ms=None) -> None:
                  summary=summary)
         runs[tag] = dict(epoch_record=rec, wall_s=wall,
                          eval_only_line=found and found.group(0))
-    text = run_cli(["tpunet_torch.infer.generate", "--checkpoint-dir",
-                    str(LM_DIR / "smoke_lm_packed_text_lm"),
-                    *LM_FLAGS[2:8], "--max-seq-len", str(LM_T), "--prompt",
-                    "The ",
-                    "--tokens", "64"])
+    gc.collect()           # the in-process Trainers hold reference cycles
+    torch.cuda.empty_cache()
+    from tpunet_torch.infer import generate
+    text = run_main_here(generate.main, [
+        "--checkpoint-dir", str(LM_DIR / "smoke_lm_packed_text_lm"),
+        *LM_FLAGS[2:8], "--max-seq-len", str(LM_T), "--prompt", "The ",
+        "--tokens", "64"])[1]
     # Greedy bytes of a briefly trained model may be spaces: the check is
     # that the prompt came back with a continuation, whatever it is.
     check(text.startswith("The ") and len(text.rstrip("\n")) > len("The "),
@@ -5348,13 +5388,12 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
 
     steps, seen = [], {}
     real_step, real_close = loop.Trainer._step, loop.Trainer.close
-    real_save = ckpt.Checkpointer._save
+    real_dispatch = ckpt.Checkpointer._dispatch
 
-    def save(self, obj, name, timeout=None):
+    def dispatch(self, obj, name, write):
         if name == ckpt.STATE and dist.process_index() == 0:
             seen["state"] = {k: v.detach().cpu()
                              for k, v in obj["model"].items()}
-        return None
     # An MoE run's routing: the kept and total (token, slot) pairs; a
     # float32 run records its routing, or replays a reference's.
     routes = (MoeRoutes(torch, keep="float32" in flags and moe_ref is None,
@@ -5413,7 +5452,7 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
 
     loop.Trainer._step, loop.Trainer.close = step, close
     if in_memory:
-        ckpt.Checkpointer._save = save
+        ckpt.Checkpointer._dispatch = dispatch
     try:
         if routes is not None:
             with routes:
@@ -5423,7 +5462,7 @@ def shard_recorded(torch, flags, world, in_memory=False, moe_ref=None,
             trainer = cli.run(list(flags))
     finally:
         loop.Trainer._step, loop.Trainer.close = real_step, real_close
-        ckpt.Checkpointer._save = real_save
+        ckpt.Checkpointer._dispatch = real_dispatch
     return dict(steps=steps, history=trainer.history, **seen)
 
 
@@ -6311,13 +6350,32 @@ def moe_serve(torch) -> dict:
                                          for k in SEQ_FLASH})
 
 
+def run_main_here(main, argv) -> tuple:
+    """A CLI's ``main(argv)`` in this process: (its exit code, its
+    stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = main(list(argv))
+        except SystemExit as e:
+            rc = e.code
+    return rc or 0, buf.getvalue()
+
+
 def moe_obs_clis(bf16_dirs) -> dict:
-    """The port's obs CLIs on this run's directories, with no JAX: the
+    """The port's obs CLIs (their ``main`` in this process: a new process
+    costs about 12 s of imports on the card's host) on this run's
+    directories, with no JAX: the
     timeline of the router phase's failover fleet (the router and its
     replicas' rings, when that phase ran here) or else of the MoE LM's
     bf16 run; the regression compare of the MoE LM's bf16 run against
     the dense LM's run (lm_trainer's epoch, when that phase ran here);
     the fleet dashboard over both."""
+    from tpunet_torch.obs.cli import compare, dashboard, timeline
+
     out = {}
     fleet = ROUTER_DIR / "failover"
     if (fleet / "metrics.jsonl").exists():
@@ -6328,37 +6386,29 @@ def moe_obs_clis(bf16_dirs) -> dict:
         argv = [str(bf16_dirs["lm_moe"])]
         out["timeline_of"] = "lm_moe bf16 run"
     trace = MOE_DIR / "timeline.json"
-    tl = subprocess.run([sys.executable, "-m", "tpunet_torch.obs.cli.timeline",
-                         *argv, "-o", str(trace)], cwd=ROOT,
-                        capture_output=True, text=True, timeout=120)
-    check(tl.returncode == 0, f"obs timeline exited {tl.returncode}: "
-                              f"{tl.stderr[-1500:]}")
+    rc, printed = run_main_here(timeline.main, [*argv, "-o", str(trace)])
+    check(rc == 0, f"obs timeline exited {rc}: {printed[-1500:]}")
     events = json.loads(trace.read_text())["traceEvents"]
     out["timeline"] = dict(events=len(events),
                            processes=len({e["pid"] for e in events}),
-                           printed=tl.stdout.strip()[-300:])
+                           printed=printed.strip()[-300:])
     check(events, "obs timeline: no events")
-    cmp = subprocess.run(
-        [sys.executable, "-m", "tpunet_torch.obs.cli.compare",
-         str(bf16_dirs["lm_dense"]), str(bf16_dirs["lm_moe"]), "--json",
-         "--allow-fingerprint-mismatch"], cwd=ROOT, capture_output=True,
-        text=True, timeout=120)
-    check(cmp.returncode in (0, 3), f"obs compare exited {cmp.returncode}: "
-                                    f"{cmp.stderr[-1500:]}")
-    verdict = json.loads(cmp.stdout)
-    out["compare"] = dict(rc=cmp.returncode, verdict=verdict["verdict"],
+    rc, printed = run_main_here(compare.main, [
+        str(bf16_dirs["lm_dense"]), str(bf16_dirs["lm_moe"]), "--json",
+        "--allow-fingerprint-mismatch"])
+    check(rc in (0, 3), f"obs compare exited {rc}: {printed[-1500:]}")
+    verdict = json.loads(printed)
+    out["compare"] = dict(rc=rc, verdict=verdict["verdict"],
                           metrics={m["metric"]: [m.get("a"), m.get("b"),
                                                  m["verdict"]]
                                    for m in verdict["metrics"]})
-    dash = subprocess.run(
-        [sys.executable, "-m", "tpunet_torch.obs.cli.dashboard",
-         str(bf16_dirs["lm_dense"] / "metrics.jsonl"),
-         str(bf16_dirs["lm_moe"] / "metrics.jsonl"), "--once", "--html",
-         str(MOE_DIR / "fleet.html")], cwd=ROOT, capture_output=True,
-        text=True, timeout=120)
-    check(dash.returncode == 0 and "fleet dashboard" in dash.stdout,
-          f"obs dashboard exited {dash.returncode}: {dash.stderr[-1500:]}")
-    out["dashboard_lines"] = len(dash.stdout.splitlines())
+    rc, printed = run_main_here(dashboard.main, [
+        str(bf16_dirs["lm_dense"] / "metrics.jsonl"),
+        str(bf16_dirs["lm_moe"] / "metrics.jsonl"), "--once", "--html",
+        str(MOE_DIR / "fleet.html")])
+    check(rc == 0 and "fleet dashboard" in printed,
+          f"obs dashboard exited {rc}: {printed[-1500:]}")
+    out["dashboard_lines"] = len(printed.splitlines())
     return out
 
 
@@ -7115,6 +7165,561 @@ def phase_tp_serve(torch, runs=((2, "gloo"),)) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Fault-tolerant training: the elastic agent, chaos and the asynchronous
+# Checkpointer
+# ---------------------------------------------------------------------------
+
+ELASTIC_DIR = ROOT / "build" / "tpunet_torch" / "smoke_elastic"
+ELASTIC_BATCH = 32                    # rows a rank a step
+ELASTIC_ROWS = 4 * 2 * ELASTIC_BATCH  # 4 steps an epoch at world 2
+ELASTIC_EPOCHS = 3
+ELASTIC_TIMEOUT_S = 300               # a gang's deadline from its start
+# A MobileNetV2 train step's launches (kernel table rows 1-4; no flash).
+MNV2_STEP_LAUNCHES = {"depthwise_conv3x3": 17,
+                      "depthwise_conv3x3_backward": 17,
+                      "fused_ir_forward": 33, "fused_ir_backward": 33,
+                      "flash_attention_forward": 0, "flash_attention_dq": 0,
+                      "flash_attention_dkv": 0}
+ELASTIC_LM_PLAIN_STEPS = 10           # LM steps timed with no save running
+ELASTIC_LM_SAVES = 3                  # asynchronous LM saves read
+ELASTIC_LM_SYNC_SAVES = 2             # the same save waited for at once
+
+
+def elastic_flags(run_dir, spec, batch=ELASTIC_BATCH) -> list:
+    """The train CLI of the elastic children: MobileNetV2 1.0 at 224 px in
+    bf16 (the defaults) on the hand kernels, ``batch`` rows a rank."""
+    return ["--preset", "distributed", "--device", "cuda",
+            "--pallas-depthwise", "--dataset", "synthetic",
+            "--synthetic-size", str(ELASTIC_ROWS), "--batch-size",
+            str(batch), "--epochs", str(ELASTIC_EPOCHS), "--no-download",
+            "--no-native-loader", "--checkpoint-dir", str(run_dir),
+            "--chaos", spec]
+
+
+def tensors_equal(torch, got, want, path="") -> tuple:
+    """(tensors compared, paths that differ) of two nested states: equal
+    dtype and bits for tensors, equality for the rest."""
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and torch.equal(got.detach().cpu(), want))
+        return 1, [] if ok else [path]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return 0, [f"{path} keys"]
+        n, bad = 0, []
+        for k in want:
+            m, b = tensors_equal(torch, got[k], want[k], f"{path}/{k}")
+            n, bad = n + m, bad + b
+        return n, bad
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return 0, [f"{path} length"]
+        n, bad = 0, []
+        for i, (g, w) in enumerate(zip(got, want)):
+            m, b = tensors_equal(torch, g, w, f"{path}/{i}")
+            n, bad = n + m, bad + b
+        return n, bad
+    return 0, [] if got == want else [path]
+
+
+def elastic_worker(backend: str, argv) -> int:
+    """One child of the elastic phase (``chip_smoke.py --dp-worker elastic
+    [nccl] -- <train CLI flags>``): joins a group over ``backend`` (gloo:
+    hosts sharing the card) from the agent's variables (none at world 1:
+    a group of one), then runs the train CLI in this process. Appends
+    this child's start, then each train step's launches, to
+    ``<checkpoint-dir>/steps_<host>_gen<G>.jsonl``; a resumed child writes
+    ``restore_<host>_gen<G>.json``: whether its restored parameters and
+    optimizer state equal ``state.pt`` to the bit."""
+    import os
+    t_start = time.time()
+    host = os.environ["TPUNET_ELASTIC_HOST"]
+    gen = int(os.environ["TPUNET_ELASTIC_GENERATION"])
+    ckdir = Path(argv[argv.index("--checkpoint-dir") + 1])
+    ckdir.mkdir(parents=True, exist_ok=True)
+    log = ckdir / f"steps_{host}_gen{gen}.jsonl"
+    with open(log, "a") as f:
+        f.write(json.dumps({"start": t_start}) + "\n")
+    import torch
+
+    from tpunet_torch.parallel import dist
+    from tpunet_torch.train import __main__ as cli
+    from tpunet_torch.train import loop
+
+    def milestone(name):
+        with open(log, "a") as f:
+            f.write(json.dumps({name: time.time()}) + "\n")
+
+    milestone("imported")
+    if backend == "nccl":
+        torch.cuda.set_device(dist.local_device())
+    dist.initialize_distributed(backend=backend, device="cuda")
+    milestone("group")
+    step, resume, init = (loop.Trainer._step, loop.Trainer._try_resume,
+                          loop.Trainer.__init__)
+
+    def built(self, *a, **k):
+        init(self, *a, **k)
+        milestone("trainer")
+
+    def counted(self, bx, by, g):
+        reset_launch_counts()
+        m = step(self, bx, by, g)
+        with open(log, "a") as f:
+            f.write(json.dumps({"step": self.state.global_step,
+                                "time": time.time(),
+                                "launches": launch_counts()}) + "\n")
+        return m
+
+    def checked(self):
+        restored = resume(self)
+        if restored:
+            saved = torch.load(ckdir / "state.pt", map_location="cpu",
+                               weights_only=True)
+            n, bad = tensors_equal(torch, {
+                "model": self.state.full_model_state(),
+                "optimizer": self.state.full_optimizer_state(),
+                "global_step": self.state.global_step}, {
+                "model": saved["model"], "optimizer": saved["optimizer"],
+                "global_step": saved["global_step"]})
+            (ckdir / f"restore_{host}_gen{gen}.json").write_text(json.dumps(
+                {"tensors": n, "mismatched": bad[:20],
+                 "epoch": saved["epoch"], "global_step": saved["global_step"],
+                 "completed": saved.get("completed", True)}))
+        return restored
+
+    loop.Trainer._step, loop.Trainer._try_resume = counted, checked
+    loop.Trainer.__init__ = built
+    return cli.main(argv)
+
+
+def elastic_gang(tag, spec, hosts, backend="gloo", batch=ELASTIC_BATCH,
+                 env=None) -> dict:
+    """Run one scenario: an agent a host (``hosts``: host id -> AgentConfig
+    fields), threads of this script, each supervising ``--dp-worker
+    elastic`` children; every child is killed when the gang misses its
+    deadline. Returns the exit codes, the run's records and the
+    children's step logs, restore checks and stop times."""
+    import os
+
+    from tpunet_torch.elastic.agent import AgentConfig, ElasticAgent
+
+    run_dir = ELASTIC_DIR / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.rmtree(ELASTIC_DIR / f"{tag}_rdzv", ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    me = str(Path(__file__).resolve())
+    cmd = [sys.executable, me, "--dp-worker", "elastic",
+           *(["nccl"] if backend == "nccl" else []), "--",
+           *elastic_flags(run_dir, spec, batch)]
+    children, events, stop = [], [], threading.Event()
+    log = open(run_dir / "agents.log", "w")
+
+    class Agent(ElasticAgent):
+        """Tracks its children (to kill them on a missed deadline) and the
+        times its children end."""
+
+        def _launch(self, *a):
+            if stop.is_set():
+                raise PhaseError(f"elastic {tag}: deadline passed")
+            child = super()._launch(*a)
+            children.append(child)
+            return child
+
+        def _supervise(self, child, generation, members):
+            out = super()._supervise(child, generation, members)
+            events.append({"host": self.cfg.host_id, "generation": generation,
+                           "verdict": out[0], "time": time.time()})
+            return out
+
+        def _stop_child(self, child):
+            super()._stop_child(child)
+            events.append({"host": self.cfg.host_id, "stopped": child.pid,
+                           "time": time.time()})
+
+    rcs, errors, threads = {}, [], []
+
+    def run(agent):
+        try:
+            rcs[agent.cfg.host_id] = agent.run()
+        except BaseException as e:  # noqa: BLE001 - reported by the gang
+            errors.append(f"{agent.cfg.host_id}: {e!r}")
+
+    base = {k: None for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                              "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    try:
+        for host, kw in hosts.items():
+            agent = Agent(AgentConfig(
+                run_dir=str(run_dir),
+                rdzv_dir=str(ELASTIC_DIR / f"{tag}_rdzv"),
+                host_id=host, command=cmd, settle_s=0.4, timeout_s=120.0,
+                beat_s=0.1, dead_after_s=10.0, grace_s=3.0,
+                env={**base, **(env or {}).get(host, {})}, **kw))
+            agent._log = lambda m: (log.write(m + "\n"), log.flush())
+            threads.append(threading.Thread(target=run, args=(agent,),
+                                            name=f"agent-{host}",
+                                            daemon=True))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=max(1.0, ELASTIC_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        if any(t.is_alive() for t in threads):
+            raise PhaseError(f"elastic {tag}: the gang missed its "
+                             f"{ELASTIC_TIMEOUT_S} s deadline: "
+                             + elastic_logs(run_dir))
+    finally:
+        stop.set()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        log.close()
+    check(not errors, f"elastic {tag}: agent raised {errors}")
+    records = read_records(run_dir) if (run_dir / "metrics.jsonl").exists() \
+        else []
+    run_id = (run_dir / "run_id").read_text().strip() \
+        if (run_dir / "run_id").exists() else ""
+    steps = {}
+    for path in sorted(run_dir.glob("steps_*.jsonl")):
+        lines = [json.loads(x) for x in path.read_text().splitlines()]
+        marks = {k: v for x in lines if "step" not in x
+                 for k, v in x.items()}
+        steps[path.stem[len("steps_"):]] = {
+            "start": marks["start"], "marks": marks,
+            "steps": [x for x in lines if "step" in x]}
+    restores = {p.stem[len("restore_"):]: json.loads(p.read_text())
+                for p in sorted(run_dir.glob("restore_*.json"))}
+    return {"rcs": rcs, "run_dir": run_dir, "records": records,
+            "run_id": run_id, "steps": steps, "restores": restores,
+            "events": events, "s": time.perf_counter() - t0}
+
+
+def elastic_logs(run_dir) -> str:
+    return " | ".join(f"{p.name}: {p.read_text(errors='replace')[-1500:]}"
+                      for p in sorted((run_dir / "elastic" / "logs")
+                                      .glob("*.log")))
+
+
+def elastic_common(gang, gate) -> dict:
+    """Gates every scenario shares: one run id on every stamped record,
+    every counted step of every child 17 + 17 + 33 + 33 launches, every
+    resumed child's restored state equal to state.pt. Returns the
+    readings: launches a step, steps counted, each child's start to its
+    first step."""
+    records, run_id = gang["records"], gang["run_id"]
+    stamped = {r.get("run_id") for r in records if "run_id" in r}
+    gate(run_id and stamped == {run_id},
+         f"run ids {sorted(map(str, stamped))} against {run_id!r}")
+    per_step, first = {}, {}
+    for child, log in gang["steps"].items():
+        for s in log["steps"]:
+            gate(s["launches"] == MNV2_STEP_LAUNCHES,
+                 f"{child} step {s['step']} launches {s['launches']}")
+            for k, v in s["launches"].items():
+                per_step.setdefault(k, set()).add(v)
+        if log["steps"]:
+            # Start to imports, the group, the Trainer, the first step.
+            first[child] = {k: log["marks"][k] - log["start"] for k in (
+                "imported", "group", "trainer") if k in log["marks"]}
+            first[child]["first_step"] = \
+                log["steps"][0]["time"] - log["start"]
+    for child, res in gang["restores"].items():
+        gate(res["tensors"] > 0 and not res["mismatched"],
+             f"{child}: restored state differs from state.pt at "
+             f"{res['mismatched']}")
+    return {"launches_per_step": {k: sorted(v) for k, v in per_step.items()},
+            "steps_counted": {c: len(v["steps"])
+                              for c, v in gang["steps"].items()},
+            "start_to_first_step_s": first}
+
+
+def elastic_of(records, event) -> list:
+    return [r for r in records
+            if r.get("kind") == "obs_elastic" and r.get("event") == event]
+
+
+def elastic_shrink(failed, backend="gloo") -> dict:
+    """Scenario (a): two agents, host 1 SIGKILLed entering step 5 (epoch
+    2's second step; the slow step 4 lets the epoch-1 save commit)."""
+    tag = "shrink" if backend == "gloo" else "shrink_nccl"
+
+    def gate(cond, msg):
+        if not cond:
+            failed.append(f"{tag}: {msg}")
+
+    env = ({"h0": {"CUDA_VISIBLE_DEVICES": "0"},
+            "h1": {"CUDA_VISIBLE_DEVICES": "1"}} if backend == "nccl"
+           else None)
+    gang = elastic_gang(tag, "slow@step=4:delay=1:gen=0;"
+                             "kill@step=5:host=1:gen=0",
+                        {"h0": {"max_restarts": 2}, "h1": {"max_restarts": 0}},
+                        backend=backend, env=env)
+    run_dir, records = gang["run_dir"], gang["records"]
+    gate(gang["rcs"] == {"h0": 0, "h1": 2},
+         f"exit codes {gang['rcs']} (want h0 0, h1 2): "
+         + elastic_logs(run_dir))
+    gate((run_dir / "elastic" / "done").exists(), "no done marker")
+    shrinks = elastic_of(records, "shrink")
+    gate(len(shrinks) == 1 and shrinks[0]["old_world"] == 2
+         and shrinks[0]["new_world"] == 1 and shrinks[0]["lost"] == ["h1"]
+         and shrinks[0]["recovery_s"] > 0, f"shrink records {shrinks}")
+    recovered = elastic_of(records, "recovered")
+    gate(len(recovered) == 1 and recovered[0]["epoch"] == 2
+         and recovered[0]["old_mesh"]["data"] == 2
+         and recovered[0]["new_mesh"]["data"] == 1,
+         f"recovered records {recovered}")
+    epochs = {r["epoch"] for r in plain_records(run_dir)}
+    gate(epochs == {1, 2, 3}, f"plain epochs {sorted(epochs)}")
+    reports = sorted((run_dir / "flightrec").glob("crash_report.p1*"))
+    kill_t = None
+    if reports:
+        report = json.loads(reports[0].read_text())
+        gate(report["cause"] == "died-without-fatal-signal",
+             f"p1's crash report cause {report['cause']}")
+        kill_t = next((e["t"] for e in report["events"]
+                       if "SIGKILL injected" in e["msg"]), None)
+    gate(bool(reports), "no flight-recorder crash report for p1")
+    gate("h0_gen0" in gang["steps"] and "h1_gen0" in gang["steps"]
+         and any(k.startswith("h0_gen") and k != "h0_gen0"
+                 for k in gang["steps"]),
+         f"step logs {sorted(gang['steps'])}")
+    gate(any(k.startswith("h0_gen") for k in gang["restores"]),
+         f"no restore check: {sorted(gang['restores'])}")
+    out = elastic_common(gang, gate)
+    # The survivor's generation-0 child: from p1's SIGKILL to its end
+    # (its own error or its agent's stop).
+    ends = [e["time"] for e in gang["events"]
+            if e["host"] == "h0" and e.get("generation", 0) == 0]
+    out.update(rcs=gang["rcs"], s=gang["s"], shrink=shrinks,
+               recovered=recovered,
+               recovery_s=[r["recovery_s"] for r in shrinks],
+               survivor_after_kill_s=(max(ends) - kill_t
+                                      if kill_t and ends else None),
+               agent_events=gang["events"], restores=gang["restores"])
+    return out
+
+
+def elastic_torn(failed) -> dict:
+    """Scenario (b): one agent at world 1, 64 rows a step (4 steps an
+    epoch); the first save's first two attempts fail, the second save is
+    killed in flight; the slow epoch 3 keeps the loop busy until then."""
+    def gate(cond, msg):
+        if not cond:
+            failed.append(f"torn: {msg}")
+
+    gang = elastic_gang("torn", "ioerr@save=1:fails=2:gen=0;"
+                                "kill@ckpt=2:gen=0;"
+                                "slow@step=8:delay=1:steps=4:gen=0",
+                        {"h0": {"max_restarts": 1}}, batch=2 * ELASTIC_BATCH)
+    run_dir, records = gang["run_dir"], gang["records"]
+    gate(gang["rcs"] == {"h0": 0}, f"exit codes {gang['rcs']}: "
+         + elastic_logs(run_dir))
+    gate((run_dir / "elastic" / "done").exists(), "no done marker")
+    restarts = elastic_of(records, "restart")
+    gate(len(restarts) == 1 and restarts[0]["cause"] == "failed",
+         f"restart records {restarts}")
+    recovered = elastic_of(records, "recovered")
+    gate(len(recovered) == 1 and recovered[0]["epoch"] == 2,
+         f"recovered records {recovered}")
+    epochs = sorted(r["epoch"] for r in plain_records(run_dir)
+                    if not r.get("partial"))
+    gate(epochs == [1, 2, 2, 3], f"plain epochs {epochs}")
+    alerts = [r for r in records if r.get("kind") == "obs_alert"
+              and r.get("reason") == "ckpt_io_retry"]
+    gate(len(alerts) == 1, f"ckpt_io_retry alerts {alerts}")
+    crashes = [r for r in records if r.get("kind") == "obs_crash"]
+    gate(len(crashes) == 1, f"obs_crash records {crashes}")
+    retries = []
+    if crashes:
+        ring = json.loads(Path(crashes[0]["report_path"]).read_text())[
+            "events"]
+        retries = [e["msg"] for e in ring if e["kind"] == "ckpt"
+                   and e["msg"].startswith("io retry save")]
+        gate(any("SIGKILL injected (ckpt=2)" in e["msg"] for e in ring),
+             "the killed child's ring has no ckpt=2 kill")
+    gate(len(retries) == 2, f"retries in the killed child's ring {retries}")
+    torn = sorted(p.name for p in run_dir.glob("state.pt.*.part"))
+    gate(len(torn) == 1, f"torn writes left {torn}")
+    gate(gang["restores"].get("h0_gen1", {}).get("epoch") == 1,
+         f"restore checks {gang['restores']}")
+    out = elastic_common(gang, gate)
+    out.update(rcs=gang["rcs"], s=gang["s"], restart=restarts,
+               recovered=recovered, alerts=len(alerts),
+               io_retries=len(retries), torn=torn,
+               recovery_s=[r["recovery_s"] for r in restarts],
+               restores=gang["restores"])
+    return out
+
+
+def elastic_lm_save(torch, failed) -> dict:
+    """The LM at full width (12 blocks, bf16) saving its whole state
+    (params and Adam moments, about 1 GB) through the asynchronous
+    Checkpointer between steps: the dispatch's host ms, the snapshot's
+    device bytes, the steps that overlap each write against steps with
+    no save, ``ckpt_wait_s``, and the same save waited for at once. The
+    last asynchronous save, written while steps updated the state in
+    place, must equal the state at its dispatch to the bit (a gate)."""
+    from tpunet_torch.ckpt import Checkpointer, _map
+    from tpunet_torch.config import CheckpointConfig, ObsConfig, OptimConfig
+    from tpunet_torch.data.lm import synthetic_lm
+    from tpunet_torch.models import create_model
+    from tpunet_torch.obs import Observability
+    from tpunet_torch.train.state import (TrainState, lr_schedule,
+                                          make_optimizer)
+    from tpunet_torch.train.steps import make_lm_train_step
+    from tpunet_torch.utils.prng import step_generator
+
+    tokens = torch.from_numpy(synthetic_lm(LM_BATCH, 1, seq_len=LM_T,
+                                           vocab=LM_VOCAB)[0]).cuda()
+    optim = OptimConfig()
+    model = create_model(lm_config(), device="cuda",
+                         generator=torch.Generator().manual_seed(SEED + 900))
+    st = TrainState(model, make_optimizer(model.parameters(), optim),
+                    lr_schedule(optim, 1, 20))
+    step_fn = make_lm_train_step(optim, False)
+    directory = ELASTIC_DIR / "lm_save"
+    obs = Observability(ObsConfig(flightrec=False),
+                        checkpoint_dir=str(directory), device="cuda")
+    ck = Checkpointer(CheckpointConfig(directory=str(directory)), obs=obs)
+
+    def step() -> float:
+        t0 = time.perf_counter()
+        step_fn(st, tokens, tokens, step_generator(42, st.global_step))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def payload(epoch):
+        return {"model": st.full_model_state(),
+                "optimizer": st.full_optimizer_state(),
+                "global_step": st.global_step, "epoch": epoch,
+                "best_acc": 0.0, "completed": True}
+
+    try:
+        for _ in range(3):
+            step()                                  # warm-up, Adam state
+        plain = [step() for _ in range(ELASTIC_LM_PLAIN_STEPS)]
+        nbytes = 0
+
+        def count(t):
+            nonlocal nbytes
+            nbytes += t.numel() * t.element_size()
+            return t
+
+        _map(count, payload(0))
+        saves, want = [], None
+        for i in range(ELASTIC_LM_SAVES):
+            if i == ELASTIC_LM_SAVES - 1:
+                want = _map(lambda t: t.detach().to("cpu", copy=True),
+                            payload(i + 1))
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ck.save_state(payload(i + 1))
+            dispatch = time.perf_counter() - t0
+            snap = torch.cuda.memory_allocated() - mem0
+            over = []
+            while ck.saving_in_progress() and len(over) < 400:
+                over.append(step())
+            saves.append({"dispatch_ms": dispatch * 1e3,
+                          "snapshot_bytes": snap,
+                          "write_s_to_step": time.perf_counter() - t0,
+                          "overlapped_steps": len(over),
+                          "overlapped_step_ms_p50":
+                              statistics.median(over) * 1e3 if over else None,
+                          "overlapped_step_ms_max":
+                              max(over) * 1e3 if over else None})
+        t0 = time.perf_counter()
+        ck.wait()
+        end_wait = time.perf_counter() - t0
+        wait_s = obs.registry.counter("ckpt_wait_s").value
+        saved = torch.load(directory / "state.pt", map_location="cpu",
+                           weights_only=True)
+        n, bad = tensors_equal(torch, saved, want)
+        if bad or n == 0:
+            failed.append(f"lm_save: the async save differs from the state "
+                          f"at its dispatch at {bad[:6]} ({n} tensors)")
+        del saved, want
+        sync = []
+        for i in range(ELASTIC_LM_SYNC_SAVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save_state(payload(10 + i))
+            ck.wait()
+            sync.append(time.perf_counter() - t0)
+        after = [step() for _ in range(3)]
+    finally:
+        ck.close()
+        obs.close()
+    over_all = [s["overlapped_step_ms_p50"] for s in saves
+                if s["overlapped_step_ms_p50"] is not None]
+    return {"state_bytes": nbytes, "tensors_checked": n,
+            "plain_step_ms_p50": statistics.median(plain) * 1e3,
+            "plain_step_ms": [t * 1e3 for t in plain],
+            "saves": saves,
+            "dispatch_ms_p50": statistics.median(
+                s["dispatch_ms"] for s in saves),
+            "snapshot_bytes": max(s["snapshot_bytes"] for s in saves),
+            "overlapped_step_ms_p50_of_saves": over_all,
+            "ckpt_wait_s_async": wait_s, "end_wait_s": end_wait,
+            "sync_save_s": sync,
+            "ckpt_wait_s_total": obs.registry.counter("ckpt_wait_s").value,
+            "step_ms_after": [t * 1e3 for t in after]}
+
+
+def elastic_four() -> dict:
+    """The shrink scenario over NCCL, a card a host (``--four-cards``): its
+    gates, and how long the survivor stays in its collective after its
+    peer's SIGKILL before it ends (NCCL raises no error there: its agent
+    stops it)."""
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    failed = []
+    try:
+        out = elastic_shrink(failed, backend="nccl")
+    except PhaseError as e:
+        out = {}
+        failed.append(str(e))
+    out["failed"] = failed
+    emit("elastic_nccl", **out)
+    return out
+
+
+def phase_elastic(torch) -> dict:
+    """Phase 22 (see the module docstring): scenarios (a) and (b) gated,
+    run at once; then the LM's asynchronous save read."""
+    t0 = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    failed, out, errors = [], {}, []
+
+    def scenario(tag, fn):
+        try:
+            out[tag] = fn(failed)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    # The two gangs share the card at once (their children's start-up,
+    # about 20 s a process, overlaps); the LM's readings run alone after.
+    gangs = [threading.Thread(target=scenario, args=(tag, fn))
+             for tag, fn in (("shrink", elastic_shrink),
+                             ("torn", elastic_torn))]
+    for t in gangs:
+        t.start()
+    for t in gangs:
+        t.join()
+    if errors:
+        raise errors[0]
+    out["gangs_s"] = time.perf_counter() - t0
+    out["lm_save"] = elastic_lm_save(torch, failed)
+    out["s"] = time.perf_counter() - t0
+    out["failed"] = failed
+    emit("elastic", **{k: v for k, v in out.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -7228,6 +7833,10 @@ def main() -> int:
             pipe["failed"][:6]))
         torch.cuda.empty_cache()
         tp = timed(phase_tp_serve, torch)
+        torch.cuda.empty_cache()
+        elastic = timed(phase_elastic, torch)
+        check(not elastic["failed"], "elastic: " + "; ".join(
+            elastic["failed"][:6]))
     except PhaseError as e:
         emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -7276,6 +7885,12 @@ def main() -> int:
             "launches": item2b["mobilenet"]["launches"][entry["name"]],
             "launches_per_step": item2b["mobilenet"]["launches_per_step"][
                 entry["name"]]}
+        # Every counted step of every elastic child, both generations of
+        # the shrink and of the torn write.
+        entry["elastic"] = {
+            tag: {"launches_per_step": elastic[tag]["launches_per_step"][
+                entry["name"]], "steps": elastic[tag]["steps_counted"]}
+            for tag in ("shrink", "torn")}
     # Rows 5-7 per ViT-B/16 training step: 12 layers at batch 128, bf16;
     # launches from the ViT training main path.
     # Each also carries its LM rows: launches a step of the LM's
@@ -7341,7 +7956,11 @@ def main() -> int:
          router_s=router["s"], trainer_item2b_s=item2b["s"],
          sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"],
          moe_trainer_s=moe["s"], pipe_trainer_s=pipe["s"],
-         tp_serve_s=tp["s"],
+         tp_serve_s=tp["s"], elastic_s=elastic["s"],
+         elastic_recovery_s=elastic["shrink"]["recovery_s"]
+         + elastic["torn"]["recovery_s"],
+         lm_async_save_dispatch_ms=elastic["lm_save"]["dispatch_ms_p50"],
+         lm_sync_save_s=elastic["lm_save"]["sync_save_s"],
          tp_serve_generated_tokens_per_s=tp["gloo2"]["serve"][
              "generated_tokens_per_s"],
          moe_step_vs_dense={f: r["step_vs_dense"]
@@ -7449,6 +8068,7 @@ def four_cards() -> int:
         tpn = phase_tp_serve(torch, runs=((2, "nccl"), (4, "nccl")))
     except PhaseError as e:
         tpn = {"failed": str(e)}
+    elastic = elastic_four()
     diff = {k: many[k] - one[k] for k in
             ("train_loss", "train_accuracy", "test_loss", "test_accuracy")}
     ok = (all(abs(diff[k]) <= dpc.LOSS_RTOL * abs(one[k])
@@ -7456,7 +8076,7 @@ def four_cards() -> int:
           and all(abs(diff[k]) <= dpc.ACC_TOL
                   for k in ("train_accuracy", "test_accuracy"))
           and "failed" not in shard and not pipe["failed"]
-          and "failed" not in tpn)
+          and "failed" not in tpn and not elastic["failed"])
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"mix_fetch_nccl": fetch, "options": ITEM2B_OPTIONS,
                       "world_4": many, "world_1": one, "diff": diff,
@@ -7465,7 +8085,7 @@ def four_cards() -> int:
                       "sharded_trainer_nccl": shard,
                       "seq_trainer_nccl": seqp, "moe_trainer_nccl": moe,
                       "pipe_trainer_nccl": pipe,
-                      "tp_serve_nccl": tpn,
+                      "tp_serve_nccl": tpn, "elastic_nccl": elastic,
                       "ok": ok}),
           flush=True)
     return 0 if ok else 1
@@ -7474,6 +8094,10 @@ def four_cards() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--four-cards"]:
         sys.exit(four_cards())
+    if sys.argv[1:3] == ["--dp-worker", "elastic"]:
+        rest = sys.argv[3:]
+        sys.exit(elastic_worker("nccl" if rest[0] == "nccl" else "gloo",
+                                rest[rest.index("--") + 1:]))
     if sys.argv[1:3] == ["--dp-worker", "tp"]:
         sys.exit(tp_worker(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:3] == ["--dp-worker", "shard"]:

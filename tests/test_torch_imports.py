@@ -77,7 +77,10 @@ def test_importing_every_module_loads_no_jax_or_tpunet():
                 "tpunet_torch.obs.cli.timeline",
                 "tpunet_torch.obs.cli.dashboard",
                 "tpunet_torch.obs.cli.report",
-                "tpunet_torch.obs.trace_phase"):
+                "tpunet_torch.obs.trace_phase", "tpunet_torch.elastic",
+                "tpunet_torch.elastic.__main__", "tpunet_torch.elastic.agent",
+                "tpunet_torch.elastic.chaos", "tpunet_torch.elastic.events",
+                "tpunet_torch.elastic.rendezvous"):
         assert mod in res["mods"]
     assert res["bad"] == []
 
@@ -159,4 +162,27 @@ def test_no_forbidden_import_in_source(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             if node.module and _forbidden(node.module):
                 bad.append(node.module)
+    assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", ["tpunet_torch/elastic/__init__.py",
+                                  "tpunet_torch/elastic/__main__.py",
+                                  "tpunet_torch/elastic/agent.py",
+                                  "tpunet_torch/elastic/events.py",
+                                  "tpunet_torch/elastic/rendezvous.py"])
+def test_elastic_agent_imports_no_torch(path):
+    """The agent is a stdlib supervisor: it imports no torch, and nothing
+    of the port outside tpunet_torch/elastic/ (the package reaches chaos,
+    which records into the flight recorder, only on first use)."""
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 and node.module else [])
+        for name in names:
+            if name.split(".")[0] in ("torch", "numpy") or (
+                    name.startswith("tpunet_torch")
+                    and not name.startswith("tpunet_torch.elastic")):
+                bad.append(name)
     assert bad == [], f"{path} imports {bad}"

@@ -306,6 +306,7 @@ OBS_FLAGS = [
      "--alert-cooldown-steps", "9", "--obs-rule", "mfu < 0.3",
      "--obs-rule", "x + 1/s"],
     ["--flightrec", "--profile-start-step", "3"],
+    ["--evict-on-straggler", "--stall-factor", "3", "--stall-min-s", "0.2"],
 ]
 
 
@@ -318,8 +319,7 @@ def test_cli_obs_flags_map_as_tpunets(flags):
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--obs-hbm-attrib", "XLA HLO and xprof"),
-    ("--evict-on-straggler", "Queue A item 9")])
+    ("--obs-hbm-attrib", "XLA HLO and xprof")])
 def test_cli_refuses_what_is_not_ported(flag, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.config_from_args([flag])

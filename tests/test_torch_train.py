@@ -530,23 +530,42 @@ def test_presets_and_defaults_match_tpunet():
 
 @pytest.mark.parametrize("make", [
     lambda: ModelConfig(pretrained_path="auto"),
-    lambda: ObsConfig(evict_on_straggler=True),
     lambda: ModelConfig(name="lm_pp", pretrained_path="auto"),
     lambda: ModelConfig(name="vit_pp", pretrained_path="auto")],
-    ids=["auto_weights", "moe", "mesh_pipe", "vit_pp"])
+    ids=["auto_weights", "mesh_pipe", "vit_pp"])
 def test_unported_fields_raise_with_their_roadmap_item(make):
     """What the port still refuses: the download of ``pretrained='auto'``
-    (for every model, the pipelined ones too) and the elastic agent's
-    eviction (Queue A item 9). Pipeline parallelism and MoE on the
-    pipelined models are ported (tests/test_torch_{pp,vitpp,lmpp}.py),
-    and so is MoE itself (tests/test_torch_moe.py). Item
+    (for every model, the pipelined ones too). Pipeline parallelism and
+    MoE on the pipelined models are ported (tests/test_torch_{pp,vitpp,
+    lmpp}.py), and so is MoE itself (tests/test_torch_moe.py). Item
     2b's fields are ported (tests/test_torch_{mixup,ema,native,
     preemption,remat}.py), and so are the mesh's 'data'/'model' axes,
     ZeRO-1, FSDP, the vocab-parallel CE (tests/test_torch_{tp,fsdp,
-    vocab_ce}.py) and sequence parallelism
-    (:func:`test_sequence_parallel_fields_are_accepted`)."""
+    vocab_ce}.py), sequence parallelism
+    (:func:`test_sequence_parallel_fields_are_accepted`) and the elastic
+    fields (:func:`test_elastic_fields_are_accepted`)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         make()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--evict-on-straggler"],
+    ["--chaos", "kill@ckpt=2:gen=0;slow@step=8:delay=3:steps=4"],
+    ["--evict-on-straggler", "--chaos", "slow@step=10:delay=1.5:host=1",
+     "--stall-factor", "3", "--stall-min-s", "0.2"]],
+    ids=["moe", "chaos", "evict_chaos"])
+def test_elastic_fields_are_accepted(argv):
+    """The elastic fields (Queue A items 12 and 9b) build and map as
+    tpunet's: ``ObsConfig.evict_on_straggler`` (refused before the agent
+    was ported; this test's first case) and ``TrainConfig.chaos``."""
+    from tpunet.config import config_from_args as jax_config_from_args
+    assert ObsConfig(evict_on_straggler=True).evict_on_straggler
+    got, _ = cli.config_from_args(argv)
+    want = jax_config_from_args(argv)
+    assert got.chaos == want.chaos
+    assert got.obs.evict_on_straggler == want.obs.evict_on_straggler
+    assert (got.obs.stall_factor, got.obs.stall_min_s) == \
+        (want.obs.stall_factor, want.obs.stall_min_s)
 
 
 @pytest.mark.parametrize("make,argv", [

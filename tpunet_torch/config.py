@@ -40,17 +40,6 @@ SEQ_ATTENTIONS = ("ring", "ulysses")      # sequence-parallel over 'seq'
 ATTENTION_CORES = ("auto", "flash", "blockwise")
 
 
-def _refuse_unported(obj, items) -> None:
-    """Raise when a field that no ported module honours is set away from
-    its default. ``items`` maps field name -> the ROADMAP item."""
-    for name, item in items.items():
-        f = next(f for f in dataclasses.fields(obj) if f.name == name)
-        if getattr(obj, name) != f.default:
-            raise NotImplementedError(
-                f"{type(obj).__name__}.{name}={getattr(obj, name)!r} is not "
-                f"ported to tpunet_torch yet; it comes with ROADMAP {item}")
-
-
 # Why ``--aot-cache`` / ``ServeConfig.aot_cache`` is refused for good (it
 # is not a port still to come): the serve CLI, the config and the ROADMAP
 # give this reason.
@@ -710,7 +699,8 @@ class ObsConfig:
     # replica (step_stall / thread_stalled) triggers the agreed stop
     # with an evict marker — the pod checkpoints now and re-meshes
     # without the slow host instead of letting it stall every step.
-    # Off by default; meaningful under the elastic agent.
+    # Off by default; meaningful under the elastic agent
+    # (tpunet_torch/elastic/).
     evict_on_straggler: bool = False
     # -- flight recorder (tpunet_torch/obs/flightrec/) --------------
     # Always-on black box: a crash-durable mmap ring of recent
@@ -730,8 +720,6 @@ class ObsConfig:
                 "ObsConfig.hbm_attrib (--obs-hbm-attrib) is scoped out of "
                 "tpunet_torch: it parses XLA HLO and xprof output and has "
                 "no torch counterpart")
-        _refuse_unported(self, {
-            "evict_on_straggler": "Queue A item 9 (the elastic agent)"})
 
 
 @dataclass(frozen=True)
@@ -740,6 +728,11 @@ class TrainConfig:
 
     epochs: int = 20                  # reference EPOCHS
     seed: int = 42                    # reference torch.manual_seed(42)
+    # Fault injection (--chaos, tpunet_torch/elastic/chaos.py):
+    # deterministic SIGKILL/SIGTERM/slow-host/checkpoint-IO faults
+    # addressed by step or save ordinal — docs/elasticity.md "Chaos spec
+    # grammar". Empty = no injector installed.
+    chaos: str = ""
     eval_only: bool = False
     log_every_steps: int = 0          # 0 -> per-epoch only, like the reference
     profile_dir: str = ""             # non-empty -> torch.profiler traces

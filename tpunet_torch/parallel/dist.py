@@ -47,8 +47,10 @@ counted host seconds include those copies.
 
 :func:`agree_any` is the preemption path's stop agreement without a
 device collective: a cross-process OR of a host flag through the
-process group's key-value store. Not ported: ``kv_live_processes`` of
-the elastic path, ROADMAP Queue A item 9.
+process group's key-value store. tpunet's ``kv_live_processes`` (the
+liveness count through the store) is ``_live_processes`` in
+``tpunet_torch/obs/memory.py``; the checkpointer's commit handshake
+(``tpunet_torch/ckpt.py``) uses the same store.
 """
 
 from __future__ import annotations

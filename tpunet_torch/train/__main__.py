@@ -50,7 +50,10 @@ gpipe|1f1b|interleaved``, ``--pp-virtual``): the P ranks of a 'pipe'
 group read the same rows and each holds one stage of the blocks.
 SIGTERM stops a run at a step boundary with its
 state saved (every rank at the same step) and exits 0; ``--resume``
-re-runs the interrupted epoch. Any other flag of tpunet's CLI is refused
+re-runs the interrupted epoch. ``--chaos SPEC`` injects tpunet's
+faults (docs/elasticity.md) and ``--evict-on-straggler`` evicts a slow
+replica, both for runs under ``python -m tpunet_torch.elastic``, which
+gives each generation's child its world and ``--resume``. Any other flag of tpunet's CLI is refused
 with an error, never ignored.
 """
 
@@ -308,6 +311,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "checkpoint-now-then-evict through the agreed "
                         "stop — the elastic agent re-meshes the pod "
                         "without the slow host (docs/elasticity.md)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="deterministic fault injection "
+                        "(docs/elasticity.md): e.g. 'kill@step=5', "
+                        "'kill@ckpt=2', 'sigterm@step=8:again=1', "
+                        "'slow@step=10:delay=1:steps=3', "
+                        "'ioerr@save=1:fails=2'; ';'-separated, "
+                        "host=H scopes one process")
     p.add_argument("--preempt-grace-s", type=float, default=None,
                    help="SIGTERM grace window the platform grants: "
                         "the preemption save's durability wait is "
@@ -453,7 +463,8 @@ def _config(args: argparse.Namespace):
         mesh = dataclasses.replace(mesh, fsdp=True)
     cfg = cfg.replace(data=data, model=model, optim=optim, checkpoint=ckpt,
                       mesh=mesh)
-    for dest in ("epochs", "seed", "log_every_steps", "preempt_grace_s"):
+    for dest in ("epochs", "seed", "log_every_steps", "preempt_grace_s",
+                 "chaos"):
         val = getattr(args, dest)
         if val is not None:
             cfg = cfg.replace(**{dest: val})

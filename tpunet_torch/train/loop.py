@@ -23,7 +23,7 @@ every padded global eval batch, and the metric sums are summed over the
 ranks when an epoch or an eval ends, so every rank holds the global
 numbers and the best checkpoint follows the global test accuracy (the
 reference script's is rank 0's own, :196,224). Rank 0 alone writes
-files, and the ranks meet at a barrier after each write.
+files, and the other ranks wait for its commits before they exit.
 
 On a mesh (``MeshConfig``: ``--mesh-data``, ``--mesh-model``,
 ``--zero1``, ``--fsdp``) the Trainer builds the mesh's groups, cuts the
@@ -66,11 +66,29 @@ saves the state marked partial, so ``--resume`` re-runs that epoch while
 the step counter goes on; a second SIGTERM abandons the save and exits
 at once. ``--halt-on-unhealthy`` above one process routes a fatal alert
 through the same stop, and the run then raises ``RunUnhealthyError``.
-Not in this slice (ROADMAP Queue A item 9): chaos and elastic paths.
+
+Checkpoints are written behind the loop (``tpunet_torch.ckpt``): a save
+costs the step loop its snapshot's dispatch, and the run waits for them
+once, at its end (bounded by what remains of a preemption's grace
+window).
+
+Faults and elasticity (tpunet's, ``tpunet_torch/elastic/``): ``--chaos``
+arms the process-global injector, whose ``step`` hook runs at the top
+of every step inside the timed window and whose IO hooks the
+checkpointer runs. Under ``python -m tpunet_torch.elastic`` the Trainer
+reads the agent's generation (``TPUNET_ELASTIC_*``), the previous
+incarnation's mesh (rank 0 writes this one's), sets the
+``elastic_generation`` and ``elastic_world_processes`` gauges, emits a
+``recovered`` record when a later generation has restored, and writes
+the ``done`` marker once every epoch completed. With
+``--evict-on-straggler`` a straggler-shaped watchdog alert on this rank
+claims the evict marker and requests the agreed stop: every rank saves
+at the same step, and the agents re-mesh without the claimer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, List, Optional
@@ -83,6 +101,7 @@ from tpunet_torch.config import TrainConfig
 from tpunet_torch.data import (eval_batches, get_dataset,
                                host_index_sequence, steps_per_epoch,
                                timed_batches, train_batches)
+from tpunet_torch.elastic import events as elastic_events
 from tpunet_torch.models import create_model, num_params
 from tpunet_torch.models.convert import (load_state_dict, shard_model,
                                          state_dict_file)
@@ -96,7 +115,7 @@ from tpunet_torch.parallel.dist import (agree_any, is_initialized,
                                         local_device, process_count,
                                         process_index, sync_hosts)
 from tpunet_torch.parallel.mesh import (axis_index, axis_size, make_mesh,
-                                        set_mesh)
+                                        mesh_shape_dict, set_mesh)
 from tpunet_torch.parallel.tp import layout
 from tpunet_torch.train import metrics as M
 from tpunet_torch.train.state import (Sharding, TrainState, lr_schedule,
@@ -247,7 +266,50 @@ class Trainer:
                     self.train_x, self.train_y.astype(np.int32),
                     cfg.data.batch_size // self.data_ranks)
         self.guard = PreemptionGuard(deadline_s=cfg.preempt_grace_s)
+        # Fault injection (--chaos): armed process-globally so the
+        # checkpointer's IO hooks reach the same injector; scoped to this
+        # rank (host=H events address one gang member).
+        self._chaos = None
+        if cfg.chaos:
+            from tpunet_torch.elastic import chaos as chaos_mod
+            self._chaos = chaos_mod.install(cfg.chaos,
+                                            process_index=self.rank)
+        # Elastic-agent context (TPUNET_ELASTIC_* env): generation gauges,
+        # the previous incarnation's mesh for the "recovered" record, and
+        # this incarnation's mesh persisted for the next one.
+        self._elastic = elastic_events.agent_env()
+        self._prev_mesh = None
+        if self._elastic is not None:
+            run_dir = cfg.checkpoint.directory
+            self._prev_mesh = elastic_events.read_mesh(run_dir)
+            if self.rank == 0:
+                elastic_events.write_mesh(run_dir, mesh_shape_dict(self.mesh))
+            if self.obs.enabled:
+                reg = self.obs.registry
+                reg.gauge("elastic_generation").set(
+                    self._elastic["generation"])
+                reg.gauge("elastic_world_processes").set(self.ranks)
         self._watchdog_halt = None
+        # Proactive checkpoint-and-evict (--evict-on-straggler): a
+        # straggler-shaped alert on THIS rank claims the evict marker
+        # (first claim wins: every rank's lap slows in lockstep data
+        # parallelism) and requests the agreed stop, so every rank
+        # checkpoints together and the agents re-mesh without the claimer.
+        self._evict_requested = None
+        if self.obs.watchdog is not None and cfg.obs.evict_on_straggler:
+            def _evict(record):
+                if self._evict_requested is None:
+                    claimed = elastic_events.write_evict_marker(
+                        cfg.checkpoint.directory, process_index=self.rank,
+                        host=elastic_events.agent_host(),
+                        reason=str(record.get("reason", "straggler")),
+                        detail=record)
+                    print(f"[process {self.rank}] EVICT "
+                          f"{'claimed' if claimed else 'joined'} after "
+                          f"watchdog alert: {record}", flush=True)
+                    self._evict_requested = record
+                    self.guard.request()
+            self.obs.watchdog.on_evict = _evict
         if self.ranks > 1 and self.obs.watchdog is not None:
             # --halt-on-unhealthy across processes: a fatal alert on one
             # rank must not raise there (the others would wait in their
@@ -419,10 +481,16 @@ class Trainer:
                 # card's step time.
                 obs.before_step(step, sync)
                 step_timer.lap()
+                if self._chaos is not None:
+                    # Inside the timed window: an injected straggler delay
+                    # shows in step_time_s, where the watchdog looks.
+                    self._chaos.step(step)
                 with obs.step_span(step):
                     m = self._step(bx, by, gen)
                 obs.observe_step(step, step_timer.lap())
             else:
+                if self._chaos is not None:
+                    self._chaos.step(step)
                 m = self._step(bx, by, gen)
             acc = m if acc is None else M.accumulate(acc, m)
             if obs_hot and obs.profiler.running:
@@ -505,6 +573,17 @@ class Trainer:
         # obs records (obs_epoch / obs_step / obs_alert) share the run's
         # metrics.jsonl; MetricsLogger writes on rank 0 alone.
         self.obs.add_sink(JsonlSink(metrics_log))
+        if (self.obs.enabled and self._elastic is not None
+                and self._elastic["generation"] > 0):
+            # A re-meshed incarnation: the recovery record that pairs with
+            # the agent's shrink/grow/restart — the same run_id, the new
+            # mesh, and the restore stamp (docs/elasticity.md).
+            self.obs.registry.emit(
+                "obs_elastic", elastic_events.build_elastic_record(
+                    "recovered", generation=self._elastic["generation"],
+                    new_world=self.ranks, old_mesh=self._prev_mesh,
+                    new_mesh=mesh_shape_dict(self.mesh),
+                    epoch=self.start_epoch, step=self.state.global_step))
         # The plain epoch records below bypass Registry.emit, so stamp
         # them here with the same identity.
         identity = self.obs.registry.identity()
@@ -521,6 +600,9 @@ class Trainer:
                 self.obs.observe_loss(self.state.global_step,
                                       train_m["loss"])
                 if not np.isfinite(train_m["loss"]):
+                    # The message promises the last completed checkpoint:
+                    # make it durable before raising past it.
+                    self.ckpt.wait()
                     raise FloatingPointError(
                         f"non-finite train loss ({train_m['loss']}) at "
                         f"epoch {epoch}; the last completed checkpoint is "
@@ -566,11 +648,22 @@ class Trainer:
                     epoch=epoch, step=self.state.global_step,
                     units=train_m["count"], train_seconds=train_secs,
                     eval_seconds=secs - train_secs)
+            else:
+                # Every epoch completed (no preemption or evict stop): the
+                # elastic agents stop relaunching a finished run.
+                if self._elastic is not None and self.rank == 0:
+                    elastic_events.mark_done(cfg.checkpoint.directory)
         finally:
             self.guard.uninstall()
         log0("")
         for line in summary_lines(self.best_acc, total.elapsed()):
             log0(line)
+        if self.guard.escalated:
+            self.ckpt.abandon()
+        else:
+            # The durability barrier, bounded by what remains of the
+            # preemption grace window (unbounded without one).
+            self.ckpt.wait(timeout=self.guard.remaining())
         return self.history
 
     def _stop_epoch(self, epoch: int, train_m: Dict[str, float],
@@ -584,7 +677,7 @@ class Trainer:
         escalated = self.guard.escalated
         if self.ranks > 1:
             # Escalation is per process; the ranks agree on it too, or
-            # one would abandon while rank 0 waits at the save's barrier.
+            # one would abandon while the others wait for rank 0's commit.
             escalated = agree_any(f"escalated/{epoch}", escalated)
         if escalated:
             # Second SIGTERM inside the grace window: the platform says
@@ -599,6 +692,16 @@ class Trainer:
         # Preempted mid-epoch: persist the advanced state, marked partial
         # so --resume re-runs this epoch's remaining data.
         flightrec.record("train", f"preemption epoch={epoch}")
+        if self._evict_requested is not None and self.obs.enabled:
+            # The agreed stop is an evict (the marker was claimed at alert
+            # time): the breadcrumb that explains it.
+            self.obs.registry.emit(
+                "obs_elastic", elastic_events.build_elastic_record(
+                    "evict_requested",
+                    cause=str(self._evict_requested.get("reason",
+                                                        "straggler")),
+                    epoch=epoch, step=self.state.global_step,
+                    detail=self._evict_requested))
         log0(f"Preemption requested at epoch {epoch} (step "
              f"{self.state.global_step}); saving state and exiting")
         self.ckpt.save_state(self._payload(epoch, completed=False),
@@ -631,12 +734,20 @@ class Trainer:
 
     def close(self) -> None:
         """Stop a still-open profile window (writing its trace), drain
-        the exporters, close the flight recorder and stop the native
-        prefetcher: the end of a run, or its error path."""
-        try:
+        the exporters, close the flight recorder, stop the native
+        prefetcher, wait for the checkpoint writer and disarm this
+        Trainer's ``--chaos``: the end of a run, or its error path. Each
+        step runs even when an earlier one raised."""
+        with contextlib.ExitStack() as later:       # runs last to first
+            if self._chaos is not None:
+                from tpunet_torch.elastic import chaos as chaos_mod
+                later.callback(chaos_mod.clear)
+            later.callback(self.ckpt.close)
+            later.callback(self._close_prefetcher)
+            later.callback(set_mesh, None)
             self.obs.close(self._sync)
-        finally:
-            set_mesh(None)
-            if self._prefetcher is not None:
-                self._prefetcher.close()
-                self._prefetcher = None
+
+    def _close_prefetcher(self) -> None:
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
