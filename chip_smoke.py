@@ -324,7 +324,19 @@ Phases, each of which must pass:
      against steps without one, the same save waited for at once, and
      the snapshot's device bytes. Scenario (c), straggler eviction, runs
      in tests/test_torch_elastic_e2e.py on the CPU;
- 23. print the kernel list and the card's name and power limit.
+ 23. crash_report: the flight recorder's report of phase 22 (a)'s
+     SIGKILLed rank (``flightrec/crash_report.p1.json``) rendered by
+     ``python -m tpunet_torch.obs.cli.crash_report`` in a child process:
+     the text (the cause, ``SIGKILL injected`` and ``EVENT RING TAIL``,
+     each registered thread's name, ``DEVICE MEMORY`` with the card's
+     bytes: in use and peak within the card's total, which is the one
+     this script reads), ``--json`` (the file's report), and
+     ``--assemble`` of a directory holding that rank's artifacts (the
+     same report apart from its assembly time);
+ 24. analysis: ``python -m tpunet_torch.analysis --strict-baseline --json``
+     in a child process on the card's host must exit 0; the findings and
+     baselined counts per rule are printed;
+ 25. print the kernel list and the card's name and power limit.
 The last line is {"ok": true, "device": {...}} only when every phase
 passed; any failure exits non-zero without it. Imports no JAX and
 nothing of the tpunet package.
@@ -7188,13 +7200,16 @@ ELASTIC_LM_SYNC_SAVES = 2             # the same save waited for at once
 
 def elastic_flags(run_dir, spec, batch=ELASTIC_BATCH) -> list:
     """The train CLI of the elastic children: MobileNetV2 1.0 at 224 px in
-    bf16 (the defaults) on the hand kernels, ``batch`` rows a rank."""
+    bf16 (the defaults) on the hand kernels, ``batch`` rows a rank, with
+    the watchdog's wedge detector armed as a fault-tolerant run arms it
+    (its thread is registered in every child, so a crash report
+    inventories it; 600 s is far beyond an epoch, so it never fires)."""
     return ["--preset", "distributed", "--device", "cuda",
             "--pallas-depthwise", "--dataset", "synthetic",
             "--synthetic-size", str(ELASTIC_ROWS), "--batch-size",
             str(batch), "--epochs", str(ELASTIC_EPOCHS), "--no-download",
-            "--no-native-loader", "--checkpoint-dir", str(run_dir),
-            "--chaos", spec]
+            "--no-native-loader", "--heartbeat-timeout", "600",
+            "--checkpoint-dir", str(run_dir), "--chaos", spec]
 
 
 def tensors_equal(torch, got, want, path="") -> tuple:
@@ -7720,6 +7735,99 @@ def phase_elastic(torch) -> dict:
     return out
 
 
+CRASH_DIR = ROOT / "build" / "tpunet_torch" / "smoke_crash"
+
+
+def run_module(module, *argv, timeout=120) -> subprocess.CompletedProcess:
+    """``python -m module argv`` in a child process from the checkout."""
+    return subprocess.run([sys.executable, "-m", module, *map(str, argv)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def phase_crash_report(torch, shrink_run) -> dict:
+    """Phase 23 (see the module docstring)."""
+    t0 = time.perf_counter()
+    cli = "tpunet_torch.obs.cli.crash_report"
+    flightdir = shrink_run / "flightrec"
+    reports = sorted(flightdir.glob("crash_report.p1*.json"))
+    check(len(reports) == 1, f"crash_report: p1's reports {reports}")
+    path = reports[0]
+    want = json.loads(path.read_text())
+    text = run_module(cli, path)
+    check(text.returncode == 0, f"crash_report: text exited "
+          f"{text.returncode}: {text.stderr[-2000:]}")
+    out = text.stdout
+    names = [t["name"] for t in want.get("threads") or []]
+    devices = (want.get("device_memory") or {}).get("devices") or []
+    total = torch.cuda.mem_get_info(0)[1]
+    for needle in (f"tpunet crash report — {path}",
+                   f"cause: {want['cause']}", "SIGKILL injected",
+                   "HOST THREADS", "EVENT RING TAIL", "DEVICE MEMORY",
+                   *names):
+        check(needle in out, f"crash_report: {needle!r} not in the text")
+    check(want["cause"] == "died-without-fatal-signal" and names,
+          f"crash_report: cause {want['cause']}, threads {names}")
+    check(len(devices) == 1 and devices[0].get("bytes_limit") == total
+          and 0 < devices[0]["bytes_in_use"]
+          <= devices[0]["peak_bytes_in_use"] <= total,
+          f"crash_report: device memory {devices} against the card's "
+          f"{total} bytes")
+    used = devices[0]["bytes_in_use"]
+    check(f"{used / 2**20:.1f} MiB in use" in out,
+          f"crash_report: {used} bytes not rendered")
+    raw = run_module(cli, "--json", path)
+    check(raw.returncode == 0 and json.loads(raw.stdout) == want,
+          f"crash_report: --json exited {raw.returncode} or differs")
+    # The rank's artifacts without their .p1 suffix, as a flightrec dir
+    # copied off a dead host: --assemble rebuilds the watcher's report.
+    shutil.rmtree(CRASH_DIR, ignore_errors=True)
+    CRASH_DIR.mkdir(parents=True)
+    copied = []
+    for f in flightdir.iterdir():
+        if ".p1." in f.name and not f.name.startswith("crash_report"):
+            shutil.copyfile(f, CRASH_DIR / f.name.replace(".p1.", "."))
+            copied.append(f.name)
+    asm = run_module(cli, "--assemble", CRASH_DIR)
+    check(asm.returncode == 0 and "SIGKILL injected" in asm.stdout,
+          f"crash_report: --assemble exited {asm.returncode}: "
+          f"{asm.stderr[-2000:]}")
+    got = json.loads((CRASH_DIR / "crash_report.json").read_text())
+    skip = ("assembled_t", "process_index")
+    check({k: v for k, v in got.items() if k not in skip}
+          == {k: v for k, v in want.items() if k not in skip},
+          "crash_report: --assemble gives another report than the "
+          "watcher's")
+    out = {"report": str(path), "cause": want["cause"],
+           "threads": names, "device_memory": devices[0],
+           "card_total_bytes": total, "events": len(want["events"]),
+           "artifacts": sorted(copied), "text_lines": len(text.stdout
+                                                          .splitlines()),
+           "s": time.perf_counter() - t0}
+    emit("crash_report", **out)
+    return out
+
+
+def phase_analysis() -> dict:
+    """Phase 24 (see the module docstring)."""
+    t0 = time.perf_counter()
+    res = run_module("tpunet_torch.analysis", "--strict-baseline", "--json")
+    check(res.returncode == 0, f"analysis: exited {res.returncode}: "
+          f"{res.stdout[-3000:]} {res.stderr[-2000:]}")
+    from tpunet_torch.analysis import ALL_RULES
+    payload = json.loads(res.stdout)
+    per_rule = {r.id: {"findings": 0, "baselined": 0} for r in ALL_RULES}
+    for kind in ("findings", "baselined"):
+        for f in payload[kind]:
+            per_rule.setdefault(f["rule"], {"findings": 0,
+                                            "baselined": 0})[kind] += 1
+    out = {"rules": per_rule,
+           "stale": len(payload["stale_baseline_entries"]),
+           "s": time.perf_counter() - t0}
+    emit("analysis", **out)
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -7837,6 +7945,8 @@ def main() -> int:
         elastic = timed(phase_elastic, torch)
         check(not elastic["failed"], "elastic: " + "; ".join(
             elastic["failed"][:6]))
+        crash = timed(phase_crash_report, torch, ELASTIC_DIR / "shrink")
+        static = timed(phase_analysis)
     except PhaseError as e:
         emit("phase_seconds", **phase_s)
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -7957,6 +8067,7 @@ def main() -> int:
          sharded_trainer_s=shard["s"], seq_trainer_s=seqp["s"],
          moe_trainer_s=moe["s"], pipe_trainer_s=pipe["s"],
          tp_serve_s=tp["s"], elastic_s=elastic["s"],
+         crash_report_s=crash["s"], analysis_s=static["s"],
          elastic_recovery_s=elastic["shrink"]["recovery_s"]
          + elastic["torn"]["recovery_s"],
          lm_async_save_dispatch_ms=elastic["lm_save"]["dispatch_ms_p50"],

@@ -633,3 +633,115 @@ def test_evicted_host_leaves_when_a_peer_announces_first(tmp_path):
                             for r in changes] == [("restart", 1)]
     with open(os.path.join(run_dir, "elastic", "state.json")) as f:
         assert json.load(f)["hosts"] == ["h0"]
+
+
+# The evicted host (h1) claims the marker and stops at once; the
+# survivor's generation-0 child is still running when h1's agent marks
+# h1 gone, so the survivor's agent takes the peer path (host_left:h1).
+GONE_FIRST_CHILD = """
+import json, os, sys, time
+run = [a for a in sys.argv[1:] if a != "--resume"][-1]
+host = os.environ["TPUNET_ELASTIC_HOST"]
+gen = int(os.environ["TPUNET_ELASTIC_GENERATION"])
+d = os.path.join(run, "elastic")
+os.makedirs(d, exist_ok=True)
+if host == "h1":
+    with open(os.path.join(d, "evict.json"), "w") as f:
+        json.dump({"process_index": 1, "host": "h1",
+                   "reason": "step_stall", "detail": {}}, f)
+elif gen == 0:
+    time.sleep(30)           # stopped by its agent on the peer path
+else:
+    open(os.path.join(d, "done"), "w").write("x")
+"""
+
+
+def test_survivor_records_evict_when_the_evicted_host_left_first(tmp_path):
+    """The evicted host's gone marker is set before the survivor's child
+    exits: the survivor's agent sees ``host_left:h1`` first, and its
+    ``shrink`` record still says ``evict``, as the exit path's would."""
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    cmd = [sys.executable, "-c", GONE_FIRST_CHILD, run_dir]
+    rcs, logs = {}, []
+
+    def agent(host):
+        a = ElasticAgent(AgentConfig(
+            run_dir=run_dir, rdzv_dir=str(tmp_path / "rdzv"), host_id=host,
+            command=cmd, settle_s=0.3, timeout_s=20.0, beat_s=0.05,
+            grace_s=2.0))
+        a._log = lambda msg, **k: logs.append(msg)
+        rcs[host] = a.run()
+
+    threads = [threading.Thread(target=agent, args=(h,)) for h in ("h0", "h1")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60.0)
+        assert not t.is_alive()
+    assert rcs == {"h0": EXIT_DONE, "h1": EXIT_DONE}
+    assert any("cause=evict" in m for m in logs), logs
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    evicts = [r for r in records if r["event"] == "evict"]
+    assert len(evicts) == 1 and evicts[0]["lost"] == ["h1"]
+    shrinks = [r for r in records if r["event"] == "shrink"]
+    assert len(shrinks) == 1, records
+    assert shrinks[0]["cause"] == "evict"
+    assert (shrinks[0]["old_world"], shrinks[0]["new_world"]) == (2, 1)
+    assert shrinks[0]["lost"] == ["h1"]
+    assert events.read_evict_marker(run_dir) is None
+
+
+# Sleeps in generation 0 (its agent stops it on the peer path), finishes
+# in the next one.
+PEER_PATH_CHILD = """
+import os, sys, time
+run = [a for a in sys.argv[1:] if a != "--resume"][-1]
+if int(os.environ["TPUNET_ELASTIC_GENERATION"]) == 0:
+    time.sleep(30)
+d = os.path.join(run, "elastic")
+os.makedirs(d, exist_ok=True)
+open(os.path.join(d, "done"), "w").write("x")
+"""
+
+
+@pytest.mark.parametrize("named", ["this_host", "peer", "none"])
+def test_peer_path_reads_the_evict_marker(tmp_path, named):
+    """The first supervise verdict is ``("peer", "host_left:h1")``. A
+    marker naming this host leaves through ``_leave_evicted``; one naming
+    the peer gives the next generation's record cause ``evict``; with no
+    marker the cause is the verdict's, ``host_left``."""
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    if named != "none":
+        events.write_evict_marker(
+            run_dir, process_index=0, host="h0" if named == "this_host"
+            else "h1", reason="step_stall", detail={"step": 3})
+    a = ElasticAgent(AgentConfig(
+        run_dir=run_dir, rdzv_dir=str(tmp_path / "rdzv"), host_id="h0",
+        command=[sys.executable, "-c", PEER_PATH_CHILD, run_dir],
+        settle_s=0.05, timeout_s=5.0, beat_s=0.05, grace_s=2.0))
+    a._log = lambda *x, **k: None
+    supervise, left = a._supervise, []
+    verdicts = iter([("peer", "host_left:h1")])
+
+    def first_peer(child, generation, hosts):
+        return next(verdicts, None) or supervise(child, generation, hosts)
+
+    def leave(evict, generation, world):
+        left.append(evict["host"])
+        return ElasticAgent._leave_evicted(a, evict, generation, world)
+
+    a._supervise, a._leave_evicted = first_peer, leave
+    assert a.run() == EXIT_DONE
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if named == "this_host":
+        assert left == ["h0"] and sorted(a.rdzv.gone()) == ["h0"]
+        assert [(r["event"], r["lost"]) for r in records] == \
+            [("evict", ["h0"])]
+    else:
+        assert left == []
+        assert [(r["event"], r["cause"]) for r in records] == \
+            [("restart", "evict" if named == "peer" else "host_left")]

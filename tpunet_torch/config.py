@@ -337,10 +337,10 @@ class ServeConfig:
     of ``tpunet.config.ServeConfig`` with its defaults to the letter: a
     fixed pool of KV slots decoded together by one masked step
     (continuous batching), a bounded admission queue with backpressure,
-    and a stdlib HTTP frontend. The comments below are tpunet's. Fields
-    of the features not ported yet are refused away from their defaults,
-    each with its ROADMAP item: int8 KV pages, the prefix spill store,
-    speculative decoding, the AOT warm start and serve-tier chaos."""
+    and a stdlib HTTP frontend. The comments below are tpunet's. int8 KV
+    pages, the prefix spill store, speculative decoding and serve-tier
+    chaos are ported; only the AOT warm start (``aot_cache``) is refused,
+    with the reason in ``AOT_CACHE_SCOPED_OUT``."""
 
     host: str = "127.0.0.1"
     port: int = 8000

@@ -4,9 +4,10 @@
 The reference auto-downloads CIFAR-10 through torchvision
 (cifar10_mpi_mobilenet_224.py:93-102, ``download=True`` at :97). This
 module is the tpunet equivalent: a checksum-verified HTTP fetch, invoked
-lazily by the data layer. The fetch of the ImageNet-pretrained weights
-(``pretrained_path="auto"``) comes with ROADMAP Queue A item 2b; the
-multi-host gate with data parallelism (item 3).
+lazily by the data layer. The multi-host gate (rank 0 fetches, the
+others wait) is the train CLI's (``tpunet_torch/train/__main__.py``).
+What remains is ROADMAP item 2b's download: CIFAR-10 and the
+ImageNet-pretrained weights (``pretrained_path="auto"``).
 
 In a no-egress environment the fetch fails fast with the exact drop-in
 procedure (file name, destination, checksum), so a user can stage the

@@ -314,17 +314,21 @@ class ElasticAgent:
             child = self._launch(generation, world, rank, coordinator)
             verdict, payload = self._supervise(child, generation, hosts)
             if verdict == "peer":
-                # A peer announced the next generation while this child
-                # was still stopping: read the evict marker now, before
-                # the next generation's rank 0 clears it, or an evicted
-                # host would rejoin (a deviation from tpunet's agent, whose
-                # peer path skips the marker).
+                # A peer announced the next generation, or left, while
+                # this child was still stopping: read the evict marker
+                # now, before the next generation's rank 0 clears it, or
+                # an evicted host would rejoin, and a survivor that saw
+                # the evicted host's gone marker first would record
+                # host_left (deviations from tpunet's agent, whose peer
+                # path skips the marker).
                 evict = events.read_evict_marker(cfg.run_dir)
                 self._stop_child(child)
-                if evict is not None and evict.get("host") == cfg.host_id:
-                    return self._leave_evicted(evict, generation, world)
-                why = str(payload)
-                cause = why.split(":")[0]
+                if evict is not None:
+                    if evict.get("host") == cfg.host_id:
+                        return self._leave_evicted(evict, generation, world)
+                    cause = "evict"
+                else:
+                    cause = str(payload).split(":")[0]
                 detect_t = time.monotonic()
                 prev_hosts = hosts
                 generation = max(generation + 1,

@@ -25,8 +25,8 @@ recorder, ``record()`` is the no-op-when-disabled event hook call
 sites use (one global read + None check), ``close()`` marks a clean
 shutdown. ``tpunet_torch/obs/__init__.py`` wires it to the trainer's
 run and the serving CLI (``tpunet_torch/serve/__main__.py``) arms it;
-``scripts/obs_crash_report.py`` renders reports (the file layout
-is the JAX package's).
+``python -m tpunet_torch.obs.cli.crash_report`` renders reports (the
+file layout is the JAX package's).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ ring, a faulthandler text dump, a native journal spill from a C signal
 handler) because they must work while the process is dying; this
 module is where the intelligence lives. It runs OUTSIDE the crash: in
 the post-mortem watcher (watch.py) after the training process dies, in
-``scripts/obs_crash_report.py``, and in tests.
+``python -m tpunet_torch.obs.cli.crash_report``, and in tests.
 
 Stdlib-only and dual-mode importable (as
 ``tpunet_torch.obs.flightrec.report`` or as a bare script module): the

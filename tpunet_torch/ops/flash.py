@@ -275,8 +275,10 @@ def _entry(name: str):
     return fn
 
 
-def _call(name: str, q: torch.Tensor, args, strides, tk: int, scale: float,
-          causal: bool) -> None:
+def _call(name: str, wrapper, q: torch.Tensor, args, strides, tk: int,
+          scale: float, causal: bool) -> None:
+    """Launch the C entry ``name``, raise on its error code, and count the
+    launch in ``wrapper.launches``."""
     b, tq, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -285,6 +287,7 @@ def _call(name: str, q: torch.Tensor, args, strides, tk: int, scale: float,
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+    wrapper.launches += 1
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -310,11 +313,10 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     qs, ks = _segs(segment_ids)
-    _call("tpunet_flash_fwd", q,
+    _call("tpunet_flash_fwd", flash_attention_forward, q,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qs), _ptr(ks),
            out.data_ptr(), _ptr(lse)),
           _strides(q, k, v, v), k.shape[1], scale, causal)
-    flash_attention_forward.launches += 1
     return (out, lse) if with_lse else out
 
 
@@ -342,11 +344,10 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     qs, ks = _segs(segment_ids)
     rows = [r.contiguous() if r is not None else None
             for r in (lse, delta, glse)]
-    _call("tpunet_flash_bwd_dq", q,
+    _call("tpunet_flash_bwd_dq", flash_attention_dq, q,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            *map(_ptr, rows), _ptr(qs), _ptr(ks), dq.data_ptr()),
           _strides(q, k, v, do), k.shape[1], scale, causal)
-    flash_attention_dq.launches += 1
     return dq
 
 
@@ -376,12 +377,11 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     qs, ks = _segs(segment_ids)
     rows = [r.contiguous() if r is not None else None
             for r in (lse, delta, glse)]
-    _call("tpunet_flash_bwd_dkv", q,
+    _call("tpunet_flash_bwd_dkv", flash_attention_dkv, q,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            *map(_ptr, rows), _ptr(qs), _ptr(ks), dk.data_ptr(),
            dv.data_ptr()),
           _strides(q, k, v, do), k.shape[1], scale, causal)
-    flash_attention_dkv.launches += 1
     return dk, dv
 
 

@@ -271,7 +271,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "crash_report.json (ring tail, per-thread "
                         "stacks) when the "
                         "process dies; render with "
-                        "scripts/obs_crash_report.py")
+                        "python -m tpunet_torch.obs.cli.crash_report")
     p.add_argument("--flightrec-events", type=int, default=None,
                    help="flight-recorder event-ring capacity (slots)")
     p.add_argument("--obs-hbm-attrib", action="store_true",
